@@ -1,0 +1,74 @@
+"""Weight bridge: the reference ``Model.init`` pytree -> the port's params.
+
+The reference and the port share one parameter layout (nested dicts,
+stacked (L, ...) layer leaves, (d_in, d_out) weights), so the bridge is a
+leaf-for-leaf copy.  It takes numpy arrays and imports no JAX: a test
+converts the reference's arrays with ``numpy.asarray`` first.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Mapping
+
+import numpy as np
+import torch
+
+from repro_torch.device import DeviceLike, resolve_device
+
+# the dense family's leaves, as paths into the pytree
+DENSE_LEAVES = (
+    "embed", "ln_f", "lm_head", "layers.ln1", "layers.ln2",
+    "layers.attn.wq", "layers.attn.wk", "layers.attn.wv", "layers.attn.wo",
+    "layers.attn.bq", "layers.attn.bk", "layers.attn.bv",
+    "layers.mlp.w_gate", "layers.mlp.w_up", "layers.mlp.w_down",
+)
+
+
+def leaf_paths(tree: Mapping[str, Any], prefix: str = "") -> list:
+    out = []
+    for k, v in tree.items():
+        path = f"{prefix}{k}"
+        out += leaf_paths(v, path + ".") if isinstance(v, Mapping) else [path]
+    return sorted(out)
+
+
+def params_from_numpy(tree: Mapping[str, Any], *, device: DeviceLike = None,
+                      dtype: torch.dtype = torch.float32) -> dict:
+    """Copy every leaf of a numpy pytree into a tensor of ``dtype`` on
+    ``device``, keeping the nesting.  Raises if the tree is not the dense
+    family's (a missing or extra leaf would otherwise surface later as a
+    KeyError deep inside the model)."""
+    dev = resolve_device(device)
+    paths = leaf_paths(tree)
+    if sorted(DENSE_LEAVES) != paths:
+        raise ValueError(f"not a dense-family pytree: expected leaves "
+                         f"{sorted(DENSE_LEAVES)}, got {paths}")
+
+    def conv(node):
+        if isinstance(node, Mapping):
+            return {k: conv(v) for k, v in node.items()}
+        return torch.from_numpy(np.array(node, np.float32)).to(device=dev, dtype=dtype)
+
+    return conv(tree)
+
+
+def paged_decode_case(rng: np.random.Generator, b=2, hkv=2, g=2, d=64, ps=16,
+                      n_pages=12, nb=5):
+    """Inputs for paged decode tests, as numpy: (q, k_pages, v_pages,
+    block_tables, pos).  Pages are mapped in shuffled order, row 0's table
+    holds a trash-page entry and a stale mapping past its live prefix, and
+    the trash page 0 holds garbage (1e6 keys, NaN values) that a correct
+    kernel never reads."""
+    def rand(*shape):
+        return rng.standard_normal(shape).astype(np.float32)
+
+    q = rand(b, hkv, g, d)
+    kp, vp = rand(n_pages, ps, hkv, d), rand(n_pages, ps, hkv, d)
+    kp[0], vp[0] = 1e6, np.nan
+    perm = rng.permutation(np.arange(1, n_pages))
+    bt = np.zeros((b, nb), np.int32)
+    bt[0, :3] = perm[:3]                        # row 0 live through block 2
+    bt[0, 3:] = [0, perm[3]]                    # trash + a stale mapping
+    bt[1, :] = perm[4:4 + nb]
+    pos = np.asarray([2 * ps + 5, nb * ps - 1], np.int32)
+    return q, kp, vp, bt, pos
