@@ -2,22 +2,34 @@
 
     python3 chip_smoke.py [--seed N]
 
-Builds the port's CUDA kernels from ``src/repro_torch/kernels``, holds each
-kernel against its plain PyTorch version on the card at the shapes the
-serving path gives it (max error, times, the least time the card could
-take, and one PyTorch library call as a yardstick), then serves 8 requests
-greedily with full-width qwen2-1.5b (random bf16 weights from the seed)
-on the dense and on the paged cache layout, the paged pool small enough
-to force preemption.  It checks that every request finishes with its
-token count, that every kernel launched during the serving runs, and
-that teacher-forcing the plain-version path on one request's tokens gives
-the kernel path's logits within a bf16 tolerance.  Last, it times one
-full-batch decode step and one prefill against their summed kernel time
-(torch.profiler) to show where the time goes.  Details land in
-``build/chip_smoke.json`` (git-ignored).
+Builds the port's CUDA kernels from ``src/repro_torch/kernels`` and drives
+its two paths:
 
-The second-to-last lines are the kernels' JSON record and the card's
-name and power limit; the last line is
+1. Kernels.  Each kernel against its plain PyTorch version on the card
+   (max error, times, the least time the card could take, and one PyTorch
+   library call as a yardstick): the four serving kernels at the serving
+   path's shapes, the five warp-feature kernels (shfl, vote, tile_reduce,
+   mse_partial_sum, matmul) at sizes where launch latency does not
+   dominate.
+2. The paper's layer: Figure 5 (``repro_torch.bench.fig5_microbench``) at
+   the reference's size, HW through the warp-intrinsic kernels against SW
+   through the PR-transformation lane loops; it fails if they disagree or
+   if a warp kernel never launched.  A profile of each lowering then
+   splits its time into device kernel time and kernel launches per call.
+3. Serving: 8 requests greedily with full-width qwen2-1.5b (random bf16
+   weights from the seed) on the dense and on the paged cache layout, the
+   paged pool small enough to force preemption.  It checks that every
+   request finishes with its token count and that every serving kernel
+   launched; teacher-forcing one request's tokens, the plain-version path
+   and the models whose norms reduce through the paper's ``hw_warp`` and
+   ``sw`` forms must give the kernel path's logits within a bf16
+   tolerance (and, for the forms, the same greedy tokens).  Last, it
+   times one full-batch decode step and one prefill against their summed
+   kernel time (torch.profiler) to show where the time goes.
+
+Details land in ``build/chip_smoke.json`` (git-ignored).  The
+second-to-last lines are the kernels' JSON record and the card's name and
+power limit; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Any failed check exits non-zero before that line.  Imports no JAX.
 Without CUDA, or without the repository's ``src/`` beside it, it fails.
@@ -53,6 +65,19 @@ KERNEL_TOL = dict(atol=2e-2, rtol=2e-2)
 # layer to layer; 10% of the step's largest |logit| stays far below what a
 # wrong mask, position or page does (those change the logits wholesale)
 LOGIT_TOL = 0.1
+# mse: f32 sums of squares added in another order, the last ~1000 block
+# partials by atomics in no fixed order; each atomic rounds to half an ulp
+# of the running sum, so the sums differ by ~4e-7 relative (std) at any
+# size.  2e-6 is ~5 of those; at 2^16 elements (one per thread) a lost
+# element moves the sum by ~1.5e-5 relative, and at 2^25 a lost thread's
+# run (124 elements) by ~4e-6
+MSE_TOL = dict(atol=0.0, rtol=2e-6)
+# f32 2048^3: each output sums 2048 products of N(0,1) pairs (|c| ~ 45) in
+# another order than cuBLAS; f32 rounding leaves ~1e-5 relative, and a
+# wrong tile or edge moves an entry by O(1)
+MATMUL_TOL = dict(atol=2e-3, rtol=1e-4)
+WARP_KERNELS = ("shfl", "vote", "tile_reduce", "mse_partial_sum", "matmul")
+WARP_FORM_STEPS = 4
 ARCH = "qwen2-1.5b"
 SLOTS = 4
 MAX_NEW = 32
@@ -96,6 +121,44 @@ def bound(n_bytes: float, flops: float, peak_flops: float):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
+def _words(t: torch.Tensor) -> torch.Tensor:
+    """uint32 results (ballots) compared through their int32 view."""
+    return t.view(torch.int32) if t.dtype == torch.uint32 else t
+
+
+def agrees(got: torch.Tensor, want: torch.Tensor, tol) -> bool:
+    """``tol`` is "exact" (same dtype and bits) or allclose's keywords."""
+    got, want = _words(got), _words(want)
+    if tol == "exact":
+        return got.dtype == want.dtype and got.shape == want.shape and torch.equal(got, want)
+    return torch.allclose(got.float(), want.float(), **tol)
+
+
+def max_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    return (_words(got).double() - _words(want).double()).abs().max().item()
+
+
+def record_kernel(rows, name, source, replaces, got, want, tol, t_kernel, t_plain,
+                  n_bytes, flops, peak, t_lib):
+    """Hold a kernel's result against its plain version's, print the line
+    and add the kernel's JSON row (launches are filled in by the phase
+    that drives the main path)."""
+    torch.cuda.synchronize()
+    err = max_err(got, want)
+    ok = agrees(got, want, tol)
+    b_ms, b_by = bound(n_bytes, flops, peak)
+    rows[name] = dict(name=name, route="cuda", source=source,
+                      replaces=replaces, launches=0, max_abs_err=err,
+                      ms=t_kernel, plain_ms=t_plain, bound_ms=b_ms,
+                      bound_by=b_by, library_ms=t_lib)
+    lib = "none" if t_lib is None else f"{t_lib:.4f}"
+    print(f"kernel {name}: max_abs_err={err:.3e} tol={tol} ok={ok} "
+          f"ms={t_kernel:.4f} plain_ms={t_plain:.4f} bound_ms={b_ms:.4f} ({b_by}) "
+          f"library_ms={lib}", flush=True)
+    if not ok:
+        fail(f"{name} disagrees with its plain version beyond {tol}")
+
+
 # ---------------------------------------------------------------------------
 # phase 1: each kernel against its plain version at the main path's shapes
 # ---------------------------------------------------------------------------
@@ -124,20 +187,8 @@ def check_kernels(cfg, gen: torch.Generator) -> dict:
 
     rows = {}
 
-    def record(name, source, replaces, got, want, t_kernel, t_plain, n_bytes,
-               flops, peak, t_lib):
-        err = (got.float() - want.float()).abs().max().item()
-        ok = torch.allclose(got.float(), want.float(), **KERNEL_TOL)
-        b_ms, b_by = bound(n_bytes, flops, peak)
-        rows[name] = dict(name=name, route="cuda", source=source,
-                          replaces=replaces, launches=0, max_abs_err=err,
-                          ms=t_kernel, plain_ms=t_plain, bound_ms=b_ms,
-                          bound_by=b_by, library_ms=t_lib)
-        print(f"kernel {name}: max_abs_err={err:.3e} tol={KERNEL_TOL} ok={ok} "
-              f"ms={t_kernel:.4f} plain_ms={t_plain:.4f} bound_ms={b_ms:.4f} ({b_by}) "
-              f"library_ms={t_lib}", flush=True)
-        if not ok:
-            fail(f"{name} disagrees with its plain version beyond {KERNEL_TOL}")
+    def record(name, source, replaces, got, want, *args):
+        record_kernel(rows, name, source, replaces, got, want, KERNEL_TOL, *args)
 
     # rmsnorm: ln1/ln2 over a prefill batch of 4 x 512 rows
     x, w = randn(b * s, d), randn(d)
@@ -212,6 +263,126 @@ def check_kernels(cfg, gen: torch.Generator) -> dict:
     return rows
 
 
+def check_warp_kernels(gen: torch.Generator) -> dict:
+    """The warp-feature kernels against their plain versions at sizes where
+    launch latency does not dominate: (2^20, 32) lane blocks (128 MiB),
+    2^25 mse elements, a 2048^3 f32 product; plus one width-128 case of
+    each lane kernel, which takes the cross-warp shared-memory step.  The
+    sweep over modes, dtypes, widths and ragged shapes is
+    tests/test_torch_kernels_cuda.py's."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.matmul.ops import matmul
+    from repro_torch.kernels.matmul.ref import matmul_ref
+    from repro_torch.kernels.mse.ops import mse_partial_sum
+    from repro_torch.kernels.mse.ref import mse_partial_sum_ref
+    from repro_torch.kernels.tile_reduce.ops import tile_reduce
+    from repro_torch.kernels.tile_reduce.ref import tile_reduce_ref
+    from repro_torch.kernels.warp_ops.ops import shfl, vote
+    from repro_torch.kernels.warp_ops.ref import shfl_ref, shfl_src, vote_ref
+
+    dev, rows = "cuda", {}
+    n, w = 2 ** 20, 32
+    x = torch.randn(n, w, generator=gen, device=dev)
+    x128 = torch.randn(n // 4, 128, generator=gen, device=dev)
+    block_bytes = 2 * x.numel() * 4            # read once, write once
+
+    def check(name, got, want, tol="exact"):
+        torch.cuda.synchronize()
+        if not agrees(got, want, tol):
+            fail(f"{name} disagrees with its plain version ({tol}), "
+                 f"max_abs_err {max_err(got, want):.3e}")
+
+    # shfl: Fig. 5's butterfly, bfly 16 timed at width 32
+    check("shfl bfly 64 width 128", shfl(x128, "bfly", 64), shfl_ref(x128, "bfly", 64))
+    src = shfl_src("bfly", w, 16, dev).expand(n, w)
+    record_kernel(rows, "shfl", "src/repro_torch/kernels/warp_ops/warp_ops.cu",
+                  "src/repro/kernels/warp_ops/warp_ops.py:90",
+                  shfl(x, "bfly", 16), shfl_ref(x, "bfly", 16), "exact",
+                  cuda_ms(lambda: shfl(x, "bfly", 16)),
+                  cuda_ms(lambda: shfl_ref(x, "bfly", 16)),
+                  block_bytes, 0, F32_FLOPS_S,
+                  cuda_ms(lambda: torch.gather(x, 1, src)))
+
+    # vote: Fig. 5's "any" without a mask timed; half the rows unanimous
+    pred = (x > 0).to(torch.int32)
+    pred[: n // 2] = 1
+    p128 = (x128 > 0).to(torch.int32)
+    p128[: n // 8] = 1
+    check("vote uni width 128", vote(p128, "uni"), vote_ref(p128, "uni"))
+    record_kernel(rows, "vote", "src/repro_torch/kernels/warp_ops/warp_ops.cu",
+                  "src/repro/kernels/warp_ops/warp_ops.py:110",
+                  vote(pred, "any"), vote_ref(pred, "any"), "exact",
+                  cuda_ms(lambda: vote(pred, "any")),
+                  cuda_ms(lambda: vote_ref(pred, "any")),
+                  block_bytes, 0, F32_FLOPS_S,
+                  cuda_ms(lambda: torch.any(pred, dim=1)))
+
+    # tile_reduce: Fig. 5's reduce, an 8-lane f32 sum, timed; tile 128
+    # takes the shared-memory steps.  The library call writes one value
+    # per tile, 1/8 of the kernel's output bytes.
+    check("tile_reduce sum tile 128", tile_reduce(x128, 128), tile_reduce_ref(x128, 128))
+    record_kernel(rows, "tile_reduce", "src/repro_torch/kernels/tile_reduce/tile_reduce.cu",
+                  "src/repro/kernels/tile_reduce/tile_reduce.py:43",
+                  tile_reduce(x, 8), tile_reduce_ref(x, 8), "exact",
+                  cuda_ms(lambda: tile_reduce(x, 8)),
+                  cuda_ms(lambda: tile_reduce_ref(x, 8)),
+                  block_bytes, 3 * x.numel(), F32_FLOPS_S,
+                  cuda_ms(lambda: x.view(n, -1, 8).sum(-1)))
+
+    # mse: f32 atomics in no fixed order, so a relative tolerance; 2^16
+    # elements give each thread one, 2^25 (timed) a grid-stride run of 124
+    p, t = (torch.randn(2 ** 16, generator=gen, device=dev) for _ in "pt")
+    check("mse_partial_sum 2^16", mse_partial_sum(p, t), mse_partial_sum_ref(p, t), MSE_TOL)
+    m = 2 ** 25
+    p, t = (torch.randn(m, generator=gen, device=dev) for _ in "pt")
+    record_kernel(rows, "mse_partial_sum", "src/repro_torch/kernels/mse/mse.cu",
+                  "src/repro/kernels/mse/mse.py:45",
+                  mse_partial_sum(p, t), mse_partial_sum_ref(p, t), MSE_TOL,
+                  cuda_ms(lambda: mse_partial_sum(p, t)),
+                  cuda_ms(lambda: mse_partial_sum_ref(p, t)),
+                  2 * m * 4 + 4, 3 * m, F32_FLOPS_S,
+                  cuda_ms(lambda: F.mse_loss(p, t, reduction="sum")))
+
+    # matmul: 2048^3 in f32 on the CUDA cores against cuBLAS in full f32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    d = 2048
+    a, b = (torch.randn(d, d, generator=gen, device=dev) for _ in "ab")
+    record_kernel(rows, "matmul", "src/repro_torch/kernels/matmul/matmul.cu",
+                  "src/repro/kernels/matmul/matmul.py:39",
+                  matmul(a, b), matmul_ref(a, b), MATMUL_TOL,
+                  cuda_ms(lambda: matmul(a, b)), cuda_ms(lambda: matmul_ref(a, b)),
+                  3 * d * d * 4, 2 * d ** 3, F32_FLOPS_S,
+                  cuda_ms(lambda: torch.matmul(a, b)))
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# phase 1b: the paper's main path — Fig. 5 through the warp kernels
+# ---------------------------------------------------------------------------
+
+def run_fig5(seed: int):
+    """Fig. 5 at the reference's size (8192 blocks of WarpConfig(8, 4),
+    matmul 64 x 64): HW through the warp-intrinsic kernels, SW through the
+    PR-transformation lane loops.  Returns the rows and the launch counts
+    of the run."""
+    from repro_torch import kernels
+    from repro_torch.bench import fig5_microbench as fig5
+
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    rows = fig5.run(seed=seed, device="cuda")     # raises if HW != SW
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    for line in fig5.format_rows(rows):
+        print(f"fig5 {line}", flush=True)
+    print(f"fig5 launches {counts}", flush=True)
+    for name in WARP_KERNELS:
+        if counts[name] == 0:
+            fail(f"{name} never launched in the Fig. 5 run")
+    return rows, counts
+
+
 # ---------------------------------------------------------------------------
 # phase 2: the main path — serve on both layouts
 # ---------------------------------------------------------------------------
@@ -245,26 +416,37 @@ def serve(model, params, spec, **kw):
     return out, eng, counts, wall, n_tok
 
 
-def teacher_force(cfg, params, prompt, tokens):
-    """Logits of the kernel path and of the plain-version path for one
-    request (prefill, then decode on the served tokens), batch 1."""
-    from repro_torch.models.lm import Model
-
-    outs = []
-    for use_kernels in (True, False):
-        m = Model(cfg, device="cuda", dtype=torch.bfloat16, use_kernels=use_kernels)
-        logits, cache = m.prefill(params, torch.tensor([prompt], device="cuda"),
-                                  MAX_SEQ)
-        steps = [logits[0]]
-        for t, tok in enumerate(tokens[:-1]):
-            pos = torch.tensor([len(prompt) + t], dtype=torch.int32, device="cuda")
-            attend = min(MAX_SEQ, -(-(len(prompt) + t + 1) // 64) * 64)
-            logits, cache = m.decode_step(params, cache,
+def teacher_force(model, params, prompt, tokens):
+    """Logits of ``model`` for one request (prefill, then decode on the
+    served ``tokens``), batch 1: one row per generated position."""
+    logits, cache = model.prefill(params, torch.tensor([prompt], device="cuda"), MAX_SEQ)
+    steps = [logits[0]]
+    for t, tok in enumerate(tokens[:-1]):
+        pos = torch.tensor([len(prompt) + t], dtype=torch.int32, device="cuda")
+        attend = min(MAX_SEQ, -(-(len(prompt) + t + 1) // 64) * 64)
+        logits, cache = model.decode_step(params, cache,
                                           torch.tensor([tok], device="cuda"), pos,
                                           attend_len=attend)
-            steps.append(logits[0])
-        outs.append(torch.stack(steps))
-    return outs
+        steps.append(logits[0])
+    return torch.stack(steps)
+
+
+def compare_logits(label, got, want):
+    """Max |logit| error per step against LOGIT_TOL of the step's logit
+    scale, and argmax agreement; returns (max err, scale, agreement)."""
+    if not (torch.isfinite(got).all() and torch.isfinite(want).all()):
+        fail(f"non-finite logits in the teacher-forced {label} run")
+    err = (got - want).abs().max(dim=-1).values
+    scale = want.abs().max(dim=-1).values
+    agree = (got.argmax(-1) == want.argmax(-1)).float().mean().item()
+    print(f"teacher-forced {label}: {got.shape[0]} steps, max |logit err| "
+          f"{err.max().item():.4e} (logit scale {scale.max().item():.4e}, worst "
+          f"step ratio {(err / scale).max().item():.4e}); argmax agreement "
+          f"{agree:.4f}", flush=True)
+    if (err > LOGIT_TOL * scale).any():
+        fail(f"{label} logits differ from the kernel path's by more than "
+             f"{LOGIT_TOL} of the logit scale")
+    return err.max().item(), scale.max().item(), agree
 
 
 def _kernel_us(evt) -> float:
@@ -319,6 +501,41 @@ def where_time_goes(model, params, gen):
     return phases
 
 
+def fig5_device_time(seed: int, iters: int = 5) -> dict:
+    """Device side of Fig. 5: summed kernel time (torch.profiler) and
+    kernel launches per call of each lowering.  Event-timed calls above
+    include the host's gaps; this says how much of each is device work."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.bench import fig5_microbench as fig5
+
+    inputs = fig5.make_inputs(seed, "cuda")
+    out = {}
+    for name, spec in fig5.BENCHES.items():
+        out[name] = {}
+        for low in fig5.LOWERINGS:
+            fn, args = spec["make"](low), inputs[name]
+            fn(*args)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                for _ in range(iters):
+                    fn(*args)
+                torch.cuda.synchronize()
+            events = prof.key_averages()
+            out[name][low] = dict(
+                device_us=sum(_kernel_us(e) for e in events) / iters,
+                kernels=sum(e.count for e in events
+                            if e.device_type == DeviceType.CUDA) / iters)
+        r = out[name]
+        ratio = (r["sw"]["device_us"] / r["kernel"]["device_us"]
+                 if r["kernel"]["device_us"] > 0 else float("nan"))
+        print(f"fig5 device {name}: " + "; ".join(
+            f"{low} {r[low]['device_us']:.1f} us in {r[low]['kernels']:.0f} kernels"
+            for low in fig5.LOWERINGS) + f"; SW/HW device {ratio:.2f}", flush=True)
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -329,6 +546,7 @@ def main():
     try:
         from repro_torch.configs import get_config
         from repro_torch.kernels import build
+        from repro_torch.models.layers import WarpFeatureConfig
         from repro_torch.models.lm import Model
     except ImportError as exc:
         fail(f"cannot import the port from {ROOT / 'src'}: {exc}")
@@ -344,6 +562,13 @@ def main():
     cfg = get_config(ARCH)
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     rows = check_kernels(cfg, gen)
+    serving_kernels = tuple(rows)
+    rows.update(check_warp_kernels(gen))
+
+    fig5_rows, fig5_counts = run_fig5(args.seed)
+    for name in WARP_KERNELS:
+        rows[name]["launches"] = fig5_counts[name]
+    fig5_device = fig5_device_time(args.seed)
 
     model = Model(cfg, device="cuda", dtype=torch.bfloat16)
     params = model.init(torch.Generator(device="cuda").manual_seed(args.seed))
@@ -382,26 +607,39 @@ def main():
             fail(f"{name} never launched while serving")
     if dense_counts["flash_decode"] == 0 or paged_counts["paged_flash_decode"] == 0:
         fail("a decode kernel never launched while serving")
-    for name, row in rows.items():
-        row["launches"] = dense_counts[name] + paged_counts[name]
+    for name in serving_kernels:
+        rows[name]["launches"] = dense_counts[name] + paged_counts[name]
 
     # teacher-force the plain-version path on request 0's served tokens
     uid, prompt, _ = spec[0]
-    k_logits, p_logits = teacher_force(cfg, params, prompt, dense[uid])
-    if not (torch.isfinite(k_logits).all() and torch.isfinite(p_logits).all()):
-        fail("non-finite logits in the teacher-forced run")
-    err = (k_logits - p_logits).abs().max(dim=-1).values
-    scale = p_logits.abs().max(dim=-1).values
-    served = torch.tensor(dense[uid], device="cuda")
-    agree_kp = (k_logits.argmax(-1) == p_logits.argmax(-1)).float().mean().item()
-    agree_served = (p_logits.argmax(-1) == served).float().mean().item()
-    print(f"teacher-forced uid {uid}: {len(dense[uid])} steps, max |logit err| "
-          f"{err.max().item():.4e} (logit scale {scale.max().item():.4e}, worst "
-          f"step ratio {(err / scale).max().item():.4e}); token agreement kernel vs "
-          f"plain {agree_kp:.4f}, plain vs served {agree_served:.4f}", flush=True)
-    if (err > LOGIT_TOL * scale).any():
-        fail(f"plain-version logits differ from the kernel path's by more than "
-             f"{LOGIT_TOL} of the logit scale")
+    plain = Model(cfg, device="cuda", dtype=torch.bfloat16, use_kernels=False)
+    k_logits = teacher_force(model, params, prompt, dense[uid])
+    p_logits = teacher_force(plain, params, prompt, dense[uid])
+    err, scale, _ = compare_logits(f"uid {uid} plain vs kernel path",
+                                          p_logits, k_logits)
+    agree_served = (p_logits.argmax(-1) == torch.tensor(dense[uid], device="cuda")
+                    ).float().mean().item()
+    print(f"token agreement plain vs served {agree_served:.4f}", flush=True)
+
+    # the paper's reduction forms inside the full-width model: every norm
+    # reduced in 128-lane groups by the HW primitives and by the SW
+    # (PR-transformation) lane loops, prefill + WARP_FORM_STEPS decode steps
+    warp_forms = {}
+    steps = dense[uid][:WARP_FORM_STEPS + 1]
+    for form in ("hw_warp", "sw"):
+        m = Model(cfg, device="cuda", dtype=torch.bfloat16,
+                  wf=WarpFeatureConfig(form))
+        t0 = time.perf_counter()
+        f_logits = teacher_force(m, params, prompt, steps)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        f_err, _, f_agree = compare_logits(f"uid {uid} wf={form} vs kernel path",
+                                           f_logits, k_logits[:len(steps)])
+        if f_agree < 1.0:
+            fail(f"wf={form} changes the greedy token at some step")
+        warp_forms[form] = dict(max_err=f_err, argmax_agreement=f_agree, wall_s=wall)
+        print(f"wf={form}: prefill + {len(steps) - 1} decode steps in {wall:.2f} s",
+              flush=True)
 
     phases = where_time_goes(model, params, gen)
 
@@ -411,8 +649,9 @@ def main():
         result, device=smi, phases=phases, dense_tok_s=dense_tok / dense_wall,
         paged_tok_s=paged_tok / paged_wall, dense_counts=dense_counts,
         paged_counts=paged_counts, preemptions=eng.preemptions,
-        num_pages=num_pages, teacher_forced_max_err=err.max().item(),
-        logit_scale=scale.max().item()), indent=1))
+        num_pages=num_pages, teacher_forced_max_err=err, logit_scale=scale,
+        fig5=fig5_rows, fig5_counts=fig5_counts, fig5_device=fig5_device,
+        warp_forms=warp_forms), indent=1))
     print(json.dumps(result), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

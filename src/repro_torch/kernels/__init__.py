@@ -14,13 +14,24 @@ from typing import Dict
 
 from repro_torch.kernels.decode_attention.ops import flash_decode, paged_flash_decode
 from repro_torch.kernels.flash_attention.ops import flash_attention_fwd
+from repro_torch.kernels.matmul.ops import matmul
+from repro_torch.kernels.mse.ops import mse_partial_sum
 from repro_torch.kernels.rmsnorm.ops import rmsnorm
+from repro_torch.kernels.tile_reduce.ops import tile_reduce
+from repro_torch.kernels.warp_ops.ops import shfl, vote
 
 WRAPPERS = {
+    # the serving path
     "rmsnorm": rmsnorm,
     "flash_attention_fwd": flash_attention_fwd,
     "flash_decode": flash_decode,
     "paged_flash_decode": paged_flash_decode,
+    # the paper's warp-feature layer (Fig. 5)
+    "shfl": shfl,
+    "vote": vote,
+    "tile_reduce": tile_reduce,
+    "mse_partial_sum": mse_partial_sum,
+    "matmul": matmul,
 }
 
 

@@ -16,7 +16,10 @@ constexpr float kMaskValue = -0.7f * FLT_MAX;
 constexpr float kFullyMaskedLse = 0.7f * FLT_MAX;
 
 // dtype codes shared with the Python wrappers
-enum DType : int { kF32 = 0, kBF16 = 1 };
+enum DType : int { kF32 = 0, kBF16 = 1, kI32 = 2 };
+
+// every lane of a warp takes part in a warp intrinsic
+constexpr unsigned kFullMask = 0xffffffffu;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }

@@ -29,7 +29,15 @@ from repro_torch.models.attention import (
     paged_decode_attention,
 )
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import dense_init, embed_init, rmsnorm, rope_freqs, swiglu
+from repro_torch.models.layers import (
+    DEFAULT_WF,
+    WarpFeatureConfig,
+    dense_init,
+    embed_init,
+    rmsnorm,
+    rope_freqs,
+    swiglu,
+)
 from repro_torch.serve.kv_cache import TRASH_PAGE, cdiv, init_page_pool
 
 Params = Dict[str, Any]
@@ -50,10 +58,13 @@ class Model:
     ``use_kernels=False`` routes every kernel site to its plain PyTorch
     version on any device (the reference path a chip run checks the
     kernels against); by default kernel wrappers are called, which run
-    their plain version only for CPU tensors."""
+    their plain version only for CPU tensors.  ``wf`` picks the norm
+    reductions' HW/SW form (``layers.WarpFeatureConfig``), as the
+    reference's ``Model(wf=...)`` does."""
 
     def __init__(self, cfg: ModelConfig, *, device: DeviceLike = None,
-                 dtype: torch.dtype = torch.bfloat16, use_kernels: bool = True):
+                 dtype: torch.dtype = torch.bfloat16, use_kernels: bool = True,
+                 wf: WarpFeatureConfig = DEFAULT_WF):
         if cfg.family != "dense":
             raise NotImplementedError(
                 f"family {cfg.family!r} is not ported yet (ROADMAP A14)")
@@ -61,6 +72,7 @@ class Model:
         self.device = resolve_device(device)
         self.dtype = dtype
         self.use_kernels = use_kernels
+        self.wf = wf
 
     # ------------------------------------------------------------------ init
     def init(self, gen: torch.Generator) -> Params:
@@ -119,15 +131,18 @@ class Model:
                 "v": torch.zeros(shape, dtype=self.dtype, device=self.device)}
 
     # --------------------------------------------------------------- pieces
+    def _norm(self, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        return rmsnorm(x, w, self.cfg.norm_eps, self.use_kernels, self.wf)
+
     def _embed(self, params, tokens: torch.Tensor) -> torch.Tensor:
         return params["embed"][tokens].to(self.dtype)
 
     def _head(self, params, x: torch.Tensor) -> torch.Tensor:
-        x = rmsnorm(x, params["ln_f"], self.cfg.norm_eps, self.use_kernels)
+        x = self._norm(x, params["ln_f"])
         return (x @ params["lm_head"]).float()
 
     def _mlp_residual(self, p, x: torch.Tensor) -> torch.Tensor:
-        g = rmsnorm(x, p["ln2"], self.cfg.norm_eps, self.use_kernels)
+        g = self._norm(x, p["ln2"])
         m = p["mlp"]
         return x + swiglu(g, m["w_gate"], m["w_up"], m["w_down"])
 
@@ -151,7 +166,7 @@ class Model:
         cv = torch.zeros(shape, dtype=self.dtype, device=self.device)
         for l in range(cfg.n_layers):
             p = _layer(params["layers"], l)
-            g = rmsnorm(x, p["ln1"], cfg.norm_eps, self.use_kernels)
+            g = self._norm(x, p["ln1"])
             att, (k, v) = gqa_block_kv(p["attn"], g, cfg, use_kernel=self.use_kernels)
             x = x + att
             ck[l, :, :s] = k
@@ -190,7 +205,7 @@ class Model:
         rope = rope_freqs(cfg.d_head, cfg.rope_theta, positions)
         for l in range(cfg.n_layers):
             p = _layer(params["layers"], l)
-            g = rmsnorm(x, p["ln1"], cfg.norm_eps, self.use_kernels)
+            g = self._norm(x, p["ln1"])
             q, k, v = gqa_qkv(p["attn"], g, cfg, positions, rope=rope)
             o = write_attend(l, q, k, v)
             x = x + o.reshape(b, s, -1) @ p["attn"]["wo"]

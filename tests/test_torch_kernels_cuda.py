@@ -26,8 +26,16 @@ from repro_torch.kernels.decode_attention.ref import (  # noqa: E402
 )
 from repro_torch.kernels.flash_attention.ops import flash_attention_fwd  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref  # noqa: E402
+from repro_torch.kernels.matmul.ops import matmul  # noqa: E402
+from repro_torch.kernels.matmul.ref import matmul_ref  # noqa: E402
+from repro_torch.kernels.mse.ops import mse_partial_sum  # noqa: E402
+from repro_torch.kernels.mse.ref import mse_partial_sum_ref  # noqa: E402
 from repro_torch.kernels.rmsnorm.ops import rmsnorm  # noqa: E402
 from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref  # noqa: E402
+from repro_torch.kernels.tile_reduce.ops import tile_reduce  # noqa: E402
+from repro_torch.kernels.tile_reduce.ref import tile_reduce_ref  # noqa: E402
+from repro_torch.kernels.warp_ops.ops import shfl, vote  # noqa: E402
+from repro_torch.kernels.warp_ops.ref import shfl_ref, vote_ref  # noqa: E402
 from repro_torch.testing import paged_decode_case  # noqa: E402
 
 
@@ -172,6 +180,125 @@ def test_cuda_serve_through_kernels_matches_cpu_plain_path(kw):
 
 
 # ---------------------------------------------------------------------------
+# the warp-feature kernels (vx_shfl / vx_vote / vx_tile, mse, matmul)
+# ---------------------------------------------------------------------------
+
+# 37 rows: never a whole number of 256-thread blocks, so the last block
+# is partial at every width
+WARP_WIDTHS = [8, 32, 64, 128]
+
+
+def _exact(got, want):
+    assert got.dtype == want.dtype and got.shape == want.shape
+    if got.dtype == torch.uint32:
+        got, want = got.view(torch.int32), want.view(torch.int32)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", WARP_WIDTHS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int32])
+def test_cuda_shfl_matches_plain(width, dtype):
+    requires_cuda()
+    rng = np.random.default_rng(width)
+    x = _cuda(_rand(rng, 37, width) * 100, dtype)
+    for mode, imms in (("up", (0, 1, 3, width - 1, width, 5 * width)),
+                       ("down", (1, 5, width - 1, width + 1)),
+                       ("bfly", (1, width // 2, width - 1)),
+                       ("idx", (0, 7, width + 3, -1))):
+        for imm in imms:
+            before = shfl.launches
+            got = shfl(x, mode, imm)
+            torch.cuda.synchronize()
+            assert shfl.launches == before + 1
+            _exact(got, shfl_ref(x, mode, imm))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", WARP_WIDTHS)
+def test_cuda_vote_matches_plain(width):
+    """All four modes, without and with a member mask that leaves lane 0
+    out; float predicates go through the int32 cast (0.5 is false)."""
+    requires_cuda()
+    rng = np.random.default_rng(width + 1)
+    pred = torch.as_tensor(rng.integers(0, 2, (37, width)), device="cuda")
+    pred[:9] = 1                                    # rows where all/uni hold
+    pred[9:12] = 0
+    fpred = torch.as_tensor(rng.choice([0.0, 0.5, 1.0, -1.7], (37, width)),
+                            dtype=torch.float32, device="cuda")
+    member = torch.as_tensor(rng.integers(0, 2, (37, width)), device="cuda")
+    member[:, 0] = 0
+    lane_member = member[3]                          # one mask for every row
+    modes = ["all", "any", "uni"] + (["ballot"] if width <= 32 else [])
+    for mode in modes:
+        for p in (pred, fpred):
+            for mm in (None, member, lane_member):
+                got = vote(p, mode, mm)
+                torch.cuda.synchronize()
+                _exact(got, vote_ref(p, mode, mm))
+    if width > 32:
+        with pytest.raises(ValueError, match="one 32-bit word"):
+            vote(pred, "ballot")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", WARP_WIDTHS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int32])
+def test_cuda_tile_reduce_matches_plain(width, dtype):
+    """Bit for bit, bf16 sums included: kernel and plain version both
+    round to bf16 after every butterfly step."""
+    requires_cuda()
+    rng = np.random.default_rng(width + 2)
+    x = _cuda(_rand(rng, 37, width) * 8, dtype)
+    for tile in sorted({1, 4, 8, 32, width} & set(range(1, width + 1))):
+        for op in ("sum", "max", "min"):
+            before = tile_reduce.launches
+            got = tile_reduce(x, tile, op)
+            torch.cuda.synchronize()
+            assert tile_reduce.launches == before + 1
+            _exact(got, tile_reduce_ref(x, tile, op))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("warp_size", [8, 32, 128])
+@pytest.mark.parametrize("n", [256, 1000 * 128, 3 * 2 ** 20])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_mse_matches_plain(warp_size, n, dtype):
+    """f32 sums in another order (grid-stride, 32-lane trees, atomics in
+    no fixed order): relative 1e-5."""
+    requires_cuda()
+    rng = np.random.default_rng(n)
+    p, t = _cuda(_rand(rng, n), dtype), _cuda(_rand(rng, n), dtype)
+    before = mse_partial_sum.launches
+    got = mse_partial_sum(p, t, warp_size=warp_size)
+    torch.cuda.synchronize()
+    assert mse_partial_sum.launches == before + 1
+    assert got.dtype == torch.float32 and got.dim() == 0
+    torch.testing.assert_close(got, mse_partial_sum_ref(p, t, warp_size),
+                               rtol=1e-5, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(64, 64, 64), (1, 1, 1), (37, 19, 70),
+                                   (200, 333, 129), (512, 1024, 256)])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_cuda_matmul_matches_plain(m, k, n, dtype):
+    """Ragged edges; f32 against cuBLAS in full f32 (TF32 off), both
+    accumulating K products in f32 in different orders."""
+    requires_cuda()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(m + k + n)
+    a, b = _cuda(_rand(rng, m, k), dtype), _cuda(_rand(rng, k, n), dtype)
+    before = matmul.launches
+    got = matmul(a, b)
+    torch.cuda.synchronize()
+    assert matmul.launches == before + 1
+    assert got.dtype == dtype and got.shape == (m, n)
+    tol = dict(atol=1e-4 * k ** 0.5, rtol=1e-5) if dtype == torch.float32 else CUDA_TOL[dtype]
+    torch.testing.assert_close(got.float(), matmul_ref(a, b).float(), **tol)
+
+
+# ---------------------------------------------------------------------------
 # no-fallback guards
 # ---------------------------------------------------------------------------
 
@@ -183,13 +310,18 @@ def test_port_imports_neither_jax_nor_repro():
         "import repro_torch\n"
         "mods = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.')]\n"
         "for m in mods: importlib.import_module(m)\n"
-        "print(len(mods))\n")
+        "print(' '.join(mods))\n")
     src = os.path.join(os.path.dirname(__file__), "..", "src")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, env={**os.environ, "PYTHONPATH": src},
                          timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 15
+    mods = set(out.stdout.split())
+    assert len(mods) >= 30
+    for name in ("core", "core.primitives", "core.sw_backend", "bench",
+                 "bench.fig5_microbench", "kernels.warp_ops.ops",
+                 "kernels.tile_reduce.ops", "kernels.mse.ops", "kernels.matmul.ops"):
+        assert f"repro_torch.{name}" in mods, name
 
 
 def test_kernel_build_without_nvcc_raises(monkeypatch, tmp_path):

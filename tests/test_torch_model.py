@@ -198,3 +198,63 @@ def test_plain_path_equals_kernel_route_on_cpu():
     la, _ = m["tm"].decode_step(m["tp"], ca, tok, pos, attend_len=16)
     lb, _ = plain.decode_step(m["tp"], cb, tok, pos, attend_len=16)
     torch.testing.assert_close(la, lb, atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("backend", ["hw_warp", "sw"])
+def test_warp_feature_norms_match_reference(backend):
+    """The paper's reduction forms inside the model: every RMSNorm reduced
+    in 64-lane groups by the HW primitives (``hw_warp``) or the
+    PR-transformation loops (``sw``), prefill and three decode steps,
+    against the reference ``Model(wf=...)`` on the same weights."""
+    from repro.models.layers import WarpFeatureConfig as JaxWarpFeatureConfig
+    from repro_torch.models.layers import WarpFeatureConfig
+
+    m = _models()
+    jm = JaxModel(jax_reduced_config(ARCH), JaxWarpFeatureConfig(backend, warp_size=64),
+                  compute_dtype=jnp.float32)
+    tm = Model(reduced_config(ARCH), device="cpu", dtype=torch.float32,
+               wf=WarpFeatureConfig(backend, warp_size=64))
+    b, s, max_seq = 2, 7, 16
+    toks = np.random.default_rng(5).integers(0, 512, (b, s)).astype(np.int32)
+    want, wcache = jm.prefill(m["jp"], {"tokens": jnp.asarray(toks)}, max_seq)
+    got, gcache = tm.prefill(m["tp"], torch.as_tensor(toks), max_seq)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    pos = np.full((b,), s, np.int32)
+    for step in range(3):
+        wtok = jnp.argmax(want, axis=-1).astype(jnp.int32)
+        gtok = torch.argmax(got, dim=-1).to(torch.int32)
+        np.testing.assert_array_equal(gtok.numpy(), np.asarray(wtok))
+        want, wcache = jm.decode_step(m["jp"], wcache, wtok, jnp.asarray(pos),
+                                      attend_len=max_seq, unroll=True)
+        got, gcache = tm.decode_step(m["tp"], gcache, gtok, torch.as_tensor(pos),
+                                     attend_len=max_seq)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL,
+                                   err_msg=f"step {step}")
+        pos = pos + 1
+    # the forms compute the default path's function
+    base, _ = m["tm"].prefill(m["tp"], torch.as_tensor(toks), max_seq)
+    again, _ = tm.prefill(m["tp"], torch.as_tensor(toks), max_seq)
+    torch.testing.assert_close(again, base, atol=1e-5, rtol=1e-5)
+
+
+def test_warp_feature_config_is_validated_and_plain_path_wins():
+    from repro_torch.models.layers import WarpFeatureConfig, rmsnorm
+    from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+
+    with pytest.raises(ValueError, match="reduction_backend"):
+        WarpFeatureConfig("pallas")
+    x, w = torch.randn(3, 256), torch.randn(256)
+    sw = WarpFeatureConfig("sw", warp_size=32)
+    torch.testing.assert_close(rmsnorm(x, w, 1e-6, wf=sw), rmsnorm_ref(x, w, 1e-6),
+                               atol=1e-6, rtol=1e-5)
+    # use_kernel=False is the plain version whatever the config; so are
+    # 'hw' and, on a CPU tensor, the kernel route (None / 'kernel')
+    torch.testing.assert_close(rmsnorm(x, w, 1e-6, use_kernel=False, wf=sw),
+                               rmsnorm_ref(x, w, 1e-6), atol=0, rtol=0)
+    for form in ("hw", "kernel", None):
+        torch.testing.assert_close(rmsnorm(x, w, 1e-6, wf=WarpFeatureConfig(form)),
+                                   rmsnorm_ref(x, w, 1e-6), atol=0, rtol=0)
+    # a width that is no whole number of groups reduces the row directly
+    x2, w2 = torch.randn(2, 96), torch.randn(96)
+    torch.testing.assert_close(rmsnorm(x2, w2, 1e-6, wf=WarpFeatureConfig("hw_warp", 64)),
+                               rmsnorm_ref(x2, w2, 1e-6), atol=1e-6, rtol=1e-5)
