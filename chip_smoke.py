@@ -26,6 +26,16 @@ its two paths:
    tolerance (and, for the forms, the same greedy tokens).  Last, it
    times one full-batch decode step and one prefill against their summed
    kernel time (torch.profiler) to show where the time goes.
+4. Speculative serving (``spec ...`` lines): the same 8 requests with
+   spec_k = 4 on the paged layout, the verify window through
+   ``paged_flash_verify``.  (a) A 14-layer self draft on the random
+   weights, the pool sized to preempt; (b) weights damped to a
+   near-identity stack with a 1-layer self draft, beside non-speculative
+   paged serving of the same weights; (c) request 0's served tokens
+   teacher-forced in windows of 4 through ``decode_verify_step``, kernel
+   path and plain path, against the decode-step logits.  It fails unless
+   every request finishes, the verify kernel launched, (a) preempted and
+   both pools drained, and the verify logits stay within the tolerance.
 
 Details land in ``build/chip_smoke.json`` (git-ignored).  The
 second-to-last lines are the kernels' JSON record and the card's name and
@@ -83,6 +93,10 @@ SLOTS = 4
 MAX_NEW = 32
 MAX_SEQ = 576
 PAGE_SIZE = 16
+SPEC_K = 4
+# verify kernel at T = 1 against the paged decode kernel in f32: the same
+# loop in the same order, so they agree to a few f32 ulps or exactly
+T1_TOL = 1e-6
 
 
 def fail(msg: str):
@@ -163,7 +177,7 @@ def record_kernel(rows, name, source, replaces, got, want, tol, t_kernel, t_plai
 # phase 1: each kernel against its plain version at the main path's shapes
 # ---------------------------------------------------------------------------
 
-def check_kernels(cfg, gen: torch.Generator) -> dict:
+def check_kernels(cfg, gen: torch.Generator):
     import torch.nn.functional as F
 
     from repro_torch.kernels.decode_attention.ops import flash_decode, paged_flash_decode
@@ -175,6 +189,8 @@ def check_kernels(cfg, gen: torch.Generator) -> dict:
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
     from repro_torch.kernels.rmsnorm.ops import rmsnorm
     from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+    from repro_torch.kernels.verify_attention.ops import paged_flash_verify
+    from repro_torch.kernels.verify_attention.ref import paged_verify_attention_ref
 
     dev, bf = "cuda", torch.bfloat16
     d, hq, hkv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
@@ -260,7 +276,42 @@ def check_kernels(cfg, gen: torch.Generator) -> dict:
            cuda_ms(lambda: paged_flash_decode(qd, kp, vp, bt, pos)),
            cuda_ms(lambda: paged_flash_decode_ref(qd, kp, vp, bt, pos)),
            dec_bytes + tables, dec_flops, BF16_FLOPS_S, None)
-    return rows
+
+    # paged verify: a spec_k = 4 window at the same positions, T*G = 24
+    # query rows per KV head; keys up to pos + T - 1.  No single PyTorch
+    # call reads paged K/V, so no library time.
+    t_w = SPEC_K
+    qv = randn(b, hkv, t_w * g, dh)
+    got = paged_flash_verify(qv, kp, vp, bt, pos, t_window=t_w)
+    want = paged_verify_attention_ref(qv, kp, vp, bt, pos, t_w)
+    torch.cuda.synchronize()
+    keys = pos.long() + t_w                            # keys read per row
+    ver_bytes = ((2 * qv.numel() + 2 * int(keys.sum()) * hkv * dh) * bs
+                 + int(((keys - 1) // PAGE_SIZE + 1).sum()) * 4)
+    # row t of the window scores pos + t + 1 keys, for each of hq heads
+    ver_flops = 4 * dh * hq * sum(int(p) + t + 1 for p in pos.tolist()
+                                  for t in range(t_w))
+    record("paged_flash_verify",
+           "src/repro_torch/kernels/verify_attention/verify_attention.cu",
+           "src/repro/kernels/verify_attention/verify_attention.py:118", got, want,
+           cuda_ms(lambda: paged_flash_verify(qv, kp, vp, bt, pos, t_window=t_w)),
+           cuda_ms(lambda: paged_verify_attention_ref(qv, kp, vp, bt, pos, t_w)),
+           ver_bytes, ver_flops, BF16_FLOPS_S, None)
+    print("kernel paged_flash_verify: library_ms none (no single PyTorch call "
+          "reads paged K/V)", flush=True)
+
+    # T = 1 verify is one-token paged decode: the two kernels in f32
+    q1 = torch.randn(b, hkv, g, dh, generator=gen, device=dev)
+    kpf, vpf = kp.float(), vp.float()
+    t1 = paged_flash_verify(q1, kpf, vpf, bt, pos, t_window=1)
+    d1 = paged_flash_decode(q1, kpf, vpf, bt, pos)
+    torch.cuda.synchronize()
+    t1_err = max_err(t1, d1)
+    print(f"kernel paged_flash_verify T=1 vs paged_flash_decode (f32): "
+          f"max_abs_err={t1_err:.3e} tol={T1_TOL}", flush=True)
+    if not t1_err <= T1_TOL:
+        fail(f"T = 1 verify differs from paged decode by {t1_err:.3e}")
+    return rows, t1_err
 
 
 def check_warp_kernels(gen: torch.Generator) -> dict:
@@ -449,6 +500,122 @@ def compare_logits(label, got, want):
     return err.max().item(), scale.max().item(), agree
 
 
+# ---------------------------------------------------------------------------
+# phase 3: speculative serving through the verify kernel
+# ---------------------------------------------------------------------------
+
+def _scaled(tree, factor: float):
+    if isinstance(tree, dict):
+        return {k: _scaled(v, factor) for k, v in tree.items()}
+    return tree * factor
+
+
+def preempting_pool(spec) -> int:
+    """Pages for the first SLOTS prompts plus one growth page for all but
+    one slot (and the trash page): the batch cannot grow without
+    preempting."""
+    first = sum(-(-len(p) // PAGE_SIZE) for _, p, _ in spec[:SLOTS])
+    return first + SLOTS - 1 + 1
+
+
+def spec_report(label, spec, out, eng, counts, wall, n_tok):
+    """Print a speculative run's line and check what every one must show:
+    the verify kernel launched and the pool drained.  Returns its record."""
+    acc = [eng.last_stats[u]["accept_rate"] for u, _, _ in spec]
+    disables = sum(eng.last_stats[u].get("spec_auto_disables", 0) for u, _, _ in spec)
+    pool = eng.last_pool_stats
+    print(f"spec {label}: {n_tok} tokens in {wall:.3f} s = {n_tok / wall:.1f} tok/s; "
+          f"accept_rate per request {[round(a, 3) for a in acc]} mean "
+          f"{np.mean(acc):.3f}; auto-disables {disables}; preemptions "
+          f"{eng.preemptions}; pool {pool}; launches {counts}", flush=True)
+    if counts["paged_flash_verify"] == 0:
+        fail(f"paged_flash_verify never launched in the spec {label} run")
+    if counts["flash_decode"] == 0:
+        fail(f"the draft's flash_decode never launched in the spec {label} run")
+    if pool.used_pages != 0:
+        fail(f"spec {label} run leaked {pool.used_pages} pages")
+    return dict(tok_s=n_tok / wall, wall_s=wall, tokens=n_tok, accept_rate=acc,
+                mean_accept_rate=float(np.mean(acc)), auto_disables=disables,
+                preemptions=eng.preemptions, retracts=pool.retracts,
+                counts=counts)
+
+
+def verify_force(model, params, prompt, tokens, n_win):
+    """Logits of ``model`` for one request's served ``tokens`` taken in
+    windows of SPEC_K through ``decode_verify_step`` on a paged cache
+    (batch 1): row i predicts tokens[i + 1], n_win * SPEC_K rows."""
+    from repro_torch.serve.kv_cache import scatter_prefill
+
+    cache = model.init_cache(1, MAX_SEQ, layout="paged", page_size=PAGE_SIZE)
+    nb = cache["block_tables"].shape[1]
+    cache["block_tables"][0] = torch.arange(1, nb + 1, dtype=torch.int32, device="cuda")
+    _, pcache = model.prefill(params, torch.tensor([prompt], device="cuda"), len(prompt))
+    scatter_prefill(cache, pcache, cache["block_tables"][:, :-(-len(prompt) // PAGE_SIZE)])
+    rows = []
+    for w in range(n_win):
+        p0 = len(prompt) + SPEC_K * w
+        win = torch.tensor([tokens[SPEC_K * w:SPEC_K * (w + 1)]], device="cuda")
+        attend = min(MAX_SEQ, -(-(p0 + SPEC_K) // 64) * 64)
+        logits, _ = model.decode_verify_step(
+            params, cache, win, torch.tensor([p0], dtype=torch.int32, device="cuda"),
+            attend)
+        rows.append(logits[0])
+    return torch.cat(rows)
+
+
+def run_spec(cfg, model, params, spec, paged_tok_s):
+    """The speculative phase: (a) self:14 on the random weights with a
+    preempting pool, (b) damped weights with self:1 beside non-speculative
+    paged serving, (c) teacher-forced verify windows.  Returns the record
+    and the verify kernel's launches in (a) and (b)."""
+    from repro_torch.models.lm import Model
+
+    paged = dict(cache_layout="paged", page_size=PAGE_SIZE)
+    num_pages = preempting_pool(spec)
+    out, eng, counts, wall, n_tok = serve(model, params, spec, num_pages=num_pages,
+                                          spec_k=SPEC_K, draft="self:14", **paged)
+    a = spec_report("a self:14", spec, out, eng, counts, wall, n_tok)
+    print(f"spec a: pool {num_pages} pages; non-spec paged {paged_tok_s:.1f} tok/s",
+          flush=True)
+    if eng.preemptions < 1:
+        fail("the spec (a) run was sized to preempt and did not")
+    launches = counts["paged_flash_verify"]
+
+    damped = dict(params, layers=_scaled(params["layers"], 0.05))
+    base, _, _, b_wall, b_tok = serve(model, damped, spec, **paged)
+    print(f"spec b non-spec paged (damped weights): {b_tok} tokens in "
+          f"{b_wall:.3f} s = {b_tok / b_wall:.1f} tok/s", flush=True)
+    d_out, d_eng, d_counts, d_wall, d_tok = serve(model, damped, spec, spec_k=SPEC_K,
+                                                  draft="self:1", **paged)
+    b = spec_report("b damped self:1", spec, d_out, d_eng, d_counts, d_wall, d_tok)
+    agree = np.mean([x == y for u in base for x, y in zip(base[u], d_out[u])])
+    b.update(nonspec_tok_s=b_tok / b_wall, token_agreement=float(agree),
+             speedup=b["tok_s"] / (b_tok / b_wall))
+    print(f"spec b: spec vs non-spec token agreement {agree:.4f}; tok/s ratio "
+          f"{b['speedup']:.3f}", flush=True)
+    launches += d_counts["paged_flash_verify"]
+    del damped
+
+    # (c) request 0's served tokens, windows of SPEC_K, kernel and plain path
+    uid, prompt, _ = spec[0]
+    toks = out[uid]
+    n_win = (len(toks) - 1) // SPEC_K
+    dec = teacher_force(model, params, prompt, toks)[1:1 + n_win * SPEC_K]
+    plain = Model(cfg, device="cuda", dtype=torch.bfloat16, use_kernels=False)
+    c = {}
+    for label, m in (("kernel", model), ("plain", plain)):
+        v = verify_force(m, params, prompt, toks, n_win)
+        err, scale, agree = compare_logits(
+            f"uid {uid} verify windows ({label} path) vs decode steps", v, dec)
+        served = (v.argmax(-1) == torch.tensor(toks[1:1 + n_win * SPEC_K],
+                                               device="cuda")).float().mean().item()
+        print(f"spec c {label}: argmax agreement with decode steps {agree:.4f}, "
+              f"with served tokens {served:.4f}", flush=True)
+        c[label] = dict(max_err=err, logit_scale=scale, argmax_agreement=agree,
+                        served_agreement=served, rows=n_win * SPEC_K)
+    return dict(a=a, b=b, c=c, num_pages=num_pages), launches
+
+
 def _kernel_us(evt) -> float:
     """Device time of a kernel event (CPU-side ops, whose device time
     repeats their kernels', count 0)."""
@@ -462,20 +629,35 @@ def _kernel_us(evt) -> float:
 
 def where_time_goes(model, params, gen):
     """Host wall time (with a synchronize) and summed device kernel time
-    (torch.profiler) of one full-batch decode step and one 4 x 512 prefill
-    on the kernel path; their ratio is the device's busy share."""
+    (torch.profiler) of one full-batch decode step, one 4 x 512 prefill,
+    and the two halves of a speculative step (a 14-layer self-draft decode
+    step, three per window, and one spec_k = 4 verify step over the paged
+    cache) on the kernel path; their ratio is the device's busy share."""
     from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.serve.spec_decode import make_self_draft
 
     pos = torch.tensor([543, 400, 300, 64], dtype=torch.int32, device="cuda")
     tok = torch.zeros(SLOTS, dtype=torch.int32, device="cuda")
     cache = model.init_cache(SLOTS, MAX_SEQ)
     toks = torch.randint(0, model.cfg.vocab, (SLOTS, 512), generator=gen,
                          device="cuda")
+    draft, dparams = make_self_draft(model, params, 14)
+    dcache = draft.init_cache(SLOTS, MAX_SEQ)
+    pcache = model.init_cache(SLOTS, MAX_SEQ, layout="paged", page_size=PAGE_SIZE)
+    nb = pcache["block_tables"].shape[1]
+    pcache["block_tables"] = torch.arange(1, SLOTS * nb + 1, dtype=torch.int32,
+                                          device="cuda").reshape(SLOTS, nb)
+    win = torch.zeros(SLOTS, SPEC_K, dtype=torch.int32, device="cuda")
     phases = {}
     for name, fn, n in (
             ("decode_step", lambda: model.decode_step(params, cache, tok, pos,
                                                       attend_len=MAX_SEQ), 10),
-            ("prefill_4x512", lambda: model.prefill(params, toks, 512), 3)):
+            ("prefill_4x512", lambda: model.prefill(params, toks, 512), 3),
+            ("draft_step_self14", lambda: draft.decode_step(
+                dparams, dcache, tok, pos, attend_len=MAX_SEQ), 10),
+            ("verify_step_T4", lambda: model.decode_verify_step(
+                params, pcache, win, pos, attend_len=MAX_SEQ), 10)):
         fn()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -561,8 +743,8 @@ def main():
 
     cfg = get_config(ARCH)
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
-    rows = check_kernels(cfg, gen)
-    serving_kernels = tuple(rows)
+    rows, t1_err = check_kernels(cfg, gen)
+    serving_kernels = tuple(k for k in rows if k != "paged_flash_verify")
     rows.update(check_warp_kernels(gen))
 
     fig5_rows, fig5_counts = run_fig5(args.seed)
@@ -588,8 +770,7 @@ def main():
           f"{dense_tok / dense_wall:.1f} tok/s; launches {dense_counts}", flush=True)
     # the first four prompts fill the pool but for one growth page per
     # slot: the batch cannot grow 32 tokens without preempting
-    first = sum(-(-len(p) // PAGE_SIZE) for _, p, _ in spec[:SLOTS])
-    num_pages = first + SLOTS - 1 + 1
+    num_pages = preempting_pool(spec)
     paged, eng, paged_counts, paged_wall, paged_tok = serve(
         model, params, spec, cache_layout="paged", page_size=PAGE_SIZE,
         num_pages=num_pages)
@@ -641,6 +822,10 @@ def main():
         print(f"wf={form}: prefill + {len(steps) - 1} decode steps in {wall:.2f} s",
               flush=True)
 
+    spec_rec, verify_launches = run_spec(cfg, model, params, spec,
+                                         paged_tok / paged_wall)
+    rows["paged_flash_verify"]["launches"] = verify_launches
+
     phases = where_time_goes(model, params, gen)
 
     result = {"kernels": list(rows.values())}
@@ -651,7 +836,7 @@ def main():
         paged_counts=paged_counts, preemptions=eng.preemptions,
         num_pages=num_pages, teacher_forced_max_err=err, logit_scale=scale,
         fig5=fig5_rows, fig5_counts=fig5_counts, fig5_device=fig5_device,
-        warp_forms=warp_forms), indent=1))
+        warp_forms=warp_forms, spec=spec_rec, verify_t1_err=t1_err), indent=1))
     print(json.dumps(result), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -18,6 +18,7 @@ from repro_torch.kernels.matmul.ops import matmul
 from repro_torch.kernels.mse.ops import mse_partial_sum
 from repro_torch.kernels.rmsnorm.ops import rmsnorm
 from repro_torch.kernels.tile_reduce.ops import tile_reduce
+from repro_torch.kernels.verify_attention.ops import paged_flash_verify
 from repro_torch.kernels.warp_ops.ops import shfl, vote
 
 WRAPPERS = {
@@ -26,6 +27,7 @@ WRAPPERS = {
     "flash_attention_fwd": flash_attention_fwd,
     "flash_decode": flash_decode,
     "paged_flash_decode": paged_flash_decode,
+    "paged_flash_verify": paged_flash_verify,
     # the paper's warp-feature layer (Fig. 5)
     "shfl": shfl,
     "vote": vote,

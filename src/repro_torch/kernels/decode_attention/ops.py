@@ -25,14 +25,14 @@ _PAGED_ARGS = ([build.P] * 6 + [build.I64] * 7 + [build.I] * 6
                + [build.F, build.I, build.P])
 
 
-def _check(q, k, v, pos, name):
+def _check(q, k, v, pos, name, max_group=_MAX_GROUP):
     b, hkv, g, d = q.shape
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"{name} takes f32/bf16 q and cache of one dtype; got "
                         f"{q.dtype}, {k.dtype}, {v.dtype}")
-    if d not in _HEAD_DIMS or g > _MAX_GROUP:
+    if d not in _HEAD_DIMS or g > max_group:
         raise ValueError(f"{name} is built for head dims {_HEAD_DIMS} and "
-                         f"groups <= {_MAX_GROUP}; got D={d}, G={g}")
+                         f"query rows <= {max_group}; got D={d}, rows={g}")
     if k.shape[2] != hkv or k.shape[3] != d or v.shape != k.shape:
         raise ValueError(f"{name}: q {tuple(q.shape)} does not match cache "
                          f"{tuple(k.shape)} / {tuple(v.shape)}")

@@ -1,7 +1,8 @@
-"""GQA attention: prefill (flash kernel), dense and paged decode, and the
-projections around them.  Counterpart of ``repro.models.attention`` for
-the dense family, in the same layouts: activations (B, S, H, D), weights
-(d_in, d_out) applied as ``x @ W``.
+"""GQA attention: prefill (flash kernel), dense and paged decode, the
+paged k-token speculative verify, and the projections around them.
+Counterpart of ``repro.models.attention`` for the dense family, in the
+same layouts: activations (B, S, H, D), weights (d_in, d_out) applied as
+``x @ W``.
 
 Every attention call goes through a kernel wrapper (CUDA kernel on CUDA
 tensors, plain version on CPU tensors); ``use_kernel=False`` calls the
@@ -21,6 +22,8 @@ from repro_torch.kernels.decode_attention.ref import (
 )
 from repro_torch.kernels.flash_attention.ops import flash_attention_fwd
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+from repro_torch.kernels.verify_attention.ops import paged_flash_verify
+from repro_torch.kernels.verify_attention.ref import paged_verify_attention_ref
 from repro_torch.models.layers import apply_rope, rope_freqs
 
 NEG_INF = -1e30   # the reference's jnp-path mask (attention.py:24)
@@ -97,6 +100,34 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
     qg = q.reshape(b, hkv, hq // hkv, d)
     fn = paged_flash_decode if use_kernel else paged_flash_decode_ref
     return fn(qg, k_pages, v_pages, block_tables, pos).reshape(b, 1, hq, d)
+
+
+def paged_verify_attention(q: torch.Tensor, k_pages: torch.Tensor,
+                           v_pages: torch.Tensor, block_tables: torch.Tensor,
+                           pos: torch.Tensor, *,
+                           attend_len: Optional[int] = None,
+                           use_kernel: bool = True) -> torch.Tensor:
+    """k-token speculative verify against the paged pool: q (B, T, Hq, D)
+    holds the window's queries at positions pos..pos+T-1 (whose K/V rows
+    are already written through the block tables), pages (P, page_size,
+    Hkv, D), block_tables (B, NB), pos (B,) the window's first position.
+    Query t attends positions <= pos + t.  Returns (B, T, Hq, D).
+
+    The kernel takes the window's T rows and the G grouped queries on one
+    row axis per KV head, (B, Hkv, T*G, D) t-major, so its ``row // G`` is
+    the window offset (the reference adapter, ``verify_attention/ops.py``).
+    ``attend_len`` bounds pos + T: only the first ceil(attend_len /
+    page_size) table columns are visited."""
+    page_size = k_pages.shape[1]
+    if attend_len is not None:
+        block_tables = block_tables[:, :-(-attend_len // page_size)]
+    b, t, hq, d = q.shape
+    hkv = k_pages.shape[2]
+    g = hq // hkv
+    qg = q.reshape(b, t, hkv, g, d).transpose(1, 2).reshape(b, hkv, t * g, d)
+    fn = paged_flash_verify if use_kernel else paged_verify_attention_ref
+    o = fn(qg, k_pages, v_pages, block_tables, pos, t_window=t)
+    return o.reshape(b, hkv, t, g, d).transpose(1, 2).reshape(b, t, hq, d)
 
 
 # ---------------------------------------------------------------------------

@@ -9,6 +9,8 @@ carry the reference's weights over leaf for leaf:
   init_cache(B, max_seq, layout=...)         -> dense or paged cache
   prefill(params, tokens, max_seq, last_pos) -> (last logits (B, V), dense cache)
   decode_step(params, cache, tok, pos, attend_len) -> (logits (B, V), cache)
+  decode_verify_step(params, paged cache, window (B, T), pos, attend_len)
+                                             -> (logits (B, T, V), cache)
 
 Where the reference jits with donated buffers, the port writes cache rows
 in place (``ck[l, bidx, pos] = k``): ``decode_step`` returns the very
@@ -27,6 +29,7 @@ from repro_torch.models.attention import (
     gqa_block_kv,
     gqa_qkv,
     paged_decode_attention,
+    paged_verify_attention,
 )
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (
@@ -41,6 +44,8 @@ from repro_torch.models.layers import (
 from repro_torch.serve.kv_cache import TRASH_PAGE, cdiv, init_page_pool
 
 Params = Dict[str, Any]
+# verify attention's lowerings: None follows Model.use_kernels
+VERIFY_BACKENDS = (None, "kernel", "torch")
 
 
 def _layer(tree, l: int):
@@ -197,9 +202,12 @@ class Model:
 
     def _gqa_decode_layers(self, params, x, positions,
                            write_attend: Callable) -> torch.Tensor:
-        """Shared decode layer loop; ``write_attend(l, q, k, v)`` owns the
-        layout-specific cache write and read, so the dense and paged steps
-        share every other line."""
+        """Shared decode/verify layer loop over x (B, S, d) at absolute
+        ``positions`` (B, S): S = 1 is one-token decode, S = T a
+        speculative window.  ``write_attend(l, q, k, v)`` owns the
+        layout-specific cache write and read, so the dense, paged and
+        verify steps share every other line.  Returns the hidden
+        (B, S, d); each caller applies the head."""
         cfg = self.cfg
         b, s, _ = x.shape
         rope = rope_freqs(cfg.d_head, cfg.rope_theta, positions)
@@ -210,7 +218,11 @@ class Model:
             o = write_attend(l, q, k, v)
             x = x + o.reshape(b, s, -1) @ p["attn"]["wo"]
             x = self._mlp_residual(p, x)
-        return self._head(params, x)[:, 0, :cfg.vocab]
+        return x
+
+    def _decode_logits(self, params, x, pos, write_attend):
+        x = self._gqa_decode_layers(params, x, pos[:, None], write_attend)
+        return self._head(params, x)[:, 0, :self.cfg.vocab]
 
     def _gqa_decode_unrolled(self, params, cache, x, pos, attend_len):
         ck, cv = cache["k"], cache["v"]
@@ -225,7 +237,7 @@ class Model:
             return decode_attention(q, ck[l], cv[l], pos, attend_len=attend_len,
                                     use_kernel=self.use_kernels)
 
-        return self._gqa_decode_layers(params, x, pos[:, None], write_attend), cache
+        return self._decode_logits(params, x, pos, write_attend), cache
 
     def _gqa_decode_paged(self, params, cache, x, pos, attend_len):
         """The fresh K/V row lands at (page, offset) resolved through the
@@ -247,4 +259,67 @@ class Model:
                                           attend_len=attend_len,
                                           use_kernel=self.use_kernels)
 
-        return self._gqa_decode_layers(params, x, pos[:, None], write_attend), cache
+        return self._decode_logits(params, x, pos, write_attend), cache
+
+    # ---------------------------------------------------- speculative verify
+    @torch.no_grad()
+    def decode_verify_step(self, params, cache: Dict[str, torch.Tensor],
+                           tokens: torch.Tensor, pos: torch.Tensor,
+                           attend_len: Optional[int] = None,
+                           verify_backend: Optional[str] = None):
+        """Score a T-token speculative window in one pass (paged cache).
+
+        tokens (B, T): row b holds [last committed token, draft_1, ...,
+        draft_{T-1}] at positions pos[b]..pos[b]+T-1.  Returns (logits
+        (B, T, V), cache): logits[:, i] is the target's distribution for
+        position pos+i+1 given the committed prefix and window tokens
+        0..i, what T sequential ``decode_step`` calls would give, so
+        greedy longest-prefix acceptance equals non-speculative decode.
+        Every window row's K/V is written through the block tables before
+        the attention read; rejected rows are overwritten by later
+        windows.  ``verify_backend``: None (the model's ``use_kernels``),
+        'kernel' or 'torch' (the plain version on any device)."""
+        if "k_pages" not in cache:
+            raise ValueError("decode_verify_step needs a paged cache "
+                             "(k_pages/v_pages/block_tables); got leaves "
+                             f"{sorted(cache)}")
+        x = self._embed(params, tokens)
+        x, cache = self._paged_window(params, cache, x, pos, attend_len,
+                                      verify_backend)
+        return self._head(params, x)[..., :self.cfg.vocab], cache
+
+    def _paged_window(self, params, cache, x, pos, attend_len: Optional[int],
+                      verify_backend: Optional[str]):
+        """The T-token window body over the paged cache: per layer the T
+        fresh K/V rows land at table-resolved (page, offset) pairs, then
+        verify attention masks each query row at its own position.
+        Returns (hidden (B, T, d), cache).  (The reference also prefills a
+        shared prefix's suffix through it; that arrives with ROADMAP A9.)"""
+        if "k_scales" in cache:
+            raise NotImplementedError("int8 pages are not ported yet (ROADMAP A9)")
+        if verify_backend not in VERIFY_BACKENDS:
+            raise ValueError(f"verify_backend must be one of {VERIFY_BACKENDS}; "
+                             f"got {verify_backend!r}")
+        use_kernel = (self.use_kernels if verify_backend is None
+                      else verify_backend == "kernel")
+        kp, vp, bt = cache["k_pages"], cache["v_pages"], cache["block_tables"]
+        page_size = kp.shape[2]
+        t = x.shape[1]
+        positions = pos.long()[:, None] + torch.arange(t, device=self.device)
+        blk = positions // page_size
+        page = torch.gather(bt, 1, torch.clamp(blk, max=bt.shape[1] - 1)).long()
+        # a window straddling the end of the table (pos near max_seq, or a
+        # finished slot coasting) must not fold its overflow rows onto the
+        # last block: they go to the trash page, and the commit clamp never
+        # accepts tokens there
+        page = torch.where(blk < bt.shape[1], page, TRASH_PAGE)
+        off = positions % page_size
+
+        def write_attend(l, q, k, v):
+            kp[l, page, off] = k
+            vp[l, page, off] = v
+            return paged_verify_attention(q, kp[l], vp[l], bt, pos,
+                                          attend_len=attend_len,
+                                          use_kernel=use_kernel)
+
+        return self._gqa_decode_layers(params, x, positions, write_attend), cache

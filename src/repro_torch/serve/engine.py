@@ -20,9 +20,22 @@ bucketed to ``ATTEND_BLOCK``) and makes one device-to-host copy: the
 (tokens, done, bad) triple.  A row whose logits are not finite is failed
 on its own; the rest of the batch goes on.
 
+Speculative decoding (``spec_k > 1``, paged layout) replaces the one-token
+step with a propose + verify window (``serve.spec_decode``): a draft
+proposes spec_k - 1 tokens, the target scores all spec_k positions in one
+``decode_verify_step``, and the longest prefix matching the target's own
+greedy tokens commits, 1..spec_k tokens per step, the same tokens as
+non-speculative decode.  Requests with ``spec=False`` ride the same batch
+committing one token per step.  The window's page span is mapped before
+the step and blocks holding only rejected rows are retracted after it
+(a table edit, no copies).  The step's one device-to-host copy is then
+(window tokens, commit counts, done, bad).  A governor turns speculation
+off for a request whose recent windows commit one token each, and back
+on after a cooldown.
+
 Not ported yet: sampling at temperature > 0 (ROADMAP A6), the overlapped
-pipeline, speculative decoding, prefix sharing, int8 pages, host swap,
-chunked prefill, faults and recovery, priorities and deadlines.
+pipeline, prefix sharing, int8 pages, host swap, chunked prefill, faults
+and recovery, priorities and deadlines.
 """
 
 from __future__ import annotations
@@ -35,6 +48,8 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
+from repro_torch.models.lm import VERIFY_BACKENDS
+from repro_torch.serve import spec_decode
 from repro_torch.serve.kv_cache import (
     CACHE_LAYOUTS,
     PagedCacheManager,
@@ -52,6 +67,10 @@ STATUS_FAILED = "failed"
 # ATTEND_BLOCK positions, admission pads prompts to PROMPT_BLOCK tokens
 ATTEND_BLOCK = 64
 PROMPT_BLOCK = 16
+# acceptance governor: a request whose last SPEC_DISABLE_WINDOW windows
+# committed one token each stops speculating for SPEC_COOLDOWN steps
+SPEC_DISABLE_WINDOW = 8
+SPEC_COOLDOWN = 16
 
 
 def _round_up(x: int, block: int) -> int:
@@ -65,6 +84,9 @@ class Request:
     prompt: List[int]
     max_new_tokens: int
     generated: Optional[List[int]] = None
+    # take part in speculative windows when the engine runs spec_k > 1;
+    # spec=False requests share the batch committing one token per step
+    spec: bool = True
     # how many ``generated`` tokens a preemption resume already folded
     # into ``prompt`` (a second preemption folds only the rest)
     folded: int = 0
@@ -89,12 +111,18 @@ class _SchedState:
     pos: Any = None
     tok: Any = None
     remaining: Any = None
+    draft_cache: Any = None    # speculative decoding: dense draft slot pool
+    spec_mask: Any = None      # speculative decoding: per-slot spec flag
+    spec_hist: Dict[int, deque] = dataclasses.field(default_factory=dict)
+    spec_disabled: Dict[int, int] = dataclasses.field(default_factory=dict)
 
 
 class ServeEngine:
     def __init__(self, model, params, *, max_seq: int, batch_slots: int,
                  temperature: float = 0.0, cache_layout: str = "dense",
-                 page_size: int = 16, num_pages: Optional[int] = None):
+                 page_size: int = 16, num_pages: Optional[int] = None,
+                 spec_k: int = 1, draft=None,
+                 verify_backend: Optional[str] = None):
         if temperature > 0.0:
             raise NotImplementedError(
                 "sampling at temperature > 0 needs the reference's threefry "
@@ -102,6 +130,15 @@ class ServeEngine:
         if cache_layout not in CACHE_LAYOUTS:
             raise ValueError(f"cache_layout must be one of {CACHE_LAYOUTS}; "
                              f"got {cache_layout!r}")
+        if spec_k < 1:
+            raise ValueError(f"spec_k must be >= 1; got {spec_k}")
+        if spec_k > 1 and cache_layout != "paged":
+            raise ValueError("speculative decoding (spec_k > 1) verifies "
+                             "against the paged cache; pass "
+                             "cache_layout='paged'")
+        if verify_backend not in VERIFY_BACKENDS:
+            raise ValueError(f"verify_backend must be one of {VERIFY_BACKENDS}; "
+                             f"got {verify_backend!r}")
         self.model = model
         self.params = params
         self.device = model.device
@@ -113,6 +150,14 @@ class ServeEngine:
             # capacity parity with the dense pool (+1 for the trash page)
             num_pages = batch_slots * cdiv(max_seq, page_size) + 1
         self.num_pages = num_pages
+        self.spec_k = spec_k
+        self.draft_model = self.draft_params = None
+        if spec_k > 1:
+            self.draft_model, self.draft_params = spec_decode.resolve_draft(
+                model, params, draft)
+            self._spec_step = spec_decode.build_spec_step(
+                model, self.draft_model, max_seq=max_seq, spec_k=spec_k,
+                verify_backend=verify_backend)
         # observability, refreshed by every serve() call
         self.last_stats: Dict[Any, Any] = {}
         self.last_pool_stats = None
@@ -156,13 +201,20 @@ class ServeEngine:
             raise ValueError(
                 f"request {req.uid}: prompt of {len(req.prompt)} tokens "
                 f"leaves no decode room in max_seq={self.max_seq}")
+        # a speculative window transiently maps up to spec_k - 1 positions
+        # past the final token; charge them so the grow span can always be
+        # granted to a lone request
         if st.mgr is not None and not st.mgr.fits_worst_case(
-                len(req.prompt), req.max_new_tokens, self.max_seq):
-            longest = min(len(req.prompt) + req.max_new_tokens - 1, self.max_seq)
+                len(req.prompt), req.max_new_tokens + self.spec_k - 1,
+                self.max_seq):
+            longest = min(len(req.prompt) + req.max_new_tokens
+                          + self.spec_k - 2, self.max_seq)
             raise ValueError(
                 f"request {req.uid} can never fit: needs "
-                f"{blocks_for(longest, self.page_size)} pages, pool has "
-                f"{st.mgr.allocator.usable}")
+                f"{blocks_for(longest, self.page_size)} pages "
+                + (f"(incl. the spec_k={self.spec_k} window overhang) "
+                   if self.spec_k > 1 else "")
+                + f", pool has {st.mgr.allocator.usable}")
 
     def _init_device(self, st: _SchedState):
         if st.mgr is not None:
@@ -178,6 +230,10 @@ class ServeEngine:
         st.tok = torch.zeros(self.slots, **zeros)
         st.remaining = torch.zeros(self.slots, **zeros)
         st.slot_pos = [0] * self.slots
+        if self.spec_k > 1:
+            st.draft_cache = self.draft_model.init_cache(self.slots, self.max_seq)
+            st.spec_mask = torch.zeros(self.slots, dtype=torch.bool,
+                                       device=self.device)
 
     def _round(self, st: _SchedState):
         """One scheduler round: admission, page growth (paged), one decode
@@ -186,7 +242,10 @@ class ServeEngine:
         if st.live and st.mgr is not None:
             self._grow_or_preempt(st)
         if st.live:
-            self._step(st)
+            if self.spec_k > 1:
+                self._step_spec(st)
+            else:
+                self._step(st)
 
     # --------------------------------------------------------------- steps
     def _step(self, st: _SchedState):
@@ -220,18 +279,87 @@ class ServeEngine:
             if done_h[slot]:
                 self._finish(st, slot, now)
 
+    def _step_spec(self, st: _SchedState):
+        """Speculative twin of :meth:`_step`: one propose + verify + accept
+        step commits 1..spec_k tokens per live slot, then the one host
+        transfer (window tokens, commit, done, bad) per slot.  Pages
+        mapped for the window whose rows were all rejected go back to the
+        allocator (write-then-retract)."""
+        needed = max(st.slot_pos[s] for s in st.live) + self.spec_k
+        attend = self._attend_len(needed)
+        if st.mgr.dirty:
+            st.bt_dev = st.mgr.device_tables(self.device)
+        (targets, commit, st.tok, st.pos, st.remaining, done,
+         bad) = self._spec_step(
+            self.params, self.draft_params, st.pool, st.draft_cache, st.bt_dev,
+            st.tok, st.pos, st.remaining, st.spec_mask, attend)
+        host = torch.cat([targets, torch.stack(
+            [commit, done.to(torch.int32), bad.to(torch.int32)], dim=1)],
+            dim=1).cpu().numpy()
+        targets_h, (commit_h, done_h, bad_h) = host[:, :-3], host[:, -3:].T
+        now = time.perf_counter() - st.t0
+        for slot, req in list(st.live.items()):
+            if bad_h[slot]:
+                self._fail(st, slot, req, "nan-logits")
+                continue
+            c = int(commit_h[slot])
+            req.generated.extend(int(x) for x in targets_h[slot, :c])
+            st.slot_pos[slot] += c
+            s = st.stats[req.uid]
+            s["spec_steps"] = s.get("spec_steps", 0) + 1
+            s["spec_tokens"] = s.get("spec_tokens", 0) + c
+            self._spec_governor(st, slot, req, c)
+            if done_h[slot]:
+                self._finish(st, slot, now)
+            else:
+                st.mgr.retract_above(slot, st.slot_pos[slot])
+        self._spec_cooldown_tick(st)
+
+    def _spec_governor(self, st: _SchedState, slot: int, req: Request,
+                       committed: int):
+        """Per-request acceptance governor: when a speculating request's
+        last SPEC_DISABLE_WINDOW windows averaged <= 1 committed token, its
+        draft is wasted work; turn speculation off for it (it commits one
+        token per step, like spec=False) for SPEC_COOLDOWN steps."""
+        if not req.spec or req.uid in st.spec_disabled:
+            return
+        hist = st.spec_hist.setdefault(req.uid, deque(maxlen=SPEC_DISABLE_WINDOW))
+        hist.append(committed)
+        if len(hist) == SPEC_DISABLE_WINDOW and sum(hist) <= len(hist):
+            st.spec_mask[slot] = False
+            st.spec_disabled[req.uid] = SPEC_COOLDOWN
+            s = st.stats[req.uid]
+            s["spec_auto_disables"] = s.get("spec_auto_disables", 0) + 1
+            hist.clear()
+
+    def _spec_cooldown_tick(self, st: _SchedState):
+        """Advance the cooldowns; an expired one re-arms its request's
+        speculative flag if the request is still live."""
+        for uid in list(st.spec_disabled):
+            st.spec_disabled[uid] -= 1
+            if st.spec_disabled[uid] <= 0:
+                del st.spec_disabled[uid]
+                for slot, req in st.live.items():
+                    if req.uid == uid and req.spec:
+                        st.spec_mask[slot] = True
+
     def _finish(self, st: _SchedState, slot: int, now: float):
         req = st.live.pop(slot)
         st.results[req.uid] = req.generated
         if st.mgr is not None:
             st.mgr.release(slot)
+        st.spec_hist.pop(req.uid, None)
         s = st.stats[req.uid]
         s.update(status=STATUS_OK, finished_s=now, tokens=len(req.generated))
+        if s.get("spec_steps"):
+            # mean committed tokens per window (1..spec_k)
+            s["accept_rate"] = s["spec_tokens"] / s["spec_steps"]
 
     def _fail(self, st: _SchedState, slot: int, req: Request, reason: str):
         st.live.pop(slot, None)
         if st.mgr is not None:
             st.mgr.release(slot)
+        st.spec_hist.pop(req.uid, None)
         st.stats[req.uid].update(status=STATUS_FAILED, reason=reason,
                                  finished_s=time.perf_counter() - st.t0,
                                  tokens=len(req.generated or []))
@@ -287,9 +415,8 @@ class ServeEngine:
         for i, r in enumerate(reqs):
             toks[i, :lens[i]] = r.prompt
         last_pos = torch.as_tensor([n - 1 for n in lens], device=self.device)
-        logits, pcache = self.model.prefill(
-            self.params, torch.as_tensor(toks, device=self.device), bucket,
-            last_pos)
+        toks = torch.as_tensor(toks, device=self.device)
+        logits, pcache = self.model.prefill(self.params, toks, bucket, last_pos)
         if st.mgr is not None:
             n_blocks = cdiv(bucket, self.page_size)
             page_idx = np.stack([st.mgr.prefill_page_idx(s, n_blocks)
@@ -299,9 +426,20 @@ class ServeEngine:
             # positions past the bucket keep an earlier occupant's rows;
             # decode writes each position before any read reaches it
             write_slots(st.cache, pcache, slots)
+        if self.spec_k > 1:
+            # the draft proposes from its own dense cache: prefill it from
+            # the same padded batch (its logits are dropped; the first
+            # token is the target's), zeros to max_seq as the reference's
+            _, dcache = self.draft_model.prefill(self.draft_params, toks,
+                                                 self.max_seq, last_pos)
+            write_slots(st.draft_cache, dcache, slots)
         first = torch.argmax(logits, dim=-1).to(torch.int32)
         finite = torch.isfinite(logits).all(dim=-1)
         idx = torch.as_tensor(slots, device=self.device)
+        if self.spec_k > 1:
+            st.spec_mask[idx] = torch.as_tensor(
+                [r.spec and r.uid not in st.spec_disabled for r in reqs],
+                device=self.device)
         st.pos[idx] = torch.as_tensor(lens, dtype=torch.int32, device=self.device)
         st.tok[idx] = first
         st.remaining[idx] = torch.as_tensor(
@@ -316,13 +454,16 @@ class ServeEngine:
 
     # ----------------------------------------------------------- preemption
     def _grow_or_preempt(self, st: _SchedState):
-        """Step boundary: every live slot's next write position must be
-        mapped.  Grow on demand, oldest first; when the pool runs out,
-        preempt the newest live request (LIFO: the oldest always makes
+        """Step boundary: every live slot's next write span must be mapped,
+        one position for plain decode and ``spec_k`` for a speculative
+        window (positions past max_seq need no page; their writes land in
+        the trash page).  Grow on demand, oldest first; when the pool runs
+        out, preempt the newest live request (LIFO: the oldest always makes
         progress)."""
         for slot in sorted(st.live, key=lambda s: st.admit_seq[s]):
             while slot in st.live:
-                if st.mgr.ensure_block(slot, st.slot_pos[slot] // self.page_size):
+                first = st.slot_pos[slot]
+                if st.mgr.ensure_span(slot, first, first + self.spec_k - 1):
                     break
                 self._preempt(st, max(st.live, key=lambda s: st.admit_seq[s]))
 

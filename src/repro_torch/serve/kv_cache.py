@@ -1,7 +1,7 @@
 """Paged KV cache: block pool, host-side page allocator, block tables.
 
-Counterpart of ``repro.serve.kv_cache`` for what admission, growth and
-release use.  Layout contract (paged):
+Counterpart of ``repro.serve.kv_cache`` for what admission, growth,
+speculative write-then-retract and release use.  Layout contract (paged):
 
   cache = {"k_pages": (L, P, page_size, Hkv, D),
            "v_pages": (L, P, page_size, Hkv, D),
@@ -112,6 +112,7 @@ class PagedStats:
     peak_used_pages: int
     allocs: int
     frees: int
+    retracts: int     # pages taken back by speculative write-then-retract
 
 
 class PagedCacheManager:
@@ -128,6 +129,7 @@ class PagedCacheManager:
         self.tables = np.full((slots, self.max_blocks), TRASH_PAGE, np.int32)
         self.owned: List[List[int]] = [[] for _ in range(slots)]
         self.dirty = True
+        self.retract_count = 0    # pages taken back by speculative rollback
 
     def can_admit(self, prompt_len: int, headroom: int = 0) -> bool:
         """Enough free pages for a prompt, keeping ``headroom`` pages in
@@ -171,6 +173,40 @@ class PagedCacheManager:
         self.dirty = True
         return True
 
+    def ensure_span(self, slot: int, first_pos: int, last_pos: int) -> bool:
+        """Map every block covering positions [first_pos, last_pos], the
+        speculative window's write span.  False as soon as a block cannot
+        be granted (the engine preempts and retries); blocks mapped before
+        that stay mapped, since the retry needs them anyway."""
+        for blk in range(first_pos // self.page_size,
+                         last_pos // self.page_size + 1):
+            if not self.ensure_block(slot, blk):
+                return False
+        return True
+
+    def retract_above(self, slot: int, n_tokens: int) -> int:
+        """Speculative rollback: unmap every block holding only positions
+        >= ``n_tokens`` (write-then-retract).  A window maps blocks up to
+        pos + k - 1 before the verify step; when fewer tokens commit, the
+        tail blocks hold only rejected rows and a table edit hands their
+        pages back, no copies.  Stale rows in the kept boundary block are
+        overwritten by the next window (masked until then).  Returns the
+        number of pages retracted."""
+        keep = blocks_for(n_tokens, self.page_size)   # blocks [0, keep)
+        dropped = []
+        for blk in range(keep, self.max_blocks):
+            page = int(self.tables[slot, blk])
+            if page == TRASH_PAGE:
+                continue
+            self.tables[slot, blk] = TRASH_PAGE
+            self.owned[slot].remove(page)
+            dropped.append(page)
+        if dropped:
+            self.allocator.release(dropped)
+            self.retract_count += len(dropped)
+            self.dirty = True
+        return len(dropped)
+
     def release(self, slot: int):
         """Drop the slot's pages and point its table at trash."""
         if self.owned[slot]:
@@ -197,7 +233,7 @@ class PagedCacheManager:
         a = self.allocator
         return PagedStats(used_pages=a.used, free_pages=a.free,
                           peak_used_pages=a.peak_used, allocs=a.alloc_count,
-                          frees=a.free_count)
+                          frees=a.free_count, retracts=self.retract_count)
 
 
 # ---------------------------------------------------------------------------

@@ -72,3 +72,31 @@ def paged_decode_case(rng: np.random.Generator, b=2, hkv=2, g=2, d=64, ps=16,
     bt[1, :] = perm[4:4 + nb]
     pos = np.asarray([2 * ps + 5, nb * ps - 1], np.int32)
     return q, kp, vp, bt, pos
+
+
+def paged_verify_case(rng: np.random.Generator, t=4, b=3, hkv=2, g=2, d=64,
+                      ps=16, n_pages=14, nb=5):
+    """Inputs for paged verify tests, as numpy: (q (B, Hkv, T*G, D),
+    k_pages, v_pages, block_tables, pos).  Pages are mapped in shuffled
+    order.  Row 0's window ends inside block 2; the rest of that page, a
+    trash entry and a stale mapping past it hold garbage (1e6 keys, NaN
+    values), as does the trash page 0.  Row 1's window ends on the last
+    table position, and row 2's pos + T runs past the table (a finished
+    slot coasting).  A correct kernel reads none of the garbage."""
+    def rand(*shape):
+        return rng.standard_normal(shape).astype(np.float32)
+
+    q = rand(b, hkv, t * g, d)
+    kp, vp = rand(n_pages, ps, hkv, d), rand(n_pages, ps, hkv, d)
+    perm = rng.permutation(np.arange(1, n_pages))
+    bt = np.zeros((b, nb), np.int32)
+    bt[0, :3] = perm[:3]                        # row 0 live through block 2
+    bt[0, 3:] = [0, perm[3]]                    # trash + a stale mapping
+    for r in range(1, b):                       # clean pages, maybe shared
+        bt[r, :] = rng.permutation(perm[4:])[:nb]
+    pos = np.asarray([2 * ps + 3, nb * ps - t, nb * ps - 1][:b], np.int32)
+    last0 = int(pos[0]) + t - 1
+    for page, rows in ((0, slice(None)), (bt[0, 2], slice(last0 % ps + 1, None)),
+                       (bt[0, 4], slice(None))):
+        kp[page, rows], vp[page, rows] = 1e6, np.nan
+    return q, kp, vp, bt, pos

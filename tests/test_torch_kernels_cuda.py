@@ -34,9 +34,13 @@ from repro_torch.kernels.rmsnorm.ops import rmsnorm  # noqa: E402
 from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref  # noqa: E402
 from repro_torch.kernels.tile_reduce.ops import tile_reduce  # noqa: E402
 from repro_torch.kernels.tile_reduce.ref import tile_reduce_ref  # noqa: E402
+from repro_torch.kernels.verify_attention.ops import paged_flash_verify  # noqa: E402
+from repro_torch.kernels.verify_attention.ref import (  # noqa: E402
+    paged_verify_attention_ref,
+)
 from repro_torch.kernels.warp_ops.ops import shfl, vote  # noqa: E402
 from repro_torch.kernels.warp_ops.ref import shfl_ref, vote_ref  # noqa: E402
-from repro_torch.testing import paged_decode_case  # noqa: E402
+from repro_torch.testing import paged_decode_case, paged_verify_case  # noqa: E402
 
 
 def _rand(rng, *shape):
@@ -60,6 +64,12 @@ def _cuda(a, dtype):
 
 def _close(got, want, dtype):
     torch.testing.assert_close(got.float(), want.float(), **CUDA_TOL[dtype])
+
+
+def _to_cuda(tree):
+    if isinstance(tree, dict):
+        return {k: _to_cuda(v) for k, v in tree.items()}
+    return tree.to("cuda")
 
 
 @pytest.mark.cuda
@@ -134,6 +144,65 @@ def test_cuda_paged_decode_matches_plain(dtype):
         paged_flash_decode(*args, bt_c, pos_c, k_scales=scales, v_scales=scales)
 
 
+def _verify_args(t, g, d, dtype, seed=5, **kw):
+    q, kp, vp, bt, pos = paged_verify_case(np.random.default_rng(seed), t=t,
+                                           g=g, d=d, **kw)
+    return ([_cuda(a, dtype) for a in (q, kp, vp)]
+            + [torch.as_tensor(a, device="cuda") for a in (bt, pos)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("g", [1, 6])
+@pytest.mark.parametrize("t", [1, 2, 4])
+def test_cuda_paged_verify_matches_plain(t, g, d, dtype):
+    """Garbage (1e6 keys, NaN values) in the trash page, in the rows past
+    a window's last position and in a stale mapping past it; one slot's
+    window ends on the table's last position and one runs past it."""
+    requires_cuda()
+    args = _verify_args(t, g, d, dtype)
+    before = paged_flash_verify.launches
+    got = paged_flash_verify(*args, t_window=t)
+    torch.cuda.synchronize()
+    assert paged_flash_verify.launches == before + 1
+    assert got.shape == args[0].shape and torch.isfinite(got).all()
+    _close(got, paged_verify_attention_ref(*args, t), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_cuda_paged_verify_row_limit(dtype):
+    """T*G = 32 rows (one warp each, 49 KB of shared memory at D = 128 in
+    f32) is the largest the kernel takes; above it the wrapper raises."""
+    requires_cuda()
+    args = _verify_args(4, 8, 128, dtype, hkv=1)
+    got = paged_flash_verify(*args, t_window=4)
+    torch.cuda.synchronize()
+    _close(got, paged_verify_attention_ref(*args, 4), dtype)
+    args = _verify_args(3, 11, 64, dtype, hkv=1)
+    with pytest.raises(ValueError, match="<= 32"):
+        paged_flash_verify(*args, t_window=3)
+    with pytest.raises(ValueError, match="multiple of t_window"):
+        paged_flash_verify(*args, t_window=2)
+    scales = torch.ones(args[1].shape[:2], device="cuda")
+    with pytest.raises(NotImplementedError, match="A9"):
+        paged_flash_verify(*args, t_window=3, k_scales=scales, v_scales=scales)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g", [1, 6])
+def test_cuda_verify_window_of_one_is_paged_decode(g):
+    """T = 1 verify against the paged decode kernel in f32 (the reference's
+    bitwise form of this property fails on the reference itself)."""
+    requires_cuda()
+    args = _verify_args(1, g, 128, torch.float32)
+    got = paged_flash_verify(*args, t_window=1)
+    want = paged_flash_decode(*args)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, atol=1e-6, rtol=1e-6)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("kw", [
     dict(),
@@ -154,11 +223,6 @@ def test_cuda_serve_through_kernels_matches_cpu_plain_path(kw):
     cpu = Model(cfg, device="cpu", dtype=torch.float32)
     params = cpu.init(torch.Generator().manual_seed(0))
 
-    def to_cuda(tree):
-        if isinstance(tree, dict):
-            return {k: to_cuda(v) for k, v in tree.items()}
-        return tree.to("cuda")
-
     rng = np.random.default_rng(3)
     spec = [(i, rng.integers(0, cfg.vocab, int(rng.integers(3, 20))).tolist(),
              int(rng.integers(2, 9))) for i in range(6)]
@@ -169,13 +233,51 @@ def test_cuda_serve_through_kernels_matches_cpu_plain_path(kw):
 
     want, want_eng = serve(cpu, params)
     kernels.reset_launches()
-    got, eng = serve(Model(cfg, dtype=torch.float32), to_cuda(params))
+    got, eng = serve(Model(cfg, dtype=torch.float32), _to_cuda(params))
     counts = kernels.launch_counts()
     assert got == want
     assert eng.preemptions == want_eng.preemptions
     assert eng.preemptions >= (1 if kw else 0)
     decode = "paged_flash_decode" if kw else "flash_decode"
     for name in ("rmsnorm", "flash_attention_fwd", decode):
+        assert counts[name] > 0, name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("num_pages", [None, 5], ids=["paged", "paged-preempt"])
+def test_cuda_spec_serve_through_kernels_matches_cpu_plain_path(num_pages):
+    """Speculative serving on the card, the verify window through
+    paged_flash_verify and the draft through flash_decode, gives exactly
+    the greedy tokens of the CPU plain path's non-speculative engine.
+    Reduced qwen2 in fp32, spec_k = 4, a 2-layer self draft."""
+    requires_cuda()
+    from repro_torch import kernels
+    from repro_torch.configs import reduced_config
+    from repro_torch.models.lm import Model
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    cfg = reduced_config("qwen2-1.5b")
+    cpu = Model(cfg, device="cpu", dtype=torch.float32)
+    params = cpu.init(torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(3)
+    spec = [(i, rng.integers(0, cfg.vocab, int(rng.integers(3, 20))).tolist(),
+             int(rng.integers(2, 9))) for i in range(6)]
+
+    def serve(model, p, **kw):
+        eng = ServeEngine(model, p, max_seq=48, batch_slots=3, **kw)
+        return eng.serve([Request(u, list(t), n) for u, t, n in spec]), eng
+
+    want, _ = serve(cpu, params)
+    kernels.reset_launches()
+    got, eng = serve(Model(cfg, dtype=torch.float32), _to_cuda(params),
+                     cache_layout="paged", page_size=8, num_pages=num_pages,
+                     spec_k=4, draft="self:2")
+    counts = kernels.launch_counts()
+    assert got == want
+    assert eng.preemptions >= (1 if num_pages else 0)
+    assert eng.last_pool_stats.used_pages == 0
+    for name in ("rmsnorm", "flash_attention_fwd", "flash_decode",
+                 "paged_flash_verify"):
         assert counts[name] > 0, name
 
 
@@ -320,7 +422,8 @@ def test_port_imports_neither_jax_nor_repro():
     assert len(mods) >= 30
     for name in ("core", "core.primitives", "core.sw_backend", "bench",
                  "bench.fig5_microbench", "kernels.warp_ops.ops",
-                 "kernels.tile_reduce.ops", "kernels.mse.ops", "kernels.matmul.ops"):
+                 "kernels.tile_reduce.ops", "kernels.mse.ops", "kernels.matmul.ops",
+                 "kernels.verify_attention.ops", "serve.spec_decode"):
         assert f"repro_torch.{name}" in mods, name
 
 
