@@ -3,12 +3,13 @@
     python3 chip_smoke.py [--seed N]
 
 Builds the port's CUDA kernels from ``src/repro_torch/kernels`` and drives
-its two paths:
+its paths:
 
 1. Kernels.  Each kernel against its plain PyTorch version on the card
    (max error, times, the least time the card could take, and one PyTorch
    library call as a yardstick): the four serving kernels at the serving
-   path's shapes, the five warp-feature kernels (shfl, vote, tile_reduce,
+   path's shapes, the flash backward at one training layer call's shape,
+   the five warp-feature kernels (shfl, vote, tile_reduce,
    mse_partial_sum, matmul) at sizes where launch latency does not
    dominate.
 2. The paper's layer: Figure 5 (``repro_torch.bench.fig5_microbench``) at
@@ -36,6 +37,17 @@ its two paths:
    path and plain path, against the decode-step logits.  It fails unless
    every request finishes, the verify kernel launched, (a) preempted and
    both pools drained, and the verify logits stay within the tolerance.
+5. Training (``train ...`` lines): full-width, full-depth qwen2-1.5b with
+   fp32 master weights and AdamW state, bf16 compute, remat per layer and
+   the 8-chunk loss, at the reference's train_4k length (S 4096; batch 2,
+   cut from the reference's 256).  First one gradient on one batch twice
+   on the same weights, kernel path and plain path (tf32 off), held to
+   the loss, global-norm, per-leaf cosine and per-leaf norm-difference
+   gates below, and a faulted control that must trip them; then
+   ``Trainer.run`` for 4 steps (loss, lr, grad_norm, ms, tokens/s, peak
+   memory, launches); then one profiled step.  It fails on a non-finite
+   loss or unless every layer's backward went through
+   ``flash_attention_bwd``.
 
 Details land in ``build/chip_smoke.json`` (git-ignored).  The
 second-to-last lines are the kernels' JSON record and the card's name and
@@ -97,6 +109,33 @@ SPEC_K = 4
 # verify kernel at T = 1 against the paged decode kernel in f32: the same
 # loop in the same order, so they agree to a few f32 ulps or exactly
 T1_TOL = 1e-6
+# flash backward vs its plain version: both widen the same bf16 inputs
+# and return f32 sums over up to 4096 keys (dq) or 6 x 4096 query rows
+# (dk/dv) taken in another order, ~1e-5 of the sums' magnitude (<= ~10);
+# a wrong mask, tile edge or group sum moves entries by O(0.1-1)
+BWD_TOL = dict(atol=1e-3, rtol=1e-3)
+# training: the reference's train_4k sequence (config.py:148); its global
+# batch of 256 is a pod's, cut to 2 for one card
+TRAIN_SEQ = 4096
+TRAIN_BATCH = 2
+TRAIN_STEPS = 4
+VOCAB_CHUNKS = 8
+# one gradient, kernel path vs plain path, bf16 compute through 28
+# layers: the paths round to bf16 at the same points and differ only in
+# the order of fp32 sums, so an occasional bf16 ulp flips and spreads.
+# Each gate is ~10x this phase's sound reading on an H100 (PERF.md): loss
+# 2.9e-6, global norm 3.8e-5 relative, and at layers.attn.bk 1 - cosine
+# 4.1e-5 and a norm difference of 9.1e-3 relative.  The loss cannot see
+# the backward (at random weights it sits near ln V whatever attention
+# computes) and the cosine is blind to a wrong scale; the per-leaf norm
+# difference is not, and a faulted control (dk scaled by GRAD_FAULT_DK
+# in the backward) must trip a gate, or the gates are blind and the
+# phase fails.
+GRAD_LOSS_TOL = 3e-5          # absolute, on a loss of ~12 (ln 151936)
+GRAD_NORM_TOL = 4e-4          # global norms, relative
+GRAD_COS_MIN = 1 - 4e-4       # smallest per-leaf cosine similarity
+GRAD_LEAF_TOL = 0.09          # largest per-leaf |a - b| / |b|
+GRAD_FAULT_DK = 1.25          # the control's wrong dk scale
 
 
 def fail(msg: str):
@@ -185,8 +224,14 @@ def check_kernels(cfg, gen: torch.Generator):
         flash_decode_ref,
         paged_flash_decode_ref,
     )
-    from repro_torch.kernels.flash_attention.ops import flash_attention_fwd
-    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.kernels.flash_attention.ops import (
+        flash_attention_bwd,
+        flash_attention_fwd,
+    )
+    from repro_torch.kernels.flash_attention.ref import (
+        flash_attention_bwd_ref,
+        flash_attention_ref,
+    )
     from repro_torch.kernels.rmsnorm.ops import rmsnorm
     from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
     from repro_torch.kernels.verify_attention.ops import paged_flash_verify
@@ -205,6 +250,19 @@ def check_kernels(cfg, gen: torch.Generator):
 
     def record(name, source, replaces, got, want, *args):
         record_kernel(rows, name, source, replaces, got, want, KERNEL_TOL, *args)
+
+    def check(name, got, want, tol):
+        torch.cuda.synchronize()
+        err = max_err(got, want)
+        print(f"kernel {name}: max_abs_err={err:.3e} tol={tol}", flush=True)
+        if not agrees(got, want, tol):
+            fail(f"{name} disagrees with its plain version beyond {tol}")
+
+    # training's rmsnorm: bf16 rows of one 2 x 4096 batch, fp32 weight
+    xt, wt = randn(TRAIN_BATCH * TRAIN_SEQ, d), torch.randn(d, generator=gen, device=dev)
+    check("rmsnorm bf16 rows, f32 weight (training)", rmsnorm(xt, wt, cfg.norm_eps),
+          rmsnorm_ref(xt, wt, cfg.norm_eps), KERNEL_TOL)
+    del xt, wt
 
     # rmsnorm: ln1/ln2 over a prefill batch of 4 x 512 rows
     x, w = randn(b * s, d), randn(d)
@@ -235,6 +293,46 @@ def check_kernels(cfg, gen: torch.Generator):
            4 * dh * b * hq * s * (s + 1) // 2, BF16_FLOPS_S,
            cuda_ms(lambda: F.scaled_dot_product_attention(
                qt, kt, vt, is_causal=True, enable_gqa=True)))
+
+    # flash backward: one training layer call, B 2 x S 4096, causal, 12 q
+    # heads over 2 kv; lse and o from the forward kernel
+    bt_, st_ = TRAIN_BATCH, TRAIN_SEQ
+    qb, dob = randn(bt_, st_, hq, dh), randn(bt_, st_, hq, dh)
+    kb, vb = randn(bt_, st_, hkv, dh), randn(bt_, st_, hkv, dh)
+    ob, lseb = flash_attention_fwd(qb, kb, vb)
+    ob_ref, lseb_ref = flash_attention_ref(qb, kb, vb)
+    check("flash_attention_fwd (training)", ob, ob_ref, KERNEL_TOL)
+    check("flash_attention_fwd lse (training)", lseb, lseb_ref, dict(atol=1e-3, rtol=0.0))
+    del ob_ref, lseb_ref
+    delta = (dob.float() * ob.float()).sum(-1).transpose(1, 2).contiguous()
+    bwd_args = (qb, kb, vb, dob, lseb, delta)
+    got = torch.cat([t.flatten() for t in flash_attention_bwd(*bwd_args)])
+    want = torch.cat([t.flatten() for t in flash_attention_bwd_ref(*bwd_args)])
+    torch.cuda.synchronize()
+    qt, kt, vt = (a.transpose(1, 2).detach().requires_grad_() for a in (qb, kb, vb))
+    dot = dob.transpose(1, 2)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                              enable_gqa=True)
+
+    def sdpa_fwd_bwd():
+        torch.autograd.grad(sdpa(), (qt, kt, vt), dot)
+
+    # the function's five products (s, dp, dq, dk, dv) of 2 * D flops per
+    # live (query, key) pair
+    pairs = bt_ * hq * st_ * (st_ + 1) // 2
+    row_bytes = 2 * bt_ * hq * st_ * 4                 # lse, delta
+    record_kernel(rows, "flash_attention_bwd",
+                  "src/repro_torch/kernels/flash_attention/flash_attention_bwd.cu",
+                  "src/repro/kernels/flash_attention/flash_attention.py:306", got, want,
+                  BWD_TOL, cuda_ms(lambda: flash_attention_bwd(*bwd_args), iters=5, warmup=1),
+                  cuda_ms(lambda: flash_attention_bwd_ref(*bwd_args), iters=5, warmup=1),
+                  (2 * qb.numel() + 2 * kb.numel()) * bs + row_bytes
+                  + (qb.numel() + 2 * kb.numel()) * 4,
+                  10 * dh * pairs, BF16_FLOPS_S,
+                  cuda_ms(sdpa_fwd_bwd, iters=5, warmup=1) - cuda_ms(sdpa, iters=5, warmup=1))
+    del qb, dob, kb, vb, ob, lseb, delta, bwd_args, got, want, qt, kt, vt, dot
 
     # decode at the serving path's positions: one query per slot against
     # the dense cache sliced to the attend bucket (a strided view)
@@ -633,8 +731,6 @@ def where_time_goes(model, params, gen):
     and the two halves of a speculative step (a 14-layer self-draft decode
     step, three per window, and one spec_k = 4 verify step over the paged
     cache) on the kernel path; their ratio is the device's busy share."""
-    from torch.profiler import ProfilerActivity, profile
-
     from repro_torch.serve.spec_decode import make_self_draft
 
     pos = torch.tensor([543, 400, 300, 64], dtype=torch.int32, device="cuda")
@@ -658,29 +754,190 @@ def where_time_goes(model, params, gen):
                 dparams, dcache, tok, pos, attend_len=MAX_SEQ), 10),
             ("verify_step_T4", lambda: model.decode_verify_step(
                 params, pcache, win, pos, attend_len=MAX_SEQ), 10)):
+        phases[name] = profile_phase(name, fn, n)
+    return phases
+
+
+def profile_phase(name, fn, n: int) -> dict:
+    """Host wall time of ``n`` calls of ``fn`` after one warm-up call,
+    ended by a synchronize, then the summed device kernel time of ``n``
+    more under torch.profiler; prints the ``time`` line and returns both,
+    the busy share and the largest kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
         fn()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / n
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / n
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(n):
-                fn()
-            torch.cuda.synchronize()
-        events = prof.key_averages()
-        dev_ms = sum(_kernel_us(e) for e in events) / 1e3 / n
-        top = sorted(events, key=_kernel_us, reverse=True)[:8]
-        phases[name] = dict(wall_ms=wall_ms, device_ms=dev_ms, top=[
-            (e.key[:70], _kernel_us(e) / 1e3 / n) for e in top
-            if _kernel_us(e) > 0])
-        busy = f"{dev_ms / wall_ms:.3f}" if dev_ms > 0 else "not measured"
-        print(f"time {name}: wall {wall_ms:.3f} ms, device kernels {dev_ms:.3f} ms, "
-              f"device busy share {busy}; top: "
-              + "; ".join(f"{k} {ms:.3f}" for k, ms in phases[name]["top"]),
-              flush=True)
-    return phases
+    events = prof.key_averages()
+    dev_ms = sum(_kernel_us(e) for e in events) / 1e3 / n
+    top = sorted(events, key=_kernel_us, reverse=True)[:8]
+    rec = dict(wall_ms=wall_ms, device_ms=dev_ms, top=[
+        (e.key[:70], _kernel_us(e) / 1e3 / n) for e in top if _kernel_us(e) > 0])
+    busy = f"{dev_ms / wall_ms:.3f}" if dev_ms > 0 else "not measured"
+    print(f"time {name}: wall {wall_ms:.3f} ms, device kernels {dev_ms:.3f} ms, "
+          f"device busy share {busy}; top: "
+          + "; ".join(f"{k} {ms:.3f}" for k, ms in rec["top"]), flush=True)
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# phase 4: training through the flash backward
+# ---------------------------------------------------------------------------
+
+def grad_readings(k_loss, k_grads, p_loss, p_grads) -> dict:
+    """Kernel-path loss and gradients against the plain path's: the loss
+    difference, the global norms' relative difference, and per leaf the
+    cosine similarity and the relative norm of the difference."""
+    from repro_torch.optim.optimizer import global_norm, named_leaves
+
+    k_norm, p_norm = global_norm(k_grads).item(), global_norm(p_grads).item()
+    p_named = dict(named_leaves(p_grads))
+    cos, rel = {}, {}
+    for path, a in named_leaves(k_grads):
+        a, b = a.flatten().double(), p_named[path].flatten().double()
+        cos[path] = torch.nn.functional.cosine_similarity(a, b, dim=0).item()
+        rel[path] = ((a - b).norm() / b.norm()).item()
+    worst_cos, worst_rel = min(cos, key=cos.get), max(rel, key=rel.get)
+    return dict(kernel_loss=k_loss, plain_loss=p_loss,
+                loss_diff=abs(k_loss - p_loss), kernel_grad_norm=k_norm,
+                plain_grad_norm=p_norm, grad_norm_rel_diff=abs(k_norm - p_norm) / p_norm,
+                min_cosine=cos[worst_cos], min_cosine_leaf=worst_cos,
+                max_leaf_rel_diff=rel[worst_rel], max_leaf_rel_diff_leaf=worst_rel,
+                cosines=cos, leaf_rel_diffs=rel)
+
+
+def tripped_gates(r: dict) -> list:
+    """The gradient gates that reading ``r`` does not pass."""
+    gates = [("loss", r["loss_diff"] <= GRAD_LOSS_TOL),
+             ("global norm", r["grad_norm_rel_diff"] <= GRAD_NORM_TOL),
+             ("leaf cosine", r["min_cosine"] >= GRAD_COS_MIN),
+             ("leaf norm difference", r["max_leaf_rel_diff"] <= GRAD_LEAF_TOL)]
+    return [name for name, ok in gates if not ok]
+
+
+def print_readings(label: str, r: dict):
+    print(f"train grad check {label} (tf32 off): loss kernel {r['kernel_loss']:.6f} "
+          f"plain {r['plain_loss']:.6f} diff {r['loss_diff']:.3e} (tol {GRAD_LOSS_TOL}); "
+          f"grad norm kernel {r['kernel_grad_norm']:.6f} plain "
+          f"{r['plain_grad_norm']:.6f} rel diff {r['grad_norm_rel_diff']:.3e} "
+          f"(tol {GRAD_NORM_TOL}); min leaf cosine 1 - {1 - r['min_cosine']:.3e} at "
+          f"{r['min_cosine_leaf']} (min 1 - {1 - GRAD_COS_MIN:.1e}); max leaf norm "
+          f"difference {r['max_leaf_rel_diff']:.3e} at {r['max_leaf_rel_diff_leaf']} "
+          f"(tol {GRAD_LEAF_TOL}); gates tripped {tripped_gates(r)}", flush=True)
+
+
+def compare_grads(model, plain, params, batch) -> dict:
+    """One gradient on one batch through the kernel path and through the
+    plain path, same weights, held to the gates; then the faulted control
+    (the kernel path with dk scaled by GRAD_FAULT_DK in every layer's
+    backward), which must trip a gate."""
+    from repro_torch.kernels.flash_attention.ops import FlashAttention
+    from repro_torch.train.step import make_grad_fn
+
+    def grads(m):
+        loss, g = make_grad_fn(m, vocab_chunks=VOCAB_CHUNKS)(params, batch)
+        return loss.item(), g
+
+    p_loss, p_grads = grads(plain)
+    sound = grad_readings(*grads(model), p_loss, p_grads)
+    print_readings("sound", sound)
+    if not (np.isfinite(sound["kernel_loss"]) and np.isfinite(p_loss)):
+        fail("non-finite loss in the gradient check")
+    if tripped_gates(sound):
+        fail(f"kernel-path gradients fail the gates {tripped_gates(sound)}")
+
+    backward = FlashAttention.backward
+
+    def faulted(ctx, do):
+        dq, dk, *rest = backward(ctx, do)
+        return (dq, dk * GRAD_FAULT_DK, *rest)
+
+    FlashAttention.backward = staticmethod(faulted)
+    try:
+        control = grad_readings(*grads(model), p_loss, p_grads)
+    finally:
+        FlashAttention.backward = staticmethod(backward)
+    print_readings(f"control (dk x {GRAD_FAULT_DK})", control)
+    if not tripped_gates(control):
+        fail(f"the gradient gates pass a backward with dk x {GRAD_FAULT_DK}")
+    return dict(sound=sound, control=control)
+
+
+def run_training(cfg, seed: int):
+    """Full-width qwen2-1.5b training on one card: the gradient check,
+    TRAIN_STEPS Trainer steps, one profiled step.  Returns the record and
+    the launch counts of the Trainer run."""
+    from repro_torch import kernels
+    from repro_torch.data.pipeline import DataConfig, SyntheticPipeline
+    from repro_torch.models.lm import Model
+    from repro_torch.optim.optimizer import AdamWConfig, init_adamw, leaves
+    from repro_torch.train.step import TrainState, make_train_step
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    torch.backends.cuda.matmul.allow_tf32 = False     # fp32 products in full fp32
+    kw = dict(device="cuda", dtype=torch.bfloat16, param_dtype=torch.float32)
+    model = Model(cfg, **kw)                           # remat on, as the reference
+    params = model.init(torch.Generator(device="cuda").manual_seed(seed))
+    n_params = sum(p.numel() for p in leaves(params))
+    data = SyntheticPipeline(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                                        global_batch=TRAIN_BATCH, seed=seed))
+    print(f"train model: {ARCH} layers={cfg.n_layers} d_model={cfg.d_model} "
+          f"params={n_params} fp32 master weights + AdamW, bf16 compute, remat, "
+          f"batch {TRAIN_BATCH} x seq {TRAIN_SEQ}, {VOCAB_CHUNKS} vocab chunks",
+          flush=True)
+    batch = {k: v.cuda() for k, v in data.batch_at(0).items()}
+    grads = compare_grads(model, Model(cfg, use_kernels=False, **kw), params, batch)
+
+    opt = AdamWConfig(lr=3e-4, warmup_steps=1, total_steps=TRAIN_STEPS)
+    trainer = Trainer(model, data, opt, TrainerConfig(total_steps=TRAIN_STEPS,
+                                                      vocab_chunks=VOCAB_CHUNKS))
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+
+    def log(step, m):
+        print(f"train step {step}: loss {m['loss']:.6f} lr {m['lr']:.3e} grad_norm "
+              f"{m['grad_norm']:.6f} {m['step_time_s'] * 1e3:.1f} ms "
+              f"{tokens / m['step_time_s']:.1f} tokens/s", flush=True)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    state, hist = trainer.run(start_state=TrainState(params, init_adamw(params)),
+                              on_metrics=log)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    print(f"train: {len(hist)} steps, peak memory {peak / 2 ** 30:.2f} GiB; launches "
+          f"rmsnorm {counts['rmsnorm']} flash_attention_fwd "
+          f"{counts['flash_attention_fwd']} flash_attention_bwd "
+          f"{counts['flash_attention_bwd']}", flush=True)
+    losses = [m["loss"] for _, m in hist]
+    if len(hist) != TRAIN_STEPS or not np.isfinite(losses).all():
+        fail(f"training gave losses {losses}")
+    if counts["flash_attention_bwd"] != cfg.n_layers * TRAIN_STEPS:
+        fail(f"flash_attention_bwd launched {counts['flash_attention_bwd']} times, "
+             f"not once per layer per step")
+    if counts["flash_attention_fwd"] != 2 * cfg.n_layers * TRAIN_STEPS:
+        fail(f"flash_attention_fwd launched {counts['flash_attention_fwd']} times, "
+             f"not twice (forward, remat) per layer per step")
+    if counts["rmsnorm"] == 0:
+        fail("rmsnorm never launched while training")
+
+    step_fn = make_train_step(model, opt, vocab_chunks=VOCAB_CHUNKS)
+    batch = {k: v.cuda() for k, v in data.batch_at(TRAIN_STEPS).items()}
+    profile = profile_phase("train_step", lambda: step_fn(state, batch), 1)
+    times = [m["step_time_s"] for _, m in hist]
+    return dict(grad_check=grads, history=hist, peak_bytes=peak, n_params=n_params,
+                step_ms=[t * 1e3 for t in times],
+                tokens_s=[tokens / t for t in times], profile=profile,
+                counts=counts), counts
 
 
 def fig5_device_time(seed: int, iters: int = 5) -> dict:
@@ -730,6 +987,7 @@ def main():
         from repro_torch.kernels import build
         from repro_torch.models.layers import WarpFeatureConfig
         from repro_torch.models.lm import Model
+        from repro_torch.optim.optimizer import leaves
     except ImportError as exc:
         fail(f"cannot import the port from {ROOT / 'src'}: {exc}")
 
@@ -744,7 +1002,8 @@ def main():
     cfg = get_config(ARCH)
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     rows, t1_err = check_kernels(cfg, gen)
-    serving_kernels = tuple(k for k in rows if k != "paged_flash_verify")
+    serving_kernels = tuple(k for k in rows
+                            if k not in ("paged_flash_verify", "flash_attention_bwd"))
     rows.update(check_warp_kernels(gen))
 
     fig5_rows, fig5_counts = run_fig5(args.seed)
@@ -754,7 +1013,7 @@ def main():
 
     model = Model(cfg, device="cuda", dtype=torch.bfloat16)
     params = model.init(torch.Generator(device="cuda").manual_seed(args.seed))
-    n_params = sum(p.numel() for p in _leaves(params))
+    n_params = sum(p.numel() for p in leaves(params))
     print(f"model: {ARCH} layers={cfg.n_layers} d_model={cfg.d_model} "
           f"heads={cfg.n_heads}/{cfg.n_kv_heads} d_head={cfg.d_head} "
           f"d_ff={cfg.d_ff} vocab={cfg.vocab} params={n_params} dtype=bf16",
@@ -828,12 +1087,21 @@ def main():
 
     phases = where_time_goes(model, params, gen)
 
+    # the serving weights, engine and logits make way for training's
+    preemptions = eng.preemptions
+    del model, params, plain, m, eng, k_logits, p_logits, f_logits
+    torch.cuda.empty_cache()
+    train_rec, train_counts = run_training(cfg, args.seed)
+    phases["train_step"] = train_rec.pop("profile")
+    for name in ("rmsnorm", "flash_attention_fwd", "flash_attention_bwd"):
+        rows[name]["launches"] += train_counts[name]
+
     result = {"kernels": list(rows.values())}
     DETAILS.parent.mkdir(parents=True, exist_ok=True)
     DETAILS.write_text(json.dumps(dict(
         result, device=smi, phases=phases, dense_tok_s=dense_tok / dense_wall,
         paged_tok_s=paged_tok / paged_wall, dense_counts=dense_counts,
-        paged_counts=paged_counts, preemptions=eng.preemptions,
+        paged_counts=paged_counts, preemptions=preemptions, train=train_rec,
         num_pages=num_pages, teacher_forced_max_err=err, logit_scale=scale,
         fig5=fig5_rows, fig5_counts=fig5_counts, fig5_device=fig5_device,
         warp_forms=warp_forms, spec=spec_rec, verify_t1_err=t1_err), indent=1))
@@ -842,14 +1110,6 @@ def main():
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
-
-
-def _leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
-    else:
-        yield tree
 
 
 if __name__ == "__main__":

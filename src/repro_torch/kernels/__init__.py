@@ -13,7 +13,10 @@ from __future__ import annotations
 from typing import Dict
 
 from repro_torch.kernels.decode_attention.ops import flash_decode, paged_flash_decode
-from repro_torch.kernels.flash_attention.ops import flash_attention_fwd
+from repro_torch.kernels.flash_attention.ops import (
+    flash_attention_bwd,
+    flash_attention_fwd,
+)
 from repro_torch.kernels.matmul.ops import matmul
 from repro_torch.kernels.mse.ops import mse_partial_sum
 from repro_torch.kernels.rmsnorm.ops import rmsnorm
@@ -28,6 +31,8 @@ WRAPPERS = {
     "flash_decode": flash_decode,
     "paged_flash_decode": paged_flash_decode,
     "paged_flash_verify": paged_flash_verify,
+    # the training path
+    "flash_attention_bwd": flash_attention_bwd,
     # the paper's warp-feature layer (Fig. 5)
     "shfl": shfl,
     "vote": vote,

@@ -1,4 +1,7 @@
 // Row RMSNorm for Hopper: y = x * rsqrt(mean(x^2) + eps) * w, cast back.
+// The weight may be fp32 under bf16 rows (training's fp32 master weights):
+// it is multiplied in fp32 either way, as the Pallas kernel does
+// (rmsnorm.py:26).
 //
 // Replaces: src/repro/kernels/rmsnorm/rmsnorm.py::rmsnorm (Pallas,
 // rmsnorm_kernel), which every dense layer calls twice plus once for ln_f.
@@ -18,8 +21,8 @@ namespace {
 
 constexpr int kThreads = 256;
 
-template <typename T>
-__global__ void rmsnorm_kernel(const T* __restrict__ x, const T* __restrict__ w,
+template <typename T, typename W>
+__global__ void rmsnorm_kernel(const T* __restrict__ x, const W* __restrict__ w,
                                T* __restrict__ y, int d, float eps) {
   const int row = blockIdx.x;
   const T* xr = x + static_cast<long long>(row) * d;
@@ -48,21 +51,30 @@ __global__ void rmsnorm_kernel(const T* __restrict__ x, const T* __restrict__ w,
   }
 }
 
+template <typename T>
+void launch_rows(const void* x, const void* w, int w_dtype, void* y, int n_rows, int d,
+                 float eps, cudaStream_t s) {
+  if (w_dtype == repro::kBF16) {
+    rmsnorm_kernel<T, __nv_bfloat16><<<n_rows, kThreads, 0, s>>>(
+        static_cast<const T*>(x), static_cast<const __nv_bfloat16*>(w), static_cast<T*>(y),
+        d, eps);
+  } else {
+    rmsnorm_kernel<T, float><<<n_rows, kThreads, 0, s>>>(
+        static_cast<const T*>(x), static_cast<const float*>(w), static_cast<T*>(y), d, eps);
+  }
+}
+
 }  // namespace
 
+// x and y (n_rows, d) contiguous in dtype; w (d,) in w_dtype (f32 or bf16).
 extern "C" int repro_rmsnorm(const void* x, const void* w, void* y, int n_rows,
-                             int d, float eps, int dtype, void* stream) {
+                             int d, float eps, int dtype, int w_dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n_rows > 0) {
-    if (dtype == repro::kBF16) {
-      rmsnorm_kernel<__nv_bfloat16><<<n_rows, kThreads, 0, s>>>(
-          static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(w),
-          static_cast<__nv_bfloat16*>(y), d, eps);
-    } else {
-      rmsnorm_kernel<float><<<n_rows, kThreads, 0, s>>>(
-          static_cast<const float*>(x), static_cast<const float*>(w),
-          static_cast<float*>(y), d, eps);
-    }
+    if (dtype == repro::kBF16)
+      launch_rows<__nv_bfloat16>(x, w, w_dtype, y, n_rows, d, eps, s);
+    else
+      launch_rows<float>(x, w, w_dtype, y, n_rows, d, eps, s);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -6,7 +6,11 @@ same layouts: activations (B, S, H, D), weights (d_in, d_out) applied as
 
 Every attention call goes through a kernel wrapper (CUDA kernel on CUDA
 tensors, plain version on CPU tensors); ``use_kernel=False`` calls the
-plain versions directly on any device.
+plain versions directly on any device.  Prefill and training attention
+is differentiable on both routes: the kernel route through
+``FlashAttention`` (forward and backward kernels), the plain route
+through autograd.  Weights are cast to the activations' dtype at use, as
+the reference's ``x @ w.astype(x.dtype)`` does.
 """
 
 from __future__ import annotations
@@ -20,7 +24,7 @@ from repro_torch.kernels.decode_attention.ref import (
     flash_decode_ref,
     paged_flash_decode_ref,
 )
-from repro_torch.kernels.flash_attention.ops import flash_attention_fwd
+from repro_torch.kernels.flash_attention.ops import flash_mha
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 from repro_torch.kernels.verify_attention.ops import paged_flash_verify
 from repro_torch.kernels.verify_attention.ref import paged_verify_attention_ref
@@ -49,8 +53,9 @@ def gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     queries, offset or non-square causal windows) take a materialized
     softmax, the reference's jnp path."""
     if _flash_ok(q, k, causal, q_offset):
-        flash = flash_attention_fwd if use_kernel else flash_attention_ref
-        return flash(q, k, v, kv_valid_len, causal=causal)[0]
+        if use_kernel:
+            return flash_mha(q, k, v, kv_valid_len, causal=causal)
+        return flash_attention_ref(q, k, v, kv_valid_len, causal=causal)[0]
     b, sq, hq, d = q.shape
     skv, hkv = k.shape[1], k.shape[2]
     qg = q.float().reshape(b, sq, hkv, hq // hkv, d)
@@ -138,13 +143,14 @@ def gqa_qkv(params, x: torch.Tensor, cfg, positions: torch.Tensor,
             rope: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
     b, s, _ = x.shape
     hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
-    q = x @ params["wq"]
-    k = x @ params["wk"]
-    v = x @ params["wv"]
+    dt = x.dtype
+    q = x @ params["wq"].to(dt)
+    k = x @ params["wk"].to(dt)
+    v = x @ params["wv"].to(dt)
     if cfg.qkv_bias:
-        q = q + params["bq"]
-        k = k + params["bk"]
-        v = v + params["bv"]
+        q = q + params["bq"].to(dt)
+        k = k + params["bk"].to(dt)
+        v = v + params["bv"].to(dt)
     q = q.reshape(b, s, hq, dh)
     k = k.reshape(b, s, hkv, dh)
     v = v.reshape(b, s, hkv, dh)
@@ -159,4 +165,10 @@ def gqa_block_kv(params, x: torch.Tensor, cfg, *, use_kernel: bool = True):
     positions = torch.arange(s, device=x.device)
     q, k, v = gqa_qkv(params, x, cfg, positions)
     o = gqa_attention(q, k, v, causal=True, use_kernel=use_kernel)
-    return o.reshape(b, s, -1) @ params["wo"], (k, v)
+    return o.reshape(b, s, -1) @ params["wo"].to(x.dtype), (k, v)
+
+
+def gqa_block(params, x: torch.Tensor, cfg, *, use_kernel: bool = True) -> torch.Tensor:
+    """The training block: causal self-attention over positions 0..S-1,
+    no cache writes."""
+    return gqa_block_kv(params, x, cfg, use_kernel=use_kernel)[0]

@@ -13,7 +13,12 @@ reduction.  ``WarpFeatureConfig.reduction_backend`` picks how it runs:
   - 'sw':      the same groups reduced by the PR-transformation form
     (``core.sw_backend``: a loop over lanes and memory arrays).
 ``use_kernel=False`` calls the plain version whatever the config (the
-reference path a chip run compares the kernel path with).
+reference path a chip run compares the kernel path with).  Every form is
+differentiable: the kernel through ``rmsnorm.ops.RMSNorm`` (the
+reference's closed-form backward), the rest through autograd.  Weights
+are cast to the activations' dtype at use (fp32 master weights under
+bf16 compute), except the norm weight, which every form multiplies in
+fp32, as the reference does.
 """
 
 from __future__ import annotations
@@ -25,7 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core import primitives as P
-from repro_torch.kernels.rmsnorm.ops import rmsnorm as rmsnorm_kernel
+from repro_torch.kernels.rmsnorm.ops import rmsnorm_op
 from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
 
 REDUCTION_BACKENDS = (None, "kernel", "hw", "hw_warp", "sw")
@@ -78,7 +83,7 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6,
         return _rmsnorm_warp(x, w, eps, "sw", wf.warp_size)
     if backend == "hw_warp":
         return _rmsnorm_warp(x, w, eps, "hw", wf.warp_size)
-    return rmsnorm_kernel(x, w, eps)
+    return rmsnorm_op(x, w, eps)
 
 
 # ---------------------------------------------------------------------------
@@ -124,4 +129,5 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor):
 
 def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
            w_down: torch.Tensor) -> torch.Tensor:
-    return (F.silu(x @ w_gate) * (x @ w_up)) @ w_down
+    dt = x.dtype
+    return (F.silu(x @ w_gate.to(dt)) * (x @ w_up.to(dt))) @ w_down.to(dt)

@@ -6,6 +6,8 @@ the same functional interface and parameter pytree (a nested dict whose
 carry the reference's weights over leaf for leaf:
 
   init(gen)                                  -> params
+  backbone(params, batch)                    -> hidden (B, S, d)  [train]
+  forward(params, batch)                     -> logits (B, S, V)  [train]
   init_cache(B, max_seq, layout=...)         -> dense or paged cache
   prefill(params, tokens, max_seq, last_pos) -> (last logits (B, V), dense cache)
   decode_step(params, cache, tok, pos, attend_len) -> (logits (B, V), cache)
@@ -14,7 +16,9 @@ carry the reference's weights over leaf for leaf:
 
 Where the reference jits with donated buffers, the port writes cache rows
 in place (``ck[l, bidx, pos] = k``): ``decode_step`` returns the very
-cache dict it was given, updated.
+cache dict it was given, updated.  ``backbone`` and ``forward`` run with
+autograd (remat per layer, as the reference's ``jax.checkpoint`` of the
+scanned block); the serving entry points run without it.
 """
 
 from __future__ import annotations
@@ -22,10 +26,12 @@ from __future__ import annotations
 from typing import Any, Callable, Dict, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.attention import (
     decode_attention,
+    gqa_block,
     gqa_block_kv,
     gqa_qkv,
     paged_decode_attention,
@@ -44,46 +50,73 @@ from repro_torch.models.layers import (
 from repro_torch.serve.kv_cache import TRASH_PAGE, cdiv, init_page_pool
 
 Params = Dict[str, Any]
-# verify attention's lowerings: None follows Model.use_kernels
-VERIFY_BACKENDS = (None, "kernel", "torch")
+# one attention site's lowering (Model's attn_backend, verify_backend):
+# 'kernel' the CUDA kernel (its plain version on CPU tensors), 'torch' the
+# plain version on any device, None whatever Model.use_kernels says
+BACKENDS = (None, "kernel", "torch")
 
 
-def _layer(tree, l: int):
-    """Layer ``l``'s slice of the stacked (L, ...) layer leaves (views)."""
+def _unstack(tree) -> list:
+    """The per-layer slices (views) of the stacked (L, ...) layer leaves,
+    by one ``unbind`` per leaf: in training its backward stacks the L
+    layer gradients once, where L indexing views would each add a
+    full-size zero gradient."""
     if isinstance(tree, dict):
-        return {k: _layer(v, l) for k, v in tree.items()}
-    return tree[l]
+        per_key = {k: _unstack(v) for k, v in tree.items()}
+        n = len(next(iter(per_key.values())))
+        return [{k: v[l] for k, v in per_key.items()} for l in range(n)]
+    return list(torch.unbind(tree, 0))
 
 
 class Model:
     """Dense GQA decoder (qwen2-style: q/k/v biases, untied ``lm_head``).
 
     ``device`` defaults to ``cuda`` and raises without it; ``dtype`` is the
-    compute and storage dtype of weights, activations and caches.
+    compute dtype of activations and the storage dtype of caches;
+    ``param_dtype`` (None: ``dtype``) that of the weights, which every
+    site casts to ``dtype`` at use, as the reference's ``param_dtype`` /
+    ``compute_dtype`` pair (training: fp32 weights, bf16 compute).
     ``use_kernels=False`` routes every kernel site to its plain PyTorch
     version on any device (the reference path a chip run checks the
     kernels against); by default kernel wrappers are called, which run
-    their plain version only for CPU tensors.  ``wf`` picks the norm
-    reductions' HW/SW form (``layers.WarpFeatureConfig``), as the
-    reference's ``Model(wf=...)`` does."""
+    their plain version only for CPU tensors.  ``attn_backend`` (one of
+    ``BACKENDS``) picks prefill and training attention alone, as the
+    reference's ``attn_backend``.  ``wf`` picks the
+    norm reductions' HW/SW form (``layers.WarpFeatureConfig``), as the
+    reference's ``Model(wf=...)`` does.  ``remat`` recomputes each layer
+    in the backward pass (``torch.utils.checkpoint``), keeping only the
+    layer inputs alive."""
 
     def __init__(self, cfg: ModelConfig, *, device: DeviceLike = None,
-                 dtype: torch.dtype = torch.bfloat16, use_kernels: bool = True,
-                 wf: WarpFeatureConfig = DEFAULT_WF):
+                 dtype: torch.dtype = torch.bfloat16,
+                 param_dtype: Optional[torch.dtype] = None,
+                 use_kernels: bool = True, attn_backend: Optional[str] = None,
+                 wf: WarpFeatureConfig = DEFAULT_WF, remat: bool = True):
         if cfg.family != "dense":
             raise NotImplementedError(
                 f"family {cfg.family!r} is not ported yet (ROADMAP A14)")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.dtype = dtype
+        self.param_dtype = dtype if param_dtype is None else param_dtype
         self.use_kernels = use_kernels
+        self.attn_kernel = self.uses_kernel(attn_backend, "attn_backend")
         self.wf = wf
+        self.remat = remat
+
+    def uses_kernel(self, backend: Optional[str], what: str) -> bool:
+        """Whether an attention site lowered by ``backend`` (one of
+        ``BACKENDS``; ``what`` names it in the error) calls the kernel."""
+        if backend not in BACKENDS:
+            raise ValueError(f"{what} must be one of {BACKENDS}; got {backend!r}")
+        return self.use_kernels if backend is None else backend == "kernel"
 
     # ------------------------------------------------------------------ init
     def init(self, gen: torch.Generator) -> Params:
-        """Random weights with the reference's distributions, drawn from
-        ``gen`` (which must live on ``self.device``)."""
-        cfg, dev, dt = self.cfg, self.device, self.dtype
+        """Random weights in ``param_dtype`` with the reference's
+        distributions, drawn from ``gen`` (which must live on
+        ``self.device``)."""
+        cfg, dev, dt = self.cfg, self.device, self.param_dtype
         d, f, L = cfg.d_model, cfg.d_ff, cfg.n_layers
         hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
         kw = dict(device=dev, dtype=dt)
@@ -144,12 +177,40 @@ class Model:
 
     def _head(self, params, x: torch.Tensor) -> torch.Tensor:
         x = self._norm(x, params["ln_f"])
-        return (x @ params["lm_head"]).float()
+        return (x @ params["lm_head"].to(x.dtype)).float()
 
     def _mlp_residual(self, p, x: torch.Tensor) -> torch.Tensor:
         g = self._norm(x, p["ln2"])
         m = p["mlp"]
         return x + swiglu(g, m["w_gate"], m["w_up"], m["w_down"])
+
+    def _tf_block(self, p, x: torch.Tensor) -> torch.Tensor:
+        """One training layer: causal attention over the whole sequence
+        and the MLP, both pre-norm residual (the reference's
+        ``_tf_block``)."""
+        g = self._norm(x, p["ln1"])
+        x = x + gqa_block(p["attn"], g, self.cfg, use_kernel=self.attn_kernel)
+        return self._mlp_residual(p, x)
+
+    # -------------------------------------------------------------- forward
+    def backbone(self, params, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """Hidden states (B, S, d) for batch["tokens"] (B, S), no final
+        norm and no head, with autograd: the train step feeds them to a
+        vocab-chunked loss.  With ``remat`` each layer is recomputed in
+        the backward pass (its attention kernel included)."""
+        x = self._embed(params, batch["tokens"].to(self.device))
+        for p in _unstack(params["layers"]):
+            if self.remat:
+                # no randomness inside a layer: nothing to replay
+                x = checkpoint(self._tf_block, p, x, use_reentrant=False,
+                               preserve_rng_state=False)
+            else:
+                x = self._tf_block(p, x)
+        return x
+
+    def forward(self, params, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """Logits (B, S, V) in float32 for batch["tokens"] (B, S)."""
+        return self._head(params, self.backbone(params, batch))[..., :self.cfg.vocab]
 
     # --------------------------------------------------------------- prefill
     @torch.no_grad()
@@ -169,10 +230,9 @@ class Model:
         shape = (cfg.n_layers, b, max(max_seq, s), cfg.n_kv_heads, cfg.d_head)
         ck = torch.zeros(shape, dtype=self.dtype, device=self.device)
         cv = torch.zeros(shape, dtype=self.dtype, device=self.device)
-        for l in range(cfg.n_layers):
-            p = _layer(params["layers"], l)
+        for l, p in enumerate(_unstack(params["layers"])):
             g = self._norm(x, p["ln1"])
-            att, (k, v) = gqa_block_kv(p["attn"], g, cfg, use_kernel=self.use_kernels)
+            att, (k, v) = gqa_block_kv(p["attn"], g, cfg, use_kernel=self.attn_kernel)
             x = x + att
             ck[l, :, :s] = k
             cv[l, :, :s] = v
@@ -211,12 +271,11 @@ class Model:
         cfg = self.cfg
         b, s, _ = x.shape
         rope = rope_freqs(cfg.d_head, cfg.rope_theta, positions)
-        for l in range(cfg.n_layers):
-            p = _layer(params["layers"], l)
+        for l, p in enumerate(_unstack(params["layers"])):
             g = self._norm(x, p["ln1"])
             q, k, v = gqa_qkv(p["attn"], g, cfg, positions, rope=rope)
             o = write_attend(l, q, k, v)
-            x = x + o.reshape(b, s, -1) @ p["attn"]["wo"]
+            x = x + o.reshape(b, s, -1) @ p["attn"]["wo"].to(x.dtype)
             x = self._mlp_residual(p, x)
         return x
 
@@ -277,8 +336,7 @@ class Model:
         greedy longest-prefix acceptance equals non-speculative decode.
         Every window row's K/V is written through the block tables before
         the attention read; rejected rows are overwritten by later
-        windows.  ``verify_backend``: None (the model's ``use_kernels``),
-        'kernel' or 'torch' (the plain version on any device)."""
+        windows.  ``verify_backend``: one of ``BACKENDS``."""
         if "k_pages" not in cache:
             raise ValueError("decode_verify_step needs a paged cache "
                              "(k_pages/v_pages/block_tables); got leaves "
@@ -297,11 +355,7 @@ class Model:
         shared prefix's suffix through it; that arrives with ROADMAP A9.)"""
         if "k_scales" in cache:
             raise NotImplementedError("int8 pages are not ported yet (ROADMAP A9)")
-        if verify_backend not in VERIFY_BACKENDS:
-            raise ValueError(f"verify_backend must be one of {VERIFY_BACKENDS}; "
-                             f"got {verify_backend!r}")
-        use_kernel = (self.use_kernels if verify_backend is None
-                      else verify_backend == "kernel")
+        use_kernel = self.uses_kernel(verify_backend, "verify_backend")
         kp, vp, bt = cache["k_pages"], cache["v_pages"], cache["block_tables"]
         page_size = kp.shape[2]
         t = x.shape[1]

@@ -48,7 +48,6 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
-from repro_torch.models.lm import VERIFY_BACKENDS
 from repro_torch.serve import spec_decode
 from repro_torch.serve.kv_cache import (
     CACHE_LAYOUTS,
@@ -136,9 +135,7 @@ class ServeEngine:
             raise ValueError("speculative decoding (spec_k > 1) verifies "
                              "against the paged cache; pass "
                              "cache_layout='paged'")
-        if verify_backend not in VERIFY_BACKENDS:
-            raise ValueError(f"verify_backend must be one of {VERIFY_BACKENDS}; "
-                             f"got {verify_backend!r}")
+        model.uses_kernel(verify_backend, "verify_backend")   # validates
         self.model = model
         self.params = params
         self.device = model.device

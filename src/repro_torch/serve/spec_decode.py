@@ -51,6 +51,7 @@ def make_self_draft(model, params, n_layers: int) -> Tuple[object, dict]:
     draft_cfg = dataclasses.replace(cfg, n_layers=n_layers,
                                     name=f"{cfg.name}-draft{n_layers}")
     draft_model = Model(draft_cfg, device=model.device, dtype=model.dtype,
+                        param_dtype=model.param_dtype,
                         use_kernels=model.use_kernels, wf=model.wf)
 
     def head_layers(tree):

@@ -3,7 +3,9 @@
 The reference and the port share one parameter layout (nested dicts,
 stacked (L, ...) layer leaves, (d_in, d_out) weights), so the bridge is a
 leaf-for-leaf copy.  It takes numpy arrays and imports no JAX: a test
-converts the reference's arrays with ``numpy.asarray`` first.
+converts the reference's arrays with ``numpy.asarray`` first.  The same
+bridge carries gradients and AdamW moments (the same leaves) across, and
+``to_numpy`` carries the port's trees back for comparison.
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.optim.optimizer import AdamWState
 
 # the dense family's leaves, as paths into the pytree
 DENSE_LEAVES = (
@@ -50,6 +53,22 @@ def params_from_numpy(tree: Mapping[str, Any], *, device: DeviceLike = None,
         return torch.from_numpy(np.array(node, np.float32)).to(device=dev, dtype=dtype)
 
     return conv(tree)
+
+
+def to_numpy(tree: Mapping[str, Any]) -> dict:
+    """A nested dict of tensors (params, grads, moments) as float32 numpy
+    arrays, for comparison with the reference's leaves."""
+    if isinstance(tree, Mapping):
+        return {k: to_numpy(v) for k, v in tree.items()}
+    return tree.detach().float().cpu().numpy()
+
+
+def adamw_state_from_numpy(step: int, m: Mapping[str, Any], v: Mapping[str, Any],
+                           *, device: DeviceLike = None):
+    """The reference's ``AdamWState`` leaves (as numpy) -> the port's
+    AdamWState (fp32 moments on ``device``)."""
+    return AdamWState(step=int(step), m=params_from_numpy(m, device=device),
+                      v=params_from_numpy(v, device=device))
 
 
 def paged_decode_case(rng: np.random.Generator, b=2, hkv=2, g=2, d=64, ps=16,

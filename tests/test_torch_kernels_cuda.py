@@ -24,8 +24,15 @@ from repro_torch.kernels.decode_attention.ref import (  # noqa: E402
     flash_decode_ref,
     paged_flash_decode_ref,
 )
-from repro_torch.kernels.flash_attention.ops import flash_attention_fwd  # noqa: E402
-from repro_torch.kernels.flash_attention.ref import flash_attention_ref  # noqa: E402
+from repro_torch.kernels.flash_attention.ops import (  # noqa: E402
+    flash_attention_bwd,
+    flash_attention_fwd,
+    flash_mha,
+)
+from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
+    flash_attention_bwd_ref,
+    flash_attention_ref,
+)
 from repro_torch.kernels.matmul.ops import matmul  # noqa: E402
 from repro_torch.kernels.matmul.ref import matmul_ref  # noqa: E402
 from repro_torch.kernels.mse.ops import mse_partial_sum  # noqa: E402
@@ -105,6 +112,151 @@ def test_cuda_flash_matches_plain(b, s, hq, hkv, d, kv_len, causal, dtype):
     want_o, want_lse = flash_attention_ref(q, k, v, lens, causal=causal)
     _close(o, want_o, dtype)
     torch.testing.assert_close(lse, want_lse, atol=1e-3, rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(4, 1536), (2048, 1536), (3, 5, 256)])
+def test_cuda_rmsnorm_fp32_weight_under_bf16_rows(shape):
+    """Training's fp32 master weight under bf16 activations: the kernel
+    multiplies by w in fp32, as the plain version does."""
+    requires_cuda()
+    rng = np.random.default_rng(2)
+    x = _cuda(_rand(rng, *shape), torch.bfloat16)
+    w = _cuda(_rand(rng, shape[-1]), torch.float32)
+    before = rmsnorm.launches
+    got = rmsnorm(x, w, 1e-6)
+    torch.cuda.synchronize()
+    assert rmsnorm.launches == before + 1 and got.dtype == torch.bfloat16
+    _close(got, rmsnorm_ref(x, w, 1e-6), torch.bfloat16)
+
+
+# the backward's outputs are f32 on both sides, from the same inputs (bf16
+# ones widened exactly): sums over up to 200 keys or 6 x 200 rows taken in
+# another order, and expf against torch.exp, leave ~1e-6 relative
+BWD_TOL = dict(atol=1e-4, rtol=1e-4)
+
+
+def _bwd_case(rng, b, sq, skv, hq, hkv, d, kv_len, causal, dtype):
+    """(q, k, v, do, lse, delta, lens) on the card: K/V rows past kv_len
+    poisoned with NaN (no kernel may read them), lse from the forward
+    kernel, delta = rowsum(dO * O)."""
+    q, do = (_cuda(_rand(rng, b, sq, hq, d), dtype) for _ in "qo")
+    k, v = (_rand(rng, b, skv, hkv, d) for _ in "kv")
+    lens = None
+    if kv_len is not None:
+        for i, n in enumerate(kv_len):
+            k[i, n:], v[i, n:] = np.nan, np.nan
+        lens = torch.tensor(kv_len, dtype=torch.int32, device="cuda")
+    k, v = _cuda(k, dtype), _cuda(v, dtype)
+    o, lse = flash_attention_fwd(q, k, v, lens, causal=causal)
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    return q, k, v, do, lse, delta, lens
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("b,sq,skv,hq,hkv,d,kv_len,causal", [
+    (2, 37, 37, 4, 2, 64, [37, 20], True),      # G 2, ragged S, kv_len
+    (1, 200, 200, 12, 2, 128, None, True),      # the model's G 6, D 128
+    (2, 19, 19, 4, 4, 64, [0, 11], True),       # G 1; a row with no key
+    (2, 21, 21, 6, 1, 128, [21, 6], False),     # G 6, non-causal
+    (2, 17, 45, 4, 2, 64, [45, 9], False),      # non-causal, Sq != Skv
+    (1, 64, 64, 6, 1, 128, None, False),        # whole tiles, non-causal
+], ids=["g2-ragged-len", "g6-d128", "g1-empty-row", "g6-noncausal-len",
+        "noncausal-rect", "g6-noncausal"])
+def test_cuda_flash_bwd_matches_plain(b, sq, skv, hq, hkv, d, kv_len, causal, dtype):
+    requires_cuda()
+    rng = np.random.default_rng(11)
+    args = _bwd_case(rng, b, sq, skv, hq, hkv, d, kv_len, causal, dtype)
+    before = flash_attention_bwd.launches
+    got = flash_attention_bwd(*args, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_attention_bwd.launches == before + 1
+    want = flash_attention_bwd_ref(*args, causal=causal)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == torch.float32 and torch.isfinite(g).all(), name
+        torch.testing.assert_close(g, w, **BWD_TOL, msg=name)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_bwd_refuses_what_it_cannot_take():
+    requires_cuda()
+    rng = np.random.default_rng(12)
+    q, k, v, do, lse, delta, _ = _bwd_case(rng, 1, 8, 8, 2, 1, 64, None, True,
+                                           torch.float32)
+    with pytest.raises(TypeError):
+        flash_attention_bwd(q, k, v, do.to(torch.bfloat16), lse, delta)
+    with pytest.raises(ValueError, match="contiguous float32"):
+        flash_attention_bwd(q, k, v, do, lse, delta.double())
+    with pytest.raises(ValueError, match="head dims"):
+        flash_attention_bwd(*(t[..., :32] for t in (q, k, v, do)), lse, delta)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_len,causal", [(None, True), ([29, 12], False)])
+def test_cuda_flash_attention_grads_match_cpu_plain_path(kv_len, causal):
+    """FlashAttention's gradients on the card (both kernels) against the
+    same Function on the CPU (both plain versions), f32."""
+    requires_cuda()
+    rng = np.random.default_rng(13)
+    q = _rand(rng, 2, 29, 6, 64)
+    k, v = _rand(rng, 2, 29, 2, 64), _rand(rng, 2, 29, 2, 64)
+    g = _rand(rng, 2, 29, 6, 64)
+    lens = None if kv_len is None else np.asarray(kv_len, np.int32)
+
+    def grads(device):
+        ts = [torch.tensor(a, device=device, requires_grad=True) for a in (q, k, v)]
+        ln = None if lens is None else torch.tensor(lens, device=device)
+        o = flash_mha(*ts, ln, causal=causal)
+        o.backward(torch.tensor(g, device=device))
+        return [o.detach().cpu()] + [t.grad.cpu() for t in ts]
+
+    before = flash_attention_bwd.launches
+    got = grads("cuda")
+    assert flash_attention_bwd.launches == before + 1
+    for a, b_ in zip(got, grads("cpu")):
+        torch.testing.assert_close(a, b_, **BWD_TOL)
+
+
+@pytest.mark.cuda
+def test_cuda_train_steps_match_cpu_plain_path():
+    """The training slice as a whole: three reduced-qwen2 Trainer steps on
+    the card, every norm and attention (forward, remat recompute,
+    backward) through its kernel, against the same steps on the CPU's
+    plain versions, fp32 from the same weights and batches.  The paths
+    differ by summation order (~1e-6 on the loss); AdamW then amplifies
+    gradient differences on near-zero moments, so later losses get 1e-4."""
+    requires_cuda()
+    from repro_torch import kernels
+    from repro_torch.configs import reduced_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticPipeline
+    from repro_torch.models.lm import Model
+    from repro_torch.optim.optimizer import AdamWConfig, init_adamw
+    from repro_torch.train.step import TrainState
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    cfg = reduced_config("qwen2-1.5b")
+    data = SyntheticPipeline(DataConfig(vocab=cfg.vocab, seq_len=48, global_batch=2,
+                                        seed=4))
+    opt = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=3)
+
+    base = Model(cfg, device="cpu", dtype=torch.float32).init(
+        torch.Generator().manual_seed(0))
+
+    def run(device, params):       # the steps update params in place
+        model = Model(cfg, device=device, dtype=torch.float32)
+        tr = Trainer(model, data, opt, TrainerConfig(total_steps=3, vocab_chunks=4))
+        _, hist = tr.run(start_state=TrainState(params, init_adamw(params)))
+        return [m["loss"] for _, m in hist]
+
+    kernels.reset_launches()
+    got = run("cuda", _to_cuda(base))
+    counts = kernels.launch_counts()
+    want = run("cpu", base)
+    np.testing.assert_allclose(got, want, atol=1e-4, rtol=0)
+    assert counts["flash_attention_bwd"] == 3 * cfg.n_layers
+    assert counts["flash_attention_fwd"] == 2 * 3 * cfg.n_layers   # with remat
+    assert counts["rmsnorm"] > 0
 
 
 @pytest.mark.cuda
@@ -423,7 +575,9 @@ def test_port_imports_neither_jax_nor_repro():
     for name in ("core", "core.primitives", "core.sw_backend", "bench",
                  "bench.fig5_microbench", "kernels.warp_ops.ops",
                  "kernels.tile_reduce.ops", "kernels.mse.ops", "kernels.matmul.ops",
-                 "kernels.verify_attention.ops", "serve.spec_decode"):
+                 "kernels.verify_attention.ops", "serve.spec_decode",
+                 "optim.optimizer", "train.step", "train.trainer",
+                 "data.pipeline", "launch.train"):
         assert f"repro_torch.{name}" in mods, name
 
 
