@@ -11,7 +11,8 @@ its paths:
    path's shapes, the flash backward at one training layer call's shape,
    the five warp-feature kernels (shfl, vote, tile_reduce,
    mse_partial_sum, matmul) at sizes where launch latency does not
-   dominate.
+   dominate, and ``moe_gating`` at OLMoE's prefill shape (512 x 64, bf16,
+   top-8; all-tie rows) and decode shape (4 x 64, with a NaN row).
 2. The paper's layer: Figure 5 (``repro_torch.bench.fig5_microbench``) at
    the reference's size, HW through the warp-intrinsic kernels against SW
    through the PR-transformation lane loops; it fails if they disagree or
@@ -48,6 +49,25 @@ its paths:
    memory, launches); then one profiled step.  It fails on a non-finite
    loss or unless every layer's backward went through
    ``flash_attention_bwd``.
+6. MoE serving (``moe ...`` lines), before training and after the qwen2
+   serving model is freed: full-width OLMoE-1B-7B (16 layers, d_model
+   2048, 16/16 heads, 64 experts, top-8; random bf16 weights from the
+   seed) serves the same 8 requests on the dense cache, a preempting
+   paged pool and an ample one, each prompt prefilled alone at its exact
+   length, the router's top-k through ``moe_gating``.  First it holds the
+   kernels at OLMoE's own shapes against their plain versions (flash
+   forward at G = 1 and S 300, dense and paged decode at G = 1, rmsnorm
+   over 512 x 2048 bf16 rows).  It fails unless every request finishes,
+   every kernel of the path launched, the paged runs serve the dense
+   run's tokens, one decode step launches ``moe_gating`` once per layer,
+   and the teacher-forced plain path stays within the logit tolerance.  A
+   preempted request may differ only where its re-prefill dropped expert
+   picks at the prefill capacity (counted in a tapped rerun), and with
+   nothing dropped, in fp32, it must agree (a control on the same
+   weights; a bf16 control beside it is reported).  The teacher-forced
+   paths' expert choices are compared, and the plain path is run again
+   with the kernel path's routing replayed.  Last, one prefill and one
+   decode step are profiled.
 
 Details land in ``build/chip_smoke.json`` (git-ignored).  The
 second-to-last lines are the kernels' JSON record and the card's name and
@@ -60,6 +80,8 @@ Without CUDA, or without the repository's ``src/`` beside it, it fails.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import dataclasses
 import json
 import subprocess
 import sys
@@ -101,11 +123,19 @@ MATMUL_TOL = dict(atol=2e-3, rtol=1e-4)
 WARP_KERNELS = ("shfl", "vote", "tile_reduce", "mse_partial_sum", "matmul")
 WARP_FORM_STEPS = 4
 ARCH = "qwen2-1.5b"
+MOE_ARCH = "olmoe-1b-7b"
+# moe_gating vs its plain version: the same selection from the same f32
+# values (a wrong pick moves a mask entry by 1) and weights <= 1 from the
+# same exps, summed over the k selected in another order: a few f32 ulps
+GATING_TOL = dict(atol=1e-6, rtol=0.0)
 SLOTS = 4
 MAX_NEW = 32
 MAX_SEQ = 576
 PAGE_SIZE = 16
 SPEC_K = 4
+# the slots' positions in a full decode batch, and their attend bucket
+DECODE_POS = (543, 400, 300, 64)
+ATTEND = 576
 # verify kernel at T = 1 against the paged decode kernel in f32: the same
 # loop in the same order, so they agree to a few f32 ulps or exactly
 T1_TOL = 1e-6
@@ -215,6 +245,25 @@ def record_kernel(rows, name, source, replaces, got, want, tol, t_kernel, t_plai
 # ---------------------------------------------------------------------------
 # phase 1: each kernel against its plain version at the main path's shapes
 # ---------------------------------------------------------------------------
+
+def decode_case(gen: torch.Generator, hkv: int, g: int, dh: int):
+    """bf16 decode inputs at the serving path's positions: one query row
+    of G heads per slot and KV head, the dense cache sliced to the attend
+    bucket (a strided view), and other K/V through shuffled 16-token pages.
+    Returns (q, k view, v view, k pages, v pages, block tables, pos)."""
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda").to(torch.bfloat16)
+
+    q = randn(SLOTS, hkv, g, dh)
+    kc, vc = randn(SLOTS, MAX_SEQ, hkv, dh), randn(SLOTS, MAX_SEQ, hkv, dh)
+    nb = MAX_SEQ // PAGE_SIZE
+    n_pages = SLOTS * nb + 1
+    kp, vp = randn(n_pages, PAGE_SIZE, hkv, dh), randn(n_pages, PAGE_SIZE, hkv, dh)
+    perm = torch.randperm(n_pages - 1, generator=gen, device="cuda") + 1
+    bt = perm.reshape(SLOTS, nb).to(torch.int32)
+    pos = torch.tensor(DECODE_POS, dtype=torch.int32, device="cuda")
+    return q, kc[:, :ATTEND], vc[:, :ATTEND], kp, vp, bt, pos
+
 
 def check_kernels(cfg, gen: torch.Generator):
     import torch.nn.functional as F
@@ -334,18 +383,13 @@ def check_kernels(cfg, gen: torch.Generator):
                   cuda_ms(sdpa_fwd_bwd, iters=5, warmup=1) - cuda_ms(sdpa, iters=5, warmup=1))
     del qb, dob, kb, vb, ob, lseb, delta, bwd_args, got, want, qt, kt, vt, dot
 
-    # decode at the serving path's positions: one query per slot against
-    # the dense cache sliced to the attend bucket (a strided view)
-    pos = torch.tensor([543, 400, 300, 64], dtype=torch.int32, device=dev)
-    attend = 576
+    # decode at the serving path's positions
+    qd, kv_view, vv_view, kp, vp, bt, pos = decode_case(gen, hkv, g, dh)
     live = int((pos + 1).sum())
-    qd = randn(b, hkv, g, dh)
-    kc, vc = randn(b, MAX_SEQ, hkv, dh), randn(b, MAX_SEQ, hkv, dh)
-    kv_view, vv_view = kc[:, :attend], vc[:, :attend]
     got, want = flash_decode(qd, kv_view, vv_view, pos), flash_decode_ref(
         qd, kv_view, vv_view, pos)
     torch.cuda.synchronize()
-    mask = (torch.arange(attend, device=dev)[None, :] <= pos[:, None])[:, None, None, :]
+    mask = (torch.arange(ATTEND, device=dev)[None, :] <= pos[:, None])[:, None, None, :]
     q4 = qd.reshape(b, 1, hq, dh).transpose(1, 2)
     dec_bytes = (2 * qd.numel() + 2 * live * hkv * dh) * bs
     dec_flops = 4 * dh * hq * live
@@ -359,11 +403,6 @@ def check_kernels(cfg, gen: torch.Generator):
                attn_mask=mask, enable_gqa=True)))
 
     # paged decode: the same positions through shuffled 16-token pages
-    nb = MAX_SEQ // PAGE_SIZE
-    n_pages = b * nb + 1
-    kp, vp = randn(n_pages, PAGE_SIZE, hkv, dh), randn(n_pages, PAGE_SIZE, hkv, dh)
-    perm = torch.randperm(n_pages - 1, generator=gen, device=dev) + 1
-    bt = perm.reshape(b, nb).to(torch.int32)
     got = paged_flash_decode(qd, kp, vp, bt, pos)
     want = paged_flash_decode_ref(qd, kp, vp, bt, pos)
     torch.cuda.synchronize()
@@ -565,6 +604,18 @@ def serve(model, params, spec, **kw):
     return out, eng, counts, wall, n_tok
 
 
+def layout_agreement(label, dense, paged, eng):
+    """Token agreement of a paged run with the dense run: overall, per
+    request, and which requests the paged run preempted; prints the line."""
+    agree = float(np.mean([a == b for u in dense for a, b in zip(dense[u], paged[u])]))
+    per_req = {u: float(np.mean([a == b for a, b in zip(dense[u], paged[u])]))
+               for u in dense}
+    preempted = [u for u in dense if eng.last_stats[u]["preemptions"]]
+    print(f"{label}: {agree:.4f}; per request {per_req}; preempted {preempted}",
+          flush=True)
+    return agree, per_req, preempted
+
+
 def teacher_force(model, params, prompt, tokens):
     """Logits of ``model`` for one request (prefill, then decode on the
     served ``tokens``), batch 1: one row per generated position."""
@@ -733,7 +784,7 @@ def where_time_goes(model, params, gen):
     cache) on the kernel path; their ratio is the device's busy share."""
     from repro_torch.serve.spec_decode import make_self_draft
 
-    pos = torch.tensor([543, 400, 300, 64], dtype=torch.int32, device="cuda")
+    pos = torch.tensor(DECODE_POS, dtype=torch.int32, device="cuda")
     tok = torch.zeros(SLOTS, dtype=torch.int32, device="cuda")
     cache = model.init_cache(SLOTS, MAX_SEQ)
     toks = torch.randint(0, model.cfg.vocab, (SLOTS, 512), generator=gen,
@@ -786,6 +837,348 @@ def profile_phase(name, fn, n: int) -> dict:
           f"device busy share {busy}; top: "
           + "; ".join(f"{k} {ms:.3f}" for k, ms in rec["top"]), flush=True)
     return rec
+
+
+# ---------------------------------------------------------------------------
+# phase 3b: MoE serving through moe_gating
+# ---------------------------------------------------------------------------
+
+def gating_logits(gen: torch.Generator, t: int, e: int) -> torch.Tensor:
+    """bf16 router logits (t, E), row 0 all ties (the lowest ids win); bf16
+    rounding ties many more lanes across the rest."""
+    x = (torch.randn(t, e, generator=gen, device="cuda") * 2).to(torch.bfloat16)
+    x[0] = 0
+    return x
+
+
+def check_moe_gating(cfg, gen: torch.Generator) -> dict:
+    """``moe_gating`` against its plain version at OLMoE's decode shape (4
+    slots; a NaN row, which must select nothing and give NaN weights, and
+    an all -inf row) and at its prefill shape (512 tokens), both timed.
+    Returns the prefill shape's kernel row and the decode shape's times."""
+    from repro_torch.kernels.moe_gating.ops import moe_gating
+    from repro_torch.kernels.moe_gating.ref import moe_gating_ref
+
+    e, k = cfg.n_experts, cfg.top_k
+    xd = gating_logits(gen, SLOTS, e)
+    xd[1, 5] = float("nan")
+    xd[2] = float("-inf")
+    (w, m), (wr, mr) = moe_gating(xd, k), moe_gating_ref(xd, k)
+    torch.cuda.synchronize()
+    same = torch.equal(m, mr) and torch.allclose(w, wr, equal_nan=True, **GATING_TOL)
+    rules = (m[0, :k].all().item() and m[0].sum().item() == k        # ties
+             and m[1].sum().item() == 0 and torch.isnan(w[1]).all().item()   # NaN
+             and m[2].tolist() == [1] + [0] * (e - 1))                # all -inf
+    decode = dict(ms=cuda_ms(lambda: moe_gating(xd, k)),
+                  plain_ms=cuda_ms(lambda: moe_gating_ref(xd, k)),
+                  bound_ms=bound(SLOTS * e * (2 + 4 + 4), SLOTS * e * (3 * k + 4),
+                                 F32_FLOPS_S)[0])
+    print(f"kernel moe_gating decode {SLOTS} x {e} bf16 k {k} (tie, NaN, -inf rows): "
+          f"equal to plain {same}; tie/NaN/-inf rules {rules}; ms={decode['ms']:.4f} "
+          f"plain_ms={decode['plain_ms']:.4f} bound_ms={decode['bound_ms']:.6f} (bytes)",
+          flush=True)
+    if not (same and rules):
+        fail("moe_gating disagrees with its plain version at the decode shape")
+
+    x = gating_logits(gen, 512, e)
+
+    def flat(wm):
+        return torch.cat([wm[0].flatten(), wm[1].float().flatten()])
+
+    def library():   # the same selection by other means: 3 calls, ties unordered
+        v, i = torch.topk(x.float(), k)
+        return torch.zeros(x.shape, device="cuda").scatter_(1, i, torch.softmax(v, -1))
+
+    rows = {}
+    t = x.shape[0]
+    # bytes: bf16 logits in, f32 weights and int32 mask out; operations:
+    # ~3 per lane a round (max, compare, select) and ~4 for the softmax
+    record_kernel(rows, "moe_gating", "src/repro_torch/kernels/moe_gating/moe_gating.cu",
+                  "src/repro/kernels/moe_gating/moe_gating.py:48",
+                  flat(moe_gating(x, k)), flat(moe_gating_ref(x, k)), GATING_TOL,
+                  cuda_ms(lambda: moe_gating(x, k)), cuda_ms(lambda: moe_gating_ref(x, k)),
+                  t * e * (2 + 4 + 4), t * e * (3 * k + 4), F32_FLOPS_S, None)
+    print(f"kernel moe_gating: library_ms none (no one PyTorch call computes it: "
+          f"torch.topk + softmax + scatter_ is three, and topk orders ties its own "
+          f"way); those three take {cuda_ms(library):.4f} ms, for scale", flush=True)
+    return rows, decode
+
+
+def check_moe_shapes(cfg, gen: torch.Generator) -> dict:
+    """The serving kernels at the shapes OLMoE gives them, which the kernel
+    phase (qwen2's shapes) does not reach: the flash forward at G = 1 and
+    an exact, odd prompt length; dense and paged decode at G = 1 (one
+    query head per KV head: 16/16, d_head 128) at the serving positions;
+    rmsnorm over one 512-token prompt's bf16 rows of d_model 2048.  Each
+    against its plain version at KERNEL_TOL, timed.  Returns the readings
+    by name."""
+    from repro_torch.kernels.decode_attention.ops import flash_decode, paged_flash_decode
+    from repro_torch.kernels.decode_attention.ref import (
+        flash_decode_ref,
+        paged_flash_decode_ref,
+    )
+    from repro_torch.kernels.flash_attention.ops import flash_attention_fwd
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.kernels.rmsnorm.ops import rmsnorm
+    from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+
+    hkv, dh = cfg.n_kv_heads, cfg.d_head
+    g = cfg.n_heads // hkv
+    out = {}
+
+    def check(name, fn, ref, *args, tol=KERNEL_TOL):
+        got, want = fn(*args), ref(*args)
+        torch.cuda.synchronize()
+        err = max_err(got, want)
+        ms, plain_ms = cuda_ms(lambda: fn(*args)), cuda_ms(lambda: ref(*args))
+        print(f"kernel {name} (OLMoE): max_abs_err={err:.3e} tol={tol} ms={ms:.4f} "
+              f"plain_ms={plain_ms:.4f}", flush=True)
+        if not agrees(got, want, tol):
+            fail(f"{name} disagrees with its plain version at OLMoE's shape")
+        out[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda").to(torch.bfloat16)
+
+    q, k, v = (randn(1, 300, hkv * g, dh) for _ in "qkv")
+    check("flash_attention_fwd G=1 S 300", lambda *a: flash_attention_fwd(*a)[0],
+          lambda *a: flash_attention_ref(*a)[0], q, k, v)
+    check("flash_attention_fwd lse G=1 S 300", lambda *a: flash_attention_fwd(*a)[1],
+          lambda *a: flash_attention_ref(*a)[1], q, k, v, tol=dict(atol=1e-3, rtol=0.0))
+    qd, kv_view, vv_view, kp, vp, bt, pos = decode_case(gen, hkv, g, dh)
+    check(f"flash_decode G={g}", flash_decode, flash_decode_ref, qd, kv_view, vv_view, pos)
+    check(f"paged_flash_decode G={g}", paged_flash_decode, paged_flash_decode_ref,
+          qd, kp, vp, bt, pos)
+    x, w = randn(512, cfg.d_model), randn(cfg.d_model)
+    check(f"rmsnorm 512 x {cfg.d_model}", lambda *a: rmsnorm(*a, cfg.norm_eps),
+          lambda *a: rmsnorm_ref(*a, cfg.norm_eps), x, w)
+    return out
+
+
+@contextlib.contextmanager
+def moe_tap(replay=None):
+    """While open, taps the MoE layer of ``repro_torch.models.moe``: each
+    gating call's (weights, mask) lands in ``["gatings"]`` (or, with
+    ``replay``, the recorded outputs are returned in order instead of
+    gating), and each dispatch's (tokens S, capacity C, dropped picks) in
+    ``["dispatches"]``: a pick is dropped where its place in its expert's
+    buffer, the running count of the group's earlier picks, is C or more
+    (``models/moe.py``'s arithmetic).  Syncs once a dispatch."""
+    from repro_torch.models import moe
+
+    gating, dispatch = moe.gating_topk, moe._moe_dispatch
+    rec = dict(gatings=[], dispatches=[])
+
+    def tap_gating(logits, top_k, use_kernel=True):
+        if replay is not None:
+            out = replay[len(rec["gatings"])]
+        else:
+            out = gating(logits, top_k, use_kernel)
+        rec["gatings"].append(out)
+        return out
+
+    def tap_dispatch(params, x, cfg, capacity_factor, use_kernel):
+        y = dispatch(params, x, cfg, capacity_factor, use_kernel)
+        s = x.shape[1]
+        cf = capacity_factor or cfg.capacity_factor
+        cap = max(int(s * cfg.top_k * cf / cfg.n_experts), 1)
+        mask = rec["gatings"][-1][1]
+        place = torch.cumsum(mask.to(torch.int32), dim=1) - 1
+        rec["dispatches"].append((s, cap, int((mask & (place >= cap)).sum())))
+        return y
+
+    moe.gating_topk, moe._moe_dispatch = tap_gating, tap_dispatch
+    try:
+        yield rec
+    finally:
+        moe.gating_topk, moe._moe_dispatch = gating, dispatch
+
+
+def prefill_drops(rec, n_layers: int) -> list:
+    """(length, capacity, dropped picks over all layers) of each prefill
+    in a tapped run, in order: its dispatches of more than one token, one
+    per layer."""
+    calls = [d for d in rec["dispatches"] if d[0] > 1]
+    return [(calls[i][0], calls[i][1], sum(c[2] for c in calls[i:i + n_layers]))
+            for i in range(0, len(calls), n_layers)]
+
+
+def routing_flips(a, b) -> dict:
+    """Token rows whose selected experts differ between two tapped runs of
+    the same forwards, in the prefill and in the decode steps, and the
+    first gating call (in order: forward x layers) where one does."""
+    n = dict(prefill=0, prefill_rows=0, decode=0, decode_rows=0, first_call=None)
+    for i, ((_, ma), (_, mb)) in enumerate(zip(a["gatings"], b["gatings"])):
+        ma, mb = ma.reshape(-1, ma.shape[-1]), mb.reshape(-1, mb.shape[-1])
+        phase = "prefill" if ma.shape[0] > SLOTS else "decode"
+        flips = int((ma != mb).any(-1).sum())
+        n[phase] += flips
+        n[phase + "_rows"] += ma.shape[0]
+        if flips and n["first_call"] is None:
+            n["first_call"] = i
+    return n
+
+
+def preemption_control(label, model, params, spec, num_pages) -> dict:
+    """One weights/dtype/capacity setting served dense and on the
+    preempting pool: per-request token agreement and the preempted."""
+    dense = serve(model, params, spec)[0]
+    paged, eng, _, _, _ = serve(model, params, spec, cache_layout="paged",
+                                page_size=PAGE_SIZE, num_pages=num_pages)
+    _, per_req, preempted = layout_agreement(
+        f"moe control {label}: dense vs preempting paged", dense, paged, eng)
+    if not preempted:
+        fail(f"the MoE control {label} was sized to preempt and did not")
+    return dict(per_request=per_req, preempted=preempted)
+
+
+def run_moe(seed: int, gen: torch.Generator):
+    """Full-width OLMoE-1B-7B serving on both layouts, the plain path
+    teacher-forced, one decode step's gating launches, and the profile of
+    one prefill and one decode step.  Returns the record and the launch
+    counts of the two serve runs."""
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.models.lm import Model
+    from repro_torch.optim.optimizer import leaves
+
+    cfg = get_config(MOE_ARCH)
+    shapes = check_moe_shapes(cfg, gen)
+
+    model = Model(cfg, device="cuda", dtype=torch.bfloat16)
+    params = model.init(torch.Generator(device="cuda").manual_seed(seed))
+    n_params = sum(p.numel() for p in leaves(params))
+    print(f"moe model: {MOE_ARCH} layers={cfg.n_layers} d_model={cfg.d_model} "
+          f"heads={cfg.n_heads}/{cfg.n_kv_heads} d_head={cfg.d_head} experts="
+          f"{cfg.n_experts} top_k={cfg.top_k} d_ff={cfg.d_ff} vocab={cfg.vocab} "
+          f"params={n_params} dtype=bf16; weights {torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB",
+          flush=True)
+    spec = make_requests(seed, cfg.vocab)
+    print(f"moe requests: {len(spec)} prompts of {[len(p) for _, p, _ in spec]} tokens, "
+          f"each prefilled alone at its length", flush=True)
+    serve(model, params, [(99, spec[1][1][:64], 2)])           # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    dense, _, d_counts, d_wall, d_tok = serve(model, params, spec)
+    print(f"moe serve dense: {d_tok} tokens in {d_wall:.3f} s = {d_tok / d_wall:.1f} "
+          f"tok/s; launches {d_counts}", flush=True)
+    num_pages = preempting_pool(spec)
+    paged, eng, p_counts, p_wall, p_tok = serve(
+        model, params, spec, cache_layout="paged", page_size=PAGE_SIZE,
+        num_pages=num_pages)
+    peak = torch.cuda.max_memory_allocated()
+    print(f"moe serve paged: {p_tok} tokens in {p_wall:.3f} s = {p_tok / p_wall:.1f} "
+          f"tok/s; pool {num_pages} pages; preemptions {eng.preemptions}; launches "
+          f"{p_counts}; peak memory {peak / 2 ** 30:.2f} GiB", flush=True)
+    if eng.preemptions < 1:
+        fail("the MoE paged run was sized to preempt and did not")
+    if eng.last_pool_stats.used_pages != 0:
+        fail(f"the MoE paged run leaked {eng.last_pool_stats.used_pages} pages")
+    agree, per_req, preempted = layout_agreement("moe dense vs paged token agreement",
+                                                 dense, paged, eng)
+    ample, _, _, a_wall, a_tok = serve(model, params, spec, cache_layout="paged",
+                                       page_size=PAGE_SIZE)
+    agree_ample = np.mean([a == b for u in dense for a, b in zip(dense[u], ample[u])])
+    print(f"moe serve paged, a pool that never preempts: {a_tok / a_wall:.1f} tok/s; "
+          f"token agreement with dense {agree_ample:.4f}", flush=True)
+    if agree_ample < 1.0:
+        fail("paged serving without preemption served other tokens than dense")
+    for name in ("rmsnorm", "flash_attention_fwd", "moe_gating"):
+        if d_counts[name] == 0 or p_counts[name] == 0:
+            fail(f"{name} never launched while serving MoE")
+    if d_counts["flash_decode"] == 0 or p_counts["paged_flash_decode"] == 0:
+        fail("a decode kernel never launched while serving MoE")
+
+    # Why a preempted request differs.  Every row is its own MoE group, so
+    # only a preempted request can: its re-prefill runs prompt and
+    # generated tokens through prefill at the prefill capacity C = S k cf
+    # / E (cf = infer_capacity_factor), where the dense run took decode
+    # steps that drop nothing.  (i) The preempting run again, tapped: the
+    # picks each prefill drops.  (ii) Controls on the same weights, dense
+    # against the preempting pool, with cf = E / k (C = S: nothing drops),
+    # in bf16 and in fp32 compute.
+    with moe_tap() as tap:
+        again, _, _, _, _ = serve(model, params, spec, cache_layout="paged",
+                                  page_size=PAGE_SIZE, num_pages=num_pages)
+    drops = prefill_drops(tap, cfg.n_layers)
+    resumed = {u: [d for d in drops if len(p) < d[0] < len(p) + MAX_NEW]
+               for u, p, _ in spec if u in preempted}
+    print(f"moe prefill drops (length, capacity, dropped picks over "
+          f"{cfg.n_layers} layers): {drops}; re-prefills of the preempted {resumed}; "
+          f"tapped rerun serves the same tokens {again == paged}", flush=True)
+    del tap
+    nodrop = dataclasses.replace(cfg, infer_capacity_factor=cfg.n_experts / cfg.top_k)
+    controls = {label: preemption_control(label, Model(nodrop, device="cuda", dtype=dt),
+                                          params, spec, num_pages)
+                for label, dt in (("bf16 no drops", torch.bfloat16),
+                                  ("fp32 no drops", torch.float32))}
+    # the fp32 control gates; the bf16 one is reported: its re-prefill
+    # still rounds otherwise than the decode steps, and a router near-tie
+    # may turn that into another token on another card
+    for label, c in controls.items():
+        if label.startswith("fp32") and min(c["per_request"].values()) < 1.0:
+            fail(f"with nothing dropped and fp32 compute ({label}) a preempted "
+                 f"request still served other tokens paged than dense")
+    # the exemption: a preempted request whose re-prefill dropped picks
+    for u in dense:
+        if per_req[u] < 1.0 and not (u in preempted and any(d[2] for d in resumed[u])):
+            fail(f"request {u} served other tokens paged than dense, and no "
+                 f"dropped pick of a re-prefill accounts for it")
+
+    # the plain path teacher-forced, with each path's routing tapped; then
+    # the plain path again with the kernel path's routing replayed, which
+    # leaves only attention's and rmsnorm's bf16 rounding between them
+    uid, prompt, _ = spec[0]
+    plain = Model(cfg, device="cuda", dtype=torch.bfloat16, use_kernels=False)
+    with moe_tap() as k_tap:
+        k_logits = teacher_force(model, params, prompt, dense[uid])
+    with moe_tap() as p_tap:
+        p_logits = teacher_force(plain, params, prompt, dense[uid])
+    err, scale, t_agree = compare_logits(f"moe uid {uid} plain vs kernel path",
+                                         p_logits, k_logits)
+    flips = routing_flips(k_tap, p_tap)
+    first = flips["first_call"]
+    print(f"moe teacher-forced routing, plain vs kernel path: {flips['prefill']} of "
+          f"{flips['prefill_rows']} prefill token-layer rows and {flips['decode']} of "
+          f"{flips['decode_rows']} decode rows select other experts; first at "
+          f"{'none' if first is None else f'forward {first // cfg.n_layers} layer {first % cfg.n_layers}'}",
+          flush=True)
+    with moe_tap(replay=k_tap["gatings"]):
+        r_logits = teacher_force(plain, params, prompt, dense[uid])
+    r_err, _, r_agree = compare_logits(
+        f"moe uid {uid} plain vs kernel path, the kernel path's routing replayed",
+        r_logits, k_logits)
+    del plain, k_logits, p_logits, r_logits, k_tap, p_tap
+
+    pos = torch.tensor(DECODE_POS, dtype=torch.int32, device="cuda")
+    tok = torch.zeros(SLOTS, dtype=torch.int32, device="cuda")
+    cache = model.init_cache(SLOTS, MAX_SEQ)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    model.decode_step(params, cache, tok, pos, attend_len=MAX_SEQ)
+    torch.cuda.synchronize()
+    per_step = kernels.launch_counts()["moe_gating"]
+    print(f"moe decode step: moe_gating launched {per_step} times "
+          f"({cfg.n_layers} layers)", flush=True)
+    if per_step != cfg.n_layers:
+        fail(f"a decode step launched moe_gating {per_step} times, not once per layer")
+    toks = torch.randint(0, cfg.vocab, (1, 512), generator=gen, device="cuda")
+    phases = {
+        "moe_decode_step": profile_phase("moe_decode_step", lambda: model.decode_step(
+            params, cache, tok, pos, attend_len=MAX_SEQ), 10),
+        "moe_prefill_1x512": profile_phase("moe_prefill_1x512",
+                                           lambda: model.prefill(params, toks, 512), 3)}
+    counts = {n: d_counts[n] + p_counts[n] for n in d_counts}
+    return dict(n_params=n_params, dense_tok_s=d_tok / d_wall, paged_tok_s=p_tok / p_wall,
+                dense_counts=d_counts, paged_counts=p_counts, num_pages=num_pages,
+                preemptions=eng.preemptions, token_agreement=agree,
+                token_agreement_per_request=per_req, preempted=preempted,
+                token_agreement_no_preemption=float(agree_ample),
+                prefill_drops=drops, resumed_prefill_drops=resumed,
+                preemption_controls=controls, kernels_at_olmoe_shapes=shapes,
+                peak_bytes=peak, teacher_forced_max_err=err, logit_scale=scale,
+                teacher_forced_argmax_agreement=t_agree, routing_flips=flips,
+                replayed_routing_max_err=r_err, replayed_routing_argmax_agreement=r_agree,
+                gating_per_decode_step=per_step, phases=phases), counts
 
 
 # ---------------------------------------------------------------------------
@@ -1005,6 +1398,8 @@ def main():
     serving_kernels = tuple(k for k in rows
                             if k not in ("paged_flash_verify", "flash_attention_bwd"))
     rows.update(check_warp_kernels(gen))
+    gating_rows, gating_decode = check_moe_gating(get_config(MOE_ARCH), gen)
+    rows.update(gating_rows)
 
     fig5_rows, fig5_counts = run_fig5(args.seed)
     for name in WARP_KERNELS:
@@ -1040,8 +1435,9 @@ def main():
         fail("the paged run was sized to preempt and did not")
     if eng.last_pool_stats.used_pages != 0:
         fail(f"paged run leaked {eng.last_pool_stats.used_pages} pages")
-    agree = np.mean([a == b for u in dense for a, b in zip(dense[u], paged[u])])
-    print(f"dense vs paged token agreement: {agree:.4f}", flush=True)
+    # reported, not gated: a preempted request's re-prefill rounds
+    # otherwise than the decode steps in bf16
+    layout_agreement("dense vs paged token agreement", dense, paged, eng)
     for name in ("rmsnorm", "flash_attention_fwd"):
         if dense_counts[name] == 0 or paged_counts[name] == 0:
             fail(f"{name} never launched while serving")
@@ -1091,6 +1487,12 @@ def main():
     preemptions = eng.preemptions
     del model, params, plain, m, eng, k_logits, p_logits, f_logits
     torch.cuda.empty_cache()
+    moe_rec, moe_counts = run_moe(args.seed, gen)
+    for name in ("rmsnorm", "flash_attention_fwd", "flash_decode", "paged_flash_decode",
+                 "moe_gating"):
+        rows[name]["launches"] += moe_counts[name]
+    phases.update(moe_rec.pop("phases"))
+    torch.cuda.empty_cache()      # the MoE weights make way for training's
     train_rec, train_counts = run_training(cfg, args.seed)
     phases["train_step"] = train_rec.pop("profile")
     for name in ("rmsnorm", "flash_attention_fwd", "flash_attention_bwd"):
@@ -1104,7 +1506,9 @@ def main():
         paged_counts=paged_counts, preemptions=preemptions, train=train_rec,
         num_pages=num_pages, teacher_forced_max_err=err, logit_scale=scale,
         fig5=fig5_rows, fig5_counts=fig5_counts, fig5_device=fig5_device,
-        warp_forms=warp_forms, spec=spec_rec, verify_t1_err=t1_err), indent=1))
+        warp_forms=warp_forms, spec=spec_rec, verify_t1_err=t1_err, moe=moe_rec,
+        moe_gating_decode=gating_decode),
+        indent=1))
     print(json.dumps(result), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

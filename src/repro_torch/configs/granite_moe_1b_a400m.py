@@ -1,0 +1,16 @@
+"""Granite-3.0-1B-A400M [hf:ibm-granite/granite-3.0-1b-a400m-base] — 32e top-8."""
+
+from repro_torch.models.config import ModelConfig
+
+CONFIG = ModelConfig(
+    name="granite-moe-1b-a400m",
+    family="moe",
+    n_layers=24,
+    d_model=1024,
+    n_heads=16,
+    n_kv_heads=8,
+    d_ff=512,           # per-expert FFN width
+    vocab=49155,
+    n_experts=32,
+    top_k=8,
+)

@@ -18,6 +18,7 @@ from repro_torch.kernels.flash_attention.ops import (
     flash_attention_fwd,
 )
 from repro_torch.kernels.matmul.ops import matmul
+from repro_torch.kernels.moe_gating.ops import moe_gating
 from repro_torch.kernels.mse.ops import mse_partial_sum
 from repro_torch.kernels.rmsnorm.ops import rmsnorm
 from repro_torch.kernels.tile_reduce.ops import tile_reduce
@@ -31,6 +32,7 @@ WRAPPERS = {
     "flash_decode": flash_decode,
     "paged_flash_decode": paged_flash_decode,
     "paged_flash_verify": paged_flash_verify,
+    "moe_gating": moe_gating,
     # the training path
     "flash_attention_bwd": flash_attention_bwd,
     # the paper's warp-feature layer (Fig. 5)

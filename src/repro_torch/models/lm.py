@@ -1,9 +1,11 @@
-"""Dense-family language model: init, prefill, decode step, KV caches.
+"""Dense- and MoE-family language model: init, prefill, decode step, KV
+caches.
 
-Counterpart of ``repro.models.lm.Model`` for the dense GQA family, with
-the same functional interface and parameter pytree (a nested dict whose
-``layers`` leaves are stacked (L, ...)), so ``repro_torch.testing`` can
-carry the reference's weights over leaf for leaf:
+Counterpart of ``repro.models.lm.Model`` for the dense and the MoE GQA
+families, with the same functional interface and parameter pytree (a
+nested dict whose ``layers`` leaves are stacked (L, ...); the MoE family
+has ``layers.moe`` in place of ``layers.mlp``), so ``repro_torch.testing``
+can carry the reference's weights over leaf for leaf:
 
   init(gen)                                  -> params
   backbone(params, batch)                    -> hidden (B, S, d)  [train]
@@ -47,6 +49,7 @@ from repro_torch.models.layers import (
     rope_freqs,
     swiglu,
 )
+from repro_torch.models.moe import init_moe_params, moe_block
 from repro_torch.serve.kv_cache import TRASH_PAGE, cdiv, init_page_pool
 
 Params = Dict[str, Any]
@@ -69,7 +72,10 @@ def _unstack(tree) -> list:
 
 
 class Model:
-    """Dense GQA decoder (qwen2-style: q/k/v biases, untied ``lm_head``).
+    """GQA decoder (q/k/v biases where the config has them, untied
+    ``lm_head``) with a SwiGLU MLP (``family == "dense"``) or a top-k MoE
+    (``"moe"``: gating through the ``moe_gating`` kernel, the experts as
+    the reference's one-hot dispatch) in each layer.
 
     ``device`` defaults to ``cuda`` and raises without it; ``dtype`` is the
     compute dtype of activations and the storage dtype of caches;
@@ -92,7 +98,7 @@ class Model:
                  param_dtype: Optional[torch.dtype] = None,
                  use_kernels: bool = True, attn_backend: Optional[str] = None,
                  wf: WarpFeatureConfig = DEFAULT_WF, remat: bool = True):
-        if cfg.family != "dense":
+        if cfg.family not in ("dense", "moe"):
             raise NotImplementedError(
                 f"family {cfg.family!r} is not ported yet (ROADMAP A14)")
         self.cfg = cfg
@@ -131,6 +137,13 @@ class Model:
             attn.update(bq=torch.zeros(L, hq * dh, **kw),
                         bk=torch.zeros(L, hkv * dh, **kw),
                         bv=torch.zeros(L, hkv * dh, **kw))
+        if cfg.family == "moe":
+            per_layer = [init_moe_params(gen, cfg, **kw) for _ in range(L)]
+            ffn = {"moe": {k: torch.stack([p[k] for p in per_layer])
+                           for k in per_layer[0]}}
+        else:
+            ffn = {"mlp": {"w_gate": stacked(d, f), "w_up": stacked(d, f),
+                           "w_down": stacked(f, d)}}
         return {
             "embed": embed_init(gen, cfg.vocab, d, **kw),
             "ln_f": torch.ones(d, **kw),
@@ -139,8 +152,7 @@ class Model:
                 "ln1": torch.ones(L, d, **kw),
                 "ln2": torch.ones(L, d, **kw),
                 "attn": attn,
-                "mlp": {"w_gate": stacked(d, f), "w_up": stacked(d, f),
-                        "w_down": stacked(f, d)},
+                **ffn,
             },
         }
 
@@ -179,8 +191,17 @@ class Model:
         x = self._norm(x, params["ln_f"])
         return (x @ params["lm_head"].to(x.dtype)).float()
 
-    def _mlp_residual(self, p, x: torch.Tensor) -> torch.Tensor:
+    def _mlp_residual(self, p, x: torch.Tensor,
+                      capacity_factor: float) -> torch.Tensor:
+        """x + the layer's MLP of its pre-norm; an MoE layer dispatches
+        with the capacity factor of its call site, as the reference's:
+        training ``cfg.capacity_factor``, prefill
+        ``cfg.infer_capacity_factor``, decode and verify at least 8."""
         g = self._norm(x, p["ln2"])
+        if self.cfg.family == "moe":
+            return x + moe_block(p["moe"], g, self.cfg,
+                                 capacity_factor=capacity_factor,
+                                 use_kernel=self.use_kernels)
         m = p["mlp"]
         return x + swiglu(g, m["w_gate"], m["w_up"], m["w_down"])
 
@@ -190,7 +211,7 @@ class Model:
         ``_tf_block``)."""
         g = self._norm(x, p["ln1"])
         x = x + gqa_block(p["attn"], g, self.cfg, use_kernel=self.attn_kernel)
-        return self._mlp_residual(p, x)
+        return self._mlp_residual(p, x, self.cfg.capacity_factor)
 
     # -------------------------------------------------------------- forward
     def backbone(self, params, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
@@ -222,7 +243,9 @@ class Model:
 
         last_pos (B,): index of each row's last real token in a
         right-padded batch; the causal mask keeps it independent of the
-        padding, so its logits are exact."""
+        padding, so its logits are exact.  Not so for the MoE family,
+        whose expert capacity depends on the row's length: its rows are
+        prefilled alone at their exact length (``ServeEngine``)."""
         cfg = self.cfg
         tokens = tokens.to(self.device)
         b, s = tokens.shape
@@ -236,7 +259,7 @@ class Model:
             x = x + att
             ck[l, :, :s] = k
             cv[l, :, :s] = v
-            x = self._mlp_residual(p, x)
+            x = self._mlp_residual(p, x, cfg.infer_capacity_factor)
         if last_pos is None:
             last = x[:, -1:]
         else:
@@ -276,7 +299,7 @@ class Model:
             q, k, v = gqa_qkv(p["attn"], g, cfg, positions, rope=rope)
             o = write_attend(l, q, k, v)
             x = x + o.reshape(b, s, -1) @ p["attn"]["wo"].to(x.dtype)
-            x = self._mlp_residual(p, x)
+            x = self._mlp_residual(p, x, max(cfg.infer_capacity_factor, 8.0))
         return x
 
     def _decode_logits(self, params, x, pos, write_attend):

@@ -13,8 +13,11 @@ step boundaries and finished slots free at once.
           preempted and requeued with its generated tokens folded into its
           prompt, so greedy outputs are unchanged.
 
-Admitted requests prefill together as one right-padded batch (bucketed to
-``PROMPT_BLOCK``; each row's logits are taken at its last real token).
+Admitted requests of the dense family prefill together as one
+right-padded batch (bucketed to ``PROMPT_BLOCK``; each row's logits are
+taken at its last real token).  An MoE request prefills alone at its
+exact length: its experts' capacity depends on the row's length, so
+padding would change its output.
 Each decode step reads attention only up to the live prefix (``attend_len``
 bucketed to ``ATTEND_BLOCK``) and makes one device-to-host copy: the
 (tokens, done, bad) triple.  A row whose logits are not finite is failed
@@ -70,6 +73,11 @@ PROMPT_BLOCK = 16
 # committed one token each stops speculating for SPEC_COOLDOWN steps
 SPEC_DISABLE_WINDOW = 8
 SPEC_COOLDOWN = 16
+# families for which right-padded, batched prefill is exact (the cache is
+# purely positional and nothing but causal attention mixes tokens); MoE
+# capacity and grouping depend on the padded length, so the other
+# families prefill one request at a time at its exact length
+_PADDED_PREFILL_FAMILIES = ("dense",)
 
 
 def _round_up(x: int, block: int) -> int:
@@ -392,7 +400,13 @@ class ServeEngine:
             st.next_seq += 1
             st.slot_pos[slot] = len(req.prompt)
             st.stats[req.uid].setdefault("admitted_s", t_admit)
-        self._prefill_group(st, taken)
+        if self.model.cfg.family in _PADDED_PREFILL_FAMILIES:
+            longest = max(len(r.prompt) for _, r in taken)
+            self._prefill_group(st, taken, min(self.max_seq,
+                                               _round_up(longest, PROMPT_BLOCK)))
+        else:
+            for slot, req in taken:
+                self._prefill_group(st, [(slot, req)], len(req.prompt))
         now = time.perf_counter() - st.t0
         for slot, req in taken:
             if st.stats[req.uid]["status"] is not None:
@@ -401,13 +415,13 @@ class ServeEngine:
             if req.max_new_tokens - len(req.generated) <= 0:
                 self._finish(st, slot, now)
 
-    def _prefill_group(self, st: _SchedState, group: List[tuple]):
-        """One right-padded prefill for the admitted (slot, request) pairs,
-        the layout's cache write, then the first token of each row."""
+    def _prefill_group(self, st: _SchedState, group: List[tuple], bucket: int):
+        """One prefill for the admitted (slot, request) pairs, right-padded
+        to ``bucket`` tokens; the layout's cache write, then the first
+        token of each row."""
         slots = [s for s, _ in group]
         reqs = [r for _, r in group]
         lens = [len(r.prompt) for r in reqs]
-        bucket = min(self.max_seq, _round_up(max(lens), PROMPT_BLOCK))
         toks = np.zeros((len(reqs), bucket), np.int64)
         for i, r in enumerate(reqs):
             toks[i, :lens[i]] = r.prompt

@@ -25,6 +25,20 @@ DENSE_LEAVES = (
     "layers.attn.bq", "layers.attn.bk", "layers.attn.bv",
     "layers.mlp.w_gate", "layers.mlp.w_up", "layers.mlp.w_down",
 )
+_BIASES = ("layers.attn.bq", "layers.attn.bk", "layers.attn.bv")
+# the MoE family's layer in place of the dense MLP
+MOE_FFN = ("layers.moe.router", "layers.moe.w_gate", "layers.moe.w_up",
+           "layers.moe.w_down")
+
+
+def expected_leaves(cfg) -> tuple:
+    """The leaves of a ``cfg`` model's pytree: the dense set, with
+    ``layers.moe.*`` in place of ``layers.mlp.*`` for the MoE family, and
+    the q/k/v biases only with ``cfg.qkv_bias``."""
+    leaves = [p for p in DENSE_LEAVES if cfg.qkv_bias or p not in _BIASES]
+    if cfg.family == "moe":
+        leaves = [p for p in leaves if not p.startswith("layers.mlp.")] + list(MOE_FFN)
+    return tuple(sorted(leaves))
 
 
 def leaf_paths(tree: Mapping[str, Any], prefix: str = "") -> list:
@@ -35,17 +49,18 @@ def leaf_paths(tree: Mapping[str, Any], prefix: str = "") -> list:
     return sorted(out)
 
 
-def params_from_numpy(tree: Mapping[str, Any], *, device: DeviceLike = None,
+def params_from_numpy(tree: Mapping[str, Any], cfg, *, device: DeviceLike = None,
                       dtype: torch.dtype = torch.float32) -> dict:
     """Copy every leaf of a numpy pytree into a tensor of ``dtype`` on
-    ``device``, keeping the nesting.  Raises if the tree is not the dense
-    family's (a missing or extra leaf would otherwise surface later as a
-    KeyError deep inside the model)."""
+    ``device``, keeping the nesting.  Raises unless the tree holds exactly
+    the leaves of a ``cfg`` model (:func:`expected_leaves`; a missing or
+    extra leaf would otherwise surface later as a KeyError deep inside the
+    model)."""
     dev = resolve_device(device)
-    paths = leaf_paths(tree)
-    if sorted(DENSE_LEAVES) != paths:
-        raise ValueError(f"not a dense-family pytree: expected leaves "
-                         f"{sorted(DENSE_LEAVES)}, got {paths}")
+    paths, want = leaf_paths(tree), list(expected_leaves(cfg))
+    if paths != want:
+        raise ValueError(f"not a {cfg.family}-family pytree: expected "
+                         f"leaves {want}, got {paths}")
 
     def conv(node):
         if isinstance(node, Mapping):
@@ -64,11 +79,11 @@ def to_numpy(tree: Mapping[str, Any]) -> dict:
 
 
 def adamw_state_from_numpy(step: int, m: Mapping[str, Any], v: Mapping[str, Any],
-                           *, device: DeviceLike = None):
-    """The reference's ``AdamWState`` leaves (as numpy) -> the port's
-    AdamWState (fp32 moments on ``device``)."""
-    return AdamWState(step=int(step), m=params_from_numpy(m, device=device),
-                      v=params_from_numpy(v, device=device))
+                           cfg, *, device: DeviceLike = None):
+    """The reference's ``AdamWState`` leaves (as numpy) of a ``cfg`` model
+    -> the port's AdamWState (fp32 moments on ``device``)."""
+    return AdamWState(step=int(step), m=params_from_numpy(m, cfg, device=device),
+                      v=params_from_numpy(v, cfg, device=device))
 
 
 def paged_decode_case(rng: np.random.Generator, b=2, hkv=2, g=2, d=64, ps=16,

@@ -7,7 +7,8 @@ times the rolling median is recorded in ``straggler_events`` (the
 reference's simulated backup-step hook).  Not here yet: checkpoints (the
 reference's npz + msgpack layout, and the card's machine has no msgpack;
 ROADMAP A13), so ``checkpoint_dir`` raises; ``reshard_state`` comes with
-the sharded path (ROADMAP A15).
+the sharded path (ROADMAP A15); the MoE family, whose gating has no
+backward yet (ROADMAP A14), is refused.
 """
 
 from __future__ import annotations
@@ -39,6 +40,11 @@ class Trainer:
 
     def __init__(self, model, data, opt_cfg: AdamWConfig,
                  cfg: TrainerConfig = TrainerConfig()):
+        if model.cfg.family != "dense":
+            raise NotImplementedError(
+                f"training the {model.cfg.family!r} family is not ported yet "
+                "(ROADMAP A14: the MoE gating has no backward kernel, and "
+                "aux_load_balance_loss is not ported)")
         if cfg.checkpoint_dir is not None:
             raise NotImplementedError(
                 "checkpoints are not ported yet (ROADMAP A13: the reference's "

@@ -34,6 +34,8 @@ from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
     flash_attention_ref,
 )
 from repro_torch.kernels.matmul.ops import matmul  # noqa: E402
+from repro_torch.kernels.moe_gating.ops import moe_gating  # noqa: E402
+from repro_torch.kernels.moe_gating.ref import moe_gating_ref  # noqa: E402
 from repro_torch.kernels.matmul.ref import matmul_ref  # noqa: E402
 from repro_torch.kernels.mse.ops import mse_partial_sum  # noqa: E402
 from repro_torch.kernels.mse.ref import mse_partial_sum_ref  # noqa: E402
@@ -100,6 +102,9 @@ def test_cuda_rmsnorm_matches_plain(shape, dtype):
     (1, 200, 12, 2, 128, None, True),
     (2, 19, 4, 1, 64, [0, 11], True),
     (2, 21, 4, 2, 128, [21, 6], False),
+    # OLMoE's 16/16 heads (G = 1) at exact, odd MoE prefill lengths
+    (1, 82, 16, 16, 128, None, True),
+    (1, 300, 16, 16, 128, None, True),
 ])
 def test_cuda_flash_matches_plain(b, s, hq, hkv, d, kv_len, causal, dtype):
     requires_cuda()
@@ -433,6 +438,120 @@ def test_cuda_spec_serve_through_kernels_matches_cpu_plain_path(num_pages):
         assert counts[name] > 0, name
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_cuda_decode_kernels_at_olmoe_heads(dtype):
+    """Dense and paged decode with OLMoE's 16 KV heads of one query head
+    each (G = 1), D 128."""
+    requires_cuda()
+    rng = np.random.default_rng(6)
+    q, kp, vp, bt, pos = paged_decode_case(rng, hkv=16, g=1, d=128)
+    args = [_cuda(a, dtype) for a in (q, kp, vp)]
+    bt_c, pos_c = torch.as_tensor(bt, device="cuda"), torch.as_tensor(pos, device="cuda")
+    got = paged_flash_decode(*args, bt_c, pos_c)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    _close(got, paged_flash_decode_ref(*args, bt_c, pos_c), dtype)
+    k = _cuda(_rand(rng, 2, 96, 16, 128), dtype)
+    v = _cuda(_rand(rng, 2, 96, 16, 128), dtype)
+    qd, pd = args[0], torch.tensor([40, 95], dtype=torch.int32, device="cuda")
+    got = flash_decode(qd, k, v, pd)
+    torch.cuda.synchronize()
+    _close(got, flash_decode_ref(qd, k, v, pd), dtype)
+
+
+def _gating_logits(t, e, dtype, rng):
+    """Random logits with special rows: all ties, a NaN lane, all -inf,
+    one value above -inf, and (bf16) rows of small integers tied many
+    times over."""
+    x = (rng.standard_normal((t, e)) * 2).astype(np.float32)
+    x[0] = 0.0
+    x[1 % t, e // 3] = np.nan
+    x[2 % t] = -np.inf
+    x[3 % t, :] = -np.inf
+    x[3 % t, e - 1] = 1.5
+    if t > 8:
+        x[4:8] = rng.integers(-3, 4, (4, e)) * 0.5
+    return _cuda(x, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("t,e,k", [(2048, 64, 8), (4, 64, 8), (512, 32, 8),
+                                   (128, 128, 2), (512, 64, 1)])
+def test_cuda_moe_gating_matches_plain(t, e, k, dtype):
+    """Masks exactly and weights within 1e-6 (a few f32 ulps of values
+    <= 1 summed in another order), NaN where the plain version has NaN:
+    a NaN row selects nothing, an all -inf row only expert 0."""
+    requires_cuda()
+    x = _gating_logits(t, e, dtype, np.random.default_rng(t + e + k))
+    before = moe_gating.launches
+    w, m = moe_gating(x, k)
+    torch.cuda.synchronize()
+    assert moe_gating.launches == before + 1
+    w_ref, m_ref = moe_gating_ref(x, k)
+    assert w.dtype == torch.float32 and m.dtype == torch.int32
+    assert torch.equal(m, m_ref)
+    torch.testing.assert_close(w, w_ref, atol=1e-6, rtol=0, equal_nan=True)
+    assert m[0, :k].all() and m[0].sum() == k                  # ties: lowest ids
+    if t > 1:
+        assert m[1].sum() == 0 and torch.isnan(w[1]).all()     # NaN row
+    if t > 2:
+        assert m[2].tolist() == [1] + [0] * (e - 1)             # all -inf
+
+
+@pytest.mark.cuda
+def test_cuda_moe_gating_refuses_what_it_cannot_take():
+    requires_cuda()
+    with pytest.raises(ValueError, match="128"):
+        moe_gating(torch.zeros(4, 129, device="cuda"), 2)
+    x = torch.zeros(4, 64, device="cuda", requires_grad=True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        moe_gating(x, 8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [
+    dict(),
+    dict(cache_layout="paged", page_size=8, num_pages=5),   # forces preemption
+], ids=["dense", "paged-preempt"])
+def test_cuda_moe_serve_through_kernels_matches_cpu_plain_path(kw):
+    """Reduced OLMoE on the card, gating through moe_gating and attention
+    and norms through their kernels, gives the greedy tokens of the same
+    engine on the CPU (plain versions); fp32, so the paths differ by
+    summation order only."""
+    requires_cuda()
+    from repro_torch import kernels
+    from repro_torch.configs import reduced_config
+    from repro_torch.models.lm import Model
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    cfg = reduced_config("olmoe-1b-7b")
+    cpu = Model(cfg, device="cpu", dtype=torch.float32)
+    params = cpu.init(torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(5)
+    spec = [(i, rng.integers(0, cfg.vocab, int(rng.integers(3, 12))).tolist(),
+             int(rng.integers(2, 10))) for i in range(4)]
+
+    def serve(model, p):
+        eng = ServeEngine(model, p, max_seq=48, batch_slots=3, **kw)
+        return eng.serve([Request(u, list(t), n) for u, t, n in spec]), eng
+
+    want, want_eng = serve(cpu, params)
+    kernels.reset_launches()
+    got, eng = serve(Model(cfg, dtype=torch.float32), _to_cuda(params))
+    counts = kernels.launch_counts()
+    assert got == want
+    assert eng.preemptions == want_eng.preemptions
+    assert eng.preemptions >= (1 if kw else 0)
+    decode = "paged_flash_decode" if kw else "flash_decode"
+    for name in ("rmsnorm", "flash_attention_fwd", decode, "moe_gating"):
+        assert counts[name] > 0, name
+    # one gating launch per layer of every prefill and decode step, as
+    # one attention launch is
+    assert counts["moe_gating"] == counts["flash_attention_fwd"] + counts[decode]
+
+
 # ---------------------------------------------------------------------------
 # the warp-feature kernels (vx_shfl / vx_vote / vx_tile, mse, matmul)
 # ---------------------------------------------------------------------------
@@ -577,7 +696,9 @@ def test_port_imports_neither_jax_nor_repro():
                  "kernels.tile_reduce.ops", "kernels.mse.ops", "kernels.matmul.ops",
                  "kernels.verify_attention.ops", "serve.spec_decode",
                  "optim.optimizer", "train.step", "train.trainer",
-                 "data.pipeline", "launch.train"):
+                 "data.pipeline", "launch.train", "models.moe",
+                 "kernels.moe_gating.ops", "kernels.moe_gating.ref",
+                 "configs.olmoe_1b_7b", "configs.granite_moe_1b_a400m"):
         assert f"repro_torch.{name}" in mods, name
 
 
@@ -607,5 +728,6 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         Model(reduced_config("qwen2-1.5b"))
     with pytest.raises(RuntimeError, match="device='cpu'"):
-        params_from_numpy({"embed": np.zeros(2)}, device="cuda")
+        params_from_numpy({"embed": np.zeros(2)}, reduced_config("qwen2-1.5b"),
+                          device="cuda")
     assert resolve_device("cpu").type == "cpu"

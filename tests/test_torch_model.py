@@ -3,6 +3,8 @@ the weight bridge, prefill logits and K/V cache (right-padded rows with
 last_pos included), ten decode steps on the dense and the paged layout,
 and greedy tokens.  Reduced qwen2-1.5b in fp32 on the CPU."""
 
+import copy
+
 import numpy as np
 import pytest
 
@@ -35,7 +37,7 @@ def _models():
         np_params = jax.tree.map(np.asarray, jp)
         tm = Model(reduced_config(ARCH), device="cpu", dtype=torch.float32)
         _CACHE.update(jm=jm, jp=jp, tm=tm, np=np_params,
-                      tp=params_from_numpy(np_params, device="cpu"))
+                      tp=params_from_numpy(np_params, reduced_config(ARCH), device="cpu"))
     return _CACHE
 
 
@@ -64,8 +66,13 @@ def test_bridge_maps_every_leaf():
     # the port's own init draws the same shapes
     own = m["tm"].init(torch.Generator().manual_seed(0))
     assert leaf_paths(own) == sorted(DENSE_LEAVES)
-    with pytest.raises(ValueError, match="dense-family"):
-        params_from_numpy({"embed": m["np"]["embed"]}, device="cpu")
+    cfg = reduced_config(ARCH)
+    unbiased = copy.deepcopy(m["np"])          # qwen2 has q/k/v biases
+    for b in ("bq", "bk", "bv"):
+        del unbiased["layers"]["attn"][b]
+    for tree in ({"embed": m["np"]["embed"]}, unbiased):
+        with pytest.raises(ValueError, match="dense-family"):
+            params_from_numpy(tree, cfg, device="cpu")
 
 
 def _prompts(seed=0, b=3, s=13):

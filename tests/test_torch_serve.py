@@ -140,7 +140,7 @@ def _models():
         jm = JaxModel(jax_reduced_config(ARCH), compute_dtype=jnp.float32)
         jp = jm.init(jax.random.PRNGKey(1))
         tm = Model(reduced_config(ARCH), device="cpu", dtype=torch.float32)
-        tp = params_from_numpy(jax.tree.map(np.asarray, jp), device="cpu")
+        tp = params_from_numpy(jax.tree.map(np.asarray, jp), reduced_config(ARCH), device="cpu")
         _CACHE.update(jm=jm, jp=jp, tm=tm, tp=tp)
     return _CACHE
 

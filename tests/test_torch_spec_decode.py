@@ -54,7 +54,7 @@ def _models(damp=None):
         if damp is not None:
             jp = dict(jp, layers=jax.tree.map(lambda a: a * damp, jp["layers"]))
         tm = Model(reduced_config(ARCH), device="cpu", dtype=torch.float32)
-        tp = params_from_numpy(jax.tree.map(np.asarray, jp), device="cpu")
+        tp = params_from_numpy(jax.tree.map(np.asarray, jp), reduced_config(ARCH), device="cpu")
         _CACHE[damp] = (jm, jp, tm, tp)
     return _CACHE[damp]
 

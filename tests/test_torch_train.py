@@ -91,7 +91,7 @@ def _models():
 def _tp():
     """A fresh copy of the bridged weights (the port's steps update them
     in place)."""
-    return params_from_numpy(_models()["np"], device="cpu")
+    return params_from_numpy(_models()["np"], reduced_config(ARCH), device="cpu")
 
 
 def _jax_loss_and_grads():
@@ -302,8 +302,9 @@ def test_adamw_update_matches_reference(scale):
         jopt.AdamWState(step=jnp.asarray(3, jnp.int32), m=jax.tree.map(jnp.asarray, mom),
                         v=jax.tree.map(jnp.asarray, vel)), m["jp"])
     tcfg = topt.AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=20)
-    gp, gs, gm = topt.adamw_update(tcfg, params_from_numpy(grads, device="cpu"),
-                                   adamw_state_from_numpy(3, mom, vel, device="cpu"),
+    gp, gs, gm = topt.adamw_update(tcfg, params_from_numpy(grads, reduced_config(ARCH), device="cpu"),
+                                   adamw_state_from_numpy(3, mom, vel, reduced_config(ARCH),
+                                                          device="cpu"),
                                    _tp())
     assert gs.step == int(ws.step) == 4
     np.testing.assert_allclose(gm["lr"], float(wm["lr"]), rtol=1e-6)
