@@ -12,7 +12,11 @@ its paths:
    the five warp-feature kernels (shfl, vote, tile_reduce,
    mse_partial_sum, matmul) at sizes where launch latency does not
    dominate, and ``moe_gating`` at OLMoE's prefill shape (512 x 64, bf16,
-   top-8; all-tie rows) and decode shape (4 x 64, with a NaN row).
+   top-8; all-tie rows) and decode shape (4 x 64, with a NaN row), and
+   the int8 branches of paged decode and verify (``paged_flash_decode[int8]``,
+   ``paged_flash_verify[int8]``) at the serving shapes on pages quantized on
+   the card, whose bytes must equal the CPU's, each also held against the
+   float kernel on the dequantized pages (bf16 and f32 q).
 2. The paper's layer: Figure 5 (``repro_torch.bench.fig5_microbench``) at
    the reference's size, HW through the warp-intrinsic kernels against SW
    through the PR-transformation lane loops; it fails if they disagree or
@@ -25,9 +29,15 @@ its paths:
    launched; teacher-forcing one request's tokens, the plain-version path
    and the models whose norms reduce through the paper's ``hw_warp`` and
    ``sw`` forms must give the kernel path's logits within a bf16
-   tolerance (and, for the forms, the same greedy tokens).  Last, it
-   times one full-batch decode step and one prefill against their summed
-   kernel time (torch.profiler) to show where the time goes.
+   tolerance (and, for the forms, the same greedy tokens).  Each run's
+   prefill groups (uids, bucket, lengths) are logged, each request the
+   bf16 layouts served otherwise is probed (its prompt rows as the two
+   runs' prefill calls computed them), and an fp32 control serves dense
+   and on the preempting pool, which must agree on every token (ROADMAP
+   C1; the bf16 agreement is reported).  Last, it times one
+   full-batch decode step (dense, paged bf16, paged int8) and one prefill
+   against their summed kernel time (torch.profiler) to show where the
+   time goes.
 4. Speculative serving (``spec ...`` lines): the same 8 requests with
    spec_k = 4 on the paged layout, the verify window through
    ``paged_flash_verify``.  (a) A 14-layer self draft on the random
@@ -38,6 +48,21 @@ its paths:
    path and plain path, against the decode-step logits.  It fails unless
    every request finishes, the verify kernel launched, (a) preempted and
    both pools drained, and the verify logits stay within the tolerance.
+4b. Tiered KV memory (``tiered ...`` lines), int8 pools: (a) the preempting
+   pool under ``preempt="requeue"`` and ``"swap"`` (swapped bytes, the
+   swap copy time, tok/s beside bf16 paged), (b) an int8 pool of the bf16
+   preempting pool's bytes (preemptions beside bf16's), (c) an ample pool,
+   (d) spec_k = 4 with the damped self:1 draft on the preempting pool,
+   swapping.  Request 0's verify windows over an int8 pool are
+   teacher-forced against int8 decode steps (kernel and plain path).  It
+   fails unless every request finishes, both int8 branches launched (and
+   no float paged kernel), the swap run swapped out and in, every pool
+   drained, the ample pool never preempted, the windows stay within the
+   logit tolerance, and, in an fp32 control, the swap, requeue and ample
+   runs serve identical tokens, bar a request whose prompt the probe
+   shows stored with other int8 bytes in the two runs (prefilled in
+   another group or bucket); their bf16 agreement, and int8 against bf16
+   paged and dense, are reported.
 5. Training (``train ...`` lines): full-width, full-depth qwen2-1.5b with
    fp32 master weights and AdamW state, bf16 compute, remat per layer and
    the 8-chunk loss, at the reference's train_4k length (S 4096; batch 2,
@@ -144,6 +169,10 @@ T1_TOL = 1e-6
 # (dk/dv) taken in another order, ~1e-5 of the sums' magnitude (<= ~10);
 # a wrong mask, tile edge or group sum moves entries by O(0.1-1)
 BWD_TOL = dict(atol=1e-3, rtol=1e-3)
+# int8 kernels with f32 q: the plain version and the kernel dequantize to
+# the same f32 values and sum in another order, to f32 rounding of the
+# output (|o| <= max |v| ~ 4)
+INT8_F32_TOL = dict(atol=1e-5, rtol=1e-5)
 # training: the reference's train_4k sequence (config.py:148); its global
 # batch of 256 is a pod's, cut to 2 for one card
 TRAIN_SEQ = 4096
@@ -448,7 +477,92 @@ def check_kernels(cfg, gen: torch.Generator):
           f"max_abs_err={t1_err:.3e} tol={T1_TOL}", flush=True)
     if not t1_err <= T1_TOL:
         fail(f"T = 1 verify differs from paged decode by {t1_err:.3e}")
-    return rows, t1_err
+    int8 = check_int8_kernels(rows, qd, qv, q1, kp, vp, bt, pos)
+    return rows, t1_err, int8
+
+
+def check_int8_kernels(rows, qd, qv, q1, kp, vp, bt, pos) -> dict:
+    """The int8 branches of the two paged kernels at the serving shapes
+    (the same positions, tables and query rows as the bf16 rows): the
+    pages quantized on the card, whose bytes must equal the CPU's for the
+    same f32 rows; each kernel against its plain version (bf16 q within
+    KERNEL_TOL, f32 q within INT8_F32_TOL) and against the float kernel
+    on the dequantized pages."""
+    from repro_torch.kernels.decode_attention.ops import paged_flash_decode
+    from repro_torch.kernels.decode_attention.ref import paged_flash_decode_ref
+    from repro_torch.kernels.verify_attention.ops import paged_flash_verify
+    from repro_torch.kernels.verify_attention.ref import paged_verify_attention_ref
+    from repro_torch.serve.kv_cache import dequantize_kv, quantize_kv_rows
+
+    kq, ks = quantize_kv_rows(kp.float())
+    vq, vs = quantize_kv_rows(vp.float())
+    torch.cuda.synchronize()
+
+    def bits(t):     # scales compared by their bit patterns
+        return t.cpu().view(torch.int32) if t.dtype == torch.float32 else t.cpu()
+
+    cpu = (*quantize_kv_rows(kp.float().cpu()), *quantize_kv_rows(vp.float().cpu()))
+    same = all(torch.equal(bits(a), bits(b)) for a, b in zip((kq, ks, vq, vs), cpu))
+    print(f"kernel int8 pages: {kq.shape[0]} pages quantized on the card store the "
+          f"CPU's bytes: {same}", flush=True)
+    if not same:
+        fail("int8 pages quantized on the card differ from the CPU's bytes")
+    sc = dict(k_scales=ks, v_scales=vs)
+    kf, vf = dequantize_kv(kq, ks), dequantize_kv(vq, vs)
+    hkv, dh = kp.shape[2], kp.shape[3]
+    t_w = qv.shape[2] // qd.shape[2]
+    live = int((pos + 1).sum())
+    keys = pos.long() + t_w
+    bs = 2
+
+    def kv_bytes(n_rows, n_blocks):
+        # int8 values, one f32 scale per row, for K and V; the table entries
+        return 2 * n_rows * (hkv * dh + 4) + n_blocks * 4
+
+    out = {}
+    for name, fn, ref, q, extra, n_bytes, flops, replaces in (
+            ("paged_flash_decode[int8]", paged_flash_decode, paged_flash_decode_ref,
+             qd, {}, 2 * qd.numel() * bs + kv_bytes(live, int((pos // PAGE_SIZE + 1).sum())),
+             4 * dh * qd.shape[1] * qd.shape[2] * live,
+             "src/repro/kernels/decode_attention/decode_attention.py:189"),
+            ("paged_flash_verify[int8]", paged_flash_verify, paged_verify_attention_ref,
+             qv, {"t_window": t_w},
+             2 * qv.numel() * bs + kv_bytes(int(keys.sum()),
+                                            int(((keys - 1) // PAGE_SIZE + 1).sum())),
+             4 * dh * qd.shape[1] * qd.shape[2] * sum(int(p) + t + 1 for p in pos.tolist()
+                                                      for t in range(t_w)),
+             "src/repro/kernels/verify_attention/verify_attention.py:118")):
+        got = fn(q, kq, vq, bt, pos, **extra, **sc)
+        want = ref(q, kq, vq, bt, pos, **extra, **sc)
+        source = ("src/repro_torch/kernels/decode_attention/decode_attention.cu"
+                  if "decode" in name else
+                  "src/repro_torch/kernels/verify_attention/verify_attention.cu")
+        record_kernel(rows, name, source, replaces, got, want, KERNEL_TOL,
+                      cuda_ms(lambda: fn(q, kq, vq, bt, pos, **extra, **sc)),
+                      cuda_ms(lambda: ref(q, kq, vq, bt, pos, **extra, **sc)),
+                      n_bytes, flops, BF16_FLOPS_S, None)
+        print(f"kernel {name}: library_ms none (no PyTorch call reads int8 paged "
+              f"K/V)", flush=True)
+        # f32 q: the same arithmetic as the plain version's dequantized f32
+        qf = q1 if "decode" in name else qv.float()
+        checks = {
+            "f32 q vs plain": (fn(qf, kq, vq, bt, pos, **extra, **sc),
+                               ref(qf, kq, vq, bt, pos, **extra, **sc), INT8_F32_TOL),
+            "f32 q vs the f32 kernel on the dequantized pages": (
+                fn(qf, kq, vq, bt, pos, **extra, **sc),
+                fn(qf, kf, vf, bt, pos, **extra), INT8_F32_TOL),
+            "bf16 q vs the bf16 kernel on the dequantized pages": (
+                got, fn(q, kf.to(q.dtype), vf.to(q.dtype), bt, pos, **extra),
+                KERNEL_TOL)}
+        out[name] = {}
+        for label, (a, b, tol) in checks.items():
+            torch.cuda.synchronize()
+            err = max_err(a, b)
+            print(f"kernel {name} {label}: max_abs_err={err:.3e} tol={tol}", flush=True)
+            if not agrees(a, b, tol):
+                fail(f"{name} ({label}) disagrees beyond {tol}")
+            out[name][label] = err
+    return out
 
 
 def check_warp_kernels(gen: torch.Generator) -> dict:
@@ -616,10 +730,30 @@ def layout_agreement(label, dense, paged, eng):
     return agree, per_req, preempted
 
 
-def teacher_force(model, params, prompt, tokens):
+def prefilled(model, params, prompt, layout="dense", kv_dtype=None):
+    """One request's prompt prefilled, batch 1: (logits, cache), the dense
+    cache or a paged pool (of ``kv_dtype``) whose block table maps the
+    logical blocks to pages 1, 2, ... in order."""
+    from repro_torch.serve.kv_cache import scatter_prefill
+
+    toks = torch.tensor([prompt], device="cuda")
+    if layout == "dense":
+        return model.prefill(params, toks, MAX_SEQ)
+    cache = model.init_cache(1, MAX_SEQ, layout="paged", page_size=PAGE_SIZE,
+                             kv_dtype=kv_dtype)
+    nb = cache["block_tables"].shape[1]
+    cache["block_tables"][0] = torch.arange(1, nb + 1, dtype=torch.int32, device="cuda")
+    logits, pcache = model.prefill(params, toks, len(prompt))
+    scatter_prefill(cache, pcache, cache["block_tables"][:, :-(-len(prompt) // PAGE_SIZE)])
+    return logits, cache
+
+
+def teacher_force(model, params, prompt, tokens, kv_dtype=None):
     """Logits of ``model`` for one request (prefill, then decode on the
-    served ``tokens``), batch 1: one row per generated position."""
-    logits, cache = model.prefill(params, torch.tensor([prompt], device="cuda"), MAX_SEQ)
+    served ``tokens``), batch 1: one row per generated position.  With
+    ``kv_dtype`` the decode steps read a paged pool of that dtype."""
+    logits, cache = prefilled(model, params, prompt,
+                              "dense" if kv_dtype is None else "paged", kv_dtype)
     steps = [logits[0]]
     for t, tok in enumerate(tokens[:-1]):
         pos = torch.tensor([len(prompt) + t], dtype=torch.int32, device="cuda")
@@ -689,17 +823,12 @@ def spec_report(label, spec, out, eng, counts, wall, n_tok):
                 counts=counts)
 
 
-def verify_force(model, params, prompt, tokens, n_win):
+def verify_force(model, params, prompt, tokens, n_win, kv_dtype=None):
     """Logits of ``model`` for one request's served ``tokens`` taken in
-    windows of SPEC_K through ``decode_verify_step`` on a paged cache
-    (batch 1): row i predicts tokens[i + 1], n_win * SPEC_K rows."""
-    from repro_torch.serve.kv_cache import scatter_prefill
-
-    cache = model.init_cache(1, MAX_SEQ, layout="paged", page_size=PAGE_SIZE)
-    nb = cache["block_tables"].shape[1]
-    cache["block_tables"][0] = torch.arange(1, nb + 1, dtype=torch.int32, device="cuda")
-    _, pcache = model.prefill(params, torch.tensor([prompt], device="cuda"), len(prompt))
-    scatter_prefill(cache, pcache, cache["block_tables"][:, :-(-len(prompt) // PAGE_SIZE)])
+    windows of SPEC_K through ``decode_verify_step`` on a paged cache of
+    ``kv_dtype`` (batch 1): row i predicts tokens[i + 1], n_win * SPEC_K
+    rows."""
+    _, cache = prefilled(model, params, prompt, "paged", kv_dtype)
     rows = []
     for w in range(n_win):
         p0 = len(prompt) + SPEC_K * w
@@ -765,6 +894,269 @@ def run_spec(cfg, model, params, spec, paged_tok_s):
     return dict(a=a, b=b, c=c, num_pages=num_pages), launches
 
 
+# ---------------------------------------------------------------------------
+# phase 3a: ROADMAP C1, dense vs the preempting pool in fp32 compute
+# ---------------------------------------------------------------------------
+
+def fp32_model(cfg, params):
+    """The serving model in fp32 compute with the bf16 weights widened
+    (the same values; 6.2 GB at full width)."""
+    from repro_torch.models.lm import Model
+    from repro_torch.optim.optimizer import tree_map
+
+    return (Model(cfg, device="cuda", dtype=torch.float32),
+            tree_map(lambda t: t.float(), params))
+
+
+def prefill_rows(model, params, spec, out, groups, uid):
+    """The K/V rows of request ``uid``'s prompt as the last prefill call
+    of a run that held it computed them: that call's group prefilled
+    again, at its batch and bucket (``groups`` is the run's
+    ``last_prefill_groups``; a resumed member's folded prompt is rebuilt
+    from the run's tokens ``out``).  Returns (k, v), (L, n, Hkv, D)."""
+    prompts = {u: p for u, p, _ in spec}
+    uids, bucket, lens = [g for g in groups if uid in g[0]][-1]
+    toks = torch.zeros(len(uids), bucket, dtype=torch.long, device="cuda")
+    for i, (m, n) in enumerate(zip(uids, lens)):
+        toks[i, :n] = torch.tensor(prompts[m] + out[m][:n - len(prompts[m])])
+    last = torch.tensor([n - 1 for n in lens], device="cuda")
+    _, cache = model.prefill(params, toks, bucket, last)
+    i, n0 = uids.index(uid), len(prompts[uid])
+    return cache["k"][:, i, :n0], cache["v"][:, i, :n0]
+
+
+def stored_difference(model, params, spec, run_x, run_y, uid, quantized) -> dict:
+    """How request ``uid``'s prompt rows differ between two runs' prefill
+    calls (``run_*`` = (tokens, prefill groups)): float elements whose
+    bits differ, and with ``quantized`` the int8 values and row scales
+    that the pool then stores otherwise."""
+    from repro_torch.serve.kv_cache import quantize_kv_rows
+
+    rec = {}
+    for name, a, b in zip("kv", prefill_rows(model, params, spec, *run_x, uid),
+                          prefill_rows(model, params, spec, *run_y, uid)):
+        rec[f"{name}_float_elements"] = int((a != b).sum())
+        rec[f"{name}_max_abs"] = (a.float() - b.float()).abs().max().item()
+        if quantized:
+            (qa, sa), (qb, sb) = quantize_kv_rows(a), quantize_kv_rows(b)
+            rec[f"{name}_int8_values"] = int((qa != qb).sum())
+            rec[f"{name}_scales"] = int((sa != sb).sum())
+    rec["elements"] = int(a.numel())
+    return rec
+
+
+def c1_control(cfg, model, params, spec, num_pages, dense, paged, dense_groups,
+               paged_groups) -> dict:
+    """ROADMAP C1.  Each bf16 request that the paged run served otherwise
+    than dense is probed: its prompt rows as the two runs' prefill calls
+    computed them (reported).  Then dense against the preempting paged
+    pool at full width in fp32 compute, each run's prefill groups logged:
+    a request that is never preempted can prefill in another
+    right-padded group at another bucket after a preemption, and round
+    otherwise in bf16; in fp32 the two layouts must serve the same
+    tokens, or paged admission or decode is at fault."""
+    probes = {u: stored_difference(model, params, spec, (dense, dense_groups),
+                                   (paged, paged_groups), u, False)
+              for u in dense if dense[u] != paged[u]}
+    print(f"C1 bf16 probe, prompt rows of the requests dense and paged served "
+          f"otherwise, as the two runs' prefill calls computed them: {probes}",
+          flush=True)
+    model32, params32 = fp32_model(cfg, params)
+    dense, d_eng, _, _, _ = serve(model32, params32, spec)
+    paged, p_eng, _, _, _ = serve(model32, params32, spec, cache_layout="paged",
+                                  page_size=PAGE_SIZE, num_pages=num_pages)
+    print(f"C1 control fp32 prefill groups (uids, bucket, lengths): dense "
+          f"{d_eng.last_prefill_groups}; paged {p_eng.last_prefill_groups}", flush=True)
+    agree, per_req, preempted = layout_agreement(
+        "C1 control fp32: dense vs preempting paged", dense, paged, p_eng)
+    if not preempted:
+        fail("the C1 control was sized to preempt and did not")
+    if agree < 1.0:
+        fail("in fp32 the preempting paged pool served other tokens than dense: "
+             "a port fault in paged admission or decode (ROADMAP C1)")
+    return dict(agreement=agree, per_request=per_req, preempted=preempted,
+                dense_groups=d_eng.last_prefill_groups,
+                paged_groups=p_eng.last_prefill_groups, bf16_probes=probes)
+
+
+# ---------------------------------------------------------------------------
+# phase 3c: tiered KV memory, int8 pages and host swap
+# ---------------------------------------------------------------------------
+
+def agreement(a, b) -> float:
+    return float(np.mean([x == y for u in a for x, y in zip(a[u], b[u])]))
+
+
+def swap_copy_ms(model, n_blocks: int, n: int = 5):
+    """Host-clock ms of one swap-out (gather to a device tensor, then a
+    synchronous copy into pinned host memory) and one swap-in (host to the
+    pool, then a synchronize) of ``n_blocks`` int8 pages, means of ``n``
+    after a warm-up; and the bytes moved each way."""
+    from repro_torch.serve.kv_cache import swap_in_pages, swap_out_pages
+
+    pool = model.init_cache(SLOTS, MAX_SEQ, layout="paged", page_size=PAGE_SIZE,
+                            kv_dtype="int8")
+    pool.pop("block_tables")
+    src, dst = list(range(1, n_blocks + 1)), list(range(n_blocks + 1, 2 * n_blocks + 1))
+    swap_in_pages(pool, swap_out_pages(pool, src), dst)
+    torch.cuda.synchronize()
+    t_out = t_in = 0.0
+    for _ in range(n):
+        t0 = time.perf_counter()
+        host = swap_out_pages(pool, src)
+        t1 = time.perf_counter()
+        swap_in_pages(pool, host, dst)
+        torch.cuda.synchronize()
+        t_out, t_in = t_out + t1 - t0, t_in + time.perf_counter() - t1
+    nbytes = sum(t.numel() * t.element_size() for t in host.values())
+    return t_out * 1e3 / n, t_in * 1e3 / n, nbytes
+
+
+def run_tiered(cfg, model, params, spec, dense, paged, paged_tok_s, num_pages,
+               bf16_preemptions):
+    """Greedy serving on int8 pools: (a) the preempting pool under requeue
+    and swap, (b) an int8 pool of the bf16 preempting pool's bytes, (c) an
+    ample one, (d) spec_k = 4 with the damped self:1 draft on the
+    preempting pool, swapping; the verify windows on an int8 pool
+    teacher-forced against int8 decode steps; and the fp32 control, whose
+    swap, requeue and ample runs must serve the same tokens.  Returns the
+    record and the launch counts summed over every run."""
+    from repro_torch.models.lm import Model
+
+    int8 = dict(cache_layout="paged", page_size=PAGE_SIZE, kv_dtype="int8")
+    runs, counts = {}, {}
+
+    def run(label, m, p, **kw):
+        out, eng, c, wall, n_tok = serve(m, p, spec, **int8, **kw)
+        pool = eng.last_pool_stats
+        print(f"tiered {label}: {n_tok} tokens in {wall:.3f} s = {n_tok / wall:.1f} "
+              f"tok/s; pool {eng.num_pages} pages; preemptions {eng.preemptions}; "
+              f"swap_outs {pool.swap_outs} swap_ins {pool.swap_ins}; swapped out "
+              f"{pool.swapped_out_bytes} B, in {pool.swapped_in_bytes} B; prefill "
+              f"groups {eng.last_prefill_groups}; launches "
+              f"{ {k: v for k, v in c.items() if v} }", flush=True)
+        if pool.used_pages != 0:
+            fail(f"the tiered {label} run leaked {pool.used_pages} pages")
+        for k, v in c.items():
+            counts[k] = counts.get(k, 0) + v
+        runs[label] = dict(tok_s=n_tok / wall, wall_s=wall, tokens=n_tok,
+                           num_pages=eng.num_pages, preemptions=eng.preemptions,
+                           swap_outs=pool.swap_outs, swap_ins=pool.swap_ins,
+                           swapped_out_bytes=pool.swapped_out_bytes,
+                           swapped_in_bytes=pool.swapped_in_bytes,
+                           prefill_groups=eng.last_prefill_groups)
+        return out, eng
+
+    # (a) the bf16 run's preempting pool, stored int8
+    requeue, r_eng = run("a requeue", model, params, num_pages=num_pages)
+    swap, s_eng = run("a swap", model, params, num_pages=num_pages, preempt="swap")
+    if r_eng.preemptions < 1 or s_eng.preemptions < 1:
+        fail("the tiered (a) runs were sized to preempt and did not")
+    sp = s_eng.last_pool_stats
+    if sp.swap_outs < 1 or sp.swap_ins < 1:
+        fail(f"the swap run swapped out {sp.swap_outs} and in {sp.swap_ins} times")
+    hkv, dh, L = cfg.n_kv_heads, cfg.d_head, cfg.n_layers
+    int8_page = 2 * L * PAGE_SIZE * (hkv * dh + 4)          # values + row scales
+    bf16_page = 2 * L * PAGE_SIZE * hkv * dh * 2
+    blocks = max(1, round(sp.swapped_out_bytes / sp.swap_outs / int8_page))
+    out_ms, in_ms, moved = swap_copy_ms(model, blocks)
+    print(f"tiered a: tok/s int8 requeue {runs['a requeue']['tok_s']:.1f}, int8 swap "
+          f"{runs['a swap']['tok_s']:.1f}, bf16 paged (requeue) {paged_tok_s:.1f}; "
+          f"swap copy of {blocks} pages ({moved} B): out {out_ms:.3f} ms "
+          f"({moved / out_ms / 1e6:.2f} GB/s), in {in_ms:.3f} ms "
+          f"({moved / in_ms / 1e6:.2f} GB/s)", flush=True)
+
+    # (b) the capacity half of the trade: the bf16 pool's bytes, int8 pages
+    same_pages = (num_pages * bf16_page) // int8_page
+    _, e_eng = run("b equal bytes", model, params, num_pages=same_pages)
+    print(f"tiered b: {int8_page} B a page int8 against {bf16_page} B bf16 "
+          f"({int8_page / PAGE_SIZE:.0f} against {bf16_page / PAGE_SIZE:.0f} B a token); "
+          f"{same_pages} int8 pages in the bytes of {num_pages} bf16 pages; "
+          f"preemptions int8 {e_eng.preemptions}, bf16 {bf16_preemptions}", flush=True)
+
+    # (c) a pool that never preempts
+    ample, a_eng = run("c ample", model, params)
+    if a_eng.preemptions:
+        fail("the ample int8 pool preempted")
+
+    # (d) speculation on the preempting int8 pool, swapping
+    damped = dict(params, layers=_scaled(params["layers"], 0.05))
+    _, d_eng = run("d spec_k=4 damped self:1 swap", model, damped, num_pages=num_pages,
+                   preempt="swap", spec_k=SPEC_K, draft="self:1")
+    acc = [d_eng.last_stats[u]["accept_rate"] for u, _, _ in spec]
+    runs["d spec_k=4 damped self:1 swap"]["mean_accept_rate"] = float(np.mean(acc))
+    print(f"tiered d: accept_rate mean {np.mean(acc):.3f}", flush=True)
+    del damped
+
+    for name in ("paged_flash_decode[int8]", "paged_flash_verify[int8]"):
+        if counts.get(name, 0) == 0:
+            fail(f"{name} never launched while serving on int8 pools")
+    if counts["paged_flash_decode"] or counts["paged_flash_verify"]:
+        fail("a float paged kernel launched while serving on int8 pools")
+
+    # reported, not gated: bf16 rounds otherwise at another prefill bucket,
+    # and int8 stores other values than bf16 (the reference's own int8 ==
+    # dense test fails)
+    reports = {"swap vs requeue": agreement(requeue, swap),
+               "ample vs requeue": agreement(requeue, ample),
+               "int8 requeue vs bf16 paged": agreement(requeue, paged),
+               "int8 ample vs dense": agreement(ample, dense)}
+    print(f"tiered bf16 token agreement (reported, not gated): {reports}", flush=True)
+
+    # the verify windows over an int8 pool against int8 decode steps:
+    # request 0's tokens of the requeue run, the serving weights
+    uid, prompt, _ = spec[0]
+    toks = requeue[uid]
+    n_win = (len(toks) - 1) // SPEC_K
+    dec = teacher_force(model, params, prompt, toks, kv_dtype="int8")[1:1 + n_win * SPEC_K]
+    windows = {}
+    for label, m in (("kernel", model), ("plain", Model(cfg, device="cuda",
+                                                         dtype=torch.bfloat16,
+                                                         use_kernels=False))):
+        v = verify_force(m, params, prompt, toks, n_win, kv_dtype="int8")
+        err, scale, agree = compare_logits(
+            f"int8 uid {uid} verify windows ({label} path) vs int8 decode steps", v, dec)
+        windows[label] = dict(max_err=err, logit_scale=scale, argmax_agreement=agree)
+
+    # the fp32 control: a request stores the same bytes in the swap, the
+    # requeue and the ample run, and so serves the same tokens, wherever
+    # its rows were computed from the same shapes.  A request prefilled in
+    # another group or bucket gets fp32 rows that may differ in their last
+    # bits (cuBLAS picks its kernel by the product's shape), and one int8
+    # rounding flip moves a value by a whole quantization step: such a
+    # request may differ only if the probe shows its prompt stored with
+    # other int8 bytes in the two runs.
+    model32, params32 = fp32_model(cfg, params)
+    c = {label: run(f"fp32 control {label}", model32, params32, **kw)[0]
+         for label, kw in (("requeue", dict(num_pages=num_pages)),
+                           ("swap", dict(num_pages=num_pages, preempt="swap")),
+                           ("ample", {}))}
+    control, probes = {}, {}
+    for x, y in (("swap", "requeue"), ("ample", "requeue")):
+        per_req = {u: float(np.mean([a == b for a, b in zip(c[x][u], c[y][u])]))
+                   for u in c[y]}
+        control[f"{x} vs {y}"] = dict(all=agreement(c[x], c[y]), per_request=per_req)
+        for u in (u for u, a in per_req.items() if a < 1.0):
+            p = stored_difference(model32, params32, spec,
+                                  (c[x], runs[f"fp32 control {x}"]["prefill_groups"]),
+                                  (c[y], runs[f"fp32 control {y}"]["prefill_groups"]),
+                                  u, True)
+            probes[f"{x} vs {y}, request {u}"] = p
+            if p["k_int8_values"] + p["v_int8_values"] + p["k_scales"] + p["v_scales"] == 0:
+                fail(f"in fp32 request {u} served other tokens in the int8 {x} and "
+                     f"{y} runs though its prompt was stored with the same bytes")
+    print(f"tiered fp32 control token agreement: {control}; probe of the requests "
+          f"that differ, their prompt rows as the two runs' prefill calls computed "
+          f"them: {probes}", flush=True)
+    del model32, params32
+    return dict(runs=runs, swap_copy=dict(blocks=blocks, bytes=moved, out_ms=out_ms,
+                                          in_ms=in_ms),
+                int8_page_bytes=int8_page, bf16_page_bytes=bf16_page,
+                equal_bytes_pages=same_pages, bf16_preemptions=bf16_preemptions,
+                agreement_bf16=reports, agreement_fp32=control, fp32_probes=probes,
+                verify_windows=windows), counts
+
+
 def _kernel_us(evt) -> float:
     """Device time of a kernel event (CPU-side ops, whose device time
     repeats their kernels', count 0)."""
@@ -778,7 +1170,8 @@ def _kernel_us(evt) -> float:
 
 def where_time_goes(model, params, gen):
     """Host wall time (with a synchronize) and summed device kernel time
-    (torch.profiler) of one full-batch decode step, one 4 x 512 prefill,
+    (torch.profiler) of one full-batch decode step (dense, paged bf16 and
+    paged int8), one 4 x 512 prefill,
     and the two halves of a speculative step (a 14-layer self-draft decode
     step, three per window, and one spec_k = 4 verify step over the paged
     cache) on the kernel path; their ratio is the device's busy share."""
@@ -795,11 +1188,18 @@ def where_time_goes(model, params, gen):
     nb = pcache["block_tables"].shape[1]
     pcache["block_tables"] = torch.arange(1, SLOTS * nb + 1, dtype=torch.int32,
                                           device="cuda").reshape(SLOTS, nb)
+    qcache = model.init_cache(SLOTS, MAX_SEQ, layout="paged", page_size=PAGE_SIZE,
+                              kv_dtype="int8")
+    qcache["block_tables"] = pcache["block_tables"]
     win = torch.zeros(SLOTS, SPEC_K, dtype=torch.int32, device="cuda")
     phases = {}
     for name, fn, n in (
             ("decode_step", lambda: model.decode_step(params, cache, tok, pos,
                                                       attend_len=MAX_SEQ), 10),
+            ("paged_decode_step", lambda: model.decode_step(
+                params, pcache, tok, pos, attend_len=MAX_SEQ), 10),
+            ("paged_decode_step_int8", lambda: model.decode_step(
+                params, qcache, tok, pos, attend_len=MAX_SEQ), 10),
             ("prefill_4x512", lambda: model.prefill(params, toks, 512), 3),
             ("draft_step_self14", lambda: draft.decode_step(
                 dparams, dcache, tok, pos, attend_len=MAX_SEQ), 10),
@@ -1394,9 +1794,9 @@ def main():
 
     cfg = get_config(ARCH)
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
-    rows, t1_err = check_kernels(cfg, gen)
-    serving_kernels = tuple(k for k in rows
-                            if k not in ("paged_flash_verify", "flash_attention_bwd"))
+    rows, t1_err, int8_checks = check_kernels(cfg, gen)
+    serving_kernels = ("rmsnorm", "flash_attention_fwd", "flash_decode",
+                       "paged_flash_decode")
     rows.update(check_warp_kernels(gen))
     gating_rows, gating_decode = check_moe_gating(get_config(MOE_ARCH), gen)
     rows.update(gating_rows)
@@ -1419,7 +1819,7 @@ def main():
     # warm-up (cuBLAS handles, allocator): one short request, not counted
     serve(model, params, [(99, spec[1][1][:64], 2)])
 
-    dense, _, dense_counts, dense_wall, dense_tok = serve(model, params, spec)
+    dense, dense_eng, dense_counts, dense_wall, dense_tok = serve(model, params, spec)
     print(f"serve dense: {dense_tok} tokens in {dense_wall:.3f} s = "
           f"{dense_tok / dense_wall:.1f} tok/s; launches {dense_counts}", flush=True)
     # the first four prompts fill the pool but for one growth page per
@@ -1435,9 +1835,14 @@ def main():
         fail("the paged run was sized to preempt and did not")
     if eng.last_pool_stats.used_pages != 0:
         fail(f"paged run leaked {eng.last_pool_stats.used_pages} pages")
-    # reported, not gated: a preempted request's re-prefill rounds
-    # otherwise than the decode steps in bf16
+    print(f"prefill groups (uids, bucket, lengths): dense {dense_eng.last_prefill_groups}; "
+          f"paged {eng.last_prefill_groups}", flush=True)
+    # reported, not gated: after a preemption a request may prefill in
+    # another right-padded group at another bucket and round otherwise in
+    # bf16; the fp32 control below gates (ROADMAP C1)
     layout_agreement("dense vs paged token agreement", dense, paged, eng)
+    c1 = c1_control(cfg, model, params, spec, num_pages, dense, paged,
+                    dense_eng.last_prefill_groups, eng.last_prefill_groups)
     for name in ("rmsnorm", "flash_attention_fwd"):
         if dense_counts[name] == 0 or paged_counts[name] == 0:
             fail(f"{name} never launched while serving")
@@ -1481,6 +1886,12 @@ def main():
                                          paged_tok / paged_wall)
     rows["paged_flash_verify"]["launches"] = verify_launches
 
+    tiered_rec, tiered_counts = run_tiered(cfg, model, params, spec, dense, paged,
+                                           paged_tok / paged_wall, num_pages,
+                                           eng.preemptions)
+    for name in serving_kernels + ("paged_flash_decode[int8]", "paged_flash_verify[int8]"):
+        rows[name]["launches"] += tiered_counts[name]
+
     phases = where_time_goes(model, params, gen)
 
     # the serving weights, engine and logits make way for training's
@@ -1507,6 +1918,7 @@ def main():
         num_pages=num_pages, teacher_forced_max_err=err, logit_scale=scale,
         fig5=fig5_rows, fig5_counts=fig5_counts, fig5_device=fig5_device,
         warp_forms=warp_forms, spec=spec_rec, verify_t1_err=t1_err, moe=moe_rec,
+        c1_control=c1, tiered=tiered_rec, int8_kernel_checks=int8_checks,
         moe_gating_decode=gating_decode),
         indent=1))
     print(json.dumps(result), flush=True)

@@ -4,13 +4,15 @@ Each directory keeps the reference's split: ``<name>.cu`` (the CUDA
 kernel), ``ops.py`` (the wrapper: kernel on a CUDA tensor, plain version
 on a CPU tensor, never a fallback) and ``ref.py`` (the plain PyTorch
 version).  ``build.py`` compiles every ``.cu`` into one library at first
-use.  Each wrapper counts its kernel launches in ``<wrapper>.launches``;
-:func:`launch_counts` / :func:`reset_launches` read and clear them all.
+use.  Each wrapper counts its kernel launches in ``<wrapper>.launches``
+(the two paged attention wrappers count their int8 branch apart, in
+``.launches_int8``); :func:`launch_counts` / :func:`reset_launches` read
+and clear them all.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Tuple
 
 from repro_torch.kernels.decode_attention.ops import flash_decode, paged_flash_decode
 from repro_torch.kernels.flash_attention.ops import (
@@ -44,10 +46,18 @@ WRAPPERS = {
 }
 
 
+# every launch counter: (wrapper, attribute) by the name the counts use
+COUNTERS: Dict[str, Tuple[object, str]] = {
+    **{name: (fn, "launches") for name, fn in WRAPPERS.items()},
+    "paged_flash_decode[int8]": (paged_flash_decode, "launches_int8"),
+    "paged_flash_verify[int8]": (paged_flash_verify, "launches_int8"),
+}
+
+
 def launch_counts() -> Dict[str, int]:
-    return {name: fn.launches for name, fn in WRAPPERS.items()}
+    return {name: getattr(fn, attr) for name, (fn, attr) in COUNTERS.items()}
 
 
 def reset_launches():
-    for fn in WRAPPERS.values():
-        fn.launches = 0
+    for fn, attr in COUNTERS.values():
+        setattr(fn, attr, 0)

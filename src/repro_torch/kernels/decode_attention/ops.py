@@ -2,7 +2,9 @@
 (``decode_attention.cu``) on CUDA tensors, the plain versions
 (``ref.py``) on CPU tensors.  Counterparts of
 ``repro.kernels.decode_attention.decode_attention``'s ``flash_decode``
-and ``paged_flash_decode``, with the same layouts."""
+and ``paged_flash_decode``, with the same layouts.  The paged wrapper
+takes int8 pages with their f32 row scales too, and counts those
+launches apart (``paged_flash_decode.launches_int8``)."""
 
 from __future__ import annotations
 
@@ -23,13 +25,35 @@ _DENSE_ARGS = ([build.P] * 5 + [build.I64] * 6 + [build.I] * 5
                + [build.F, build.I, build.P])
 _PAGED_ARGS = ([build.P] * 6 + [build.I64] * 7 + [build.I] * 6
                + [build.F, build.I, build.P])
+_PAGED_INT8_ARGS = ([build.P] * 8 + [build.I64] * 11 + [build.I] * 6
+                    + [build.F, build.I, build.P])
 
 
-def _check(q, k, v, pos, name, max_group=_MAX_GROUP):
+def check_scales(k_scales, v_scales, k_pages, name):
+    """Both row-scale operands or neither; True when both are given.  With
+    both, each scale must be (P, page_size) f32 on the pages' device (the
+    kernel route then also demands int8 pages, in ``_check``)."""
+    if (k_scales is None) != (v_scales is None):
+        raise ValueError("pass both k_scales and v_scales or neither")
+    if k_scales is None:
+        return False
+    for s in (k_scales, v_scales):
+        if (s.dtype != torch.float32 or tuple(s.shape) != tuple(k_pages.shape[:2])
+                or s.device != k_pages.device):
+            raise ValueError(f"{name}: row scales must be (P, page_size) = "
+                             f"{tuple(k_pages.shape[:2])} float32 on "
+                             f"{k_pages.device}; got {tuple(s.shape)} {s.dtype} "
+                             f"on {s.device}")
+    return True
+
+
+def _check(q, k, v, pos, name, max_group=_MAX_GROUP, quantized=False):
     b, hkv, g, d = q.shape
-    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"{name} takes f32/bf16 q and cache of one dtype; got "
-                        f"{q.dtype}, {k.dtype}, {v.dtype}")
+    cache = torch.int8 if quantized else q.dtype
+    if q.dtype not in _DTYPES or k.dtype != cache or v.dtype != cache:
+        raise TypeError(f"{name} takes f32/bf16 q and a cache of q's dtype, or "
+                        f"int8 pages with row scales; got {q.dtype}, "
+                        f"{k.dtype}, {v.dtype}")
     if d not in _HEAD_DIMS or g > max_group:
         raise ValueError(f"{name} is built for head dims {_HEAD_DIMS} and "
                          f"query rows <= {max_group}; got D={d}, rows={g}")
@@ -70,14 +94,15 @@ def paged_flash_decode(q: torch.Tensor, k_pages: torch.Tensor,
                        v_scales: Optional[torch.Tensor] = None) -> torch.Tensor:
     """q (B, Hkv, G, D); pages (P, page_size, Hkv, D); block_tables (B, NB)
     int32, logical block j of row b in page block_tables[b, j] (page 0 is
-    the trash page); pos (B,).  ``k_scales``/``v_scales`` would mark the
-    reference's int8 pages, which are not ported yet."""
-    if k_scales is not None or v_scales is not None:
-        raise NotImplementedError("int8 paged decode is not ported yet "
-                                  "(ROADMAP A9)")
+    the trash page); pos (B,).  ``k_scales``/``v_scales`` ((P, page_size)
+    float32, both or neither) mark int8 pages: each row is dequantized
+    (value * its row's scale) inside the kernel's gather."""
+    quantized = check_scales(k_scales, v_scales, k_pages, "paged_flash_decode")
     if q.device.type == "cpu":
-        return paged_flash_decode_ref(q, k_pages, v_pages, block_tables, pos)
-    q, pos = _check(q, k_pages, v_pages, pos, "paged_flash_decode")
+        return paged_flash_decode_ref(q, k_pages, v_pages, block_tables, pos,
+                                      k_scales=k_scales, v_scales=v_scales)
+    q, pos = _check(q, k_pages, v_pages, pos, "paged_flash_decode",
+                    quantized=quantized)
     if (block_tables.device != q.device or block_tables.dim() != 2
             or block_tables.shape[0] != q.shape[0]):
         raise ValueError("block_tables must be (B, NB) on the device of q")
@@ -86,15 +111,24 @@ def paged_flash_decode(q: torch.Tensor, k_pages: torch.Tensor,
         bt = bt.contiguous()
     b, hkv, g, d = q.shape
     o = torch.empty_like(q)
+    shape = (b, bt.shape[1], k_pages.shape[1], hkv, g, d, d ** -0.5, _DTYPES[q.dtype])
+    if quantized:
+        build.launch("repro_paged_flash_decode_int8", _PAGED_INT8_ARGS, q.device,
+                     q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+                     k_scales.data_ptr(), v_scales.data_ptr(), bt.data_ptr(),
+                     pos.data_ptr(), o.data_ptr(), *k_pages.stride()[:3],
+                     *v_pages.stride()[:3], *k_scales.stride(), *v_scales.stride(),
+                     bt.stride(0), *shape)
+        paged_flash_decode.launches_int8 += 1
+        return o
     build.launch("repro_paged_flash_decode", _PAGED_ARGS, q.device,
                  q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
                  bt.data_ptr(), pos.data_ptr(), o.data_ptr(),
-                 *k_pages.stride()[:3], *v_pages.stride()[:3], bt.stride(0),
-                 b, bt.shape[1], k_pages.shape[1], hkv, g, d, d ** -0.5,
-                 _DTYPES[q.dtype])
+                 *k_pages.stride()[:3], *v_pages.stride()[:3], bt.stride(0), *shape)
     paged_flash_decode.launches += 1
     return o
 
 
 flash_decode.launches = 0
 paged_flash_decode.launches = 0
+paged_flash_decode.launches_int8 = 0

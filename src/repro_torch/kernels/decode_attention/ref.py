@@ -5,6 +5,8 @@ garbage), and a zero softmax sum finalizes as 1."""
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 MASK_VALUE = -0.7 * torch.finfo(torch.float32).max   # decode_attention.py:39
@@ -27,19 +29,27 @@ def flash_decode_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return o.to(q.dtype)
 
 
-def gather_pages(pages: torch.Tensor, block_tables: torch.Tensor) -> torch.Tensor:
+def gather_pages(pages: torch.Tensor, block_tables: torch.Tensor,
+                 scales: Optional[torch.Tensor] = None) -> torch.Tensor:
     """(P, ps, H, D) pages through (B, NB) tables -> dense (B, NB*ps, H, D),
-    an ``index_select`` gather."""
+    an ``index_select`` gather.  With int8 pages, ``scales`` (P, ps) are
+    gathered through the same table and the rows come back dequantized
+    in f32 (value * row scale), as the reference's jnp path."""
     b, nb = block_tables.shape
     flat = block_tables.reshape(-1).to(device=pages.device, dtype=torch.long)
-    return pages.index_select(0, flat).reshape(b, nb * pages.shape[1],
-                                               *pages.shape[2:])
+    g = pages.index_select(0, flat)                          # (B*NB, ps, H, D)
+    if scales is not None:
+        g = g.float() * scales.index_select(0, flat)[..., None, None]
+    return g.reshape(b, nb * pages.shape[1], *pages.shape[2:])
 
 
 def paged_flash_decode_ref(q: torch.Tensor, k_pages: torch.Tensor,
                            v_pages: torch.Tensor, block_tables: torch.Tensor,
-                           pos: torch.Tensor) -> torch.Tensor:
+                           pos: torch.Tensor, *,
+                           k_scales: Optional[torch.Tensor] = None,
+                           v_scales: Optional[torch.Tensor] = None) -> torch.Tensor:
     """q (B, Hkv, G, D); pages (P, page_size, Hkv, D); block_tables (B, NB);
-    pos (B,).  Returns (B, Hkv, G, D)."""
-    return flash_decode_ref(q, gather_pages(k_pages, block_tables),
-                            gather_pages(v_pages, block_tables), pos)
+    pos (B,); int8 pages with ``k_scales``/``v_scales`` (P, page_size)
+    are dequantized before attending.  Returns (B, Hkv, G, D)."""
+    return flash_decode_ref(q, gather_pages(k_pages, block_tables, k_scales),
+                            gather_pages(v_pages, block_tables, v_scales), pos)

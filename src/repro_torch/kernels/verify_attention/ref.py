@@ -12,6 +12,8 @@ rounding (tests/test_torch_spec_decode.py states how far)."""
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from repro_torch.kernels.decode_attention.ref import MASK_VALUE, gather_pages
@@ -47,9 +49,13 @@ def verify_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def paged_verify_attention_ref(q: torch.Tensor, k_pages: torch.Tensor,
                                v_pages: torch.Tensor, block_tables: torch.Tensor,
-                               pos: torch.Tensor, t_window: int) -> torch.Tensor:
+                               pos: torch.Tensor, t_window: int, *,
+                               k_scales: Optional[torch.Tensor] = None,
+                               v_scales: Optional[torch.Tensor] = None) -> torch.Tensor:
     """q (B, Hkv, T*G, D); pages (P, page_size, Hkv, D); block_tables
-    (B, NB); pos (B,).  Returns (B, Hkv, T*G, D)."""
-    return verify_attention_ref(q, gather_pages(k_pages, block_tables),
-                                gather_pages(v_pages, block_tables), pos,
+    (B, NB); pos (B,); int8 pages with ``k_scales``/``v_scales``
+    (P, page_size) are dequantized before attending.  Returns
+    (B, Hkv, T*G, D)."""
+    return verify_attention_ref(q, gather_pages(k_pages, block_tables, k_scales),
+                                gather_pages(v_pages, block_tables, v_scales), pos,
                                 t_window)

@@ -3,8 +3,8 @@
 // bounded by the window's last position.
 //
 // Replaces: src/repro/kernels/verify_attention/verify_attention.py::
-// paged_flash_verify (Pallas _verify_kernel, bf16/f32 pages; the int8
-// variant is not ported yet).
+// paged_flash_verify (Pallas _verify_kernel over bf16/f32 pages, and over
+// int8 pages with f32 row scales: its ks_ref/vs_ref dequant).
 //
 // What it computes: q (B, Hkv, T*G, D) holds T window positions x G
 // grouped queries per KV head, rows t-major, so row r = t*G + g is the
@@ -15,11 +15,15 @@
 // garbage and 0 * NaN would poison the sum).  Position t resolves through
 // block_tables[b, min(t / page_size, last / page_size, NB - 1)], the
 // Pallas index map's clamp (a dead slot's runaway pos clamps to the last
-// table column).  A zero softmax sum finalizes as 1.
+// table column).  A zero softmax sum finalizes as 1.  With int8 pages
+// (cache type TC = int8_t, apart from q's T) each staged element is
+// float(q8) * its row's scale, the scale read through the same clamped
+// page lookup, so the dot runs on (k * s) . q as in the Pallas kernel.
 //
 // Bound on the H100: bytes.  Each cached K/V row up to last is read once
 // against 4 * T * G flops per element (24 at qwen2-1.5b's G = 6 and
-// spec_k = 4), far below the card's flop/byte balance.  Design: the paged
+// spec_k = 4), far below the card's flop/byte balance; int8 pages read
+// 1 B per element plus a 4 B scale per row for K and for V.  Design: the paged
 // decode kernel (decode_attention.cu) with the query block widened to the
 // window.  One block per (batch row, KV head), one warp per query row, so
 // a 32-key K/V tile staged in shared memory is read from device memory
@@ -28,11 +32,15 @@
 // paper's HW warp reduce); lane c owns output columns c, c+32, ...  Up to
 // 32 rows in f32 need 49 KB of shared memory at D = 128, past the 48 KB
 // static limit, so the buffers are dynamic and the launch raises the
-// kernel's limit when it needs to.
+// kernel's limit when it needs to.  The shared tiles hold f32 after the
+// dequant, so int8 pages take the same 49 KB.
 //
 // Known limit: B * Hkv blocks (8 at batch 4 for qwen2-1.5b), as in decode.
 // Splitting the KV axis across blocks is later work.
 #include "common.cuh"
+
+#include <cstdint>
+#include <type_traits>
 
 namespace {
 
@@ -43,18 +51,28 @@ struct Strides {
   long long p, o, h;  // page / in-page offset / head element strides
 };
 
+// int8 pages' row scales, (P, page_size) f32 each, with page / offset
+// element strides (unused for float pages)
+struct Scales {
+  const float* k;
+  const float* v;
+  long long kp, ko, vp, vo;
+};
+
 constexpr size_t smem_bytes(int rows, int d) {
   // q_s[rows][D], k_s[32][D + 1] (+1: lane j reads row j conflict-free), v_s[32][D]
   return sizeof(float) * (static_cast<size_t>(rows) * d + kBlockK * (d + 1) + kBlockK * d);
 }
 
-template <typename T, int D>
+template <typename T, typename TC, int D>
 __global__ void __launch_bounds__(kMaxRows * 32)
-verify_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+verify_kernel(const T* __restrict__ q, const TC* __restrict__ k, const TC* __restrict__ v,
               const int* __restrict__ pos, const int* __restrict__ block_tables,
-              T* __restrict__ o, Strides ks_, Strides vs_, long long bt_stride, int nb,
-              int page_size, int hkv, int rows, int group, int t_window, float scale) {
+              T* __restrict__ o, Strides ks_, Strides vs_, Scales sc, long long bt_stride,
+              int nb, int page_size, int hkv, int rows, int group, int t_window,
+              float scale) {
   constexpr int C = D / 32;
+  constexpr bool kQuant = std::is_same<TC, int8_t>::value;
   extern __shared__ float smem[];
   float* q_s = smem;
   float* k_s = q_s + rows * D;
@@ -89,6 +107,10 @@ verify_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
         const int off = kid % page_size;
         kx = repro::to_f32(k[page * ks_.p + off * ks_.o + h * ks_.h + c]);
         vx = repro::to_f32(v[page * vs_.p + off * vs_.o + h * vs_.h + c]);
+        if constexpr (kQuant) {
+          kx *= sc.k[page * sc.kp + off * sc.ko];
+          vx *= sc.v[page * sc.vp + off * sc.vo];
+        }
       }
       k_s[j * (D + 1) + c] = kx;
       v_s[j * D + c] = vx;
@@ -122,23 +144,51 @@ verify_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
   for (int c = 0; c < C; ++c) o[row * D + lane + 32 * c] = repro::from_f32<T>(acc[c] / safe);
 }
 
-template <typename T, int D>
+template <typename T, typename TC, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, const int* pos, const int* bt,
-                   void* o, Strides ks, Strides vs, long long bt_stride, int nb, int page_size,
-                   int b, int hkv, int rows, int t_window, float scale, cudaStream_t stream) {
+                   void* o, Strides ks, Strides vs, Scales sc, long long bt_stride, int nb,
+                   int page_size, int b, int hkv, int rows, int t_window, float scale,
+                   cudaStream_t stream) {
   const size_t bytes = smem_bytes(rows, D);
   if (bytes > 48 * 1024) {
     // above 48 KB a block gets dynamic shared memory only after opting in
     const cudaError_t e = cudaFuncSetAttribute(
-        verify_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        verify_kernel<T, TC, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem_bytes(kMaxRows, D)));
     if (e != cudaSuccess) return e;
   }
-  verify_kernel<T, D><<<dim3(b, hkv), rows * 32, bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), pos, bt,
-      static_cast<T*>(o), ks, vs, bt_stride, nb, page_size, hkv, rows, rows / t_window,
+  verify_kernel<T, TC, D><<<dim3(b, hkv), rows * 32, bytes, stream>>>(
+      static_cast<const T*>(q), static_cast<const TC*>(k), static_cast<const TC*>(v), pos, bt,
+      static_cast<T*>(o), ks, vs, sc, bt_stride, nb, page_size, hkv, rows, rows / t_window,
       t_window, scale);
   return cudaGetLastError();
+}
+
+// q's type T from dtype; the cache's type is T, or int8_t when kInt8
+template <bool kInt8>
+int dispatch(const void* q, const void* k_pages, const void* v_pages, const void* block_tables,
+             const void* pos, void* o, Strides ks, Strides vs, Scales sc, long long bt_stride,
+             int b, int nb, int page_size, int hkv, int rows, int t_window, int d, float scale,
+             int dtype, void* stream) {
+  using BF = __nv_bfloat16;
+  using CB = typename std::conditional<kInt8, int8_t, BF>::type;
+  using CF = typename std::conditional<kInt8, int8_t, float>::type;
+  if (b <= 0 || hkv <= 0) return static_cast<int>(cudaGetLastError());
+  if (rows <= 0 || rows > kMaxRows || t_window <= 0 || rows % t_window != 0 ||
+      (d != 64 && d != 128))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int* p = static_cast<const int*>(pos);
+  const int* t = static_cast<const int*>(block_tables);
+  cudaError_t e;
+  if (dtype == repro::kBF16) {
+    e = d == 128 ? launch<BF, CB, 128>(q, k_pages, v_pages, p, t, o, ks, vs, sc, bt_stride, nb, page_size, b, hkv, rows, t_window, scale, s)
+                 : launch<BF, CB, 64>(q, k_pages, v_pages, p, t, o, ks, vs, sc, bt_stride, nb, page_size, b, hkv, rows, t_window, scale, s);
+  } else {
+    e = d == 128 ? launch<float, CF, 128>(q, k_pages, v_pages, p, t, o, ks, vs, sc, bt_stride, nb, page_size, b, hkv, rows, t_window, scale, s)
+                 : launch<float, CF, 64>(q, k_pages, v_pages, p, t, o, ks, vs, sc, bt_stride, nb, page_size, b, hkv, rows, t_window, scale, s);
+  }
+  return static_cast<int>(e);
 }
 
 }  // namespace
@@ -155,21 +205,23 @@ extern "C" int repro_paged_flash_verify(const void* q, const void* k_pages,
                                         int b, int nb, int page_size, int hkv, int rows,
                                         int t_window, int d, float scale, int dtype,
                                         void* stream) {
-  if (b <= 0 || hkv <= 0) return static_cast<int>(cudaGetLastError());
-  if (rows <= 0 || rows > kMaxRows || t_window <= 0 || rows % t_window != 0 ||
-      (d != 64 && d != 128))
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int* p = static_cast<const int*>(pos);
-  const int* t = static_cast<const int*>(block_tables);
-  const Strides ks{k_sp, k_so, k_sh}, vs{v_sp, v_so, v_sh};
-  cudaError_t e;
-  if (dtype == repro::kBF16) {
-    e = d == 128 ? launch<__nv_bfloat16, 128>(q, k_pages, v_pages, p, t, o, ks, vs, bt_stride, nb, page_size, b, hkv, rows, t_window, scale, s)
-                 : launch<__nv_bfloat16, 64>(q, k_pages, v_pages, p, t, o, ks, vs, bt_stride, nb, page_size, b, hkv, rows, t_window, scale, s);
-  } else {
-    e = d == 128 ? launch<float, 128>(q, k_pages, v_pages, p, t, o, ks, vs, bt_stride, nb, page_size, b, hkv, rows, t_window, scale, s)
-                 : launch<float, 64>(q, k_pages, v_pages, p, t, o, ks, vs, bt_stride, nb, page_size, b, hkv, rows, t_window, scale, s);
-  }
-  return static_cast<int>(e);
+  return dispatch<false>(q, k_pages, v_pages, block_tables, pos, o, Strides{k_sp, k_so, k_sh},
+                         Strides{v_sp, v_so, v_sh}, Scales{}, bt_stride, b, nb, page_size,
+                         hkv, rows, t_window, d, scale, dtype, stream);
+}
+
+// The int8 branch: k/v pages int8 as above; row scales k_scales /
+// v_scales (P, page_size) f32 with element strides for P and page_size.
+extern "C" int repro_paged_flash_verify_int8(
+    const void* q, const void* k_pages, const void* v_pages, const void* k_scales,
+    const void* v_scales, const void* block_tables, const void* pos, void* o, long long k_sp,
+    long long k_so, long long k_sh, long long v_sp, long long v_so, long long v_sh,
+    long long ks_p, long long ks_o, long long vs_p, long long vs_o, long long bt_stride, int b,
+    int nb, int page_size, int hkv, int rows, int t_window, int d, float scale, int dtype,
+    void* stream) {
+  const Scales sc{static_cast<const float*>(k_scales), static_cast<const float*>(v_scales),
+                  ks_p, ks_o, vs_p, vs_o};
+  return dispatch<true>(q, k_pages, v_pages, block_tables, pos, o, Strides{k_sp, k_so, k_sh},
+                        Strides{v_sp, v_so, v_sh}, sc, bt_stride, b, nb, page_size, hkv, rows,
+                        t_window, d, scale, dtype, stream);
 }

@@ -93,10 +93,14 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
                            v_pages: torch.Tensor, block_tables: torch.Tensor,
                            pos: torch.Tensor, *,
                            attend_len: Optional[int] = None,
+                           k_scales: Optional[torch.Tensor] = None,
+                           v_scales: Optional[torch.Tensor] = None,
                            use_kernel: bool = True) -> torch.Tensor:
     """One-token decode against the paged pool: q (B, 1, Hq, D), pages
     (P, page_size, Hkv, D), block_tables (B, NB), pos (B,).  Only the first
-    ceil(attend_len / page_size) table columns are visited."""
+    ceil(attend_len / page_size) table columns are visited.
+    ``k_scales``/``v_scales`` ((P, page_size) float32, both or neither):
+    int8 pages, dequantized inside the gather on both lowerings."""
     page_size = k_pages.shape[1]
     if attend_len is not None:
         block_tables = block_tables[:, :-(-attend_len // page_size)]
@@ -104,13 +108,16 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
     hkv = k_pages.shape[2]
     qg = q.reshape(b, hkv, hq // hkv, d)
     fn = paged_flash_decode if use_kernel else paged_flash_decode_ref
-    return fn(qg, k_pages, v_pages, block_tables, pos).reshape(b, 1, hq, d)
+    return fn(qg, k_pages, v_pages, block_tables, pos, k_scales=k_scales,
+              v_scales=v_scales).reshape(b, 1, hq, d)
 
 
 def paged_verify_attention(q: torch.Tensor, k_pages: torch.Tensor,
                            v_pages: torch.Tensor, block_tables: torch.Tensor,
                            pos: torch.Tensor, *,
                            attend_len: Optional[int] = None,
+                           k_scales: Optional[torch.Tensor] = None,
+                           v_scales: Optional[torch.Tensor] = None,
                            use_kernel: bool = True) -> torch.Tensor:
     """k-token speculative verify against the paged pool: q (B, T, Hq, D)
     holds the window's queries at positions pos..pos+T-1 (whose K/V rows
@@ -122,7 +129,8 @@ def paged_verify_attention(q: torch.Tensor, k_pages: torch.Tensor,
     row axis per KV head, (B, Hkv, T*G, D) t-major, so its ``row // G`` is
     the window offset (the reference adapter, ``verify_attention/ops.py``).
     ``attend_len`` bounds pos + T: only the first ceil(attend_len /
-    page_size) table columns are visited."""
+    page_size) table columns are visited.  ``k_scales``/``v_scales``: int8
+    pages, as in :func:`paged_decode_attention`."""
     page_size = k_pages.shape[1]
     if attend_len is not None:
         block_tables = block_tables[:, :-(-attend_len // page_size)]
@@ -131,7 +139,8 @@ def paged_verify_attention(q: torch.Tensor, k_pages: torch.Tensor,
     g = hq // hkv
     qg = q.reshape(b, t, hkv, g, d).transpose(1, 2).reshape(b, hkv, t * g, d)
     fn = paged_flash_verify if use_kernel else paged_verify_attention_ref
-    o = fn(qg, k_pages, v_pages, block_tables, pos, t_window=t)
+    o = fn(qg, k_pages, v_pages, block_tables, pos, t_window=t,
+           k_scales=k_scales, v_scales=v_scales)
     return o.reshape(b, hkv, t, g, d).transpose(1, 2).reshape(b, t, hq, d)
 
 

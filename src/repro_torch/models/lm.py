@@ -10,7 +10,7 @@ can carry the reference's weights over leaf for leaf:
   init(gen)                                  -> params
   backbone(params, batch)                    -> hidden (B, S, d)  [train]
   forward(params, batch)                     -> logits (B, S, V)  [train]
-  init_cache(B, max_seq, layout=...)         -> dense or paged cache
+  init_cache(B, max_seq, layout=..., kv_dtype=...) -> dense or paged cache
   prefill(params, tokens, max_seq, last_pos) -> (last logits (B, V), dense cache)
   decode_step(params, cache, tok, pos, attend_len) -> (logits (B, V), cache)
   decode_verify_step(params, paged cache, window (B, T), pos, attend_len)
@@ -50,7 +50,12 @@ from repro_torch.models.layers import (
     swiglu,
 )
 from repro_torch.models.moe import init_moe_params, moe_block
-from repro_torch.serve.kv_cache import TRASH_PAGE, cdiv, init_page_pool
+from repro_torch.serve.kv_cache import (
+    TRASH_PAGE,
+    cdiv,
+    init_page_pool,
+    quantize_kv_rows,
+)
 
 Params = Dict[str, Any]
 # one attention site's lowering (Model's attn_backend, verify_backend):
@@ -69,6 +74,23 @@ def _unstack(tree) -> list:
         n = len(next(iter(per_key.values())))
         return [{k: v[l] for k, v in per_key.items()} for l in range(n)]
     return list(torch.unbind(tree, 0))
+
+
+def _write_rows(cache, l: int, page: torch.Tensor, off: torch.Tensor,
+                k: torch.Tensor, v: torch.Tensor) -> dict:
+    """Write fresh K/V rows (..., Hkv, D) of layer ``l`` at (page, offset)
+    pairs of the paged pool, in place; a quantized pool stores each row
+    quantized and its scale.  Returns the layer's scale operands for the
+    attention read ({} for a float pool)."""
+    kp, vp = cache["k_pages"], cache["v_pages"]
+    if "k_scales" not in cache:
+        kp[l, page, off] = k
+        vp[l, page, off] = v
+        return {}
+    ks, vs = cache["k_scales"], cache["v_scales"]
+    kp[l, page, off], ks[l, page, off] = quantize_kv_rows(k)
+    vp[l, page, off], vs[l, page, off] = quantize_kv_rows(v)
+    return {"k_scales": ks[l], "v_scales": vs[l]}
 
 
 class Model:
@@ -158,18 +180,26 @@ class Model:
 
     # ----------------------------------------------------------------- cache
     def init_cache(self, batch_size: int, max_seq: int, *, layout: str = "dense",
-                   page_size: int = 16, num_pages: Optional[int] = None
-                   ) -> Dict[str, torch.Tensor]:
+                   page_size: int = 16, num_pages: Optional[int] = None,
+                   kv_dtype: Optional[str] = None) -> Dict[str, torch.Tensor]:
         """'dense': {"k"/"v": (L, B, max_seq, Hkv, D)}.  'paged': a shared
         pool {"k_pages"/"v_pages": (L, num_pages, page_size, Hkv, D)} plus
-        (B, ceil(max_seq / page_size)) block tables at the trash page."""
+        (B, ceil(max_seq / page_size)) block tables at the trash page.
+
+        kv_dtype (paged only): 'bf16' | 'int8' | None.  'int8' stores the
+        pool quantized with per-row scale leaves ``k_scales``/``v_scales``
+        (``repro_torch.serve.kv_cache``)."""
         cfg = self.cfg
         L, b = cfg.n_layers, batch_size
+        if kv_dtype is not None and layout != "paged":
+            raise ValueError("kv_dtype is a paged-layout axis; "
+                             f"got layout={layout!r}")
         if layout == "paged":
             if num_pages is None:
                 num_pages = b * cdiv(max_seq, page_size) + 1
             cache = init_page_pool(L, num_pages, page_size, cfg.n_kv_heads,
-                                   cfg.d_head, self.dtype, self.device)
+                                   cfg.d_head, self.dtype, self.device,
+                                   kv_dtype=kv_dtype)
             cache["block_tables"] = torch.full(
                 (b, cdiv(max_seq, page_size)), TRASH_PAGE, dtype=torch.int32,
                 device=self.device)
@@ -324,21 +354,20 @@ class Model:
     def _gqa_decode_paged(self, params, cache, x, pos, attend_len):
         """The fresh K/V row lands at (page, offset) resolved through the
         slot's block table; dead slots' tables point at the trash page,
-        so their writes are harmless."""
-        if "k_scales" in cache:
-            raise NotImplementedError("int8 pages are not ported yet (ROADMAP A9)")
-        kp, vp, bt = cache["k_pages"], cache["v_pages"], cache["block_tables"]
-        page_size = kp.shape[2]
+        so their writes are harmless.  A quantized pool (scale leaves)
+        stores the row quantized with its scale, and attention dequantizes
+        in its gather."""
+        bt = cache["block_tables"]
+        page_size = cache["k_pages"].shape[2]
         bidx = torch.arange(x.shape[0], device=self.device)
         blk = torch.clamp(pos.long() // page_size, max=bt.shape[1] - 1)
         page = bt[bidx, blk].long()
         off = pos.long() % page_size
 
         def write_attend(l, q, k, v):
-            kp[l, page, off] = k[:, 0]
-            vp[l, page, off] = v[:, 0]
-            return paged_decode_attention(q, kp[l], vp[l], bt, pos,
-                                          attend_len=attend_len,
+            scales = _write_rows(cache, l, page, off, k[:, 0], v[:, 0])
+            return paged_decode_attention(q, cache["k_pages"][l], cache["v_pages"][l],
+                                          bt, pos, attend_len=attend_len, **scales,
                                           use_kernel=self.use_kernels)
 
         return self._decode_logits(params, x, pos, write_attend), cache
@@ -374,13 +403,13 @@ class Model:
         """The T-token window body over the paged cache: per layer the T
         fresh K/V rows land at table-resolved (page, offset) pairs, then
         verify attention masks each query row at its own position.
-        Returns (hidden (B, T, d), cache).  (The reference also prefills a
-        shared prefix's suffix through it; that arrives with ROADMAP A9.)"""
-        if "k_scales" in cache:
-            raise NotImplementedError("int8 pages are not ported yet (ROADMAP A9)")
+        Returns (hidden (B, T, d), cache).  A quantized pool stores each row
+        quantized, as :meth:`_gqa_decode_paged`.  (The reference also
+        prefills a shared prefix's suffix through it; that arrives with
+        ROADMAP A9b.)"""
         use_kernel = self.uses_kernel(verify_backend, "verify_backend")
-        kp, vp, bt = cache["k_pages"], cache["v_pages"], cache["block_tables"]
-        page_size = kp.shape[2]
+        bt = cache["block_tables"]
+        page_size = cache["k_pages"].shape[2]
         t = x.shape[1]
         positions = pos.long()[:, None] + torch.arange(t, device=self.device)
         blk = positions // page_size
@@ -393,10 +422,9 @@ class Model:
         off = positions % page_size
 
         def write_attend(l, q, k, v):
-            kp[l, page, off] = k
-            vp[l, page, off] = v
-            return paged_verify_attention(q, kp[l], vp[l], bt, pos,
-                                          attend_len=attend_len,
+            scales = _write_rows(cache, l, page, off, k, v)
+            return paged_verify_attention(q, cache["k_pages"][l], cache["v_pages"][l],
+                                          bt, pos, attend_len=attend_len, **scales,
                                           use_kernel=use_kernel)
 
         return self._gqa_decode_layers(params, x, positions, write_attend), cache

@@ -36,9 +36,26 @@ the step and blocks holding only rejected rows are retracted after it
 off for a request whose recent windows commit one token each, and back
 on after a cooldown.
 
+Tiered KV memory (paged layout).  ``kv_dtype="int8"`` stores the pool
+quantized: int8 values plus one f32 scale per cached row, quantized on
+every cache write and dequantized inside both paged attention kernels (and
+their plain versions).  Per-row scales make the stored bytes a pure
+function of the cached values: a swap resume restores the very bytes the
+slot held, and a requeue's recompute stores the bytes of an uninterrupted
+run wherever it computes the same values.  (A prefill at another batch
+shape may round its matmuls otherwise in the last bits, and one int8
+rounding then moves a value by a whole quantization step.)
+``preempt="swap"`` pages a
+victim's pages out to host buffers before its slot releases them and, at
+re-admission, restores them into fresh pages with no prefill;
+``preempt="auto"`` takes the swap when moving a resident token's bytes
+(``cost_model.swap_gbps``) costs less than recomputing it (2 * parameters
+FLOPs over ``cost_model.decode_flops_s``), as the reference decides.
+
 Not ported yet: sampling at temperature > 0 (ROADMAP A6), the overlapped
-pipeline, prefix sharing, int8 pages, host swap, chunked prefill, faults
-and recovery, priorities and deadlines.
+pipeline and its asynchronous swap copies (A6b), measured cost models
+(``preempt_calibrate``, A11), prefix sharing (A9b), chunked prefill,
+faults and recovery, priorities and deadlines.
 """
 
 from __future__ import annotations
@@ -51,18 +68,27 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
-from repro_torch.serve import spec_decode
+from repro_torch.optim.optimizer import leaves
+from repro_torch.serve import calibrate, spec_decode
 from repro_torch.serve.kv_cache import (
     CACHE_LAYOUTS,
     PagedCacheManager,
+    SwapHandle,
     blocks_for,
     cdiv,
+    resolve_kv_dtype,
     scatter_prefill,
+    swap_in_pages,
     write_slots,
 )
 
 STATUS_OK = "ok"
 STATUS_FAILED = "failed"
+
+# preemption-resume policies: requeue recomputes the victim's cache from
+# its folded prompt at re-admission; swap pages it to host buffers and
+# restores it; auto picks by the cost model
+PREEMPT_POLICIES = ("requeue", "swap", "auto")
 
 
 # shape buckets: attention reads the live prefix rounded up to
@@ -118,6 +144,7 @@ class _SchedState:
     pos: Any = None
     tok: Any = None
     remaining: Any = None
+    swaps: Dict[int, SwapHandle] = dataclasses.field(default_factory=dict)
     draft_cache: Any = None    # speculative decoding: dense draft slot pool
     spec_mask: Any = None      # speculative decoding: per-slot spec flag
     spec_hist: Dict[int, deque] = dataclasses.field(default_factory=dict)
@@ -128,8 +155,11 @@ class ServeEngine:
     def __init__(self, model, params, *, max_seq: int, batch_slots: int,
                  temperature: float = 0.0, cache_layout: str = "dense",
                  page_size: int = 16, num_pages: Optional[int] = None,
+                 kv_dtype: Optional[str] = None, preempt: str = "requeue",
                  spec_k: int = 1, draft=None,
-                 verify_backend: Optional[str] = None):
+                 verify_backend: Optional[str] = None,
+                 cost_model: Optional[calibrate.CostModel] = None,
+                 preempt_calibrate: bool = False):
         if temperature > 0.0:
             raise NotImplementedError(
                 "sampling at temperature > 0 needs the reference's threefry "
@@ -143,6 +173,20 @@ class ServeEngine:
             raise ValueError("speculative decoding (spec_k > 1) verifies "
                              "against the paged cache; pass "
                              "cache_layout='paged'")
+        resolve_kv_dtype(kv_dtype, torch.bfloat16)   # validates the flag early
+        if kv_dtype not in (None, "auto") and cache_layout != "paged":
+            raise ValueError("kv_dtype selects the paged pool's storage "
+                             "format; pass cache_layout='paged'")
+        if preempt not in PREEMPT_POLICIES:
+            raise ValueError(f"preempt must be one of {PREEMPT_POLICIES}; "
+                             f"got {preempt!r}")
+        if preempt != "requeue" and cache_layout != "paged":
+            raise ValueError("swap-tier preemption pages the paged pool "
+                             "to host; pass cache_layout='paged'")
+        if cost_model is None and preempt_calibrate:
+            raise NotImplementedError(
+                "measuring the swap bandwidth and decode rate on the card "
+                "is not ported yet (ROADMAP A11); pass cost_model=")
         model.uses_kernel(verify_backend, "verify_backend")   # validates
         self.model = model
         self.params = params
@@ -155,6 +199,11 @@ class ServeEngine:
             # capacity parity with the dense pool (+1 for the trash page)
             num_pages = batch_slots * cdiv(max_seq, page_size) + 1
         self.num_pages = num_pages
+        self.kv_dtype = kv_dtype
+        self.preempt = preempt
+        self.cost_model = cost_model or calibrate.DEFAULT_COST_MODEL
+        # preempt="auto": recompute costs ~2 * params FLOPs a token
+        self._n_params = sum(t.numel() for t in leaves(params))
         self.spec_k = spec_k
         self.draft_model = self.draft_params = None
         if spec_k > 1:
@@ -166,6 +215,9 @@ class ServeEngine:
         # observability, refreshed by every serve() call
         self.last_stats: Dict[Any, Any] = {}
         self.last_pool_stats = None
+        # (uids, bucket, prompt lengths) of every prefill call of the last
+        # serve(), in order
+        self.last_prefill_groups: List[tuple] = []
         self.preemptions = 0
 
     def _attend_len(self, needed: int) -> int:
@@ -181,6 +233,7 @@ class ServeEngine:
         token count in ``self.last_stats[uid]``."""
         st = _SchedState(queue=deque(), t0=time.perf_counter())
         self.last_stats = st.stats
+        self.last_prefill_groups = []
         self.preemptions = 0
         for req in requests:
             if req.uid in st.stats:
@@ -189,7 +242,8 @@ class ServeEngine:
             st.queue.append(req)
         if self.cache_layout == "paged":
             st.mgr = PagedCacheManager(self.num_pages, self.page_size,
-                                       self.slots, self.max_seq)
+                                       self.slots, self.max_seq,
+                                       kv_dtype=self.kv_dtype)
         for req in st.queue:
             self._check_fits(st, req)
         self._init_device(st)
@@ -225,7 +279,8 @@ class ServeEngine:
         if st.mgr is not None:
             st.pool = self.model.init_cache(
                 self.slots, self.max_seq, layout="paged",
-                page_size=self.page_size, num_pages=self.num_pages)
+                page_size=self.page_size, num_pages=self.num_pages,
+                kv_dtype=self.kv_dtype)
             st.pool.pop("block_tables")  # the manager owns the mapping
             st.bt_dev = st.mgr.device_tables(self.device)
         else:
@@ -379,6 +434,12 @@ class ServeEngine:
             if slot in st.live or not st.queue:
                 continue
             req = st.queue[0]
+            if st.mgr is not None and req.uid in st.swaps:
+                # a host-swapped resume restores its pages instead of
+                # prefilling; blocked exactly like a too-big prompt
+                if not self._admit_swapped_row(st, slot, req):
+                    break
+                continue
             if st.mgr is not None:
                 if not st.mgr.can_admit(len(req.prompt),
                                         headroom=len(st.live) + len(taken)):
@@ -391,15 +452,7 @@ class ServeEngine:
             return
         t_admit = time.perf_counter() - st.t0
         for slot, req in taken:
-            # only a preemption resume keeps its generated prefix;
-            # re-serving the same Request objects starts fresh
-            if id(req) not in st.resumed:
-                req.generated = []
-            st.live[slot] = req
-            st.admit_seq[slot] = st.next_seq
-            st.next_seq += 1
-            st.slot_pos[slot] = len(req.prompt)
-            st.stats[req.uid].setdefault("admitted_s", t_admit)
+            self._bookkeep_admit(st, slot, req, t_admit)
         if self.model.cfg.family in _PADDED_PREFILL_FAMILIES:
             longest = max(len(r.prompt) for _, r in taken)
             self._prefill_group(st, taken, min(self.max_seq,
@@ -407,13 +460,73 @@ class ServeEngine:
         else:
             for slot, req in taken:
                 self._prefill_group(st, [(slot, req)], len(req.prompt))
-        now = time.perf_counter() - st.t0
         for slot, req in taken:
-            if st.stats[req.uid]["status"] is not None:
-                continue
-            st.stats[req.uid].setdefault("first_token_s", now)
-            if req.max_new_tokens - len(req.generated) <= 0:
-                self._finish(st, slot, now)
+            self._finish_admission(st, slot, req)
+
+    def _bookkeep_admit(self, st: _SchedState, slot: int, req: Request,
+                        t_admit: float):
+        """Admission bookkeeping shared by prefill and swap resumes."""
+        # only a preemption resume keeps its generated prefix;
+        # re-serving the same Request objects starts fresh
+        if id(req) not in st.resumed:
+            req.generated = []
+        st.live[slot] = req
+        st.admit_seq[slot] = st.next_seq
+        st.next_seq += 1
+        st.slot_pos[slot] = len(req.prompt)
+        st.stats[req.uid].setdefault("admitted_s", t_admit)
+
+    def _finish_admission(self, st: _SchedState, slot: int, req: Request):
+        """First-token time, and completion of a budget the admission
+        already exhausted (no-op for a request prefill failed)."""
+        if st.stats[req.uid]["status"] is not None:
+            return
+        now = time.perf_counter() - st.t0
+        st.stats[req.uid].setdefault("first_token_s", now)
+        if req.max_new_tokens - len(req.generated) <= 0:
+            self._finish(st, slot, now)
+
+    def _admit_swapped_row(self, st: _SchedState, slot: int, req: Request) -> bool:
+        """Resume a host-swapped request: map fresh pages under the
+        growth-page headroom of the live slots, write the saved pages
+        back, and re-arm the slot as it stood at preemption, with no
+        prefill and no sampling.  The pending token (``generated[-1]``,
+        the folded prompt's last) re-arms as ``tok`` at position
+        ``handle.n_tokens``, so the next step replays the step the
+        preemption interrupted.  False when the pool cannot grant the
+        pages yet (admission blocks, as for a too-big prompt)."""
+        handle = st.swaps[req.uid]
+        if st.mgr.allocator.free - len(st.live) < handle.n_blocks:
+            return False
+        pages = st.mgr.admit_swapped(slot, handle)
+        if pages is None:
+            return False
+        del st.swaps[req.uid]
+        st.queue.popleft()
+        swap_in_pages(st.pool, handle.data, pages)
+        self._bookkeep_admit(st, slot, req, time.perf_counter() - st.t0)
+        n = handle.n_tokens
+        st.slot_pos[slot] = n          # _bookkeep_admit assumed a prefill
+        st.pos[slot] = n
+        st.tok[slot] = int(req.prompt[-1])
+        # no token samples at a swap resume, so no -1 here: the requeue
+        # path's prefill charges its sample against this same budget
+        st.remaining[slot] = req.max_new_tokens - len(req.generated)
+        if self.spec_k > 1:
+            st.spec_mask[slot] = bool(req.spec) and req.uid not in st.spec_disabled
+            # the draft's dense cache died with the slot: prefill it again
+            # from the folded prompt (the draft only steers acceptance)
+            bucket = min(self.max_seq, _round_up(len(req.prompt), PROMPT_BLOCK))
+            toks = torch.zeros((1, bucket), dtype=torch.int64, device=self.device)
+            toks[0, :len(req.prompt)] = torch.as_tensor(req.prompt)
+            last = torch.as_tensor([len(req.prompt) - 1], device=self.device)
+            _, dcache = self.draft_model.prefill(self.draft_params, toks,
+                                                 self.max_seq, last)
+            write_slots(st.draft_cache, dcache, [slot])
+        s = st.stats[req.uid]
+        s["swap_ins"] = s.get("swap_ins", 0) + 1
+        self._finish_admission(st, slot, req)
+        return True
 
     def _prefill_group(self, st: _SchedState, group: List[tuple], bucket: int):
         """One prefill for the admitted (slot, request) pairs, right-padded
@@ -422,6 +535,7 @@ class ServeEngine:
         slots = [s for s, _ in group]
         reqs = [r for _, r in group]
         lens = [len(r.prompt) for r in reqs]
+        self.last_prefill_groups.append(([r.uid for r in reqs], bucket, lens))
         toks = np.zeros((len(reqs), bucket), np.int64)
         for i, r in enumerate(reqs):
             toks[i, :lens[i]] = r.prompt
@@ -478,12 +592,33 @@ class ServeEngine:
                     break
                 self._preempt(st, max(st.live, key=lambda s: st.admit_seq[s]))
 
+    def _swap_wins(self, st: _SchedState) -> bool:
+        """Should this preemption take the swap tier?  Both resume costs
+        are linear in the victim's resident tokens, so ``auto`` compares
+        per token: pool bytes over the link's rate against ~2 * params
+        FLOPs over the decode rate (``self.cost_model``)."""
+        if self.preempt != "auto":
+            return self.preempt == "swap"
+        bytes_per_token = sum(t.numel() * t.element_size()
+                              for t in st.pool.values()) / (
+            st.pool["k_pages"].shape[1] * self.page_size)
+        return (bytes_per_token / self.cost_model.swap_gbps
+                < 2.0 * self._n_params / self.cost_model.decode_flops_s)
+
     def _preempt(self, st: _SchedState, slot: int):
         """Release the slot and requeue the request at the queue front on a
         copy whose prompt absorbs the tokens generated so far: re-prefilling
-        it recreates the exact cache, so greedy output is unchanged."""
+        it recreates the exact cache, so greedy output is unchanged.  On
+        the swap tier the slot's pages go to host buffers first, and
+        admission restores them instead of prefilling (the queue entry is
+        the same folded copy under both policies)."""
         req = st.live.pop(slot)
-        st.mgr.release(slot)
+        if self._swap_wins(st):
+            st.swaps[req.uid] = st.mgr.swap_out(slot, st.pool, st.slot_pos[slot])
+            s = st.stats[req.uid]
+            s["swap_outs"] = s.get("swap_outs", 0) + 1
+        else:
+            st.mgr.release(slot)
         resume = dataclasses.replace(
             req, prompt=list(req.prompt) + req.generated[req.folded:],
             folded=len(req.generated))

@@ -1,7 +1,9 @@
-"""Paged KV cache: block pool, host-side page allocator, block tables.
+"""Paged KV cache: block pool, host-side page allocator, block tables,
+and the two memory tiers (int8 pages, host swap).
 
 Counterpart of ``repro.serve.kv_cache`` for what admission, growth,
-speculative write-then-retract and release use.  Layout contract (paged):
+speculative write-then-retract, release, quantized storage and host-swap
+preemption use.  Layout contract (paged):
 
   cache = {"k_pages": (L, P, page_size, Hkv, D),
            "v_pages": (L, P, page_size, Hkv, D),
@@ -16,8 +18,30 @@ land there instead of in pages reused by live slots.
 The allocator is host-side and synchronous: pages move at step
 boundaries (admission, growth, preemption, completion), never inside a
 decode step.  Device-side writes here are in place (the reference
-donates buffers to get the same effect).  Prefix sharing, copy-on-write,
-host swap and int8 pages are not ported yet (ROADMAP A9).
+donates buffers to get the same effect).
+
+Tiered memory:
+
+  kv_dtype  ``"int8"`` stores pages symmetric-quantized, with one float32
+            scale per cached row of every page in ``k_scales`` /
+            ``v_scales`` (L, P, page_size) beside the values.  The scale
+            is absmax(row) / 127 over the row's (Hkv, D) values, so a
+            row's stored bytes depend only on that row's values (not on
+            its neighbours): the same values store the same bytes through
+            prefill, a decode write or a requeue's recompute, equal to
+            the reference's bit for bit, and a swap-in restores them
+            exactly.  Both paged attention kernels dequantize inside
+            their gather.
+  swap      :meth:`PagedCacheManager.swap_out` copies a preempted slot's
+            pages (values and scales) into host buffers, pinned on CUDA,
+            before it releases them; :meth:`PagedCacheManager.admit_swapped`
+            and :func:`swap_in_pages` restore them into fresh pages.
+
+Not ported yet: prefix sharing and its refcounted pages with
+copy-on-write (ROADMAP A9b), and the asynchronous
+``swap_out_pages_async`` / ``SwapHandle.materialize`` pair, which belongs
+to the pipelined engine (ROADMAP A6b); the swap copies here are
+synchronous.
 """
 
 from __future__ import annotations
@@ -30,9 +54,17 @@ import torch
 
 CACHE_LAYOUTS = ("dense", "paged")
 
+# storage tiers for the paged pool; None / "auto" keeps the model's
+# compute dtype
+KV_DTYPES = ("bf16", "int8")
+
 # page index every dead / unmapped block-table entry points at; the
 # allocator never hands it out
 TRASH_PAGE = 0
+
+# the f32 reciprocal the reference's scale multiplies by (jnp promotes the
+# Python float 1/127 to the row's f32)
+_INV_127 = torch.tensor(1.0 / 127.0, dtype=torch.float32)
 
 
 def cdiv(a: int, b: int) -> int:
@@ -44,6 +76,41 @@ def blocks_for(n_tokens: int, page_size: int) -> int:
     return cdiv(max(n_tokens, 0), page_size)
 
 
+def resolve_kv_dtype(kv_dtype, default: torch.dtype):
+    """``kv_dtype`` flag -> (pool value dtype, quantized?)."""
+    if kv_dtype in (None, "auto"):
+        return default, False
+    if kv_dtype == "bf16":
+        return torch.bfloat16, False
+    if kv_dtype == "int8":
+        return torch.int8, True
+    raise ValueError(f"kv_dtype must be one of {KV_DTYPES} or None/'auto'; "
+                     f"got {kv_dtype!r}")
+
+
+def quantize_kv_rows(x: torch.Tensor):
+    """Symmetric int8 quantization of K/V rows: ``x`` is (..., H, D), and
+    each leading-index row quantizes alone with its own absmax scale.
+    Returns ``(q int8 (..., H, D), scale float32 (...))``, q * scale ~= x.
+
+    The bytes equal the reference's (``quantize_kv_rows``) bit for bit:
+    the row in f32, amax jointly over (H, D), scale = amax * f32(1/127)
+    (a multiply by the reciprocal, not a division by 127),
+    round(x / scale) half to even, clipped to +-127.  An all-zero row
+    keeps scale 0 (it dequantizes to exact 0)."""
+    xf = x.float()
+    amax = xf.abs().amax(dim=(-2, -1))
+    scale = amax * _INV_127
+    safe = torch.where(scale > 0, scale, torch.ones_like(scale))
+    q = torch.clamp(torch.round(xf / safe[..., None, None]), -127.0, 127.0)
+    return q.to(torch.int8), scale
+
+
+def dequantize_kv(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`quantize_kv_rows`: q (..., H, D), scale (...)."""
+    return q.float() * scale[..., None, None]
+
+
 class PageAllocator:
     """Free-list allocator over pages [1, num_pages).
 
@@ -51,7 +118,7 @@ class PageAllocator:
     most-recently-freed first, which keeps the working set of hot pages
     small.  Releasing a page that is not allocated, or writing to one
     (:meth:`assert_writable`), is a hard error.  (The reference refcounts
-    pages for prefix sharing; that arrives with ROADMAP A9.)"""
+    pages for prefix sharing; that arrives with ROADMAP A9b.)"""
 
     def __init__(self, num_pages: int):
         if num_pages < 2:
@@ -113,6 +180,12 @@ class PagedStats:
     allocs: int
     frees: int
     retracts: int     # pages taken back by speculative write-then-retract
+    # tiered memory: storage dtype and host-swap traffic
+    kv_dtype: Optional[str] = None
+    swap_outs: int = 0
+    swap_ins: int = 0
+    swapped_out_bytes: int = 0
+    swapped_in_bytes: int = 0
 
 
 class PagedCacheManager:
@@ -122,14 +195,20 @@ class PagedCacheManager:
     the engine a fresh (slots, max_blocks) table whenever it changed
     (``dirty``), one small host-to-device copy per change, not per token."""
 
-    def __init__(self, num_pages: int, page_size: int, slots: int, max_seq: int):
+    def __init__(self, num_pages: int, page_size: int, slots: int, max_seq: int,
+                 kv_dtype: Optional[str] = None):
         self.page_size = page_size
         self.max_blocks = cdiv(max_seq, page_size)
         self.allocator = PageAllocator(num_pages)
         self.tables = np.full((slots, self.max_blocks), TRASH_PAGE, np.int32)
         self.owned: List[List[int]] = [[] for _ in range(slots)]
+        self.kv_dtype = kv_dtype
         self.dirty = True
         self.retract_count = 0    # pages taken back by speculative rollback
+        self.swap_outs = 0
+        self.swap_ins = 0
+        self.swapped_out_bytes = 0
+        self.swapped_in_bytes = 0
 
     def can_admit(self, prompt_len: int, headroom: int = 0) -> bool:
         """Enough free pages for a prompt, keeping ``headroom`` pages in
@@ -215,6 +294,51 @@ class PagedCacheManager:
             self.tables[slot, :] = TRASH_PAGE
             self.dirty = True
 
+    # ----------------------------------------------------- host-swap tier
+    def swap_out(self, slot: int, pool: Dict[str, torch.Tensor],
+                 n_tokens: int) -> "SwapHandle":
+        """Page a slot out to host buffers: copy every mapped page of the
+        slot (values and scales) device-to-host, then release the slot's
+        pages.  The copy comes strictly before the release, so a
+        same-round admission cannot overwrite pages still being copied."""
+        blocks = [int(p) for p in self.tables[slot] if p != TRASH_PAGE]
+        handle = SwapHandle(n_blocks=len(blocks), n_tokens=n_tokens,
+                            data=swap_out_pages(pool, blocks),
+                            page_size=self.page_size, kv_dtype=self.kv_dtype)
+        self.swap_outs += 1
+        self.swapped_out_bytes += handle.nbytes
+        self.release(slot)
+        return handle
+
+    def admit_swapped(self, slot: int, handle: "SwapHandle") -> Optional[List[int]]:
+        """Map fresh pages for a swapped-out slot (the engine then writes
+        ``handle.data`` into them with :func:`swap_in_pages`).
+        All-or-nothing like :meth:`admit`: None when pages lack.  The
+        handle may come from another manager, but its page format must
+        match: another ``page_size`` or ``kv_dtype`` raises instead of
+        casting quantized bytes."""
+        if handle.page_size is not None and handle.page_size != self.page_size:
+            raise ValueError(
+                f"swap handle page_size={handle.page_size} cannot restore "
+                f"into a page_size={self.page_size} pool")
+        if ((handle.kv_dtype is not None and handle.kv_dtype != self.kv_dtype)
+                or ("k_scales" in handle.data) != (self.kv_dtype == "int8")):
+            raise ValueError(
+                f"swap handle kv_dtype={handle.kv_dtype!r} cannot restore "
+                f"into a kv_dtype={self.kv_dtype!r} pool (quantized bytes "
+                "do not cast)")
+        pages = self.allocator.alloc(handle.n_blocks)
+        if pages is None:
+            return None
+        if self.owned[slot]:
+            raise ValueError(f"slot {slot} already mapped")
+        self.tables[slot, :len(pages)] = pages
+        self.owned[slot] = list(pages)
+        self.swap_ins += 1
+        self.swapped_in_bytes += handle.nbytes
+        self.dirty = True
+        return pages
+
     def device_tables(self, device) -> torch.Tensor:
         self.dirty = False
         return torch.as_tensor(self.tables, device=device)
@@ -233,7 +357,11 @@ class PagedCacheManager:
         a = self.allocator
         return PagedStats(used_pages=a.used, free_pages=a.free,
                           peak_used_pages=a.peak_used, allocs=a.alloc_count,
-                          frees=a.free_count, retracts=self.retract_count)
+                          frees=a.free_count, retracts=self.retract_count,
+                          kv_dtype=self.kv_dtype, swap_outs=self.swap_outs,
+                          swap_ins=self.swap_ins,
+                          swapped_out_bytes=self.swapped_out_bytes,
+                          swapped_in_bytes=self.swapped_in_bytes)
 
 
 # ---------------------------------------------------------------------------
@@ -242,11 +370,24 @@ class PagedCacheManager:
 
 def init_page_pool(n_layers: int, num_pages: int, page_size: int,
                    n_kv_heads: int, d_head: int, dtype: torch.dtype,
-                   device) -> Dict[str, torch.Tensor]:
-    """The shared block pool: (L, P, page_size, Hkv, D) per K and V."""
+                   device, kv_dtype: Optional[str] = None) -> Dict[str, torch.Tensor]:
+    """The shared block pool: (L, P, page_size, Hkv, D) per K and V.
+    ``kv_dtype="int8"`` stores the values quantized and adds ``k_scales``
+    / ``v_scales`` (L, P, page_size) float32, zero-initialized: an
+    unwritten row dequantizes to exact 0, as the float pools' zeros."""
+    val_dtype, quantized = resolve_kv_dtype(kv_dtype, dtype)
     shape = (n_layers, num_pages, page_size, n_kv_heads, d_head)
-    return {"k_pages": torch.zeros(shape, dtype=dtype, device=device),
-            "v_pages": torch.zeros(shape, dtype=dtype, device=device)}
+    pool = {"k_pages": torch.zeros(shape, dtype=val_dtype, device=device),
+            "v_pages": torch.zeros(shape, dtype=val_dtype, device=device)}
+    if quantized:
+        pool["k_scales"] = torch.zeros(shape[:3], dtype=torch.float32, device=device)
+        pool["v_scales"] = torch.zeros(shape[:3], dtype=torch.float32, device=device)
+    return pool
+
+
+def pool_is_quantized(pages: Dict[str, torch.Tensor]) -> bool:
+    """True when the pool carries int8 values and per-row scale leaves."""
+    return "k_scales" in pages
 
 
 def scatter_prefill(pages: Dict[str, torch.Tensor],
@@ -255,8 +396,10 @@ def scatter_prefill(pages: Dict[str, torch.Tensor],
     """Write a dense prefilled cache {"k"/"v": (L, B, S, H, D)} through
     ``page_idx`` (B, ceil(S / page_size)) into the pool, in place.  Rows'
     tails past their prompt point at the trash page (duplicate trash
-    targets may collide; only padding lands there)."""
+    targets may collide; only padding lands there).  A quantized pool
+    stores each row quantized (:func:`quantize_kv_rows`) and its scale."""
     ps = pages["k_pages"].shape[2]
+    quantized = pool_is_quantized(pages)
     flat = page_idx.reshape(-1).to(device=pages["k_pages"].device, dtype=torch.long)
     for name, src_name in (("k_pages", "k"), ("v_pages", "v")):
         src = pcache[src_name]
@@ -264,7 +407,13 @@ def scatter_prefill(pages: Dict[str, torch.Tensor],
         nb = cdiv(s, ps)
         if nb * ps != s:
             src = torch.nn.functional.pad(src, (0, 0, 0, 0, 0, nb * ps - s))
-        pages[name][:, flat] = src.reshape(l, b * nb, ps, h, d).to(pages[name].dtype)
+        src = src.reshape(l, b * nb, ps, h, d)
+        if quantized:
+            q, scale = quantize_kv_rows(src)               # scale (l, b*nb, ps)
+            pages[name][:, flat] = q
+            pages[name[0] + "_scales"][:, flat] = scale
+        else:
+            pages[name][:, flat] = src.to(pages[name].dtype)
     return pages
 
 
@@ -283,14 +432,72 @@ def write_slots(cache: Dict[str, torch.Tensor], pcache: Dict[str, torch.Tensor],
 def gather_slot(pages: Dict[str, torch.Tensor], table_row: torch.Tensor
                 ) -> Dict[str, torch.Tensor]:
     """Debug/test helper: one slot's dense (L, NB * ps, H, D) K/V view
-    through its block-table row; unmapped (trash) entries read as NaN."""
+    through its block-table row; unmapped (trash) entries read as NaN.  A
+    quantized pool comes back dequantized (float32), poison included."""
     idx = table_row.to(device=pages["k_pages"].device, dtype=torch.long)
     unmapped = idx == TRASH_PAGE
     out = {}
     for name, dense in (("k_pages", "k"), ("v_pages", "v")):
         g = pages[name].index_select(1, idx)                 # (L, NB, ps, H, D)
+        if pool_is_quantized(pages):
+            g = dequantize_kv(g, pages[name[0] + "_scales"].index_select(1, idx))
         g = torch.where(unmapped[None, :, None, None, None],
                         torch.tensor(float("nan"), dtype=g.dtype, device=g.device), g)
         l, nb, ps, h, d = g.shape
         out[dense] = g.reshape(l, nb * ps, h, d)
     return out
+
+
+# ---------------------------------------------------------------------------
+# host-swap tier: page-out / page-in between the device pool and host RAM
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class SwapHandle:
+    """A slot's cache, held in host memory while it is preempted.
+
+    ``data`` maps every pool leaf name to a host tensor sliced along the
+    page axis in logical block order: ``data["k_pages"][:, j]`` is the
+    page that held positions [j * page_size, (j + 1) * page_size).
+    Restoring it into any n fresh pages reproduces the slot's cache bytes
+    (values and scales), so a swap resume continues exactly where the
+    slot stopped.  ``n_tokens`` is the slot's valid prefix at swap time.
+    ``page_size`` / ``kv_dtype`` stamp the producing pool's page format,
+    which :meth:`PagedCacheManager.admit_swapped` checks."""
+    n_blocks: int
+    n_tokens: int
+    data: Dict[str, torch.Tensor]
+    page_size: Optional[int] = None
+    kv_dtype: Optional[str] = None
+
+    @property
+    def nbytes(self) -> int:
+        return sum(t.numel() * t.element_size() for t in self.data.values())
+
+
+def swap_out_pages(pool: Dict[str, torch.Tensor],
+                   page_idx: Sequence[int]) -> Dict[str, torch.Tensor]:
+    """Copy pages ``page_idx`` of every pool leaf into host tensors
+    (pinned on CUDA), synchronously: the copies are complete when this
+    returns.  The result records page contents, not page numbers."""
+    out = {}
+    for name, leaf in pool.items():
+        idx = torch.as_tensor(list(page_idx), dtype=torch.long, device=leaf.device)
+        src = leaf.index_select(1, idx)              # a fresh tensor, on device
+        if leaf.device.type == "cpu":
+            out[name] = src
+        else:
+            out[name] = torch.empty(src.shape, dtype=src.dtype, pin_memory=True)
+            out[name].copy_(src)
+    return out
+
+
+def swap_in_pages(pool: Dict[str, torch.Tensor], host: Dict[str, torch.Tensor],
+                  page_idx: Sequence[int]) -> Dict[str, torch.Tensor]:
+    """Write host buffers from :func:`swap_out_pages` into pages
+    ``page_idx`` of the pool, in place: the resume half of swap-tier
+    preemption."""
+    for name, leaf in pool.items():
+        idx = torch.as_tensor(list(page_idx), dtype=torch.long, device=leaf.device)
+        leaf.index_copy_(1, idx, host[name].to(device=leaf.device, dtype=leaf.dtype))
+    return pool

@@ -99,7 +99,11 @@ def build_spec_step(model, draft_model, *, max_seq: int, spec_k: int,
        remaining, spec_mask, attend_len) ->
       (targets (B, T), commit (B,), tok, pos, remaining, done, bad (B,))
 
-    The pool and the draft cache are written in place.  ``spec_mask`` rows
+    The pool and the draft cache are written in place; a quantized pool's
+    ``k_scales``/``v_scales`` ride in ``pool`` beside the values, so the
+    verify window stores its rows quantized and reads them through the
+    int8 kernel (the reference rebuilds the donated pool leaf by leaf for
+    the same reason).  ``spec_mask`` rows
     that are False commit exactly one token (the target's), which is how
     non-speculative requests ride the same batch; their window rows are
     overwritten before they are ever attended, like a rejected draft tail.

@@ -5,7 +5,10 @@ stacked (L, ...) layer leaves, (d_in, d_out) weights), so the bridge is a
 leaf-for-leaf copy.  It takes numpy arrays and imports no JAX: a test
 converts the reference's arrays with ``numpy.asarray`` first.  The same
 bridge carries gradients and AdamW moments (the same leaves) across, and
-``to_numpy`` carries the port's trees back for comparison.
+``to_numpy`` carries the port's trees back for comparison.  Beside it,
+helpers that make the tests' inputs: paged decode/verify cases, and int8
+pools built from numpy with a byte-for-byte comparison against the
+reference's.
 """
 
 from __future__ import annotations
@@ -134,3 +137,40 @@ def paged_verify_case(rng: np.random.Generator, t=4, b=3, hkv=2, g=2, d=64,
                        (bt[0, 4], slice(None))):
         kp[page, rows], vp[page, rows] = 1e6, np.nan
     return q, kp, vp, bt, pos
+
+
+def quantized_pool_from_numpy(kv: np.ndarray, *, device: DeviceLike = None) -> dict:
+    """A float K/V pair ``kv`` (2, L, P, page_size, Hkv, D), as numpy,
+    quantized into an int8 pool {"k_pages", "v_pages", "k_scales",
+    "v_scales"} on ``device`` by the port's ``quantize_kv_rows``."""
+    from repro_torch.serve.kv_cache import quantize_kv_rows
+
+    dev = resolve_device(device)
+    pool = {}
+    for i, name in enumerate("kv"):
+        q, s = quantize_kv_rows(torch.from_numpy(np.asarray(kv[i], np.float32)))
+        pool[f"{name}_pages"], pool[f"{name}_scales"] = q.to(dev), s.to(dev)
+    return pool
+
+
+def pool_mismatches(pool: Mapping[str, torch.Tensor],
+                    ref: Mapping[str, Any]) -> list:
+    """Leaves of a port pool whose bytes differ from the reference pool's
+    (given as numpy arrays): another leaf set, dtype or shape, or any
+    differing element.  Floats are compared by their bit patterns, so a
+    NaN equals the same NaN and -0.0 differs from 0.0.  [] when the two
+    pools hold the same bytes."""
+    if set(pool) != set(ref):
+        return sorted(set(pool) ^ set(ref))
+    bad = []
+    for name, t in pool.items():
+        got = t.detach().cpu().numpy()
+        want = np.asarray(ref[name])
+        if got.dtype != want.dtype or got.shape != want.shape:
+            bad.append(name)
+            continue
+        if got.dtype.kind == "f":
+            got, want = got.view(f"u{got.itemsize}"), want.view(f"u{want.itemsize}")
+        if not np.array_equal(got, want):
+            bad.append(name)
+    return bad

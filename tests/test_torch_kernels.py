@@ -27,7 +27,10 @@ from repro_torch.kernels.flash_attention.ops import flash_attention_fwd  # noqa:
 from repro_torch.kernels.flash_attention.ref import FULLY_MASKED_LSE  # noqa: E402
 from repro_torch.kernels.rmsnorm.ops import rmsnorm  # noqa: E402
 from repro_torch.models.attention import decode_attention  # noqa: E402
-from repro_torch.testing import paged_decode_case  # noqa: E402
+from repro_torch.testing import (  # noqa: E402
+    paged_decode_case,
+    quantized_pool_from_numpy,
+)
 
 # fp32 on both sides, same algorithm, different summation order
 TOL = dict(atol=1e-5, rtol=1e-5)
@@ -135,8 +138,21 @@ def test_paged_decode_plain_matches_pallas():
 
 
 def test_paged_decode_int8_is_not_ported():
+    """Once refused, the int8 branch is ported: on int8 pages with row
+    scales the wrapper's plain version gives the Pallas kernel's output,
+    and one scale without the other raises."""
     rng = np.random.default_rng(5)
-    args = map(_t, paged_decode_case(rng))
-    scales = torch.ones(12, 16)
-    with pytest.raises(NotImplementedError, match="A9"):
-        paged_flash_decode(*args, k_scales=scales, v_scales=scales)
+    q, kp, vp, bt, pos = paged_decode_case(rng)
+    pool = quantized_pool_from_numpy(np.stack([kp[None], vp[None]]), device="cpu")
+    pages = [pool[n][0] for n in ("k_pages", "k_scales", "v_pages", "v_scales")]
+    want = jax_paged_flash_decode(
+        jnp.asarray(q), *(jnp.asarray(pages[i].numpy()) for i in (0, 2)),
+        jnp.asarray(bt), jnp.asarray(pos), k_scales=jnp.asarray(pages[1].numpy()),
+        v_scales=jnp.asarray(pages[3].numpy()), interpret=True)
+    got = paged_flash_decode(_t(q), pages[0], pages[2], _t(bt), _t(pos),
+                             k_scales=pages[1], v_scales=pages[3])
+    assert np.isfinite(got.numpy()).all()
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5, rtol=1e-4)
+    with pytest.raises(ValueError, match="both"):
+        paged_flash_decode(_t(q), pages[0], pages[2], _t(bt), _t(pos),
+                           k_scales=pages[1])

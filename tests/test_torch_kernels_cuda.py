@@ -49,7 +49,17 @@ from repro_torch.kernels.verify_attention.ref import (  # noqa: E402
 )
 from repro_torch.kernels.warp_ops.ops import shfl, vote  # noqa: E402
 from repro_torch.kernels.warp_ops.ref import shfl_ref, vote_ref  # noqa: E402
-from repro_torch.testing import paged_decode_case, paged_verify_case  # noqa: E402
+from repro_torch.serve.kv_cache import (  # noqa: E402
+    dequantize_kv,
+    quantize_kv_rows,
+    swap_in_pages,
+    swap_out_pages,
+)
+from repro_torch.testing import (  # noqa: E402
+    paged_decode_case,
+    paged_verify_case,
+    quantized_pool_from_numpy,
+)
 
 
 def _rand(rng, *shape):
@@ -296,9 +306,9 @@ def test_cuda_paged_decode_matches_plain(dtype):
     torch.cuda.synchronize()
     assert torch.isfinite(got).all()
     _close(got, paged_flash_decode_ref(*args, bt_c, pos_c), dtype)
-    with pytest.raises(NotImplementedError, match="A9"):
+    with pytest.raises(ValueError, match="both"):
         scales = torch.ones(kp.shape[:2], device="cuda")
-        paged_flash_decode(*args, bt_c, pos_c, k_scales=scales, v_scales=scales)
+        paged_flash_decode(*args, bt_c, pos_c, k_scales=scales)
 
 
 def _verify_args(t, g, d, dtype, seed=5, **kw):
@@ -343,8 +353,176 @@ def test_cuda_paged_verify_row_limit(dtype):
     with pytest.raises(ValueError, match="multiple of t_window"):
         paged_flash_verify(*args, t_window=2)
     scales = torch.ones(args[1].shape[:2], device="cuda")
-    with pytest.raises(NotImplementedError, match="A9"):
-        paged_flash_verify(*args, t_window=3, k_scales=scales, v_scales=scales)
+    with pytest.raises(ValueError, match="both"):
+        paged_flash_verify(*args, t_window=3, v_scales=scales)
+
+
+def _int8_pages(kp, vp, zero_rows=((1, 0), (2, 3))):
+    """Float numpy pages (P, ps, Hkv, D) -> int8 pages and f32 row scales
+    on the card, quantized on the CPU; the (page, row) pairs in
+    ``zero_rows`` hold zeros (scale 0) in K and V."""
+    kp, vp = kp.copy(), vp.copy()
+    for page, row in zero_rows:
+        kp[page, row] = vp[page, row] = 0.0
+    pool = quantized_pool_from_numpy(np.stack([kp[None], vp[None]]), device="cpu")
+    return [pool[n][0].to("cuda") for n in ("k_pages", "v_pages", "k_scales", "v_scales")]
+
+
+def _dequantized(kq, vq, ks, vs):
+    return dequantize_kv(kq, ks), dequantize_kv(vq, vs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("ps", [8, 16])
+@pytest.mark.parametrize("d,g", [(64, 1), (64, 6), (128, 1), (128, 6)])
+def test_cuda_int8_paged_decode_matches_plain(d, g, ps, dtype):
+    """int8 pages through the kernel's int8 branch against the plain
+    version on the same pages, and against the float kernel on the
+    dequantized pages; zero-scale rows, garbage in the trash page and a
+    stale mapping, and row 0's pos on the first row of a page."""
+    requires_cuda()
+    q, kp, vp, bt, pos = paged_decode_case(np.random.default_rng(6), d=d, g=g, ps=ps)
+    pos[0] = 2 * ps
+    kq, vq, ks, vs = _int8_pages(kp, vp)
+    qc = _cuda(q, dtype)
+    bt_c, pos_c = torch.as_tensor(bt, device="cuda"), torch.as_tensor(pos, device="cuda")
+    before = (paged_flash_decode.launches, paged_flash_decode.launches_int8)
+    got = paged_flash_decode(qc, kq, vq, bt_c, pos_c, k_scales=ks, v_scales=vs)
+    torch.cuda.synchronize()
+    assert (paged_flash_decode.launches, paged_flash_decode.launches_int8) == (
+        before[0], before[1] + 1)
+    assert got.dtype == dtype and torch.isfinite(got).all()
+    _close(got, paged_flash_decode_ref(qc, kq, vq, bt_c, pos_c, k_scales=ks,
+                                       v_scales=vs), dtype)
+    kf, vf = _dequantized(kq, vq, ks, vs)
+    _close(got, paged_flash_decode(qc, kf.to(dtype), vf.to(dtype), bt_c, pos_c), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("ps", [8, 16])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("g", [1, 6])
+@pytest.mark.parametrize("t", [1, 4])
+def test_cuda_int8_paged_verify_matches_plain(t, g, d, ps, dtype):
+    """The verify kernel's int8 branch against its plain version and
+    against the float kernel on the dequantized pages (garbage past the
+    windows, zero-scale rows)."""
+    requires_cuda()
+    q, kp, vp, bt, pos = paged_verify_case(np.random.default_rng(7), t=t, g=g, d=d,
+                                           ps=ps)
+    kq, vq, ks, vs = _int8_pages(kp, vp, zero_rows=((int(bt[1, 0]), 0),
+                                                    (int(bt[1, 1]), ps - 1)))
+    qc = _cuda(q, dtype)
+    bt_c, pos_c = torch.as_tensor(bt, device="cuda"), torch.as_tensor(pos, device="cuda")
+    before = paged_flash_verify.launches_int8
+    got = paged_flash_verify(qc, kq, vq, bt_c, pos_c, t_window=t, k_scales=ks,
+                             v_scales=vs)
+    torch.cuda.synchronize()
+    assert paged_flash_verify.launches_int8 == before + 1
+    assert got.shape == qc.shape and torch.isfinite(got).all()
+    _close(got, paged_verify_attention_ref(qc, kq, vq, bt_c, pos_c, t, k_scales=ks,
+                                           v_scales=vs), dtype)
+    kf, vf = _dequantized(kq, vq, ks, vs)
+    kf, vf = (torch.nan_to_num(a).to(dtype) for a in (kf, vf))   # garbage stays unread
+    _close(got, paged_flash_verify(qc, kf, vf, bt_c, pos_c, t_window=t), dtype)
+
+
+@pytest.mark.cuda
+def test_cuda_int8_kernels_refuse_what_they_cannot_take():
+    requires_cuda()
+    q, kp, vp, bt, pos = paged_decode_case(np.random.default_rng(8), d=64)
+    kq, vq, ks, vs = _int8_pages(kp, vp)
+    qc, bt_c = _cuda(q, torch.float32), torch.as_tensor(bt, device="cuda")
+    pos_c = torch.as_tensor(pos, device="cuda")
+    with pytest.raises(ValueError, match="both"):
+        paged_flash_decode(qc, kq, vq, bt_c, pos_c, k_scales=ks)
+    with pytest.raises(ValueError, match="row scales"):
+        paged_flash_decode(qc, kq, vq, bt_c, pos_c, k_scales=ks.double(), v_scales=vs)
+    with pytest.raises(TypeError, match="int8"):      # float pages with scales
+        paged_flash_decode(qc, kq.float(), vq.float(), bt_c, pos_c, k_scales=ks,
+                           v_scales=vs)
+    with pytest.raises(TypeError):                    # int8 pages without scales
+        paged_flash_decode(qc, kq, vq, bt_c, pos_c)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_cuda_quantize_rows_equal_cpu_bytes(dtype):
+    """Rows quantized on the card store the CPU's bytes, ties included."""
+    requires_cuda()
+    rng = np.random.default_rng(9)
+    x = (rng.standard_normal((4096, 2, 128))
+         * rng.uniform(1e-3, 1e3, (4096, 1, 1))).astype(np.float32)
+    x[:2] = 0.0
+    x[2, 0, 0], x[2, 1, :8] = 127.0, np.arange(8) + 0.5
+    xt = torch.from_numpy(x).to(dtype)
+    q, s = quantize_kv_rows(xt.to("cuda"))
+    q_cpu, s_cpu = quantize_kv_rows(xt)
+    assert torch.equal(q.cpu(), q_cpu)
+    assert torch.equal(s.cpu().view(torch.int32), s_cpu.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_cuda_swap_roundtrip_through_pinned_buffers():
+    requires_cuda()
+    rng = np.random.default_rng(10)
+    kv = rng.standard_normal((2, 2, 9, 16, 2, 64)).astype(np.float32)
+    pool = quantized_pool_from_numpy(kv, device="cuda")
+    before = {n: t.clone() for n, t in pool.items()}
+    host = swap_out_pages(pool, [1, 4, 5])
+    for n, t in host.items():
+        assert t.device.type == "cpu" and t.is_pinned(), n
+        assert torch.equal(t, before[n][:, [1, 4, 5]].cpu()), n
+    for n in pool:                                    # the pages are reused
+        pool[n][:, [1, 4, 5]] = 0
+    swap_in_pages(pool, host, [2, 7, 8])
+    torch.cuda.synchronize()
+    for n, t in pool.items():
+        assert torch.equal(t[:, [2, 7, 8]], before[n][:, [1, 4, 5]]), n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [
+    dict(preempt="requeue"),
+    dict(preempt="swap"),
+    dict(preempt="swap", spec_k=4, draft="self:2"),
+], ids=["requeue", "swap", "spec-swap"])
+def test_cuda_int8_serve_through_kernels_matches_cpu_plain_path(kw):
+    """The slice as a whole on the card: an int8 pool small enough to
+    preempt, decode and verify through the int8 kernels, gives the greedy
+    tokens of the CPU plain path's int8 requeue engine.  Reduced qwen2 in
+    fp32."""
+    requires_cuda()
+    from repro_torch import kernels
+    from repro_torch.configs import reduced_config
+    from repro_torch.models.lm import Model
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    cfg = reduced_config("qwen2-1.5b")
+    cpu = Model(cfg, device="cpu", dtype=torch.float32)
+    params = cpu.init(torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(3)
+    spec = [(i, rng.integers(0, cfg.vocab, int(rng.integers(3, 20))).tolist(),
+             int(rng.integers(2, 9))) for i in range(6)]
+
+    def serve(model, p, **extra):
+        eng = ServeEngine(model, p, max_seq=48, batch_slots=3, cache_layout="paged",
+                          page_size=8, num_pages=5, kv_dtype="int8", **extra)
+        return eng.serve([Request(u, list(t), n) for u, t, n in spec]), eng
+
+    want, _ = serve(cpu, params, preempt="requeue")
+    kernels.reset_launches()
+    got, eng = serve(Model(cfg, dtype=torch.float32), _to_cuda(params), **kw)
+    counts = kernels.launch_counts()
+    assert got == want
+    assert eng.preemptions >= 1 and eng.last_pool_stats.used_pages == 0
+    if kw["preempt"] == "swap":
+        assert eng.last_pool_stats.swap_outs == eng.last_pool_stats.swap_ins >= 1
+    branch = "paged_flash_verify[int8]" if kw.get("spec_k") else "paged_flash_decode[int8]"
+    assert counts[branch] > 0
+    assert counts["paged_flash_decode"] == counts["paged_flash_verify"] == 0
 
 
 @pytest.mark.cuda
@@ -698,7 +876,8 @@ def test_port_imports_neither_jax_nor_repro():
                  "optim.optimizer", "train.step", "train.trainer",
                  "data.pipeline", "launch.train", "models.moe",
                  "kernels.moe_gating.ops", "kernels.moe_gating.ref",
-                 "configs.olmoe_1b_7b", "configs.granite_moe_1b_a400m"):
+                 "configs.olmoe_1b_7b", "configs.granite_moe_1b_a400m",
+                 "serve.calibrate", "serve.kv_cache"):
         assert f"repro_torch.{name}" in mods, name
 
 
