@@ -47,4 +47,16 @@ __device__ __forceinline__ float warp_max(float x) {
   return x;
 }
 
+// The same butterflies over the 4 lanes of a quad (offsets 1 and 2): a row
+// of an mma.sync accumulator fragment lives in the 4 lanes of one quad.
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
 }  // namespace repro

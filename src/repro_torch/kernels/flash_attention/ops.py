@@ -5,7 +5,15 @@
 ``flash_attention_bwd`` behind ``ops.flash_mha``, in the model layout,
 with the GQA head grouping done by the kernels instead of a K/V repeat.
 :class:`FlashAttention` is ``flash_mha``'s ``custom_vjp``: the forward
-kernel, then the backward kernel on the saved lse."""
+kernel, then the backward kernel on the saved lse.
+
+Each kernel has two branches, chosen by dtype in one C entry point: bf16
+runs the tensor-core kernels (mma.sync, cp.async; they need 16-byte
+aligned bases and B/S/H strides in multiples of 8 elements, and raise
+otherwise), f32 the CUDA-core kernels.  The bf16 backward writes dk/dv
+per query head; the wrapper sums each KV head's group.  Each wrapper
+counts the branches apart: ``.launches`` the bf16 (tensor-core) kernels,
+``.launches_f32`` the f32 ones."""
 
 from __future__ import annotations
 
@@ -49,6 +57,13 @@ def _check_kernel_args(tensors, d: int):
     if any(t.stride(-1) != 1 or t.device != dev for t in tensors):
         raise ValueError("inputs must share a device and have a contiguous "
                          "head dim")
+    # the bf16 kernels stage rows with 16-byte copies
+    if dt == torch.bfloat16 and any(
+            t.data_ptr() % 16
+            or any(st % 8 for st, n in zip(t.stride()[:3], t.shape[:3]) if n > 1)
+            for t in tensors):
+        raise ValueError("bf16 flash kernels need 16-byte aligned inputs "
+                         "whose B, S and H strides are multiples of 8")
 
 
 def _kv_len(kv_len: Optional[torch.Tensor], b: int, skv: int, device):
@@ -79,11 +94,15 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                  b, sq, skv, hq, hkv, d, int(causal), d ** -0.5,
                  _DTYPES[q.dtype])
-    flash_attention_fwd.launches += 1
+    if q.dtype == torch.bfloat16:
+        flash_attention_fwd.launches += 1
+    else:
+        flash_attention_fwd.launches_f32 += 1
     return o, lse
 
 
 flash_attention_fwd.launches = 0
+flash_attention_fwd.launches_f32 = 0
 
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -112,7 +131,9 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          "device of q")
     kv_len = _kv_len(kv_len, b, skv, q.device)
     dq = torch.empty(b, sq, hq, d, dtype=torch.float32, device=q.device)
-    dk = torch.empty(b, skv, hkv, d, dtype=torch.float32, device=q.device)
+    # the bf16 kernel writes dk/dv per query head (B, Skv, Hq, D)
+    h_out = hq if q.dtype == torch.bfloat16 else hkv
+    dk = torch.empty(b, skv, h_out, d, dtype=torch.float32, device=q.device)
     dv = torch.empty_like(dk)
     build.launch("repro_flash_attention_bwd", _BWD_ARGS, q.device,
                  q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
@@ -121,11 +142,19 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                  *do.stride()[:3], b, sq, skv, hq, hkv, d, int(causal),
                  d ** -0.5, _DTYPES[q.dtype])
-    flash_attention_bwd.launches += 1
+    if q.dtype == torch.bfloat16:
+        flash_attention_bwd.launches += 1
+    else:
+        flash_attention_bwd.launches_f32 += 1
+    if h_out != hkv:    # the group sum, in a fixed order
+        g = hq // hkv
+        dk = dk.view(b, skv, hkv, g, d).sum(3)
+        dv = dv.view(b, skv, hkv, g, d).sum(3)
     return dq, dk, dv
 
 
 flash_attention_bwd.launches = 0
+flash_attention_bwd.launches_f32 = 0
 
 
 class FlashAttention(torch.autograd.Function):

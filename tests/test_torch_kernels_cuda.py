@@ -115,6 +115,10 @@ def test_cuda_rmsnorm_matches_plain(shape, dtype):
     # OLMoE's 16/16 heads (G = 1) at exact, odd MoE prefill lengths
     (1, 82, 16, 16, 128, None, True),
     (1, 300, 16, 16, 128, None, True),
+    # the main path's shapes: many key tiles, a partly masked diagonal
+    # tile and kv_len inside a tile; serving prefill
+    (2, 1024, 12, 2, 128, [1024, 700], True),
+    (4, 512, 12, 2, 128, None, True),
 ])
 def test_cuda_flash_matches_plain(b, s, hq, hkv, d, kv_len, causal, dtype):
     requires_cuda()
@@ -177,16 +181,20 @@ def _bwd_case(rng, b, sq, skv, hq, hkv, d, kv_len, causal, dtype):
     (2, 21, 21, 6, 1, 128, [21, 6], False),     # G 6, non-causal
     (2, 17, 45, 4, 2, 64, [45, 9], False),      # non-causal, Sq != Skv
     (1, 64, 64, 6, 1, 128, None, False),        # whole tiles, non-causal
+    (2, 1024, 1024, 12, 2, 128, [1024, 700], True),  # many tiles, kv_len in a tile
+    (4, 512, 512, 12, 2, 128, None, True),      # serving prefill's shape
 ], ids=["g2-ragged-len", "g6-d128", "g1-empty-row", "g6-noncausal-len",
-        "noncausal-rect", "g6-noncausal"])
+        "noncausal-rect", "g6-noncausal", "g6-s1024-len", "prefill-4x512"])
 def test_cuda_flash_bwd_matches_plain(b, sq, skv, hq, hkv, d, kv_len, causal, dtype):
     requires_cuda()
     rng = np.random.default_rng(11)
     args = _bwd_case(rng, b, sq, skv, hq, hkv, d, kv_len, causal, dtype)
-    before = flash_attention_bwd.launches
+    # each dtype branch counts its own launches
+    counter = "launches" if dtype == torch.bfloat16 else "launches_f32"
+    before = getattr(flash_attention_bwd, counter)
     got = flash_attention_bwd(*args, causal=causal)
     torch.cuda.synchronize()
-    assert flash_attention_bwd.launches == before + 1
+    assert getattr(flash_attention_bwd, counter) == before + 1
     want = flash_attention_bwd_ref(*args, causal=causal)
     for name, g, w in zip(("dq", "dk", "dv"), got, want):
         assert g.dtype == torch.float32 and torch.isfinite(g).all(), name
@@ -208,6 +216,38 @@ def test_cuda_flash_bwd_refuses_what_it_cannot_take():
 
 
 @pytest.mark.cuda
+def test_cuda_flash_bf16_bwd_is_deterministic():
+    """No atomics: two backward calls on the same inputs give the same bits
+    (the G per-query-head dk/dv partials are summed in a fixed order)."""
+    requires_cuda()
+    rng = np.random.default_rng(16)
+    args = _bwd_case(rng, 2, 1024, 1024, 12, 2, 128, [1024, 700], True,
+                     torch.bfloat16)
+    first = flash_attention_bwd(*args)
+    second = flash_attention_bwd(*args)
+    torch.cuda.synchronize()
+    for name, a, b_ in zip(("dq", "dk", "dv"), first, second):
+        assert torch.equal(a, b_), name
+
+
+@pytest.mark.cuda
+def test_cuda_flash_bf16_refuses_a_misaligned_view():
+    """The bf16 kernels stage rows with 16-byte copies: a view whose base
+    is one element off raises instead of reading astray."""
+    requires_cuda()
+    rng = np.random.default_rng(17)
+    q, k, v, do, lse, delta, _ = _bwd_case(rng, 1, 16, 16, 2, 1, 64, None, True,
+                                           torch.bfloat16)
+    buf = torch.zeros(q.numel() + 1, dtype=torch.bfloat16, device="cuda")
+    shifted = buf[1:].view(q.shape)
+    shifted.copy_(q)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        flash_attention_fwd(shifted, k, v)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        flash_attention_bwd(shifted, k, v, do, lse, delta)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("kv_len,causal", [(None, True), ([29, 12], False)])
 def test_cuda_flash_attention_grads_match_cpu_plain_path(kv_len, causal):
     """FlashAttention's gradients on the card (both kernels) against the
@@ -226,9 +266,9 @@ def test_cuda_flash_attention_grads_match_cpu_plain_path(kv_len, causal):
         o.backward(torch.tensor(g, device=device))
         return [o.detach().cpu()] + [t.grad.cpu() for t in ts]
 
-    before = flash_attention_bwd.launches
+    before = flash_attention_bwd.launches_f32
     got = grads("cuda")
-    assert flash_attention_bwd.launches == before + 1
+    assert flash_attention_bwd.launches_f32 == before + 1
     for a, b_ in zip(got, grads("cpu")):
         torch.testing.assert_close(a, b_, **BWD_TOL)
 
@@ -269,8 +309,10 @@ def test_cuda_train_steps_match_cpu_plain_path():
     counts = kernels.launch_counts()
     want = run("cpu", base)
     np.testing.assert_allclose(got, want, atol=1e-4, rtol=0)
-    assert counts["flash_attention_bwd"] == 3 * cfg.n_layers
-    assert counts["flash_attention_fwd"] == 2 * 3 * cfg.n_layers   # with remat
+    # fp32: the f32 branch of both flash kernels, never the bf16 one
+    assert counts["flash_attention_bwd[f32]"] == 3 * cfg.n_layers
+    assert counts["flash_attention_fwd[f32]"] == 2 * 3 * cfg.n_layers   # with remat
+    assert counts["flash_attention_fwd"] == counts["flash_attention_bwd"] == 0
     assert counts["rmsnorm"] > 0
 
 
@@ -574,7 +616,7 @@ def test_cuda_serve_through_kernels_matches_cpu_plain_path(kw):
     assert eng.preemptions == want_eng.preemptions
     assert eng.preemptions >= (1 if kw else 0)
     decode = "paged_flash_decode" if kw else "flash_decode"
-    for name in ("rmsnorm", "flash_attention_fwd", decode):
+    for name in ("rmsnorm", "flash_attention_fwd[f32]", decode):
         assert counts[name] > 0, name
 
 
@@ -611,7 +653,7 @@ def test_cuda_spec_serve_through_kernels_matches_cpu_plain_path(num_pages):
     assert got == want
     assert eng.preemptions >= (1 if num_pages else 0)
     assert eng.last_pool_stats.used_pages == 0
-    for name in ("rmsnorm", "flash_attention_fwd", "flash_decode",
+    for name in ("rmsnorm", "flash_attention_fwd[f32]", "flash_decode",
                  "paged_flash_verify"):
         assert counts[name] > 0, name
 
@@ -723,11 +765,11 @@ def test_cuda_moe_serve_through_kernels_matches_cpu_plain_path(kw):
     assert eng.preemptions == want_eng.preemptions
     assert eng.preemptions >= (1 if kw else 0)
     decode = "paged_flash_decode" if kw else "flash_decode"
-    for name in ("rmsnorm", "flash_attention_fwd", decode, "moe_gating"):
+    for name in ("rmsnorm", "flash_attention_fwd[f32]", decode, "moe_gating"):
         assert counts[name] > 0, name
     # one gating launch per layer of every prefill and decode step, as
-    # one attention launch is
-    assert counts["moe_gating"] == counts["flash_attention_fwd"] + counts[decode]
+    # one attention launch is (fp32: the flash kernel's f32 branch)
+    assert counts["moe_gating"] == counts["flash_attention_fwd[f32]"] + counts[decode]
 
 
 # ---------------------------------------------------------------------------
