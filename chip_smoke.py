@@ -19,7 +19,15 @@ its paths:
    the int8 branches of paged decode and verify (``paged_flash_decode[int8]``,
    ``paged_flash_verify[int8]``) at the serving shapes on pages quantized on
    the card, whose bytes must equal the CPU's, each also held against the
-   float kernel on the dequantized pages (bf16 and f32 q).
+   float kernel on the dequantized pages (bf16 and f32 q).  rmsnorm is timed
+   at prefill's 4 x 512 rows and training's 8192 rows under an fp32 weight
+   (beside ``F.rms_norm``); matmul in f32 (3xTF32 on the tensor cores;
+   its bound is the smaller of the f32 CUDA cores' and three TF32
+   products', both printed) and in bf16 (beside ``torch.matmul``), at
+   2048^3.  ``nvcc -Xptxas -v`` and ``cuobjdump -sass`` of ``matmul.cu``
+   and ``rmsnorm.cu`` run beside this phase (``ptxas ...`` lines:
+   registers, spills, shared memory, HMMA count); it fails unless every
+   matmul kernel has HMMA instructions.
 2. The paper's layer: Figure 5 (``repro_torch.bench.fig5_microbench``) at
    the reference's size, HW through the warp-intrinsic kernels against SW
    through the PR-transformation lane loops; it fails if they disagree or
@@ -85,7 +93,8 @@ its paths:
    length, the router's top-k through ``moe_gating``.  First it holds the
    kernels at OLMoE's own shapes against their plain versions (flash
    forward at G = 1 and S 300, dense and paged decode at G = 1, rmsnorm
-   over 512 x 2048 bf16 rows).  It fails unless every request finishes,
+   over 512 x 2048 bf16 rows; dense decode at G = 1 also beside SDPA, for
+   scale).  It fails unless every request finishes,
    every kernel of the path launched, the paged runs serve the dense
    run's tokens, one decode step launches ``moe_gating`` once per layer,
    and the teacher-forced plain path stays within the logit tolerance.  A
@@ -97,7 +106,9 @@ its paths:
    with the kernel path's routing replayed.  Last, one prefill and one
    decode step are profiled.
 
-The flash rows count the bf16 branch's launches only.  The fp32 controls
+Every serving, MoE and training run must normalize through rmsnorm's
+one-warp-a-row branch: the run fails if one launched its block-per-row
+ragged branch.  The flash rows count the bf16 branch's launches only.  The fp32 controls
 (C1, the tiered and the MoE ones) run the f32 branch: its launches are
 printed on a line of their own, and the run fails if a bf16 run launched
 an f32 flash kernel or an fp32 control a bf16 one.
@@ -113,6 +124,7 @@ Without CUDA, or without the repository's ``src/`` beside it, it fails.
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import contextlib
 import dataclasses
 import json
@@ -127,9 +139,11 @@ import torch
 ROOT = Path(__file__).resolve().parent
 DETAILS = ROOT / "build" / "chip_smoke.json"
 
-# published peaks of one H100 SXM (dense): bf16 tensor cores, fp32 CUDA cores
+# published peaks of one H100 SXM (dense): bf16 and TF32 tensor cores, fp32
+# CUDA cores
 HBM_BYTES_S = 3.35e12
 BF16_FLOPS_S = 989e12
+TF32_FLOPS_S = 495e12
 F32_FLOPS_S = 67e12
 
 # bf16 kernel vs plain version: both accumulate in fp32 and round the
@@ -214,6 +228,12 @@ GRAD_NORM_TOL = 4e-4          # global norms, relative
 GRAD_COS_MIN = 1 - 4e-4       # smallest per-leaf cosine similarity
 GRAD_LEAF_TOL = 0.09          # largest per-leaf |a - b| / |b|
 GRAD_FAULT_DK = 1.25          # the control's wrong dk scale
+# rmsnorm's calls take the host longer to launch than the card to run:
+# their rows are timed with the calls queued behind a spin on the card,
+# long enough for a few hundred launches (cycles at a clock above the
+# H100's 1.98 GHz)
+SPIN_S = 0.02
+SPIN_CYCLES_S = 2.0e9
 
 
 def fail(msg: str):
@@ -230,14 +250,19 @@ def smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+def cuda_ms(fn, iters: int = 20, warmup: int = 3, queued: bool = False) -> float:
     """Mean device time of ``fn`` over ``iters`` back-to-back calls (CUDA
-    events, after a warm-up; inputs stay warm in the 50 MB L2)."""
+    events, after a warm-up; inputs stay warm in the 50 MB L2).  A call
+    the host launches more slowly than the card runs it is timed at the
+    host's pace; with ``queued`` the calls first queue up behind a spin on
+    the card, and the events time the card's work alone."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    if queued:
+        torch.cuda._sleep(int(SPIN_S * SPIN_CYCLES_S))
     start.record()
     for _ in range(iters):
         fn()
@@ -275,6 +300,8 @@ FLASH_BRANCHES = {torch.bfloat16: "bf16 (tensor cores: mma.sync, split-bf16 P an
                   torch.float32: "f32 (CUDA cores)"}
 # the branch each flash row ran, for the details file
 BRANCHES_RUN = {}
+# matmul readings beside its row: the bound candidates, the bf16 branch
+MATMUL_READINGS = {}
 
 
 def record_kernel(rows, name, source, replaces, got, want, tol, t_kernel, t_plain,
@@ -368,22 +395,28 @@ def check_kernels(cfg, gen: torch.Generator):
         if not agrees(got, want, tol):
             fail(f"{name} disagrees with its plain version beyond {tol}")
 
-    # training's rmsnorm: bf16 rows of one 2 x 4096 batch, fp32 weight
-    xt, wt = randn(TRAIN_BATCH * TRAIN_SEQ, d), torch.randn(d, generator=gen, device=dev)
-    check("rmsnorm bf16 rows, f32 weight (training)", rmsnorm(xt, wt, cfg.norm_eps),
-          rmsnorm_ref(xt, wt, cfg.norm_eps), KERNEL_TOL)
-    del xt, wt
+    def rmsnorm_row(name, x, w):
+        """rmsnorm's row: kernel, plain version and F.rms_norm timed with
+        their calls queued (the card's time); the kernel's host-paced time
+        printed beside them"""
+        fns = [lambda: rmsnorm(x, w, cfg.norm_eps), lambda: rmsnorm_ref(x, w, cfg.norm_eps),
+               lambda: F.rms_norm(x, (d,), w, cfg.norm_eps)]
+        got, want = fns[0](), fns[1]()
+        torch.cuda.synchronize()
+        print(f"kernel {name}: {tuple(x.shape)} rows, {w.dtype} weight; host-paced "
+              f"ms={cuda_ms(fns[0]):.4f} (calls as the host launches them); the row's "
+              f"times are the card's, the calls queued", flush=True)
+        kernel_ms, plain_ms, library_ms = (cuda_ms(f, iters=100, queued=True) for f in fns)
+        record(name, "src/repro_torch/kernels/rmsnorm/rmsnorm.cu",
+               "src/repro/kernels/rmsnorm/rmsnorm.py:29", got, want, kernel_ms, plain_ms,
+               2 * x.numel() * bs + d * w.element_size(), 4 * x.numel(), F32_FLOPS_S,
+               library_ms)
 
+    # training's rmsnorm: bf16 rows of one 2 x 4096 batch, fp32 weight
+    rmsnorm_row("rmsnorm (training)", randn(TRAIN_BATCH * TRAIN_SEQ, d),
+                torch.randn(d, generator=gen, device=dev))
     # rmsnorm: ln1/ln2 over a prefill batch of 4 x 512 rows
-    x, w = randn(b * s, d), randn(d)
-    got, want = rmsnorm(x, w, cfg.norm_eps), rmsnorm_ref(x, w, cfg.norm_eps)
-    torch.cuda.synchronize()
-    record("rmsnorm", "src/repro_torch/kernels/rmsnorm/rmsnorm.cu",
-           "src/repro/kernels/rmsnorm/rmsnorm.py:29", got, want,
-           cuda_ms(lambda: rmsnorm(x, w, cfg.norm_eps)),
-           cuda_ms(lambda: rmsnorm_ref(x, w, cfg.norm_eps)),
-           2 * x.numel() * bs + d * bs, 4 * x.numel(), F32_FLOPS_S,
-           cuda_ms(lambda: F.rms_norm(x, (d,), w, cfg.norm_eps)))
+    rmsnorm_row("rmsnorm", randn(b * s, d), randn(d))
 
     # flash forward: causal prefill of 4 x 512 tokens, 12 q heads over 2 kv
     q, k, v = randn(b, s, hq, dh), randn(b, s, hkv, dh), randn(b, s, hkv, dh)
@@ -695,16 +728,41 @@ def check_warp_kernels(gen: torch.Generator) -> dict:
                   2 * m * 4 + 4, 3 * m, F32_FLOPS_S,
                   cuda_ms(lambda: F.mse_loss(p, t, reduction="sum")))
 
-    # matmul: 2048^3 in f32 on the CUDA cores against cuBLAS in full f32
+    # matmul: 2048^3 in f32 (3xTF32 on the tensor cores) against cuBLAS in
+    # full f32.  An f32-accurate product has two ways through the card, 2MNK
+    # on the f32 CUDA cores or three TF32 products on the tensor cores: the
+    # row's bound is the smaller of the two, and both are printed
     torch.backends.cuda.matmul.allow_tf32 = False
     d = 2048
     a, b = (torch.randn(d, d, generator=gen, device=dev) for _ in "ab")
+    mm_bytes, mm_flops = 3 * d * d * 4, 2 * d ** 3
+    ways = {"f32 CUDA cores": (mm_flops, F32_FLOPS_S),
+            "3xTF32 tensor cores": (3 * mm_flops, TF32_FLOPS_S)}
+    bounds = {way: bound(mm_bytes, *fp)[0] for way, fp in ways.items()}
+    way = min(bounds, key=bounds.get)
+    print("kernel matmul: bound candidates " + "; ".join(
+        f"{w} {ms:.4f} ms" for w, ms in bounds.items()) + f"; the row takes {way}",
+        flush=True)
     record_kernel(rows, "matmul", "src/repro_torch/kernels/matmul/matmul.cu",
                   "src/repro/kernels/matmul/matmul.py:39",
                   matmul(a, b), matmul_ref(a, b), MATMUL_TOL,
                   cuda_ms(lambda: matmul(a, b)), cuda_ms(lambda: matmul_ref(a, b)),
-                  3 * d * d * 4, 2 * d ** 3, F32_FLOPS_S,
-                  cuda_ms(lambda: torch.matmul(a, b)))
+                  mm_bytes, *ways[way], cuda_ms(lambda: torch.matmul(a, b)))
+    MATMUL_READINGS["f32 bound candidates ms"] = bounds
+
+    # the bf16 branch at 2048^3 beside torch.matmul in bf16 (Fig. 5 runs
+    # f32 only, so this branch has no row of its own)
+    ah, bh = a.to(torch.bfloat16), b.to(torch.bfloat16)
+    got, want = matmul(ah, bh), matmul_ref(ah, bh)
+    check("matmul bf16 2048^3", got, want, KERNEL_TOL)
+    r = dict(max_abs_err=max_err(got, want), ms=cuda_ms(lambda: matmul(ah, bh)),
+             plain_ms=cuda_ms(lambda: matmul_ref(ah, bh)),
+             bound_ms=bound(3 * d * d * 2, mm_flops, BF16_FLOPS_S)[0],
+             library_ms=cuda_ms(lambda: torch.matmul(ah, bh)))
+    print(f"kernel matmul bf16 2048^3: max_abs_err={r['max_abs_err']:.3e} tol={KERNEL_TOL} "
+          f"ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} bound_ms={r['bound_ms']:.4f} "
+          f"(operations) library_ms={r['library_ms']:.4f}", flush=True)
+    MATMUL_READINGS["bf16 2048^3"] = r
     return rows
 
 
@@ -759,12 +817,21 @@ def serve(model, params, spec, **kw):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = kernels.launch_counts()
+    no_ragged_rmsnorm("a serving run", counts)
     for u, _, n in spec:
         s = eng.last_stats[u]
         if s["status"] != "ok" or s["tokens"] != n or len(out.get(u, [])) != n:
             fail(f"request {u}: status {s['status']}, {s.get('tokens')} of {n} tokens")
     n_tok = sum(len(v) for v in out.values())
     return out, eng, counts, wall, n_tok
+
+
+def no_ragged_rmsnorm(label: str, counts: dict):
+    """Every serving, MoE and training run normalizes whole 16-byte rows:
+    rmsnorm's block-per-row ragged branch must not have launched."""
+    if counts["rmsnorm[ragged]"]:
+        fail(f"{label} launched rmsnorm's ragged branch "
+             f"{counts['rmsnorm[ragged]']} times")
 
 
 def add_counts(a: dict, b: dict) -> dict:
@@ -1388,8 +1455,11 @@ def check_moe_shapes(cfg, gen: torch.Generator) -> dict:
     an exact, odd prompt length; dense and paged decode at G = 1 (one
     query head per KV head: 16/16, d_head 128) at the serving positions;
     rmsnorm over one 512-token prompt's bf16 rows of d_model 2048.  Each
-    against its plain version at KERNEL_TOL, timed.  Returns the readings
-    by name."""
+    against its plain version at KERNEL_TOL, timed; dense decode also
+    beside SDPA on the same inputs (for scale) and its bound.  Returns the
+    readings by name."""
+    import torch.nn.functional as F
+
     from repro_torch.kernels.decode_attention.ops import flash_decode, paged_flash_decode
     from repro_torch.kernels.decode_attention.ref import (
         flash_decode_ref,
@@ -1404,11 +1474,12 @@ def check_moe_shapes(cfg, gen: torch.Generator) -> dict:
     g = cfg.n_heads // hkv
     out = {}
 
-    def check(name, fn, ref, *args, tol=KERNEL_TOL):
+    def check(name, fn, ref, *args, tol=KERNEL_TOL, queued=False):
         got, want = fn(*args), ref(*args)
         torch.cuda.synchronize()
         err = max_err(got, want)
-        ms, plain_ms = cuda_ms(lambda: fn(*args)), cuda_ms(lambda: ref(*args))
+        ms, plain_ms = (cuda_ms(lambda: f(*args), iters=100 if queued else 20, queued=queued)
+                        for f in (fn, ref))
         print(f"kernel {name} (OLMoE): max_abs_err={err:.3e} tol={tol} ms={ms:.4f} "
               f"plain_ms={plain_ms:.4f}", flush=True)
         if not agrees(got, want, tol):
@@ -1425,11 +1496,26 @@ def check_moe_shapes(cfg, gen: torch.Generator) -> dict:
           lambda *a: flash_attention_ref(*a)[1], q, k, v, tol=dict(atol=1e-3, rtol=0.0))
     qd, kv_view, vv_view, kp, vp, bt, pos = decode_case(gen, hkv, g, dh)
     check(f"flash_decode G={g}", flash_decode, flash_decode_ref, qd, kv_view, vv_view, pos)
+    # for scale only (the port never calls it): SDPA on the same slots,
+    # positions and cache view (its calls queued: the card's time), and the
+    # least time the card could take
+    mask = (torch.arange(ATTEND, device="cuda")[None, :] <= pos[:, None])[:, None, None, :]
+    q4 = qd.reshape(SLOTS, 1, hkv * g, dh).transpose(1, 2)
+    live = int((pos + 1).sum())
+    r = out[f"flash_decode G={g}"]
+    r["library_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(
+        q4, kv_view.transpose(1, 2), vv_view.transpose(1, 2), attn_mask=mask,
+        enable_gqa=True), iters=100, queued=True)
+    r["bound_ms"], r["bound_by"] = bound((2 * qd.numel() + 2 * live * hkv * dh) * 2,
+                                         4 * dh * hkv * g * live, BF16_FLOPS_S)
+    print(f"kernel flash_decode G={g} (OLMoE): library_ms={r['library_ms']:.4f} (SDPA, for "
+          f"scale) factor={r['ms'] / r['library_ms']:.2f} bound_ms={r['bound_ms']:.4f} "
+          f"({r['bound_by']})", flush=True)
     check(f"paged_flash_decode G={g}", paged_flash_decode, paged_flash_decode_ref,
           qd, kp, vp, bt, pos)
     x, w = randn(512, cfg.d_model), randn(cfg.d_model)
     check(f"rmsnorm 512 x {cfg.d_model}", lambda *a: rmsnorm(*a, cfg.norm_eps),
-          lambda *a: rmsnorm_ref(*a, cfg.norm_eps), x, w)
+          lambda *a: rmsnorm_ref(*a, cfg.norm_eps), x, w, queued=True)
     return out
 
 
@@ -1804,6 +1890,7 @@ def run_training(cfg, seed: int):
              f"not twice (forward, remat) per layer per step")
     if counts["rmsnorm"] == 0:
         fail("rmsnorm never launched while training")
+    no_ragged_rmsnorm("training", counts)
 
     step_fn = make_train_step(model, opt, vocab_chunks=VOCAB_CHUNKS)
     batch = {k: v.cuda() for k, v in data.batch_at(TRAIN_STEPS).items()}
@@ -1851,6 +1938,25 @@ def fig5_device_time(seed: int, iters: int = 5) -> dict:
     return out
 
 
+def print_ptxas(report: dict, build) -> dict:
+    """Print ptxas's registers, spills and shared memory (static, and the
+    matmul kernel's dynamic bytes from the library) and the HMMA count of
+    each kernel of matmul.cu and rmsnorm.cu; fail unless every matmul
+    kernel runs on the tensor cores."""
+    smem = build.LIB.fn("repro_matmul_smem_bytes", [build.I])
+    for name, r in sorted(report.items()):
+        if "matmul_tc_kernel" in name:
+            r["dynamic_smem"] = smem(1 if "bfloat16" in name else 0)
+        print(f"ptxas {name}: registers={r.get('registers')} {r.get('spills')}; "
+              f"static smem {r.get('static_smem')} B, dynamic smem "
+              f"{r.get('dynamic_smem', 0)} B; HMMA {r.get('hmma', 0)}", flush=True)
+    mm = [n for n in report if "matmul_tc_kernel" in n]
+    if len(mm) != 4 or any(not report[n].get("hmma") for n in mm):
+        fail(f"the matmul kernels do not all run on the tensor cores: "
+             f"{ {n: report[n].get('hmma', 0) for n in mm} }")
+    return report
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1860,6 +1966,7 @@ def main():
     sys.path.insert(0, str(ROOT / "src"))
     try:
         from repro_torch.configs import get_config
+        from repro_torch.bench.kernel_ab import ptxas_report
         from repro_torch.kernels import build
         from repro_torch.models.layers import WarpFeatureConfig
         from repro_torch.models.lm import Model
@@ -1875,12 +1982,18 @@ def main():
     print(f"build: kernels built and loaded in {time.perf_counter() - t0:.1f} s "
           f"({len(build.sources())} sources)", flush=True)
 
+    # ptxas's view of the redesigned kernels, compiled beside the kernel phase
+    pool = concurrent.futures.ThreadPoolExecutor(1)
+    ptxas_job = pool.submit(ptxas_report, ROOT / "src" / "repro_torch" / "kernels")
+
     cfg = get_config(ARCH)
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     rows, t1_err, int8_checks = check_kernels(cfg, gen)
     serving_kernels = ("rmsnorm", "flash_attention_fwd", "flash_decode",
                        "paged_flash_decode")
     rows.update(check_warp_kernels(gen))
+    ptxas = print_ptxas(ptxas_job.result(), build)
+    pool.shutdown()
     gating_rows, gating_decode = check_moe_gating(get_config(MOE_ARCH), gen)
     rows.update(gating_rows)
 
@@ -1995,8 +2108,8 @@ def main():
         {"C1 control fp32": c1["launches"],
          "tiered fp32 control": tiered_rec["fp32_control_launches"],
          "moe control fp32 no drops": moe_rec["preemption_controls"]["fp32 no drops"]["launches"]})
-    # training's forward launches belong to the training-shape row
-    rows["rmsnorm"]["launches"] += train_counts["rmsnorm"]
+    # training's launches belong to the training-shape rows
+    rows["rmsnorm (training)"]["launches"] = train_counts["rmsnorm"]
     rows["flash_attention_bwd"]["launches"] += train_counts["flash_attention_bwd"]
     rows["flash_attention_fwd (training)"]["launches"] = train_counts["flash_attention_fwd"]
 
@@ -2010,7 +2123,8 @@ def main():
         fig5=fig5_rows, fig5_counts=fig5_counts, fig5_device=fig5_device,
         warp_forms=warp_forms, spec=spec_rec, verify_t1_err=t1_err, moe=moe_rec,
         c1_control=c1, tiered=tiered_rec, int8_kernel_checks=int8_checks,
-        moe_gating_decode=gating_decode, flash_branches=BRANCHES_RUN),
+        moe_gating_decode=gating_decode, flash_branches=BRANCHES_RUN,
+        matmul=MATMUL_READINGS, ptxas=ptxas),
         indent=1))
     print(json.dumps(result), flush=True)
     print(smi, flush=True)

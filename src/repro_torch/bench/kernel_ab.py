@@ -1,0 +1,191 @@
+"""A/B timings of the port's matmul and rmsnorm kernels on one NVIDIA GPU.
+
+    python src/repro_torch/bench/kernel_ab.py SRC [--iters N] [--ptxas]
+
+For the package tree whose ``src/`` is SRC, one JSON line:
+
+- ``matmul``: f32 and bf16 at 2048^3 and f32 at Fig. 5's 64^3 (ms), and
+  the f32 kernel's error at 2048^3 against a float64 product (max, RMS
+  relative, and shrink: mean((got - want) * sign(want)) / mean(|want|),
+  below 0 when the sums come out smaller), beside cuBLAS in full f32 and
+  an emulated plain TF32 product on the same inputs;
+- ``rmsnorm`` on bf16 rows: 4 x 1536 (decode), 2048 x 1536 (prefill),
+  8192 x 1536 under an fp32 weight (training) and 512 x 2048 (OLMoE).
+
+Small calls are host-paced: the Python wrapper takes longer to launch one
+than the card to run it.  So rmsnorm and the 64^3 matmul are also timed
+with the calls queued first behind a spin on the card (``..._device``):
+the card's time alone.
+
+With ``--ptxas``, also ``nvcc -Xptxas -v`` of SRC's ``matmul.cu`` and
+``rmsnorm.cu``: registers, spills and static shared memory of each kernel,
+and its HMMA (tensor-core) instruction count from ``cuobjdump -sass``.
+Run it by path, so that the package is imported from SRC; compare two
+commits on one machine by turns: parent, change, change, parent.  Times
+are CUDA-event means over back-to-back calls (inputs warm in L2).  Needs
+nvcc; imports no JAX.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import re
+import subprocess
+import sys
+import tempfile
+from pathlib import Path
+
+import torch
+
+MATMUL_SHAPES = {"f32_2048": (2048, torch.float32), "bf16_2048": (2048, torch.bfloat16),
+                 "f32_64": (64, torch.float32)}
+# (rows, d, weight dtype) on bf16 rows
+RMSNORM_SHAPES = {"4x1536": (4, 1536, torch.bfloat16),
+                  "2048x1536": (2048, 1536, torch.bfloat16),
+                  "8192x1536_f32w": (8192, 1536, torch.float32),
+                  "512x2048": (512, 2048, torch.bfloat16)}
+# the spin that queues timed calls: long enough for the host to launch a
+# few hundred small calls, in cycles at a clock above the H100's 1.98 GHz
+SPIN_S = 0.02
+SPIN_CYCLES_S = 2.0e9
+KERNELS = re.compile(r"(matmul_tc_kernel|matmul_kernel|rmsnorm_\w*kernel)")
+
+
+def cuda_ms(fn, iters: int, warmup: int = 3, queued: bool = False) -> float:
+    """Mean ms a call between CUDA events around ``iters`` back-to-back
+    calls.  Where the host takes longer to launch a call than the card to
+    run it, that is the host's pace; with ``queued`` the calls are first
+    queued behind a spin on the card (``SPIN_S``), so the events time the
+    card's work alone."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    if queued:
+        torch.cuda._sleep(int(SPIN_S * SPIN_CYCLES_S))
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def errors(got: torch.Tensor, want: torch.Tensor) -> dict:
+    """max, RMS relative and shrink of got against want (float64)."""
+    diff = got.double() - want
+    return dict(max_err=diff.abs().max().item(),
+                rms_rel_err=(diff.pow(2).mean().sqrt() / want.pow(2).mean().sqrt()).item(),
+                shrink=((diff * want.sign()).mean() / want.abs().mean()).item())
+
+
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """f32 x rounded to TF32, ties away from zero (the arithmetic of the
+    kernel's split, kept here so that a tree without it can be timed)."""
+    return torch.bitwise_and(x.view(torch.int32) + 0x1000, -0x2000).view(torch.float32)
+
+
+def time_kernels(iters: int) -> dict:
+    """ms of each case through the imported package, and the f32 matmul's
+    error at 2048^3."""
+    from repro_torch.kernels.matmul.ops import matmul
+    from repro_torch.kernels.rmsnorm.ops import rmsnorm
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    out = {}
+    for name, (d, dtype) in MATMUL_SHAPES.items():
+        a, b = (torch.randn(d, d, generator=gen, device="cuda").to(dtype) for _ in "ab")
+        out[f"matmul_{name}"] = cuda_ms(lambda: matmul(a, b), iters)
+        if name == "f32_64":
+            out[f"matmul_{name}_device"] = cuda_ms(lambda: matmul(a, b), iters * 5, queued=True)
+        if name == "f32_2048":
+            exact = a.double() @ b.double()
+            out["matmul_f32_2048_error"] = dict(
+                kernel=errors(matmul(a, b), exact),
+                cublas_f32=errors(a @ b, exact),
+                tf32_emulated=errors(_tf32(a) @ _tf32(b), exact))
+            del exact
+    for name, (n, d, w_dtype) in RMSNORM_SHAPES.items():
+        x = torch.randn(n, d, generator=gen, device="cuda").to(torch.bfloat16)
+        w = torch.randn(d, generator=gen, device="cuda").to(w_dtype)
+        out[f"rmsnorm_{name}"] = cuda_ms(lambda: rmsnorm(x, w, 1e-6), iters * 5)
+        out[f"rmsnorm_{name}_device"] = cuda_ms(lambda: rmsnorm(x, w, 1e-6), iters * 5,
+                                                queued=True)
+    return out
+
+
+def ptxas_report(kernel_dir: Path) -> dict:
+    """Registers, spills, static shared memory and HMMA instructions of
+    each kernel in ``matmul.cu`` and ``rmsnorm.cu`` under ``kernel_dir``
+    (both compiled at once, with the build's flags plus -Xptxas -v)."""
+    from repro_torch.kernels import build
+
+    nvcc = build._nvcc()
+    tools = Path(nvcc).parent
+    report = {}
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build.BUILD_DIR) as tmp:
+        procs = []
+        for src in (kernel_dir / "matmul" / "matmul.cu", kernel_dir / "rmsnorm" / "rmsnorm.cu"):
+            obj = Path(tmp) / (src.stem + ".o")
+            cmd = [nvcc, *build.NVCC_FLAGS, "-Xptxas", "-v", "-I", str(kernel_dir), "-c",
+                   str(src), "-o", str(obj)]
+            procs.append((obj, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                stderr=subprocess.STDOUT, text=True)))
+        for obj, p in procs:
+            log, _ = p.communicate()
+            if p.returncode:
+                raise RuntimeError(f"{obj.stem}.cu failed to build:\n{log}")
+            kernel = None
+            for line in log.splitlines():
+                if "Compiling entry function" in line:
+                    kernel = _demangle(tools, line.split("'")[1])
+                elif kernel and "bytes stack frame" in line:
+                    report.setdefault(kernel, {})["spills"] = line.strip()
+                elif kernel and "Used" in line and "registers" in line:
+                    k = report.setdefault(kernel, {})
+                    k["registers"] = int(re.search(r"Used (\d+) registers", line).group(1))
+                    smem = re.search(r"(\d+) bytes smem", line)
+                    k["static_smem"] = int(smem.group(1)) if smem else 0
+            sass = subprocess.run([str(tools / "cuobjdump"), "-sass", str(obj)],
+                                  capture_output=True, text=True, check=True).stdout
+            kernel = None
+            for line in sass.splitlines():
+                if "Function :" in line:
+                    kernel = _demangle(tools, line.split("Function :")[1].strip())
+                elif kernel and "HMMA" in line:
+                    k = report.setdefault(kernel, {})
+                    k["hmma"] = k.get("hmma", 0) + 1
+    return {k: v for k, v in report.items() if KERNELS.search(k)}
+
+
+def _demangle(tools: Path, name: str) -> str:
+    """``void kernel<T, ...>`` from a mangled name: cu++filt's output
+    without its namespace, template argument casts and parameter list."""
+    out = subprocess.run([str(tools / "cu++filt"), name], capture_output=True, text=True)
+    full = out.stdout.strip() if out.returncode == 0 and out.stdout.strip() else name
+    full = re.sub(r"<unnamed>::|\(anonymous namespace\)::|\((?:bool|int)\)", "", full)
+    return re.sub(r"\(.*\)$", "", full)
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("src", help="the package tree's src/ directory")
+    ap.add_argument("--iters", type=int, default=20, help="calls timed a matmul case "
+                    "(five times as many a rmsnorm case)")
+    ap.add_argument("--ptxas", action="store_true",
+                    help="also ptxas registers/spills and HMMA counts of the two sources")
+    a = ap.parse_args()
+    if not torch.cuda.is_available():
+        sys.exit("torch.cuda.is_available() is False: these timings need an NVIDIA GPU")
+    sys.path.insert(0, a.src)
+    row = dict(src=a.src, **time_kernels(a.iters))
+    if a.ptxas:
+        row["ptxas"] = ptxas_report(Path(a.src) / "repro_torch" / "kernels")
+    print(json.dumps(row), flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -6,8 +6,9 @@ on a CPU tensor, never a fallback) and ``ref.py`` (the plain PyTorch
 version).  ``build.py`` compiles every ``.cu`` into one library at first
 use.  Each wrapper counts its kernel launches in ``<wrapper>.launches``
 (the two paged attention wrappers count their int8 branch apart, in
-``.launches_int8``, and the two flash wrappers their f32 branch, in
-``.launches_f32``); :func:`launch_counts` / :func:`reset_launches` read
+``.launches_int8``, the two flash wrappers their f32 branch, in
+``.launches_f32``, and rmsnorm its block-per-row ragged branch, in
+``.launches_ragged``); :func:`launch_counts` / :func:`reset_launches` read
 and clear them all.
 """
 
@@ -54,6 +55,7 @@ COUNTERS: Dict[str, Tuple[object, str]] = {
     "paged_flash_verify[int8]": (paged_flash_verify, "launches_int8"),
     "flash_attention_fwd[f32]": (flash_attention_fwd, "launches_f32"),
     "flash_attention_bwd[f32]": (flash_attention_bwd, "launches_f32"),
+    "rmsnorm[ragged]": (rmsnorm, "launches_ragged"),
 }
 
 

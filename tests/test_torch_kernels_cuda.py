@@ -36,7 +36,10 @@ from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
 from repro_torch.kernels.matmul.ops import matmul  # noqa: E402
 from repro_torch.kernels.moe_gating.ops import moe_gating  # noqa: E402
 from repro_torch.kernels.moe_gating.ref import moe_gating_ref  # noqa: E402
-from repro_torch.kernels.matmul.ref import matmul_ref  # noqa: E402
+from repro_torch.kernels.matmul.ref import (  # noqa: E402
+    matmul_1xtf32_emulated,
+    matmul_ref,
+)
 from repro_torch.kernels.mse.ops import mse_partial_sum  # noqa: E402
 from repro_torch.kernels.mse.ref import mse_partial_sum_ref  # noqa: E402
 from repro_torch.kernels.rmsnorm.ops import rmsnorm  # noqa: E402
@@ -147,6 +150,54 @@ def test_cuda_rmsnorm_fp32_weight_under_bf16_rows(shape):
     torch.cuda.synchronize()
     assert rmsnorm.launches == before + 1 and got.dtype == torch.bfloat16
     _close(got, rmsnorm_ref(x, w, 1e-6), torch.bfloat16)
+
+
+def _rmsnorm_branch(x, w):
+    """rmsnorm(x, w) and the branch whose counter moved (exactly one, by 1)."""
+    before = rmsnorm.launches, rmsnorm.launches_ragged
+    got = rmsnorm(x, w, 1e-6)
+    torch.cuda.synchronize()
+    moved = rmsnorm.launches - before[0], rmsnorm.launches_ragged - before[1]
+    assert moved in ((1, 0), (0, 1)), moved
+    return got, "warp" if moved[0] else "ragged"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape,w_f32,branch", [
+    ((512, 2048), False, "warp"),     # OLMoE's d_model: 8 bf16 vectors a lane
+    ((8192, 1536), True, "warp"),     # training: rows under an fp32 weight
+    ((33, 1024), False, "warp"),      # Granite-MoE's d_model
+    ((5, 264), False, "warp"),        # lanes holding unequal numbers of vectors
+    ((37, 70), False, "ragged"),      # not a whole number of 16-byte vectors
+    ((64, 1538), False, "ragged"),
+    ((16, 4096), False, "ragged"),    # wider than the warp branch holds
+])
+def test_cuda_rmsnorm_branches_match_plain(shape, w_f32, branch, dtype):
+    """Which branch each width takes, and both against the plain version."""
+    requires_cuda()
+    rng = np.random.default_rng(shape[-1])
+    x = _cuda(_rand(rng, *shape), dtype)
+    w = _cuda(_rand(rng, shape[-1]), torch.float32 if w_f32 else dtype)
+    got, ran = _rmsnorm_branch(x, w)
+    assert ran == branch and got.dtype == dtype and got.shape == x.shape
+    _close(got, rmsnorm_ref(x, w, 1e-6), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_cuda_rmsnorm_offset_views(dtype):
+    """A contiguous view whose base sits one element into its storage is
+    not 16-byte aligned (ragged branch); one whole row in, it is (warp)."""
+    requires_cuda()
+    n, d = 300, 1536
+    flat = _cuda(_rand(np.random.default_rng(7), (n + 2) * d), dtype)
+    w = _cuda(_rand(np.random.default_rng(8), d), dtype)
+    for offset, branch in ((1, "ragged"), (d, "warp")):
+        x = flat[offset:offset + n * d].view(n, d)
+        got, ran = _rmsnorm_branch(x, w)
+        assert ran == branch
+        _close(got, rmsnorm_ref(x, w, 1e-6), dtype)
 
 
 # the backward's outputs are f32 on both sides, from the same inputs (bf16
@@ -871,24 +922,79 @@ def test_cuda_mse_matches_plain(warp_size, n, dtype):
                                rtol=1e-5, atol=0)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("m,k,n", [(64, 64, 64), (1, 1, 1), (37, 19, 70),
-                                   (200, 333, 129), (512, 1024, 256)])
-@pytest.mark.parametrize("dtype", DTYPES)
-def test_cuda_matmul_matches_plain(m, k, n, dtype):
-    """Ragged edges; f32 against cuBLAS in full f32 (TF32 off), both
-    accumulating K products in f32 in different orders."""
-    requires_cuda()
+def _matmul_tol(k, dtype):
+    return dict(atol=1e-4 * k ** 0.5, rtol=1e-5) if dtype == torch.float32 else CUDA_TOL[dtype]
+
+
+def _check_matmul(a, b):
+    """matmul(a, b) against cuBLAS in full f32 (TF32 off): one launch, a's
+    dtype and shape, within the tolerance; returns the max error."""
     torch.backends.cuda.matmul.allow_tf32 = False
-    rng = np.random.default_rng(m + k + n)
-    a, b = _cuda(_rand(rng, m, k), dtype), _cuda(_rand(rng, k, n), dtype)
+    (m, k), n = a.shape, b.shape[1]
     before = matmul.launches
     got = matmul(a, b)
     torch.cuda.synchronize()
     assert matmul.launches == before + 1
-    assert got.dtype == dtype and got.shape == (m, n)
-    tol = dict(atol=1e-4 * k ** 0.5, rtol=1e-5) if dtype == torch.float32 else CUDA_TOL[dtype]
-    torch.testing.assert_close(got.float(), matmul_ref(a, b).float(), **tol)
+    assert got.dtype == a.dtype and got.shape == (m, n)
+    want = matmul_ref(a, b)
+    torch.testing.assert_close(got.float(), want.float(), **_matmul_tol(k, a.dtype))
+    return (got.float() - want.float()).abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(64, 64, 64), (1, 1, 1), (37, 19, 70),
+                                   (200, 333, 129), (512, 1024, 256),
+                                   (128, 128, 128), (1024, 1024, 1024),
+                                   (256, 2048, 384), (130, 72, 136)])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_cuda_matmul_matches_plain(m, k, n, dtype):
+    """Ragged edges (130 x 72 x 136: partial tiles and a partial K slice
+    through the 16-byte copies) and whole tiles; f32 (3xTF32 on the tensor cores)
+    against cuBLAS in full f32 (TF32 off), both accumulating K products in
+    f32 in different orders; bf16 products are exact in f32."""
+    requires_cuda()
+    rng = np.random.default_rng(m + k + n)
+    _check_matmul(_cuda(_rand(rng, m, k), dtype), _cuda(_rand(rng, k, n), dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("m,k,n", [(300, 257, 259), (130, 66, 1030)])
+def test_cuda_matmul_narrow_copies(m, k, n, dtype):
+    """K and N not multiples of 16 bytes: the kernel's element-by-element
+    copy branch, over several K slices and partial tiles."""
+    requires_cuda()
+    rng = np.random.default_rng(m * k)
+    _check_matmul(_cuda(_rand(rng, m, k), dtype), _cuda(_rand(rng, k, n), dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_cuda_matmul_offset_views(dtype):
+    """Contiguous views one element into their storage: bases not 16-byte
+    aligned (the narrow branch), with K and N that would allow the wide one."""
+    requires_cuda()
+    m, k, n = 256, 512, 384
+    rng = np.random.default_rng(11)
+    fa, fb = _cuda(_rand(rng, m * k + 1), dtype), _cuda(_rand(rng, k * n + 1), dtype)
+    a, b = fa[1:].view(m, k), fb[1:].view(k, n)
+    assert a.data_ptr() % 16 and b.data_ptr() % 16
+    _check_matmul(a, b)
+    _check_matmul(a, fb[:-1].view(k, n))   # one aligned operand
+
+
+@pytest.mark.cuda
+def test_cuda_matmul_f32_keeps_the_small_terms():
+    """At 1024^3 the kernel's error against cuBLAS f32 is at least 10x
+    below a plain TF32 product's (big.big alone, emulated with TF32 off):
+    a kernel that dropped the small terms would fail."""
+    requires_cuda()
+    rng = np.random.default_rng(12)
+    a, b = (_cuda(_rand(rng, 1024, 1024), torch.float32) for _ in "ab")
+    err = _check_matmul(a, b)
+    want = matmul_ref(a, b)
+    err_1x = (matmul_1xtf32_emulated(a, b) - want).abs().max().item()
+    assert err_1x >= 10 * err, (err_1x, err)
 
 
 # ---------------------------------------------------------------------------
