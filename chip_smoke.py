@@ -24,10 +24,15 @@ its paths:
    (beside ``F.rms_norm``); matmul in f32 (3xTF32 on the tensor cores;
    its bound is the smaller of the f32 CUDA cores' and three TF32
    products', both printed) and in bf16 (beside ``torch.matmul``), at
-   2048^3.  ``nvcc -Xptxas -v`` and ``cuobjdump -sass`` of ``matmul.cu``
-   and ``rmsnorm.cu`` run beside this phase (``ptxas ...`` lines:
-   registers, spills, shared memory, HMMA count); it fails unless every
-   matmul kernel has HMMA instructions.
+   2048^3.  The decode rows (dense, paged and int8-paged at qwen2's G = 6,
+   and at OLMoE's G = 1 in phase 6) time their calls queued behind a spin
+   on the card (the card's time; each call launches the split kernel and
+   the combine pass) and print their factor to SDPA's queued time on the
+   same slots and positions.  ``nvcc -Xptxas -v`` and ``cuobjdump -sass``
+   of ``matmul.cu``, ``rmsnorm.cu`` and ``decode_attention.cu`` run beside
+   this phase (``ptxas ...`` lines: registers, spills, shared memory, HMMA
+   count); it fails unless every matmul kernel has HMMA instructions and
+   both decode kernels were reported.
 2. The paper's layer: Figure 5 (``repro_torch.bench.fig5_microbench``) at
    the reference's size, HW through the warp-intrinsic kernels against SW
    through the PR-transformation lane loops; it fails if they disagree or
@@ -48,7 +53,9 @@ its paths:
    C1; the bf16 agreement is reported).  Last, it times one
    full-batch decode step (dense, paged bf16, paged int8) and one prefill
    against their summed kernel time (torch.profiler) to show where the
-   time goes.
+   time goes; each decode step's profile must hold both decode kernels
+   (``decode_split_kernel``, ``decode_combine_kernel``), whose times it
+   prints.
 4. Speculative serving (``spec ...`` lines): the same 8 requests with
    spec_k = 4 on the paged layout, the verify window through
    ``paged_flash_verify``.  (a) A 14-layer self draft on the random
@@ -93,8 +100,8 @@ its paths:
    length, the router's top-k through ``moe_gating``.  First it holds the
    kernels at OLMoE's own shapes against their plain versions (flash
    forward at G = 1 and S 300, dense and paged decode at G = 1, rmsnorm
-   over 512 x 2048 bf16 rows; dense decode at G = 1 also beside SDPA, for
-   scale).  It fails unless every request finishes,
+   over 512 x 2048 bf16 rows; decode at G = 1 with its bound and beside
+   SDPA, for scale).  It fails unless every request finishes,
    every kernel of the path launched, the paged runs serve the dense
    run's tokens, one decode step launches ``moe_gating`` once per layer,
    and the teacher-forced plain path stays within the logit tolerance.  A
@@ -128,6 +135,7 @@ import concurrent.futures
 import contextlib
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -234,6 +242,10 @@ GRAD_FAULT_DK = 1.25          # the control's wrong dk scale
 # H100's 1.98 GHz)
 SPIN_S = 0.02
 SPIN_CYCLES_S = 2.0e9
+# queued calls a decode row times (its wrapper launches two kernels)
+DECODE_ITERS = 100
+# the decode wrappers' two kernels, as the profiler names them
+DECODE_KERNELS = ("decode_split_kernel", "decode_combine_kernel")
 
 
 def fail(msg: str):
@@ -269,6 +281,21 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3, queued: bool = False) -> float
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def queued_ms(fn) -> float:
+    """A decode row's time: DECODE_ITERS calls queued behind a spin on the
+    card, so the events time the card's work alone (a decode call runs
+    shorter than the host takes to launch one)."""
+    return cuda_ms(fn, iters=DECODE_ITERS, queued=True)
+
+
+def sdpa_factor(name: str, ms: float, sdpa_ms: float):
+    """Print a decode row's factor to SDPA's queued time on the same
+    slots, positions and dense view (for scale: the port never calls it;
+    paged rows read other K/V through their tables, same shapes)."""
+    print(f"kernel {name}: ms={ms:.4f} sdpa_ms={sdpa_ms:.4f} (calls queued) "
+          f"factor to SDPA {ms / sdpa_ms:.2f}", flush=True)
 
 
 def bound(n_bytes: float, flops: float, peak_flops: float):
@@ -504,14 +531,16 @@ def check_kernels(cfg, gen: torch.Generator):
     q4 = qd.reshape(b, 1, hq, dh).transpose(1, 2)
     dec_bytes = (2 * qd.numel() + 2 * live * hkv * dh) * bs
     dec_flops = 4 * dh * hq * live
+    # the decode rows' times are the card's: the calls queued (DECODE_ITERS)
+    sdpa_ms = queued_ms(lambda: F.scaled_dot_product_attention(
+        q4, kv_view.transpose(1, 2), vv_view.transpose(1, 2), attn_mask=mask,
+        enable_gqa=True))
     record("flash_decode", "src/repro_torch/kernels/decode_attention/decode_attention.cu",
            "src/repro/kernels/decode_attention/decode_attention.py:108", got, want,
-           cuda_ms(lambda: flash_decode(qd, kv_view, vv_view, pos)),
-           cuda_ms(lambda: flash_decode_ref(qd, kv_view, vv_view, pos)),
-           dec_bytes, dec_flops, BF16_FLOPS_S,
-           cuda_ms(lambda: F.scaled_dot_product_attention(
-               q4, kv_view.transpose(1, 2), vv_view.transpose(1, 2),
-               attn_mask=mask, enable_gqa=True)))
+           queued_ms(lambda: flash_decode(qd, kv_view, vv_view, pos)),
+           queued_ms(lambda: flash_decode_ref(qd, kv_view, vv_view, pos)),
+           dec_bytes, dec_flops, BF16_FLOPS_S, sdpa_ms)
+    sdpa_factor("flash_decode", rows["flash_decode"]["ms"], sdpa_ms)
 
     # paged decode: the same positions through shuffled 16-token pages
     got = paged_flash_decode(qd, kp, vp, bt, pos)
@@ -521,9 +550,10 @@ def check_kernels(cfg, gen: torch.Generator):
     record("paged_flash_decode",
            "src/repro_torch/kernels/decode_attention/decode_attention.cu",
            "src/repro/kernels/decode_attention/decode_attention.py:189", got, want,
-           cuda_ms(lambda: paged_flash_decode(qd, kp, vp, bt, pos)),
-           cuda_ms(lambda: paged_flash_decode_ref(qd, kp, vp, bt, pos)),
+           queued_ms(lambda: paged_flash_decode(qd, kp, vp, bt, pos)),
+           queued_ms(lambda: paged_flash_decode_ref(qd, kp, vp, bt, pos)),
            dec_bytes + tables, dec_flops, BF16_FLOPS_S, None)
+    sdpa_factor("paged_flash_decode", rows["paged_flash_decode"]["ms"], sdpa_ms)
 
     # paged verify: a spec_k = 4 window at the same positions, T*G = 24
     # query rows per KV head; keys up to pos + T - 1.  No single PyTorch
@@ -619,9 +649,12 @@ def check_int8_kernels(rows, qd, qv, q1, kp, vp, bt, pos) -> dict:
         source = ("src/repro_torch/kernels/decode_attention/decode_attention.cu"
                   if "decode" in name else
                   "src/repro_torch/kernels/verify_attention/verify_attention.cu")
+        # the decode row's calls queued (the card's time); verify's at the
+        # host's pace, as before
+        timer = queued_ms if "decode" in name else cuda_ms
         record_kernel(rows, name, source, replaces, got, want, KERNEL_TOL,
-                      cuda_ms(lambda: fn(q, kq, vq, bt, pos, **extra, **sc)),
-                      cuda_ms(lambda: ref(q, kq, vq, bt, pos, **extra, **sc)),
+                      timer(lambda: fn(q, kq, vq, bt, pos, **extra, **sc)),
+                      timer(lambda: ref(q, kq, vq, bt, pos, **extra, **sc)),
                       n_bytes, flops, BF16_FLOPS_S, None)
         print(f"kernel {name}: library_ms none (no PyTorch call reads int8 paged "
               f"K/V)", flush=True)
@@ -1351,6 +1384,8 @@ def where_time_goes(model, params, gen):
             ("verify_step_T4", lambda: model.decode_verify_step(
                 params, pcache, win, pos, attend_len=MAX_SEQ), 10)):
         phases[name] = profile_phase(name, fn, n)
+    require_decode_kernels(phases, ("decode_step", "paged_decode_step",
+                                    "paged_decode_step_int8", "draft_step_self14"))
     return phases
 
 
@@ -1375,13 +1410,26 @@ def profile_phase(name, fn, n: int) -> dict:
     events = prof.key_averages()
     dev_ms = sum(_kernel_us(e) for e in events) / 1e3 / n
     top = sorted(events, key=_kernel_us, reverse=True)[:8]
-    rec = dict(wall_ms=wall_ms, device_ms=dev_ms, top=[
+    decode = {k: sum(_kernel_us(e) for e in events if k in e.key) / 1e3 / n
+              for k in DECODE_KERNELS}
+    rec = dict(wall_ms=wall_ms, device_ms=dev_ms, decode_kernels=decode, top=[
         (e.key[:70], _kernel_us(e) / 1e3 / n) for e in top if _kernel_us(e) > 0])
     busy = f"{dev_ms / wall_ms:.3f}" if dev_ms > 0 else "not measured"
     print(f"time {name}: wall {wall_ms:.3f} ms, device kernels {dev_ms:.3f} ms, "
-          f"device busy share {busy}; top: "
+          f"device busy share {busy}; decode kernels "
+          + ", ".join(f"{k} {ms:.3f}" for k, ms in decode.items()) + "; top: "
           + "; ".join(f"{k} {ms:.3f}" for k, ms in rec["top"]), flush=True)
     return rec
+
+
+def require_decode_kernels(phases: dict, names):
+    """Fail unless each decode-step profile (where the profiler saw device
+    time at all) holds both decode kernels, the split and the combine."""
+    for name in names:
+        r = phases[name]
+        if r["device_ms"] > 0 and not all(r["decode_kernels"][k] > 0 for k in DECODE_KERNELS):
+            fail(f"the {name} profile holds no {DECODE_KERNELS} time: "
+                 f"{r['decode_kernels']}")
 
 
 # ---------------------------------------------------------------------------
@@ -1478,7 +1526,8 @@ def check_moe_shapes(cfg, gen: torch.Generator) -> dict:
         got, want = fn(*args), ref(*args)
         torch.cuda.synchronize()
         err = max_err(got, want)
-        ms, plain_ms = (cuda_ms(lambda: f(*args), iters=100 if queued else 20, queued=queued)
+        ms, plain_ms = (cuda_ms(lambda: f(*args), iters=DECODE_ITERS if queued else 20,
+                                queued=queued)
                         for f in (fn, ref))
         print(f"kernel {name} (OLMoE): max_abs_err={err:.3e} tol={tol} ms={ms:.4f} "
               f"plain_ms={plain_ms:.4f}", flush=True)
@@ -1495,24 +1544,29 @@ def check_moe_shapes(cfg, gen: torch.Generator) -> dict:
     check("flash_attention_fwd lse G=1 S 300", lambda *a: flash_attention_fwd(*a)[1],
           lambda *a: flash_attention_ref(*a)[1], q, k, v, tol=dict(atol=1e-3, rtol=0.0))
     qd, kv_view, vv_view, kp, vp, bt, pos = decode_case(gen, hkv, g, dh)
-    check(f"flash_decode G={g}", flash_decode, flash_decode_ref, qd, kv_view, vv_view, pos)
-    # for scale only (the port never calls it): SDPA on the same slots,
-    # positions and cache view (its calls queued: the card's time), and the
-    # least time the card could take
+    # every decode time here is the card's (the calls queued); for scale
+    # only (the port never calls it): SDPA on the same slots, positions and
+    # cache view, and the least time the card could take
+    check(f"flash_decode G={g}", flash_decode, flash_decode_ref, qd, kv_view, vv_view, pos,
+          queued=True)
     mask = (torch.arange(ATTEND, device="cuda")[None, :] <= pos[:, None])[:, None, None, :]
     q4 = qd.reshape(SLOTS, 1, hkv * g, dh).transpose(1, 2)
     live = int((pos + 1).sum())
-    r = out[f"flash_decode G={g}"]
-    r["library_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(
+    dec_bytes = (2 * qd.numel() + 2 * live * hkv * dh) * 2
+    sdpa_ms = queued_ms(lambda: F.scaled_dot_product_attention(
         q4, kv_view.transpose(1, 2), vv_view.transpose(1, 2), attn_mask=mask,
-        enable_gqa=True), iters=100, queued=True)
-    r["bound_ms"], r["bound_by"] = bound((2 * qd.numel() + 2 * live * hkv * dh) * 2,
-                                         4 * dh * hkv * g * live, BF16_FLOPS_S)
-    print(f"kernel flash_decode G={g} (OLMoE): library_ms={r['library_ms']:.4f} (SDPA, for "
-          f"scale) factor={r['ms'] / r['library_ms']:.2f} bound_ms={r['bound_ms']:.4f} "
-          f"({r['bound_by']})", flush=True)
+        enable_gqa=True))
     check(f"paged_flash_decode G={g}", paged_flash_decode, paged_flash_decode_ref,
-          qd, kp, vp, bt, pos)
+          qd, kp, vp, bt, pos, queued=True)
+    tables = int((pos // PAGE_SIZE + 1).sum()) * 4
+    for name, n_bytes, lib in ((f"flash_decode G={g}", dec_bytes, sdpa_ms),
+                               (f"paged_flash_decode G={g}", dec_bytes + tables, None)):
+        r = out[name]
+        r["library_ms"], r["sdpa_ms"] = lib, sdpa_ms
+        r["bound_ms"], r["bound_by"] = bound(n_bytes, 4 * dh * hkv * g * live, BF16_FLOPS_S)
+        print(f"kernel {name} (OLMoE): bound_ms={r['bound_ms']:.4f} ({r['bound_by']}) "
+              f"library_ms={'none' if lib is None else f'{lib:.4f}'}", flush=True)
+        sdpa_factor(f"{name} (OLMoE)", r["ms"], sdpa_ms)
     x, w = randn(512, cfg.d_model), randn(cfg.d_model)
     check(f"rmsnorm 512 x {cfg.d_model}", lambda *a: rmsnorm(*a, cfg.norm_eps),
           lambda *a: rmsnorm_ref(*a, cfg.norm_eps), x, w, queued=True)
@@ -1732,6 +1786,7 @@ def run_moe(seed: int, gen: torch.Generator):
             params, cache, tok, pos, attend_len=MAX_SEQ), 10),
         "moe_prefill_1x512": profile_phase("moe_prefill_1x512",
                                            lambda: model.prefill(params, toks, 512), 3)}
+    require_decode_kernels(phases, ("moe_decode_step",))
     counts = add_counts(d_counts, p_counts)
     return dict(n_params=n_params, dense_tok_s=d_tok / d_wall, paged_tok_s=p_tok / p_wall,
                 dense_counts=d_counts, paged_counts=p_counts, num_pages=num_pages,
@@ -1938,15 +1993,26 @@ def fig5_device_time(seed: int, iters: int = 5) -> dict:
     return out
 
 
+# a decode split kernel's template arguments: q type, cache type, D, GR
+DECODE_TEMPLATE = re.compile(r"decode_split_kernel<([^,]+), ([^,]+), (\d+), (\d+),")
+CACHE_BYTES = {"signed char": 1, "char": 1, "__nv_bfloat16": 2, "float": 4}
+
+
 def print_ptxas(report: dict, build) -> dict:
     """Print ptxas's registers, spills and shared memory (static, and the
-    matmul kernel's dynamic bytes from the library) and the HMMA count of
-    each kernel of matmul.cu and rmsnorm.cu; fail unless every matmul
-    kernel runs on the tensor cores."""
+    matmul and decode split kernels' dynamic bytes from the library) and
+    the HMMA count of each kernel of matmul.cu, rmsnorm.cu and
+    decode_attention.cu; fail unless every matmul kernel runs on the
+    tensor cores and ptxas reported both decode kernels."""
     smem = build.LIB.fn("repro_matmul_smem_bytes", [build.I])
+    decode_smem = build.LIB.fn("repro_decode_smem_bytes", [build.I] * 3)
     for name, r in sorted(report.items()):
         if "matmul_tc_kernel" in name:
             r["dynamic_smem"] = smem(1 if "bfloat16" in name else 0)
+        t = DECODE_TEMPLATE.search(name)
+        if t:
+            r["dynamic_smem"] = decode_smem(CACHE_BYTES[t.group(2).strip()],
+                                            int(t.group(3)), int(t.group(4)))
         print(f"ptxas {name}: registers={r.get('registers')} {r.get('spills')}; "
               f"static smem {r.get('static_smem')} B, dynamic smem "
               f"{r.get('dynamic_smem', 0)} B; HMMA {r.get('hmma', 0)}", flush=True)
@@ -1954,6 +2020,9 @@ def print_ptxas(report: dict, build) -> dict:
     if len(mm) != 4 or any(not report[n].get("hmma") for n in mm):
         fail(f"the matmul kernels do not all run on the tensor cores: "
              f"{ {n: report[n].get('hmma', 0) for n in mm} }")
+    for k in DECODE_KERNELS:
+        if not any(k in n for n in report):
+            fail(f"ptxas reported no {k}")
     return report
 
 

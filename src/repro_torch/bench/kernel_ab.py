@@ -1,4 +1,4 @@
-"""A/B timings of the port's matmul and rmsnorm kernels on one NVIDIA GPU.
+"""A/B timings of the port's matmul, rmsnorm and decode kernels on one NVIDIA GPU.
 
     python src/repro_torch/bench/kernel_ab.py SRC [--iters N] [--ptxas]
 
@@ -10,16 +10,21 @@ For the package tree whose ``src/`` is SRC, one JSON line:
   below 0 when the sums come out smaller), beside cuBLAS in full f32 and
   an emulated plain TF32 product on the same inputs;
 - ``rmsnorm`` on bf16 rows: 4 x 1536 (decode), 2048 x 1536 (prefill),
-  8192 x 1536 under an fp32 weight (training) and 512 x 2048 (OLMoE).
+  8192 x 1536 under an fp32 weight (training) and 512 x 2048 (OLMoE);
+- ``decode`` at the serving path's slots and positions (543/400/300/64,
+  attend 576, shuffled 16-token pages, bf16): G = 1 dense and paged at
+  OLMoE-1B-7B's 16 KV heads, G = 6 dense, paged and int8-paged at
+  qwen2-1.5b's 2 (``flash_decode``, ``paged_flash_decode``).
 
 Small calls are host-paced: the Python wrapper takes longer to launch one
-than the card to run it.  So rmsnorm and the 64^3 matmul are also timed
-with the calls queued first behind a spin on the card (``..._device``):
-the card's time alone.
+than the card to run it.  So rmsnorm, decode and the 64^3 matmul are also
+timed with the calls queued first behind a spin on the card
+(``..._device``): the card's time alone.
 
-With ``--ptxas``, also ``nvcc -Xptxas -v`` of SRC's ``matmul.cu`` and
-``rmsnorm.cu``: registers, spills and static shared memory of each kernel,
-and its HMMA (tensor-core) instruction count from ``cuobjdump -sass``.
+With ``--ptxas``, also ``nvcc -Xptxas -v`` of SRC's ``matmul.cu``,
+``rmsnorm.cu`` and ``decode_attention.cu``: registers, spills and static
+shared memory of each kernel, and its HMMA (tensor-core) instruction
+count from ``cuobjdump -sass``.
 Run it by path, so that the package is imported from SRC; compare two
 commits on one machine by turns: parent, change, change, parent.  Times
 are CUDA-event means over back-to-back calls (inputs warm in L2).  Needs
@@ -45,11 +50,18 @@ RMSNORM_SHAPES = {"4x1536": (4, 1536, torch.bfloat16),
                   "2048x1536": (2048, 1536, torch.bfloat16),
                   "8192x1536_f32w": (8192, 1536, torch.float32),
                   "512x2048": (512, 2048, torch.bfloat16)}
+# decode: (Hkv, G) at D 128 over the serving path's slots and positions
+DECODE_SHAPES = {"g1": (16, 1), "g6": (2, 6)}
+DECODE_POS = (543, 400, 300, 64)
+DECODE_ATTEND, DECODE_MAX_SEQ, DECODE_PAGE = 576, 576, 16
 # the spin that queues timed calls: long enough for the host to launch a
 # few hundred small calls, in cycles at a clock above the H100's 1.98 GHz
 SPIN_S = 0.02
 SPIN_CYCLES_S = 2.0e9
-KERNELS = re.compile(r"(matmul_tc_kernel|matmul_kernel|rmsnorm_\w*kernel)")
+KERNELS = re.compile(r"(matmul_tc_kernel|matmul_kernel|rmsnorm_\w*kernel|decode_\w*kernel)")
+# the sources whose kernels --ptxas reports
+PTXAS_SOURCES = ("matmul/matmul.cu", "rmsnorm/rmsnorm.cu",
+                 "decode_attention/decode_attention.cu")
 
 
 def cuda_ms(fn, iters: int, warmup: int = 3, queued: bool = False) -> float:
@@ -86,6 +98,35 @@ def _tf32(x: torch.Tensor) -> torch.Tensor:
     return torch.bitwise_and(x.view(torch.int32) + 0x1000, -0x2000).view(torch.float32)
 
 
+def time_decode(iters: int, gen: torch.Generator) -> dict:
+    """ms of each decode case (host-paced, and ``_device`` queued)."""
+    from repro_torch.kernels.decode_attention.ops import flash_decode, paged_flash_decode
+    from repro_torch.serve.kv_cache import quantize_kv_rows
+
+    b, d, nb = len(DECODE_POS), 128, DECODE_MAX_SEQ // DECODE_PAGE
+    pos = torch.tensor(DECODE_POS, dtype=torch.int32, device="cuda")
+    out = {}
+    for name, (hkv, g) in DECODE_SHAPES.items():
+        def randn(*shape):
+            return torch.randn(*shape, generator=gen, device="cuda").to(torch.bfloat16)
+
+        q = randn(b, hkv, g, d)
+        kc, vc = randn(b, DECODE_MAX_SEQ, hkv, d), randn(b, DECODE_MAX_SEQ, hkv, d)
+        kv, vv = kc[:, :DECODE_ATTEND], vc[:, :DECODE_ATTEND]
+        kp, vp = randn(b * nb + 1, DECODE_PAGE, hkv, d), randn(b * nb + 1, DECODE_PAGE, hkv, d)
+        bt = (torch.randperm(b * nb, generator=gen, device="cuda") + 1).reshape(b, nb).int()
+        cases = {"dense": lambda: flash_decode(q, kv, vv, pos),
+                 "paged": lambda: paged_flash_decode(q, kp, vp, bt, pos)}
+        if g > 1:
+            (kq, ks), (vq, vs) = quantize_kv_rows(kp.float()), quantize_kv_rows(vp.float())
+            cases["int8"] = lambda: paged_flash_decode(q, kq, vq, bt, pos, k_scales=ks,
+                                                       v_scales=vs)
+        for case, fn in cases.items():
+            out[f"decode_{name}_{case}"] = cuda_ms(fn, iters * 5)
+            out[f"decode_{name}_{case}_device"] = cuda_ms(fn, iters * 5, queued=True)
+    return out
+
+
 def time_kernels(iters: int) -> dict:
     """ms of each case through the imported package, and the f32 matmul's
     error at 2048^3."""
@@ -113,13 +154,15 @@ def time_kernels(iters: int) -> dict:
         out[f"rmsnorm_{name}"] = cuda_ms(lambda: rmsnorm(x, w, 1e-6), iters * 5)
         out[f"rmsnorm_{name}_device"] = cuda_ms(lambda: rmsnorm(x, w, 1e-6), iters * 5,
                                                 queued=True)
+    out.update(time_decode(iters, gen))
     return out
 
 
 def ptxas_report(kernel_dir: Path) -> dict:
     """Registers, spills, static shared memory and HMMA instructions of
-    each kernel in ``matmul.cu`` and ``rmsnorm.cu`` under ``kernel_dir``
-    (both compiled at once, with the build's flags plus -Xptxas -v)."""
+    each kernel in PTXAS_SOURCES under ``kernel_dir`` (all compiled at
+    once, with the build's flags plus -Xptxas -v).  A source missing from
+    an older tree is skipped."""
     from repro_torch.kernels import build
 
     nvcc = build._nvcc()
@@ -128,7 +171,9 @@ def ptxas_report(kernel_dir: Path) -> dict:
     build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=build.BUILD_DIR) as tmp:
         procs = []
-        for src in (kernel_dir / "matmul" / "matmul.cu", kernel_dir / "rmsnorm" / "rmsnorm.cu"):
+        for src in (kernel_dir / rel for rel in PTXAS_SOURCES):
+            if not src.is_file():
+                continue
             obj = Path(tmp) / (src.stem + ".o")
             cmd = [nvcc, *build.NVCC_FLAGS, "-Xptxas", "-v", "-I", str(kernel_dir), "-c",
                    str(src), "-o", str(obj)]
@@ -176,7 +221,7 @@ def main():
     ap.add_argument("--iters", type=int, default=20, help="calls timed a matmul case "
                     "(five times as many a rmsnorm case)")
     ap.add_argument("--ptxas", action="store_true",
-                    help="also ptxas registers/spills and HMMA counts of the two sources")
+                    help="also ptxas registers/spills and HMMA counts of the sources")
     a = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("torch.cuda.is_available() is False: these timings need an NVIDIA GPU")

@@ -23,8 +23,8 @@
 // Bound on the H100: bytes.  Each cached K/V row up to last is read once
 // against 4 * T * G flops per element (24 at qwen2-1.5b's G = 6 and
 // spec_k = 4), far below the card's flop/byte balance; int8 pages read
-// 1 B per element plus a 4 B scale per row for K and for V.  Design: the paged
-// decode kernel (decode_attention.cu) with the query block widened to the
+// 1 B per element plus a 4 B scale per row for K and for V.  Design: the
+// first port's paged decode kernel with the query block widened to the
 // window.  One block per (batch row, KV head), one warp per query row, so
 // a 32-key K/V tile staged in shared memory is read from device memory
 // once for all T*G rows.  Lane j scores key j; the row's live limit is a
@@ -35,8 +35,9 @@
 // kernel's limit when it needs to.  The shared tiles hold f32 after the
 // dequant, so int8 pages take the same 49 KB.
 //
-// Known limit: B * Hkv blocks (8 at batch 4 for qwen2-1.5b), as in decode.
-// Splitting the KV axis across blocks is later work.
+// Known limit: B * Hkv blocks (8 at batch 4 for qwen2-1.5b).  Splitting the
+// KV axis across blocks with a combine pass, as decode_attention.cu does,
+// is later work.
 #include "common.cuh"
 
 #include <cstdint>

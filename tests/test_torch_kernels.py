@@ -137,10 +137,9 @@ def test_paged_decode_plain_matches_pallas():
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
-def test_paged_decode_int8_is_not_ported():
-    """Once refused, the int8 branch is ported: on int8 pages with row
-    scales the wrapper's plain version gives the Pallas kernel's output,
-    and one scale without the other raises."""
+def test_paged_decode_int8_plain_matches_pallas():
+    """On int8 pages with row scales the wrapper's plain version gives the
+    Pallas kernel's output, and one scale without the other raises."""
     rng = np.random.default_rng(5)
     q, kp, vp, bt, pos = paged_decode_case(rng)
     pool = quantized_pool_from_numpy(np.stack([kp[None], vp[None]]), device="cpu")

@@ -731,6 +731,144 @@ def test_cuda_decode_kernels_at_olmoe_heads(dtype):
     _close(got, flash_decode_ref(qd, k, v, pd), dtype)
 
 
+# decode's split kernel and combine pass.  At B 8 x Hkv 16 the grid takes
+# 3 splits, so a row of n <= 96 keys splits into 32-key pieces, 97..192
+# into 64 and 193..200 into 96: pos 0 and 31 leave later splits empty,
+# the rest sit on split edges (chunk - 1, chunk, chunk + 1) or end the
+# view.  Garbage (NaN) fills every row past pos and the trash page 0.
+SPLIT_POS = [0, 31, 32, 33, 127, 128, 129, 199]
+SPLIT_S = 200
+
+
+def _split_case(g, d, hkv=16, seed=7):
+    """Dense numpy q, k, v (NaN past pos) and pos at the split edges."""
+    rng = np.random.default_rng(seed)
+    b = len(SPLIT_POS)
+    q, k, v = _rand(rng, b, hkv, g, d), _rand(rng, b, SPLIT_S, hkv, d), _rand(rng, b, SPLIT_S, hkv, d)
+    for i, p in enumerate(SPLIT_POS):
+        k[i, p + 1:], v[i, p + 1:] = np.nan, np.nan
+    return q, k, v, np.asarray(SPLIT_POS, np.int32)
+
+
+def _split_pages(k, v, ps, extra_cols=0, seed=8):
+    """The dense rows in shuffled pages behind a NaN trash page 0; table
+    columns past a row's last live page, and ``extra_cols`` more, point at
+    the trash page."""
+    rng = np.random.default_rng(seed)
+    b, s = k.shape[:2]
+    nb = -(-s // ps)
+    kp = np.full((b * nb + 1, ps) + k.shape[2:], np.nan, np.float32)
+    vp = kp.copy()
+    bt = np.zeros((b, nb + extra_cols), np.int32)
+    bt[:, :nb] = (rng.permutation(b * nb) + 1).reshape(b, nb)
+    for i in range(b):
+        for j in range(nb):
+            rows = slice(j * ps, min((j + 1) * ps, s))
+            n = rows.stop - rows.start
+            kp[bt[i, j], :n], vp[bt[i, j], :n] = k[i, rows], v[i, rows]
+        bt[i, SPLIT_POS[i] // ps + 1:] = 0
+    return kp, vp, bt
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("g", [1, 6, 16])
+@pytest.mark.parametrize("layout", ["dense", "paged8", "paged16", "int8-8", "int8-16"])
+def test_cuda_decode_split_edges_match_plain(layout, g, d, dtype):
+    """Dense, paged (8- and 16-token pages) and int8-paged decode at pos on
+    split edges against their plain versions; one launch a call; NaN past
+    pos and in the trash page leaves the output finite."""
+    requires_cuda()
+    from repro_torch import kernels
+    from repro_torch.kernels.decode_attention.ops import decode_splits
+
+    q, k, v, pos = _split_case(g, d)
+    assert decode_splits(len(SPLIT_POS), 16, SPLIT_S) == 3
+    qc, pos_c = _cuda(q, dtype), torch.as_tensor(pos, device="cuda")
+    before = kernels.launch_counts()
+    if layout == "dense":
+        args = (qc, _cuda(k, dtype), _cuda(v, dtype), pos_c)
+        got, want = flash_decode(*args), flash_decode_ref(*args)
+        counter = "flash_decode"
+    else:
+        kp, vp, bt = _split_pages(k, v, int(layout.split("-")[-1].removeprefix("paged")))
+        bt_c = torch.as_tensor(bt, device="cuda")
+        if layout.startswith("int8"):
+            kq, ks = quantize_kv_rows(torch.as_tensor(kp, device="cuda"))
+            vq, vs = quantize_kv_rows(torch.as_tensor(vp, device="cuda"))
+            args, kw = (qc, kq, vq, bt_c, pos_c), dict(k_scales=ks, v_scales=vs)
+            counter = "paged_flash_decode[int8]"
+        else:
+            args, kw = (qc, _cuda(kp, dtype), _cuda(vp, dtype), bt_c, pos_c), {}
+            counter = "paged_flash_decode"
+        got, want = paged_flash_decode(*args, **kw), paged_flash_decode_ref(*args, **kw)
+    torch.cuda.synchronize()
+    after = kernels.launch_counts()
+    assert {n: after[n] - before[n] for n in after if after[n] != before[n]} == {counter: 1}
+    assert got.dtype == dtype and torch.isfinite(got).all()
+    _close(got, want, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g,hkv", [(1, 16), (6, 2)])
+def test_cuda_decode_repeats_bit_for_bit(g, hkv):
+    """The combine pass adds partials in split order, no atomics: two
+    launches give the same bits (bf16 dense, paged and int8 pages)."""
+    requires_cuda()
+    q, k, v, pos = _split_case(g, 128, hkv=hkv)
+    kp, vp, bt = _split_pages(k, v, 16)
+    qc, pos_c, bt_c = (_cuda(q, torch.bfloat16), torch.as_tensor(pos, device="cuda"),
+                       torch.as_tensor(bt, device="cuda"))
+    kq, ks = quantize_kv_rows(torch.as_tensor(kp, device="cuda"))
+    vq, vs = quantize_kv_rows(torch.as_tensor(vp, device="cuda"))
+    calls = [lambda: flash_decode(qc, _cuda(k, torch.bfloat16), _cuda(v, torch.bfloat16), pos_c),
+             lambda: paged_flash_decode(qc, _cuda(kp, torch.bfloat16), _cuda(vp, torch.bfloat16),
+                                        bt_c, pos_c),
+             lambda: paged_flash_decode(qc, kq, vq, bt_c, pos_c, k_scales=ks, v_scales=vs)]
+    for call in calls:
+        first, second = call(), call()
+        torch.cuda.synchronize()
+        assert torch.equal(first, second)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("g,hkv", [(1, 16), (6, 2), (16, 1)])
+def test_cuda_dense_equals_paged_bit_for_bit(g, hkv, d):
+    """In f32 dense and paged decode add the same products in the same
+    order: equal bits on the same rows, whatever the dense view's width or
+    the table's (a row's split reads only its own length)."""
+    requires_cuda()
+    q, k, v, pos = _split_case(g, d, hkv=hkv)
+    qc, pos_c = _cuda(q, torch.float32), torch.as_tensor(pos, device="cuda")
+    wide = np.full((k.shape[0], 2 * SPLIT_S) + k.shape[2:], np.nan, np.float32)
+    kw_, vw_ = wide.copy(), wide.copy()
+    kw_[:, :SPLIT_S], vw_[:, :SPLIT_S] = k, v
+    dense = flash_decode(qc, _cuda(k, torch.float32), _cuda(v, torch.float32), pos_c)
+    outs = [flash_decode(qc, _cuda(kw_, torch.float32), _cuda(vw_, torch.float32), pos_c)]
+    for ps, extra in ((8, 0), (16, 0), (16, 9)):
+        kp, vp, bt = _split_pages(k, v, ps, extra_cols=extra)
+        outs.append(paged_flash_decode(qc, _cuda(kp, torch.float32), _cuda(vp, torch.float32),
+                                       torch.as_tensor(bt, device="cuda"), pos_c))
+    torch.cuda.synchronize()
+    assert torch.isfinite(dense).all()
+    for out in outs:
+        assert torch.equal(out, dense)
+
+
+@pytest.mark.cuda
+def test_cuda_decode_refuses_unaligned_rows():
+    """The kernels copy whole rows in 16-byte pieces: a head stride that is
+    not a multiple of 16 bytes raises, it never falls back."""
+    requires_cuda()
+    q = torch.randn(2, 2, 1, 64, device="cuda")
+    k = torch.randn(2, 32, 2, 65, device="cuda")[..., :64]
+    pos = torch.tensor([3, 20], dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError, match="16-byte"):
+        flash_decode(q, k, k, pos)
+
+
 def _gating_logits(t, e, dtype, rng):
     """Random logits with special rows: all ties, a NaN lane, all -inf,
     one value above -inf, and (bf16) rows of small integers tied many
