@@ -28,11 +28,16 @@ its paths:
    and at OLMoE's G = 1 in phase 6) time their calls queued behind a spin
    on the card (the card's time; each call launches the split kernel and
    the combine pass) and print their factor to SDPA's queued time on the
-   same slots and positions.  ``nvcc -Xptxas -v`` and ``cuobjdump -sass``
-   of ``matmul.cu``, ``rmsnorm.cu`` and ``decode_attention.cu`` run beside
-   this phase (``ptxas ...`` lines: registers, spills, shared memory, HMMA
-   count); it fails unless every matmul kernel has HMMA instructions and
-   both decode kernels were reported.
+   same slots and positions; so do the verify rows (bf16 and int8, the
+   same split kernel over a spec_k = 4 window, beside SDPA on the dense
+   view under the window's causal mask), which also print their split
+   counts, and T = 1 verify must equal paged decode within 1e-6 (it
+   prints whether bit for bit).  ``nvcc -Xptxas -v`` and ``cuobjdump
+   -sass`` of ``matmul.cu``, ``rmsnorm.cu``, ``decode_attention.cu``,
+   ``verify_attention.cu`` and ``warp_ops.cu`` run beside this phase
+   (``ptxas ...`` lines, keyed by source: registers, spills, shared
+   memory, HMMA count); it fails unless every matmul kernel has HMMA
+   instructions and both decode kernels were reported.
 2. The paper's layer: Figure 5 (``repro_torch.bench.fig5_microbench``) at
    the reference's size, HW through the warp-intrinsic kernels against SW
    through the PR-transformation lane loops; it fails if they disagree or
@@ -53,9 +58,9 @@ its paths:
    C1; the bf16 agreement is reported).  Last, it times one
    full-batch decode step (dense, paged bf16, paged int8) and one prefill
    against their summed kernel time (torch.profiler) to show where the
-   time goes; each decode step's profile must hold both decode kernels
-   (``decode_split_kernel``, ``decode_combine_kernel``), whose times it
-   prints.
+   time goes; each decode step's profile, and the spec_k = 4 verify
+   step's, must hold both split-kernel passes (``decode_split_kernel``,
+   ``decode_combine_kernel``), whose times it prints.
 4. Speculative serving (``spec ...`` lines): the same 8 requests with
    spec_k = 4 on the paged layout, the verify window through
    ``paged_flash_verify``.  (a) A 14-layer self draft on the random
@@ -196,8 +201,9 @@ SPEC_K = 4
 # the slots' positions in a full decode batch, and their attend bucket
 DECODE_POS = (543, 400, 300, 64)
 ATTEND = 576
-# verify kernel at T = 1 against the paged decode kernel in f32: the same
-# loop in the same order, so they agree to a few f32 ulps or exactly
+# verify kernel at T = 1 against the paged decode kernel in f32: one split
+# kernel on the same split count, so they agree exactly (the gate stays
+# at a few f32 ulps)
 T1_TOL = 1e-6
 # flash backward vs its plain version: both widen the same bf16 inputs
 # and return f32 sums over up to 4096 keys (dq) or 6 x 4096 query rows
@@ -242,9 +248,10 @@ GRAD_FAULT_DK = 1.25          # the control's wrong dk scale
 # H100's 1.98 GHz)
 SPIN_S = 0.02
 SPIN_CYCLES_S = 2.0e9
-# queued calls a decode row times (its wrapper launches two kernels)
+# queued calls a decode or verify row times (its wrapper launches two
+# kernels)
 DECODE_ITERS = 100
-# the decode wrappers' two kernels, as the profiler names them
+# the decode and verify wrappers' two kernels, as the profiler names them
 DECODE_KERNELS = ("decode_split_kernel", "decode_combine_kernel")
 
 
@@ -284,9 +291,9 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3, queued: bool = False) -> float
 
 
 def queued_ms(fn) -> float:
-    """A decode row's time: DECODE_ITERS calls queued behind a spin on the
-    card, so the events time the card's work alone (a decode call runs
-    shorter than the host takes to launch one)."""
+    """A decode or verify row's time: DECODE_ITERS calls queued behind a
+    spin on the card, so the events time the card's work alone (such a
+    call runs shorter than the host takes to launch one)."""
     return cuda_ms(fn, iters=DECODE_ITERS, queued=True)
 
 
@@ -383,7 +390,11 @@ def decode_case(gen: torch.Generator, hkv: int, g: int, dh: int):
 def check_kernels(cfg, gen: torch.Generator):
     import torch.nn.functional as F
 
-    from repro_torch.kernels.decode_attention.ops import flash_decode, paged_flash_decode
+    from repro_torch.kernels.decode_attention.ops import (
+        decode_splits,
+        flash_decode,
+        paged_flash_decode,
+    )
     from repro_torch.kernels.decode_attention.ref import (
         flash_decode_ref,
         paged_flash_decode_ref,
@@ -398,7 +409,7 @@ def check_kernels(cfg, gen: torch.Generator):
     )
     from repro_torch.kernels.rmsnorm.ops import rmsnorm
     from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
-    from repro_torch.kernels.verify_attention.ops import paged_flash_verify
+    from repro_torch.kernels.verify_attention.ops import paged_flash_verify, verify_splits
     from repro_torch.kernels.verify_attention.ref import paged_verify_attention_ref
 
     dev, bf = "cuda", torch.bfloat16
@@ -557,7 +568,8 @@ def check_kernels(cfg, gen: torch.Generator):
 
     # paged verify: a spec_k = 4 window at the same positions, T*G = 24
     # query rows per KV head; keys up to pos + T - 1.  No single PyTorch
-    # call reads paged K/V, so no library time.
+    # call reads paged K/V, so no library time; SDPA on the dense view of
+    # the same slots with the window's causal mask is printed for scale.
     t_w = SPEC_K
     qv = randn(b, hkv, t_w * g, dh)
     got = paged_flash_verify(qv, kp, vp, bt, pos, t_window=t_w)
@@ -572,11 +584,22 @@ def check_kernels(cfg, gen: torch.Generator):
     record("paged_flash_verify",
            "src/repro_torch/kernels/verify_attention/verify_attention.cu",
            "src/repro/kernels/verify_attention/verify_attention.py:118", got, want,
-           cuda_ms(lambda: paged_flash_verify(qv, kp, vp, bt, pos, t_window=t_w)),
-           cuda_ms(lambda: paged_verify_attention_ref(qv, kp, vp, bt, pos, t_w)),
+           queued_ms(lambda: paged_flash_verify(qv, kp, vp, bt, pos, t_window=t_w)),
+           queued_ms(lambda: paged_verify_attention_ref(qv, kp, vp, bt, pos, t_w)),
            ver_bytes, ver_flops, BF16_FLOPS_S, None)
-    print("kernel paged_flash_verify: library_ms none (no single PyTorch call "
-          "reads paged K/V)", flush=True)
+    qs = qv.reshape(b, hkv, t_w, g, dh).transpose(2, 3).reshape(b, hq, t_w, dh)
+    win_mask = (torch.arange(ATTEND, device=dev)[None, None, :]
+                <= (pos[:, None] + torch.arange(t_w, device=dev)[None, :])[:, :, None])
+    win_mask = win_mask[:, None].expand(b, hq, t_w, ATTEND)
+    verify_sdpa_ms = queued_ms(lambda: F.scaled_dot_product_attention(
+        qs, kv_view.transpose(1, 2), vv_view.transpose(1, 2), attn_mask=win_mask,
+        enable_gqa=True))
+    sdpa_factor("paged_flash_verify", rows["paged_flash_verify"]["ms"], verify_sdpa_ms)
+    n_keys_max = bt.shape[1] * PAGE_SIZE
+    print(f"kernel paged_flash_verify: library_ms none (no single PyTorch call "
+          f"reads paged K/V); splits {verify_splits(b, hkv, t_w * g, t_w, n_keys_max)} "
+          f"at T={t_w}, {verify_splits(b, hkv, g, 1, n_keys_max)} at T=1 (paged decode's "
+          f"{decode_splits(b, hkv, n_keys_max)})", flush=True)
 
     # T = 1 verify is one-token paged decode: the two kernels in f32
     q1 = torch.randn(b, hkv, g, dh, generator=gen, device=dev)
@@ -586,7 +609,8 @@ def check_kernels(cfg, gen: torch.Generator):
     torch.cuda.synchronize()
     t1_err = max_err(t1, d1)
     print(f"kernel paged_flash_verify T=1 vs paged_flash_decode (f32): "
-          f"max_abs_err={t1_err:.3e} tol={T1_TOL}", flush=True)
+          f"max_abs_err={t1_err:.3e} tol={T1_TOL} bit for bit: {torch.equal(t1, d1)}",
+          flush=True)
     if not t1_err <= T1_TOL:
         fail(f"T = 1 verify differs from paged decode by {t1_err:.3e}")
     int8 = check_int8_kernels(rows, qd, qv, q1, kp, vp, bt, pos)
@@ -649,12 +673,10 @@ def check_int8_kernels(rows, qd, qv, q1, kp, vp, bt, pos) -> dict:
         source = ("src/repro_torch/kernels/decode_attention/decode_attention.cu"
                   if "decode" in name else
                   "src/repro_torch/kernels/verify_attention/verify_attention.cu")
-        # the decode row's calls queued (the card's time); verify's at the
-        # host's pace, as before
-        timer = queued_ms if "decode" in name else cuda_ms
+        # the calls queued (the card's time)
         record_kernel(rows, name, source, replaces, got, want, KERNEL_TOL,
-                      timer(lambda: fn(q, kq, vq, bt, pos, **extra, **sc)),
-                      timer(lambda: ref(q, kq, vq, bt, pos, **extra, **sc)),
+                      queued_ms(lambda: fn(q, kq, vq, bt, pos, **extra, **sc)),
+                      queued_ms(lambda: ref(q, kq, vq, bt, pos, **extra, **sc)),
                       n_bytes, flops, BF16_FLOPS_S, None)
         print(f"kernel {name}: library_ms none (no PyTorch call reads int8 paged "
               f"K/V)", flush=True)
@@ -1385,7 +1407,8 @@ def where_time_goes(model, params, gen):
                 params, pcache, win, pos, attend_len=MAX_SEQ), 10)):
         phases[name] = profile_phase(name, fn, n)
     require_decode_kernels(phases, ("decode_step", "paged_decode_step",
-                                    "paged_decode_step_int8", "draft_step_self14"))
+                                    "paged_decode_step_int8", "draft_step_self14",
+                                    "verify_step_T4"))
     return phases
 
 
@@ -1423,8 +1446,9 @@ def profile_phase(name, fn, n: int) -> dict:
 
 
 def require_decode_kernels(phases: dict, names):
-    """Fail unless each decode-step profile (where the profiler saw device
-    time at all) holds both decode kernels, the split and the combine."""
+    """Fail unless each decode- or verify-step profile (where the profiler
+    saw device time at all) holds both kernels, the split and the combine
+    (the verify step's are its paged_flash_verify calls)."""
     for name in names:
         r = phases[name]
         if r["device_ms"] > 0 and not all(r["decode_kernels"][k] > 0 for k in DECODE_KERNELS):
@@ -2000,10 +2024,11 @@ CACHE_BYTES = {"signed char": 1, "char": 1, "__nv_bfloat16": 2, "float": 4}
 
 def print_ptxas(report: dict, build) -> dict:
     """Print ptxas's registers, spills and shared memory (static, and the
-    matmul and decode split kernels' dynamic bytes from the library) and
-    the HMMA count of each kernel of matmul.cu, rmsnorm.cu and
-    decode_attention.cu; fail unless every matmul kernel runs on the
-    tensor cores and ptxas reported both decode kernels."""
+    matmul and split kernels' dynamic bytes from the library) and the
+    HMMA count of each kernel of matmul.cu, rmsnorm.cu,
+    decode_attention.cu, verify_attention.cu and warp_ops.cu; fail unless
+    every matmul kernel runs on the tensor cores and ptxas reported both
+    decode kernels."""
     smem = build.LIB.fn("repro_matmul_smem_bytes", [build.I])
     decode_smem = build.LIB.fn("repro_decode_smem_bytes", [build.I] * 3)
     for name, r in sorted(report.items()):

@@ -1,12 +1,17 @@
-"""Variants of the port's matmul kernel, built from textual edits of
-``matmul.cu`` and measured on one NVIDIA GPU by
+"""Variants of the port's matmul kernel (or of another source), built from
+textual edits of ``matmul.cu`` and measured on one NVIDIA GPU by
 ``src/repro_torch/bench/kernel_ab.py``: what the f32 branch's split, its
 slice sums and the pipeline's depth cost in time and buy in error.
 
-    python scripts/matmul_variants.py [--iters N] [VARIANT ...]
+    python scripts/matmul_variants.py [--iters N] [--source REL] [VARIANT ...]
+        [--only GROUP ...]
 
 VARIANT is a name of VARIANTS below or NAME=old=>new[@@old=>new...] (every
-occurrence of old in matmul.cu is replaced, and old must occur).
+occurrence of old in the source is replaced, and old must occur).  The
+source is ``matmul/matmul.cu`` unless ``--source`` names another under
+``src/repro_torch/kernels/`` (e.g. ``--source warp_ops/warp_ops.cu
+e8='kLaneElems = 4;=>kLaneElems = 8;' --only shfl``); ``--only``, after
+the variants, passes kernel_ab.py's groups on.
 ``base``, the source as it is, comes first.  Each variant is a copy of
 ``src/repro_torch`` under ``build/matmul_variants/NAME`` (git-ignored);
 ``kernel_ab.py --ptxas`` runs on each copy in a process of its own, which
@@ -67,24 +72,25 @@ def parse_spec(spec: str):
     return name, edits
 
 
-def make_copy(name: str, edits) -> Path:
+def make_copy(name: str, edits, source: str = "matmul/matmul.cu") -> Path:
     dest = OUT / name
     shutil.rmtree(dest, ignore_errors=True)
     pkg = dest / "src" / "repro_torch"
     shutil.copytree(ROOT / "src" / "repro_torch", pkg,
                     ignore=shutil.ignore_patterns("__pycache__"))
-    cu = pkg / "kernels" / "matmul" / "matmul.cu"
+    cu = pkg / "kernels" / source
     text = cu.read_text()
     for old, new in edits:
         if old not in text:
-            raise ValueError(f"variant {name}: {old!r} does not occur in matmul.cu")
+            raise ValueError(f"variant {name}: {old!r} does not occur in {source}")
         text = text.replace(old, new)
     cu.write_text(text)
     return dest
 
 
-def measure(name: str, dest: Path, iters: int, ptxas: bool):
+def measure(name: str, dest: Path, iters: int, ptxas: bool, only=None):
     cmd = [sys.executable, str(AB), str(dest / "src"), "--iters", str(iters)]
+    cmd += ["--only", *only] if only else []
     out = subprocess.run(cmd + (["--ptxas"] if ptxas else []), capture_output=True,
                          text=True)
     if out.returncode:
@@ -98,13 +104,16 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("variants", nargs="*")
     ap.add_argument("--iters", type=int, default=20)
+    ap.add_argument("--source", default="matmul/matmul.cu",
+                    help="the edited source, under src/repro_torch/kernels/")
+    ap.add_argument("--only", nargs="+", help="kernel_ab.py's groups to time")
     a = ap.parse_args()
     named = [("base", [])] + [parse_spec(s) for s in a.variants]
-    dests = [(name, make_copy(name, edits)) for name, edits in named]
+    dests = [(name, make_copy(name, edits, a.source)) for name, edits in named]
     for name, dest in dests:
-        measure(name, dest, a.iters, ptxas=True)
+        measure(name, dest, a.iters, ptxas=True, only=a.only)
     for name, dest in reversed(dests):
-        measure(name, dest, a.iters, ptxas=False)
+        measure(name, dest, a.iters, ptxas=False, only=a.only)
 
 
 if __name__ == "__main__":

@@ -1,6 +1,6 @@
-"""A/B timings of the port's matmul, rmsnorm and decode kernels on one NVIDIA GPU.
+"""A/B timings of the port's matmul, rmsnorm, decode, verify and shfl kernels on one NVIDIA GPU.
 
-    python src/repro_torch/bench/kernel_ab.py SRC [--iters N] [--ptxas]
+    python src/repro_torch/bench/kernel_ab.py SRC [--iters N] [--ptxas] [--only GROUP ...]
 
 For the package tree whose ``src/`` is SRC, one JSON line:
 
@@ -14,17 +14,31 @@ For the package tree whose ``src/`` is SRC, one JSON line:
 - ``decode`` at the serving path's slots and positions (543/400/300/64,
   attend 576, shuffled 16-token pages, bf16): G = 1 dense and paged at
   OLMoE-1B-7B's 16 KV heads, G = 6 dense, paged and int8-paged at
-  qwen2-1.5b's 2 (``flash_decode``, ``paged_flash_decode``).
+  qwen2-1.5b's 2 (``flash_decode``, ``paged_flash_decode``);
+- ``verify``: ``paged_flash_verify`` at the same slots and pages, G = 6,
+  a spec_k = 4 window over bf16 and int8 pages and a window of one (f32,
+  beside paged decode on the same inputs, with ``verify_t1_bits``: the two
+  outputs equal bit for bit); where SRC has ``verify_splits``, the T = 4
+  cases also on paged decode's split count (``..._decode_splits``);
+- ``shfl``: Fig. 5's butterfly (bfly 16) on a (2^20, 32) f32 block, beside
+  ``torch.gather`` of the same permutation;
+- ``step``: one spec_k = 4 verify step (``Model.decode_verify_step``) of
+  full-width qwen2-1.5b on random bf16 weights over a paged cache at the
+  same positions, its device kernel ms by ``torch.profiler`` and the
+  verify attention's share of it (every kernel whose name holds
+  ``verify_kernel``, ``decode_split_kernel`` or ``decode_combine_kernel``).
 
 Small calls are host-paced: the Python wrapper takes longer to launch one
 than the card to run it.  So rmsnorm, decode and the 64^3 matmul are also
 timed with the calls queued first behind a spin on the card
 (``..._device``): the card's time alone.
 
-With ``--ptxas``, also ``nvcc -Xptxas -v`` of SRC's ``matmul.cu``,
-``rmsnorm.cu`` and ``decode_attention.cu``: registers, spills and static
-shared memory of each kernel, and its HMMA (tensor-core) instruction
-count from ``cuobjdump -sass``.
+``--only`` times the named groups alone.  With ``--ptxas``, also ``nvcc
+-Xptxas -v`` of SRC's ``matmul.cu``, ``rmsnorm.cu``,
+``decode_attention.cu``, ``verify_attention.cu`` and ``warp_ops.cu``:
+registers, spills and static shared memory of each kernel, keyed by its
+source, and its HMMA (tensor-core) instruction count from ``cuobjdump
+-sass``.
 Run it by path, so that the package is imported from SRC; compare two
 commits on one machine by turns: parent, change, change, parent.  Times
 are CUDA-event means over back-to-back calls (inputs warm in L2).  Needs
@@ -54,14 +68,21 @@ RMSNORM_SHAPES = {"4x1536": (4, 1536, torch.bfloat16),
 DECODE_SHAPES = {"g1": (16, 1), "g6": (2, 6)}
 DECODE_POS = (543, 400, 300, 64)
 DECODE_ATTEND, DECODE_MAX_SEQ, DECODE_PAGE = 576, 576, 16
+VERIFY_T = 4
+SHFL_SHAPE = (2 ** 20, 32)
+GROUPS = ("matmul", "rmsnorm", "decode", "verify", "shfl", "step")
+# the verify attention's kernels, as the profiler names them in either tree
+VERIFY_KERNELS = ("verify_kernel", "decode_split_kernel", "decode_combine_kernel")
 # the spin that queues timed calls: long enough for the host to launch a
 # few hundred small calls, in cycles at a clock above the H100's 1.98 GHz
 SPIN_S = 0.02
 SPIN_CYCLES_S = 2.0e9
-KERNELS = re.compile(r"(matmul_tc_kernel|matmul_kernel|rmsnorm_\w*kernel|decode_\w*kernel)")
+KERNELS = re.compile(r"(matmul_tc_kernel|matmul_kernel|rmsnorm_\w*kernel|decode_\w*kernel"
+                     r"|verify_kernel|shfl_\w*kernel)")
 # the sources whose kernels --ptxas reports
 PTXAS_SOURCES = ("matmul/matmul.cu", "rmsnorm/rmsnorm.cu",
-                 "decode_attention/decode_attention.cu")
+                 "decode_attention/decode_attention.cu",
+                 "verify_attention/verify_attention.cu", "warp_ops/warp_ops.cu")
 
 
 def cuda_ms(fn, iters: int, warmup: int = 3, queued: bool = False) -> float:
@@ -127,16 +148,120 @@ def time_decode(iters: int, gen: torch.Generator) -> dict:
     return out
 
 
-def time_kernels(iters: int) -> dict:
-    """ms of each case through the imported package, and the f32 matmul's
-    error at 2048^3."""
+def time_verify(iters: int, gen: torch.Generator) -> dict:
+    """ms of each verify case (host-paced, and ``_device`` queued) at
+    qwen2-1.5b's heads over DECODE_SHAPES' slots and pages."""
+    from repro_torch.kernels.decode_attention import ops as decode_ops
+    from repro_torch.kernels.verify_attention import ops as verify_ops
+    from repro_torch.serve.kv_cache import quantize_kv_rows
+
+    paged_flash_verify = verify_ops.paged_flash_verify
+    hkv, g = DECODE_SHAPES["g6"]
+    b, d, nb = len(DECODE_POS), 128, DECODE_MAX_SEQ // DECODE_PAGE
+    pos = torch.tensor(DECODE_POS, dtype=torch.int32, device="cuda")
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda")
+
+    q = randn(b, hkv, VERIFY_T * g, d).to(torch.bfloat16)
+    kp, vp = randn(b * nb + 1, DECODE_PAGE, hkv, d), randn(b * nb + 1, DECODE_PAGE, hkv, d)
+    bt = (torch.randperm(b * nb, generator=gen, device="cuda") + 1).reshape(b, nb).int()
+    (kq, ks), (vq, vs) = quantize_kv_rows(kp), quantize_kv_rows(vp)
+    kb, vb = kp.to(torch.bfloat16), vp.to(torch.bfloat16)
+    q1 = randn(b, hkv, g, d)
+    cases = {
+        "bf16": lambda: paged_flash_verify(q, kb, vb, bt, pos, t_window=VERIFY_T),
+        "int8": lambda: paged_flash_verify(q, kq, vq, bt, pos, t_window=VERIFY_T,
+                                           k_scales=ks, v_scales=vs),
+        "t1_f32": lambda: paged_flash_verify(q1, kp, vp, bt, pos, t_window=1),
+        "t1_f32_paged_decode": lambda: decode_ops.paged_flash_decode(q1, kp, vp, bt, pos)}
+    out = {"verify_t1_bits": bool(torch.equal(cases["t1_f32"](),
+                                              cases["t1_f32_paged_decode"]()))}
+    for case, fn in cases.items():
+        out[f"verify_{case}"] = cuda_ms(fn, iters * 5)
+        out[f"verify_{case}_device"] = cuda_ms(fn, iters * 5, queued=True)
+    if hasattr(verify_ops, "verify_splits"):
+        # the T = 4 cases again on paged decode's count (the rows' blocks
+        # not counted)
+        chosen = verify_ops.verify_splits
+        verify_ops.verify_splits = lambda b_, h_, rows, t, n: decode_ops.decode_splits(b_, h_, n)
+        try:
+            for case in ("bf16", "int8"):
+                out[f"verify_{case}_decode_splits_device"] = cuda_ms(cases[case], iters * 5,
+                                                                     queued=True)
+        finally:
+            verify_ops.verify_splits = chosen
+        out["verify_splits"] = chosen(b, hkv, VERIFY_T * g, VERIFY_T, nb * DECODE_PAGE)
+    return out
+
+
+def time_shfl(iters: int, gen: torch.Generator) -> dict:
+    """ms of the shfl butterfly and of ``torch.gather`` of the same lanes,
+    each also queued (``_device``), and whether the two agree bit for
+    bit."""
+    from repro_torch.kernels.warp_ops.ops import shfl
+    from repro_torch.kernels.warp_ops.ref import shfl_src
+
+    n, w = SHFL_SHAPE
+    x = torch.randn(n, w, generator=gen, device="cuda")
+    src = shfl_src("bfly", w, 16, "cuda").expand(n, w)
+    out = {"shfl_bits": bool(torch.equal(shfl(x, "bfly", 16), torch.gather(x, 1, src)))}
+    for case, fn in (("shfl", lambda: shfl(x, "bfly", 16)),
+                     ("shfl_gather", lambda: torch.gather(x, 1, src))):
+        out[case] = cuda_ms(fn, iters * 5)
+        out[f"{case}_device"] = cuda_ms(fn, iters * 5, queued=True)
+    return out
+
+
+def time_verify_step(iters: int, gen: torch.Generator) -> dict:
+    """Device kernel ms of one spec_k = 4 verify step of full-width
+    qwen2-1.5b (mean of ``iters`` profiled steps) and, of that, the verify
+    attention's kernels' ms."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.lm import Model
+
+    model = Model(get_config("qwen2-1.5b"), device="cuda", dtype=torch.bfloat16)
+    params = model.init(gen)
+    b = len(DECODE_POS)
+    pos = torch.tensor(DECODE_POS, dtype=torch.int32, device="cuda")
+    cache = model.init_cache(b, DECODE_MAX_SEQ, layout="paged", page_size=DECODE_PAGE)
+    nb = cache["block_tables"].shape[1]
+    cache["block_tables"] = torch.arange(1, b * nb + 1, dtype=torch.int32,
+                                         device="cuda").reshape(b, nb)
+    win = torch.zeros(b, VERIFY_T, dtype=torch.int32, device="cuda")
+
+    def step():
+        model.decode_verify_step(params, cache, win, pos, attend_len=DECODE_MAX_SEQ)
+
+    step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            step()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+
+    def ms(evts):
+        return sum(getattr(e, "self_device_time_total", 0) for e in evts) / 1e3 / iters
+
+    return {"verify_step_kernel_ms": ms(kernels),
+            "verify_step_attention_ms": ms([e for e in kernels
+                                            if any(k in e.key for k in VERIFY_KERNELS)])}
+
+
+def time_kernels(iters: int, only=GROUPS) -> dict:
+    """ms of each case of the groups ``only`` through the imported
+    package, and the f32 matmul's error at 2048^3."""
     from repro_torch.kernels.matmul.ops import matmul
     from repro_torch.kernels.rmsnorm.ops import rmsnorm
 
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(0)
     out = {}
-    for name, (d, dtype) in MATMUL_SHAPES.items():
+    for name, (d, dtype) in (MATMUL_SHAPES.items() if "matmul" in only else ()):
         a, b = (torch.randn(d, d, generator=gen, device="cuda").to(dtype) for _ in "ab")
         out[f"matmul_{name}"] = cuda_ms(lambda: matmul(a, b), iters)
         if name == "f32_64":
@@ -148,13 +273,16 @@ def time_kernels(iters: int) -> dict:
                 cublas_f32=errors(a @ b, exact),
                 tf32_emulated=errors(_tf32(a) @ _tf32(b), exact))
             del exact
-    for name, (n, d, w_dtype) in RMSNORM_SHAPES.items():
+    for name, (n, d, w_dtype) in (RMSNORM_SHAPES.items() if "rmsnorm" in only else ()):
         x = torch.randn(n, d, generator=gen, device="cuda").to(torch.bfloat16)
         w = torch.randn(d, generator=gen, device="cuda").to(w_dtype)
         out[f"rmsnorm_{name}"] = cuda_ms(lambda: rmsnorm(x, w, 1e-6), iters * 5)
         out[f"rmsnorm_{name}_device"] = cuda_ms(lambda: rmsnorm(x, w, 1e-6), iters * 5,
                                                 queued=True)
-    out.update(time_decode(iters, gen))
+    for group, fn in (("decode", time_decode), ("verify", time_verify), ("shfl", time_shfl),
+                      ("step", time_verify_step)):
+        if group in only:
+            out.update(fn(iters, gen))
     return out
 
 
@@ -186,7 +314,7 @@ def ptxas_report(kernel_dir: Path) -> dict:
             kernel = None
             for line in log.splitlines():
                 if "Compiling entry function" in line:
-                    kernel = _demangle(tools, line.split("'")[1])
+                    kernel = f"{obj.stem}.cu: " + _demangle(tools, line.split("'")[1])
                 elif kernel and "bytes stack frame" in line:
                     report.setdefault(kernel, {})["spills"] = line.strip()
                 elif kernel and "Used" in line and "registers" in line:
@@ -199,7 +327,8 @@ def ptxas_report(kernel_dir: Path) -> dict:
             kernel = None
             for line in sass.splitlines():
                 if "Function :" in line:
-                    kernel = _demangle(tools, line.split("Function :")[1].strip())
+                    kernel = (f"{obj.stem}.cu: "
+                              + _demangle(tools, line.split("Function :")[1].strip()))
                 elif kernel and "HMMA" in line:
                     k = report.setdefault(kernel, {})
                     k["hmma"] = k.get("hmma", 0) + 1
@@ -222,11 +351,13 @@ def main():
                     "(five times as many a rmsnorm case)")
     ap.add_argument("--ptxas", action="store_true",
                     help="also ptxas registers/spills and HMMA counts of the sources")
+    ap.add_argument("--only", nargs="+", choices=GROUPS, default=GROUPS,
+                    help="time these groups alone")
     a = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("torch.cuda.is_available() is False: these timings need an NVIDIA GPU")
     sys.path.insert(0, a.src)
-    row = dict(src=a.src, **time_kernels(a.iters))
+    row = dict(src=a.src, **time_kernels(a.iters, a.only))
     if a.ptxas:
         row["ptxas"] = ptxas_report(Path(a.src) / "repro_torch" / "kernels")
     print(json.dumps(row), flush=True)

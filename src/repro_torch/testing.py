@@ -139,6 +139,41 @@ def paged_verify_case(rng: np.random.Generator, t=4, b=3, hkv=2, g=2, d=64,
     return q, kp, vp, bt, pos
 
 
+# verify windows across the split kernel's edges: 10 pages of 16 keys.
+# With 3 splits a window of n <= 96 live keys takes 32-key splits, of
+# 97..160 64-key splits (and the wrappers' own count gives one-tile splits
+# at B 5).  pos 14 straddles a page edge, pos 30 a split edge (T 4: keys
+# 30..33, so the split of keys 32 and 33 lies wholly past rows t = 0 and
+# 1), pos 61 puts a row limit inside a split and crosses both edges at T 4
+# and T 8, and the last slot's window runs past the table's end for T > 3
+# (a finished slot coasting: n clamps to the table).
+VERIFY_SPLIT_POS = (0, 14, 30, 61, 157)
+VERIFY_SPLIT_PAGE, VERIFY_SPLIT_NB = 16, 10
+
+
+def verify_split_case(rng: np.random.Generator, t: int, hkv: int, g: int, d: int):
+    """Inputs for the split verify tests, as numpy: (q (B, Hkv, T*G, D),
+    k_pages, v_pages, block_tables, pos) at VERIFY_SPLIT_POS, in shuffled
+    pages behind a NaN trash page 0.  Rows past each window's last
+    position hold NaN, and table columns past its last page point at the
+    trash page."""
+    ps, nb = VERIFY_SPLIT_PAGE, VERIFY_SPLIT_NB
+    b, s_len = len(VERIFY_SPLIT_POS), ps * nb
+    q = rng.standard_normal((b, hkv, t * g, d)).astype(np.float32)
+    k = rng.standard_normal((b, s_len, hkv, d)).astype(np.float32)
+    v = rng.standard_normal((b, s_len, hkv, d)).astype(np.float32)
+    for i, p in enumerate(VERIFY_SPLIT_POS):
+        k[i, p + t:], v[i, p + t:] = np.nan, np.nan
+    kp = np.full((b * nb + 1, ps, hkv, d), np.nan, np.float32)
+    vp = kp.copy()
+    bt = (rng.permutation(b * nb) + 1).reshape(b, nb).astype(np.int32)
+    for i, p in enumerate(VERIFY_SPLIT_POS):
+        for j in range(nb):
+            kp[bt[i, j]], vp[bt[i, j]] = k[i, j * ps:(j + 1) * ps], v[i, j * ps:(j + 1) * ps]
+        bt[i, (p + t - 1) // ps + 1:] = 0
+    return q, kp, vp, bt, np.asarray(VERIFY_SPLIT_POS, np.int32)
+
+
 def quantized_pool_from_numpy(kv: np.ndarray, *, device: DeviceLike = None) -> dict:
     """A float K/V pair ``kv`` (2, L, P, page_size, Hkv, D), as numpy,
     quantized into an int8 pool {"k_pages", "v_pages", "k_scales",

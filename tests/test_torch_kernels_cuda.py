@@ -46,8 +46,12 @@ from repro_torch.kernels.rmsnorm.ops import rmsnorm  # noqa: E402
 from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref  # noqa: E402
 from repro_torch.kernels.tile_reduce.ops import tile_reduce  # noqa: E402
 from repro_torch.kernels.tile_reduce.ref import tile_reduce_ref  # noqa: E402
-from repro_torch.kernels.verify_attention.ops import paged_flash_verify  # noqa: E402
+from repro_torch.kernels.verify_attention.ops import (  # noqa: E402
+    paged_flash_verify,
+    verify_splits,
+)
 from repro_torch.kernels.verify_attention.ref import (  # noqa: E402
+    paged_flash_verify_split_emulated,
     paged_verify_attention_ref,
 )
 from repro_torch.kernels.warp_ops.ops import shfl, vote  # noqa: E402
@@ -59,9 +63,12 @@ from repro_torch.serve.kv_cache import (  # noqa: E402
     swap_out_pages,
 )
 from repro_torch.testing import (  # noqa: E402
+    VERIFY_SPLIT_NB,
+    VERIFY_SPLIT_PAGE,
     paged_decode_case,
     paged_verify_case,
     quantized_pool_from_numpy,
+    verify_split_case,
 )
 
 
@@ -433,8 +440,8 @@ def test_cuda_paged_verify_matches_plain(t, g, d, dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_cuda_paged_verify_row_limit(dtype):
-    """T*G = 32 rows (one warp each, 49 KB of shared memory at D = 128 in
-    f32) is the largest the kernel takes; above it the wrapper raises."""
+    """T*G = 32 rows (6 row blocks of the split kernel) is the largest the
+    kernel takes; above it the wrapper raises."""
     requires_cuda()
     args = _verify_args(4, 8, 128, dtype, hkv=1)
     got = paged_flash_verify(*args, t_window=4)
@@ -621,14 +628,71 @@ def test_cuda_int8_serve_through_kernels_matches_cpu_plain_path(kw):
 @pytest.mark.cuda
 @pytest.mark.parametrize("g", [1, 6])
 def test_cuda_verify_window_of_one_is_paged_decode(g):
-    """T = 1 verify against the paged decode kernel in f32 (the reference's
+    """T = 1 verify against the paged decode kernel in f32: one split
+    kernel on the same split count, so the same bits (the reference's
     bitwise form of this property fails on the reference itself)."""
     requires_cuda()
     args = _verify_args(1, g, 128, torch.float32)
     got = paged_flash_verify(*args, t_window=1)
     want = paged_flash_decode(*args)
     torch.cuda.synchronize()
-    torch.testing.assert_close(got, want, atol=1e-6, rtol=1e-6)
+    assert torch.isfinite(got).all()
+    assert torch.equal(got, want)
+
+
+def _verify_split_args(t, g, d, int8, dtype=torch.bfloat16, hkv=2, seed=11):
+    """verify_split_case on the card: (q, k pages, v pages, tables, pos)
+    and the int8 pages' scales as keywords (zeros past the window)."""
+    q, kp, vp, bt, pos = verify_split_case(np.random.default_rng(seed), t, hkv, g, d)
+    head = [_cuda(q, dtype)]
+    tail = [torch.as_tensor(bt, device="cuda"), torch.as_tensor(pos, device="cuda")]
+    if int8:
+        kq, vq, ks, vs = _int8_pages(np.nan_to_num(kp), np.nan_to_num(vp))
+        ks[0], vs[0] = float("nan"), float("nan")
+        return head + [kq, vq] + tail, dict(k_scales=ks, v_scales=vs)
+    return head + [_cuda(kp, dtype), _cuda(vp, dtype)] + tail, {}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("int8", [False, True], ids=["float", "int8"])
+@pytest.mark.parametrize("t,g,d", [(4, 6, 128), (2, 6, 64), (8, 1, 128), (4, 1, 64)])
+def test_cuda_verify_split_edges_match_plain(t, g, d, int8, dtype):
+    """Windows across page and split edges, a row limit inside a split, a
+    split wholly past an early row's limit and a window past the table's
+    end (verify_split_case), over float and int8 pages with NaN past each
+    window: against the plain version, and in f32 against the plain
+    emulation of the split kernel on the wrapper's split count; one launch
+    a call."""
+    requires_cuda()
+    from repro_torch import kernels
+
+    args, sc = _verify_split_args(t, g, d, int8, dtype)
+    before = kernels.launch_counts()
+    got = paged_flash_verify(*args, t_window=t, **sc)
+    torch.cuda.synchronize()
+    after = kernels.launch_counts()
+    counter = "paged_flash_verify[int8]" if int8 else "paged_flash_verify"
+    assert {n: after[n] - before[n] for n in after if after[n] != before[n]} == {counter: 1}
+    assert got.dtype == dtype and torch.isfinite(got).all()
+    _close(got, paged_verify_attention_ref(*args, t, **sc), dtype)
+    if dtype == torch.float32:
+        b, hkv = args[0].shape[:2]
+        splits = verify_splits(b, hkv, t * g, t, VERIFY_SPLIT_NB * VERIFY_SPLIT_PAGE)
+        _close(got, paged_flash_verify_split_emulated(*args, t, splits, **sc), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+def test_cuda_verify_repeats_bit_for_bit(int8):
+    """The combine pass adds partials in split order, no atomics: two
+    launches give the same bits."""
+    requires_cuda()
+    args, sc = _verify_split_args(4, 6, 128, int8)
+    first = paged_flash_verify(*args, t_window=4, **sc)
+    second = paged_flash_verify(*args, t_window=4, **sc)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
 
 
 @pytest.mark.cuda
@@ -975,6 +1039,30 @@ def _exact(got, want):
     if got.dtype == torch.uint32:
         got, want = got.view(torch.int32), want.view(torch.int32)
     assert torch.equal(got, want)
+
+
+# the shuffle's lane path moves several elements a thread: row counts
+# whose n * width is no multiple of a block's elements (1024 or 2048), so
+# the last block ends inside a thread's elements
+SHFL_TAIL_ROWS = [37, 3001]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", SHFL_TAIL_ROWS)
+@pytest.mark.parametrize("width", [8, 16, 32])
+@pytest.mark.parametrize("mode", ["up", "down", "bfly", "idx"])
+def test_cuda_shfl_lane_path_tail(mode, width, n):
+    requires_cuda()
+    assert n * width % 1024 and n * width % 2048
+    rng = np.random.default_rng(n + width)
+    x = torch.as_tensor(rng.integers(-2 ** 31, 2 ** 31, (n, width), dtype=np.int64)
+                        .astype(np.int32), device="cuda")
+    imms = {"up": (1, width // 2, width), "down": (1, width - 1, 2 * width),
+            "bfly": (1, width // 2, width - 1), "idx": (0, width - 1, -1)}[mode]
+    for imm in imms:
+        got = shfl(x, mode, imm)
+        torch.cuda.synchronize()
+        _exact(got, shfl_ref(x, mode, imm))
 
 
 @pytest.mark.cuda
