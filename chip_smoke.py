@@ -15,7 +15,11 @@ its paths:
    the five warp-feature kernels (shfl, vote, tile_reduce,
    mse_partial_sum, matmul) at sizes where launch latency does not
    dominate, and ``moe_gating`` at OLMoE's prefill shape (512 x 64, bf16,
-   top-8; all-tie rows) and decode shape (4 x 64, with a NaN row), and
+   top-8) and decode shape (4 x 64), the Pallas kernel's edge rows first
+   (ties, a NaN, all -inf, -1e30 below and above the picks, -3e38, +inf,
+   +0/-0 ties), held against both plain versions (the rounds and their
+   rank closed form) in bf16 and on the same values in f32, and timed
+   with the calls queued beside an empty launch queued the same way, and
    the int8 branches of paged decode and verify (``paged_flash_decode[int8]``,
    ``paged_flash_verify[int8]``) at the serving shapes on pages quantized on
    the card, whose bytes must equal the CPU's, each also held against the
@@ -116,7 +120,8 @@ its paths:
    weights; a bf16 control beside it is reported).  The teacher-forced
    paths' expert choices are compared, and the plain path is run again
    with the kernel path's routing replayed.  Last, one prefill and one
-   decode step are profiled.
+   decode step are profiled; each profile must hold ``moe_gating``'s
+   device time, which the ``time`` line prints.
 
 Every serving, MoE and training run must normalize through rmsnorm's
 one-warp-a-row branch: the run fails if one launched its block-per-row
@@ -193,6 +198,7 @@ MOE_ARCH = "olmoe-1b-7b"
 # values (a wrong pick moves a mask entry by 1) and weights <= 1 from the
 # same exps, summed over the k selected in another order: a few f32 ulps
 GATING_TOL = dict(atol=1e-6, rtol=0.0)
+NEG_SENTINEL = -1e30          # the Pallas gating kernel's mask-out value
 SLOTS = 4
 MAX_NEW = 32
 MAX_SEQ = 576
@@ -226,12 +232,16 @@ VOCAB_CHUNKS = 8
 # Each gate was set at ~10x this phase's sound reading on an H100 with the
 # CUDA-core flash kernels (PERF.md): loss 2.9e-6, global norm 3.8e-5
 # relative, and at layers.attn.bk 1 - cosine 4.1e-5 and a norm difference
-# of 9.1e-3 relative.  The tensor-core kernels read 1.5e-5, 3.3e-5, 4.9e-5
-# and 9.9e-3: the loss now sits at half its gate.  Variants of them with an
-# exact exp, a third bf16 term or fp32 sums across tiles read a loss
-# difference of 1.1e-5 to 2.3e-5 whatever their own error
-# (scripts/flash_variants.py): it is bf16 rounding noise through 28
-# layers, not a measure of the kernels' error.  The loss cannot see
+# of 9.1e-3 relative.  The tensor-core flash kernels read 1.5e-5, 3.3e-5,
+# 4.9e-5 and 9.9e-3; with the one-warp-a-row rmsnorm since (its bf16
+# outputs round otherwise than the plain version's at 5.7e-6 of training's
+# 8192 x 1536 elements, where the block-per-row kernel's did at 5.1e-6,
+# other elements) 2.956e-5, 1.7e-5, 5.1e-5 and 1.0e-2: the loss 1.5 %
+# under its gate (src/repro_torch/bench/grad_ab.py on each tree).  Variants
+# of the flash kernels with an exact exp, a third bf16 term or fp32 sums
+# across tiles read a loss difference of 1.1e-5 to 2.3e-5 whatever their
+# own error (scripts/flash_variants.py): it is bf16 rounding noise through
+# 28 layers, not a measure of the kernels' error.  The loss cannot see
 # the backward (at random weights it sits near ln V whatever attention
 # computes) and the cosine is blind to a wrong scale; the per-leaf norm
 # difference is not, and a faulted control (dk scaled by GRAD_FAULT_DK
@@ -253,6 +263,8 @@ SPIN_CYCLES_S = 2.0e9
 DECODE_ITERS = 100
 # the decode and verify wrappers' two kernels, as the profiler names them
 DECODE_KERNELS = ("decode_split_kernel", "decode_combine_kernel")
+# the gating kernel, as the profiler names it
+GATING_KERNEL = "moe_gating_kernel"
 
 
 def fail(msg: str):
@@ -1435,12 +1447,14 @@ def profile_phase(name, fn, n: int) -> dict:
     top = sorted(events, key=_kernel_us, reverse=True)[:8]
     decode = {k: sum(_kernel_us(e) for e in events if k in e.key) / 1e3 / n
               for k in DECODE_KERNELS}
-    rec = dict(wall_ms=wall_ms, device_ms=dev_ms, decode_kernels=decode, top=[
-        (e.key[:70], _kernel_us(e) / 1e3 / n) for e in top if _kernel_us(e) > 0])
+    gating = sum(_kernel_us(e) for e in events if GATING_KERNEL in e.key) / 1e3 / n
+    rec = dict(wall_ms=wall_ms, device_ms=dev_ms, decode_kernels=decode, gating_ms=gating,
+               top=[(e.key[:70], _kernel_us(e) / 1e3 / n) for e in top if _kernel_us(e) > 0])
     busy = f"{dev_ms / wall_ms:.3f}" if dev_ms > 0 else "not measured"
     print(f"time {name}: wall {wall_ms:.3f} ms, device kernels {dev_ms:.3f} ms, "
           f"device busy share {busy}; decode kernels "
-          + ", ".join(f"{k} {ms:.3f}" for k, ms in decode.items()) + "; top: "
+          + ", ".join(f"{k} {ms:.3f}" for k, ms in decode.items())
+          + f"; {GATING_KERNEL} {gating:.4f}; top: "
           + "; ".join(f"{k} {ms:.3f}" for k, ms in rec["top"]), flush=True)
     return rec
 
@@ -1460,65 +1474,139 @@ def require_decode_kernels(phases: dict, names):
 # phase 3b: MoE serving through moe_gating
 # ---------------------------------------------------------------------------
 
-def gating_logits(gen: torch.Generator, t: int, e: int) -> torch.Tensor:
-    """bf16 router logits (t, E), row 0 all ties (the lowest ids win); bf16
-    rounding ties many more lanes across the rest."""
-    x = (torch.randn(t, e, generator=gen, device="cuda") * 2).to(torch.bfloat16)
-    x[0] = 0
+def gating_edges(e: int) -> torch.Tensor:
+    """f32 router-logit rows (9, E) at the Pallas kernel's edges, each
+    with the experts its rounds select at top_k >= 4 where they do not
+    depend on k: all ties (the lowest ids); a NaN (nothing, NaN weights);
+    all -inf (expert 0); -inf with 2, +0 and -0 above -1e30 and -1e30
+    itself below and above them (those three and, exact in f32 only, the
+    -1e30 below: 1, 9, 10, 12); -inf with one value and -1e30 only above
+    it (3); -3e38 with -inf at id 0 (1: nothing above -1e30, the lowest
+    id of the max); +inf among normals (NaN weights); +0/-0 ties behind
+    two ones; all -1e30 (0)."""
+    g = torch.Generator().manual_seed(e)
+    x = torch.full((9, e), float("-inf"))
+    x[0] = 0.0
+    x[1] = torch.randn(e, generator=g) * 2
+    x[1, e // 3] = float("nan")
+    x[3, [1, 9, 10, 12, e - 1]] = torch.tensor([NEG_SENTINEL, 2.0, -0.0, 0.0, NEG_SENTINEL])
+    x[4, [3, 5, 7]] = torch.tensor([1.0, NEG_SENTINEL, -3e38])
+    x[5] = -3e38
+    x[5, 0] = float("-inf")
+    x[6] = torch.randn(e, generator=g) * 2
+    x[6, 4] = float("inf")
+    x[7, 0::2], x[7, 1::2] = 0.0, -0.0
+    x[7, e - 2:] = 1.0
+    x[8] = NEG_SENTINEL
     return x
 
 
+# the edge rows' selections that do not depend on bf16 rounding: row ->
+# the selected ids in f32 ("k": the lowest k ids) and in bf16, where
+# -1e30 rounds to -1.00026e30, below the sentinel
+GATING_EDGE_PICKS = {0: ("k", "k"), 1: ((), ()), 2: ((0,), (0,)),
+                     3: ((1, 9, 10, 12), (9, 10, 12)), 4: ((3,), (3,)),
+                     5: ((1,), (1,)), 8: ((0,), (0,))}
+
+
+def gating_logits(gen: torch.Generator, t: int, e: int) -> torch.Tensor:
+    """f32 router logits (t, E), N(0, 4), the edge rows first as far as t
+    allows (``gating_edges``); the caller rounds them to bf16, which ties
+    many more lanes."""
+    x = torch.randn(t, e, generator=gen, device="cuda") * 2
+    edges = gating_edges(e)[:t].cuda()
+    x[:len(edges)] = edges
+    return x
+
+
+def gating_agreement(x: torch.Tensor, k: int) -> dict:
+    """The kernel against both plain versions (the rounds and the rank
+    closed form): masks equal, weights within GATING_TOL and NaN where
+    they have NaN; the plain versions against each other bit for bit; and
+    the edge rows' picks (GATING_EDGE_PICKS)."""
+    from repro_torch.kernels.moe_gating.ops import moe_gating
+    from repro_torch.kernels.moe_gating.ref import moe_gating_rank_ref, moe_gating_ref
+
+    w, m = moe_gating(x, k)
+    (wr, mr), (wq, mq) = moe_gating_ref(x, k), moe_gating_rank_ref(x, k)
+    torch.cuda.synchronize()
+    out = {name: torch.equal(m, mp) and torch.allclose(w, wp, equal_nan=True, **GATING_TOL)
+           for name, (wp, mp) in (("rounds", (wr, mr)), ("rank", (wq, mq)))}
+    out["plain_bits"] = (torch.equal(mr, mq)
+                         and torch.equal(wr.nan_to_num(nan=-1.0), wq.nan_to_num(nan=-1.0)))
+    picks = []
+    for row, want in GATING_EDGE_PICKS.items():
+        if row < x.shape[0]:
+            ids = want[x.dtype == torch.bfloat16]
+            ids = tuple(range(k)) if ids == "k" else ids
+            picks.append(m[row].nonzero().flatten().tolist() == list(ids))
+    nan_rows = [r for r in (1, 6) if r < x.shape[0]]
+    out["edge_rows"] = all(picks) and bool(torch.isnan(w[nan_rows]).all())
+    out["max_abs_err"] = max_err(w.nan_to_num(nan=-1.0), wr.nan_to_num(nan=-1.0))
+    return out
+
+
 def check_moe_gating(cfg, gen: torch.Generator) -> dict:
-    """``moe_gating`` against its plain version at OLMoE's decode shape (4
-    slots; a NaN row, which must select nothing and give NaN weights, and
-    an all -inf row) and at its prefill shape (512 tokens), both timed.
-    Returns the prefill shape's kernel row and the decode shape's times."""
+    """``moe_gating`` at OLMoE's decode shape (4 slots) and its prefill
+    shape (512 tokens), bf16, the edge rows first: held against both plain
+    versions there and on the same values in f32 (where -1e30 is exact);
+    each shape timed with the calls queued (the card's time), beside an
+    empty launch queued the same way, the host-paced time, the wrapper's
+    host time a call, the bound and the plain time.  Returns the prefill
+    shape's kernel row and the readings of both shapes."""
     from repro_torch.kernels.moe_gating.ops import moe_gating
     from repro_torch.kernels.moe_gating.ref import moe_gating_ref
 
     e, k = cfg.n_experts, cfg.top_k
-    xd = gating_logits(gen, SLOTS, e)
-    xd[1, 5] = float("nan")
-    xd[2] = float("-inf")
-    (w, m), (wr, mr) = moe_gating(xd, k), moe_gating_ref(xd, k)
-    torch.cuda.synchronize()
-    same = torch.equal(m, mr) and torch.allclose(w, wr, equal_nan=True, **GATING_TOL)
-    rules = (m[0, :k].all().item() and m[0].sum().item() == k        # ties
-             and m[1].sum().item() == 0 and torch.isnan(w[1]).all().item()   # NaN
-             and m[2].tolist() == [1] + [0] * (e - 1))                # all -inf
-    decode = dict(ms=cuda_ms(lambda: moe_gating(xd, k)),
-                  plain_ms=cuda_ms(lambda: moe_gating_ref(xd, k)),
-                  bound_ms=bound(SLOTS * e * (2 + 4 + 4), SLOTS * e * (3 * k + 4),
-                                 F32_FLOPS_S)[0])
-    print(f"kernel moe_gating decode {SLOTS} x {e} bf16 k {k} (tie, NaN, -inf rows): "
-          f"equal to plain {same}; tie/NaN/-inf rules {rules}; ms={decode['ms']:.4f} "
-          f"plain_ms={decode['plain_ms']:.4f} bound_ms={decode['bound_ms']:.6f} (bytes)",
-          flush=True)
-    if not (same and rules):
-        fail("moe_gating disagrees with its plain version at the decode shape")
+    empty_ms = queued_ms(lambda: torch.cuda._sleep(0))
+    readings, rows = {}, {}
+    for shape, t in (("decode", SLOTS), ("prefill", 512)):
+        xf = gating_logits(gen, t, e)
+        x = xf.to(torch.bfloat16)
+        agree = {dt: gating_agreement(v, k) for dt, v in (("bf16", x), ("f32", xf))}
+        n = 1000
+        t0 = time.perf_counter()
+        for _ in range(n):
+            moe_gating(x, k)
+        host_ms = (time.perf_counter() - t0) * 1e3 / n
+        # bytes: bf16 logits in, f32 weights and int32 mask out;
+        # operations: two compares (>, ==) a rival for each expert's rank,
+        # ~4 for the softmax
+        r = dict(ms=queued_ms(lambda: moe_gating(x, k)),
+                 host_paced_ms=cuda_ms(lambda: moe_gating(x, k)), host_ms=host_ms,
+                 empty_launch_ms=empty_ms, plain_ms=cuda_ms(lambda: moe_gating_ref(x, k)),
+                 agreement=agree)
+        r["bound_ms"], r["bound_by"] = bound(t * e * (2 + 4 + 4), t * e * (2 * e + 4),
+                                             F32_FLOPS_S)
+        readings[shape] = r
+        print(f"kernel moe_gating {shape} {t} x {e} bf16 k {k}: ms={r['ms']:.4f} (calls "
+              f"queued) empty_launch_ms={empty_ms:.4f} host_paced_ms="
+              f"{r['host_paced_ms']:.4f} host_ms={host_ms:.4f} (wrapper, a call) "
+              f"bound_ms={r['bound_ms']:.7f} ({r['bound_by']}) plain_ms={r['plain_ms']:.4f}; "
+              + "; ".join(f"{dt}: {a}" for dt, a in agree.items()), flush=True)
+        if not all(a[c] for a in agree.values()
+                   for c in ("rounds", "rank", "plain_bits", "edge_rows")):
+            fail(f"moe_gating disagrees with a plain version or an edge rule at the "
+                 f"{shape} shape")
 
-    x = gating_logits(gen, 512, e)
-
-    def flat(wm):
-        return torch.cat([wm[0].flatten(), wm[1].float().flatten()])
+    def flat(wm):      # NaN weights as -1, which no weight takes
+        return torch.cat([wm[0].nan_to_num(nan=-1.0).flatten(), wm[1].float().flatten()])
 
     def library():   # the same selection by other means: 3 calls, ties unordered
         v, i = torch.topk(x.float(), k)
         return torch.zeros(x.shape, device="cuda").scatter_(1, i, torch.softmax(v, -1))
 
-    rows = {}
-    t = x.shape[0]
-    # bytes: bf16 logits in, f32 weights and int32 mask out; operations:
-    # ~3 per lane a round (max, compare, select) and ~4 for the softmax
+    pre = readings["prefill"]
     record_kernel(rows, "moe_gating", "src/repro_torch/kernels/moe_gating/moe_gating.cu",
                   "src/repro/kernels/moe_gating/moe_gating.py:48",
                   flat(moe_gating(x, k)), flat(moe_gating_ref(x, k)), GATING_TOL,
-                  cuda_ms(lambda: moe_gating(x, k)), cuda_ms(lambda: moe_gating_ref(x, k)),
-                  t * e * (2 + 4 + 4), t * e * (3 * k + 4), F32_FLOPS_S, None)
+                  pre["ms"], pre["plain_ms"], x.shape[0] * e * (2 + 4 + 4),
+                  x.shape[0] * e * (2 * e + 4), F32_FLOPS_S, None)
     print(f"kernel moe_gating: library_ms none (no one PyTorch call computes it: "
           f"torch.topk + softmax + scatter_ is three, and topk orders ties its own "
-          f"way); those three take {cuda_ms(library):.4f} ms, for scale", flush=True)
-    return rows, decode
+          f"way); those three take {queued_ms(library):.4f} ms queued, for scale",
+          flush=True)
+    return rows, readings
 
 
 def check_moe_shapes(cfg, gen: torch.Generator) -> dict:
@@ -1811,6 +1899,12 @@ def run_moe(seed: int, gen: torch.Generator):
         "moe_prefill_1x512": profile_phase("moe_prefill_1x512",
                                            lambda: model.prefill(params, toks, 512), 3)}
     require_decode_kernels(phases, ("moe_decode_step",))
+    for name, r in phases.items():
+        if r["device_ms"] > 0 and r["gating_ms"] <= 0:
+            fail(f"the {name} profile holds no {GATING_KERNEL} time")
+    print(f"moe gating device time: decode step {phases['moe_decode_step']['gating_ms']:.4f} "
+          f"ms in {cfg.n_layers} calls, prefill 1 x 512 "
+          f"{phases['moe_prefill_1x512']['gating_ms']:.4f} ms", flush=True)
     counts = add_counts(d_counts, p_counts)
     return dict(n_params=n_params, dense_tok_s=d_tok / d_wall, paged_tok_s=p_tok / p_wall,
                 dense_counts=d_counts, paged_counts=p_counts, num_pages=num_pages,
@@ -2088,7 +2182,7 @@ def main():
     rows.update(check_warp_kernels(gen))
     ptxas = print_ptxas(ptxas_job.result(), build)
     pool.shutdown()
-    gating_rows, gating_decode = check_moe_gating(get_config(MOE_ARCH), gen)
+    gating_rows, gating_readings = check_moe_gating(get_config(MOE_ARCH), gen)
     rows.update(gating_rows)
 
     fig5_rows, fig5_counts = run_fig5(args.seed)
@@ -2217,7 +2311,7 @@ def main():
         fig5=fig5_rows, fig5_counts=fig5_counts, fig5_device=fig5_device,
         warp_forms=warp_forms, spec=spec_rec, verify_t1_err=t1_err, moe=moe_rec,
         c1_control=c1, tiered=tiered_rec, int8_kernel_checks=int8_checks,
-        moe_gating_decode=gating_decode, flash_branches=BRANCHES_RUN,
+        moe_gating=gating_readings, flash_branches=BRANCHES_RUN,
         matmul=MATMUL_READINGS, ptxas=ptxas),
         indent=1))
     print(json.dumps(result), flush=True)

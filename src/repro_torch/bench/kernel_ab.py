@@ -1,4 +1,4 @@
-"""A/B timings of the port's matmul, rmsnorm, decode, verify and shfl kernels on one NVIDIA GPU.
+"""A/B timings of the port's matmul, rmsnorm, decode, verify, shfl and gating kernels on one NVIDIA GPU.
 
     python src/repro_torch/bench/kernel_ab.py SRC [--iters N] [--ptxas] [--only GROUP ...]
 
@@ -22,23 +22,36 @@ For the package tree whose ``src/`` is SRC, one JSON line:
   cases also on paged decode's split count (``..._decode_splits``);
 - ``shfl``: Fig. 5's butterfly (bfly 16) on a (2^20, 32) f32 block, beside
   ``torch.gather`` of the same permutation;
+- ``gating``: ``moe_gating`` on bf16 router logits, top-8, at OLMoE's
+  decode (4 x 64) and 512-token prefill (512 x 64) and Granite-MoE's
+  prefill (512 x 32): queued (``_device``), host-paced, and the wrapper's
+  host time a call (``_host``: the host clock over back-to-back calls, no
+  synchronize); beside them an empty launch queued the same way
+  (``empty_launch_device``, ``torch.cuda._sleep(0)``), the floor a launch
+  sets on the card.  The logits are ``chip_smoke.gating_logits``' (the
+  Pallas kernel's edge rows first).  ``gating_digest`` hashes each
+  shape's weights and mask bytes, and those of 16 f32 rows where -1e30 is
+  exact, so two trees' outputs can be compared bit for bit;
 - ``step``: one spec_k = 4 verify step (``Model.decode_verify_step``) of
   full-width qwen2-1.5b on random bf16 weights over a paged cache at the
   same positions, its device kernel ms by ``torch.profiler`` and the
   verify attention's share of it (every kernel whose name holds
-  ``verify_kernel``, ``decode_split_kernel`` or ``decode_combine_kernel``).
+  ``verify_kernel``, ``decode_split_kernel`` or ``decode_combine_kernel``);
+- ``moe_step``: one decode step of full-width OLMoE-1B-7B on random bf16
+  weights over a dense cache at the same positions, its device kernel ms
+  by ``torch.profiler`` and ``moe_gating``'s share of it (16 calls).
 
 Small calls are host-paced: the Python wrapper takes longer to launch one
-than the card to run it.  So rmsnorm, decode and the 64^3 matmul are also
-timed with the calls queued first behind a spin on the card
+than the card to run it.  So rmsnorm, decode, gating and the 64^3 matmul
+are also timed with the calls queued first behind a spin on the card
 (``..._device``): the card's time alone.
 
 ``--only`` times the named groups alone.  With ``--ptxas``, also ``nvcc
 -Xptxas -v`` of SRC's ``matmul.cu``, ``rmsnorm.cu``,
-``decode_attention.cu``, ``verify_attention.cu`` and ``warp_ops.cu``:
-registers, spills and static shared memory of each kernel, keyed by its
-source, and its HMMA (tensor-core) instruction count from ``cuobjdump
--sass``.
+``decode_attention.cu``, ``verify_attention.cu``, ``warp_ops.cu`` and
+``moe_gating.cu``: registers, spills and static shared memory of each
+kernel, keyed by its source, and its HMMA (tensor-core) instruction count
+from ``cuobjdump -sass``.
 Run it by path, so that the package is imported from SRC; compare two
 commits on one machine by turns: parent, change, change, parent.  Times
 are CUDA-event means over back-to-back calls (inputs warm in L2).  Needs
@@ -53,10 +66,12 @@ import re
 import subprocess
 import sys
 import tempfile
+import time
 from pathlib import Path
 
 import torch
 
+ROOT = Path(__file__).resolve().parents[3]
 MATMUL_SHAPES = {"f32_2048": (2048, torch.float32), "bf16_2048": (2048, torch.bfloat16),
                  "f32_64": (64, torch.float32)}
 # (rows, d, weight dtype) on bf16 rows
@@ -70,7 +85,10 @@ DECODE_POS = (543, 400, 300, 64)
 DECODE_ATTEND, DECODE_MAX_SEQ, DECODE_PAGE = 576, 576, 16
 VERIFY_T = 4
 SHFL_SHAPE = (2 ** 20, 32)
-GROUPS = ("matmul", "rmsnorm", "decode", "verify", "shfl", "step")
+# moe_gating: (tokens, experts) of bf16 router logits at top_k GATING_TOP_K
+GATING_SHAPES = {"4x64": (4, 64), "512x64": (512, 64), "512x32": (512, 32)}
+GATING_TOP_K = 8
+GROUPS = ("matmul", "rmsnorm", "decode", "verify", "shfl", "gating", "step", "moe_step")
 # the verify attention's kernels, as the profiler names them in either tree
 VERIFY_KERNELS = ("verify_kernel", "decode_split_kernel", "decode_combine_kernel")
 # the spin that queues timed calls: long enough for the host to launch a
@@ -78,11 +96,12 @@ VERIFY_KERNELS = ("verify_kernel", "decode_split_kernel", "decode_combine_kernel
 SPIN_S = 0.02
 SPIN_CYCLES_S = 2.0e9
 KERNELS = re.compile(r"(matmul_tc_kernel|matmul_kernel|rmsnorm_\w*kernel|decode_\w*kernel"
-                     r"|verify_kernel|shfl_\w*kernel)")
+                     r"|verify_kernel|shfl_\w*kernel|moe_gating_kernel)")
 # the sources whose kernels --ptxas reports
 PTXAS_SOURCES = ("matmul/matmul.cu", "rmsnorm/rmsnorm.cu",
                  "decode_attention/decode_attention.cu",
-                 "verify_attention/verify_attention.cu", "warp_ops/warp_ops.cu")
+                 "verify_attention/verify_attention.cu", "warp_ops/warp_ops.cu",
+                 "moe_gating/moe_gating.cu")
 
 
 def cuda_ms(fn, iters: int, warmup: int = 3, queued: bool = False) -> float:
@@ -213,28 +232,48 @@ def time_shfl(iters: int, gen: torch.Generator) -> dict:
     return out
 
 
-def time_verify_step(iters: int, gen: torch.Generator) -> dict:
-    """Device kernel ms of one spec_k = 4 verify step of full-width
-    qwen2-1.5b (mean of ``iters`` profiled steps) and, of that, the verify
-    attention's kernels' ms."""
+def time_gating(iters: int, gen: torch.Generator) -> dict:
+    """ms of ``moe_gating`` at each of GATING_SHAPES (host-paced,
+    ``_device`` queued, ``_host`` the wrapper's host time a call) and of
+    an empty launch queued; digests of the outputs."""
+    import hashlib
+
+    from repro_torch.kernels.moe_gating.ops import moe_gating
+
+    sys.path.insert(1, str(ROOT))
+    from chip_smoke import gating_logits      # the smoke's edge rows first
+
+    def digest(x):
+        w, m = moe_gating(x, GATING_TOP_K)
+        torch.cuda.synchronize()
+        return hashlib.sha256(w.cpu().numpy().tobytes() + m.cpu().numpy().tobytes()
+                              ).hexdigest()[:16]
+
+    out = {"empty_launch_device": cuda_ms(lambda: torch.cuda._sleep(0), iters * 5,
+                                          queued=True)}
+    digests = {"edges_f32_16x64": digest(gating_logits(gen, 16, 64))}
+    for name, (t, e) in GATING_SHAPES.items():
+        x = gating_logits(gen, t, e).to(torch.bfloat16)
+        digests[name] = digest(x)
+        out[f"gating_{name}"] = cuda_ms(lambda: moe_gating(x, GATING_TOP_K), iters * 5)
+        out[f"gating_{name}_device"] = cuda_ms(lambda: moe_gating(x, GATING_TOP_K),
+                                               iters * 5, queued=True)
+        n = iters * 50
+        t0 = time.perf_counter()
+        for _ in range(n):
+            moe_gating(x, GATING_TOP_K)
+        out[f"gating_{name}_host"] = (time.perf_counter() - t0) * 1e3 / n
+        torch.cuda.synchronize()
+    out["gating_digest"] = digests
+    return out
+
+
+def step_kernel_ms(step, iters: int, names) -> tuple:
+    """Device kernel ms of ``step`` (mean of ``iters`` profiled calls after
+    one warm-up) and, of that, the ms of every kernel whose name holds one
+    of ``names``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-
-    from repro_torch.configs import get_config
-    from repro_torch.models.lm import Model
-
-    model = Model(get_config("qwen2-1.5b"), device="cuda", dtype=torch.bfloat16)
-    params = model.init(gen)
-    b = len(DECODE_POS)
-    pos = torch.tensor(DECODE_POS, dtype=torch.int32, device="cuda")
-    cache = model.init_cache(b, DECODE_MAX_SEQ, layout="paged", page_size=DECODE_PAGE)
-    nb = cache["block_tables"].shape[1]
-    cache["block_tables"] = torch.arange(1, b * nb + 1, dtype=torch.int32,
-                                         device="cuda").reshape(b, nb)
-    win = torch.zeros(b, VERIFY_T, dtype=torch.int32, device="cuda")
-
-    def step():
-        model.decode_verify_step(params, cache, win, pos, attend_len=DECODE_MAX_SEQ)
 
     step()
     torch.cuda.synchronize()
@@ -247,9 +286,48 @@ def time_verify_step(iters: int, gen: torch.Generator) -> dict:
     def ms(evts):
         return sum(getattr(e, "self_device_time_total", 0) for e in evts) / 1e3 / iters
 
-    return {"verify_step_kernel_ms": ms(kernels),
-            "verify_step_attention_ms": ms([e for e in kernels
-                                            if any(k in e.key for k in VERIFY_KERNELS)])}
+    return ms(kernels), ms([e for e in kernels if any(k in e.key for k in names)])
+
+
+def time_verify_step(iters: int, gen: torch.Generator) -> dict:
+    """Device kernel ms of one spec_k = 4 verify step of full-width
+    qwen2-1.5b (mean of ``iters`` profiled steps) and, of that, the verify
+    attention's kernels' ms."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.lm import Model
+
+    model = Model(get_config("qwen2-1.5b"), device="cuda", dtype=torch.bfloat16)
+    params = model.init(gen)
+    b = len(DECODE_POS)
+    pos = torch.tensor(DECODE_POS, dtype=torch.int32, device="cuda")
+    cache = model.init_cache(b, DECODE_MAX_SEQ, layout="paged", page_size=DECODE_PAGE)
+    nb = cache["block_tables"].shape[1]
+    cache["block_tables"] = torch.arange(1, b * nb + 1, dtype=torch.int32,
+                                         device="cuda").reshape(b, nb)
+    win = torch.zeros(b, VERIFY_T, dtype=torch.int32, device="cuda")
+    total, attention = step_kernel_ms(
+        lambda: model.decode_verify_step(params, cache, win, pos, attend_len=DECODE_MAX_SEQ),
+        iters, VERIFY_KERNELS)
+    return {"verify_step_kernel_ms": total, "verify_step_attention_ms": attention}
+
+
+def time_moe_step(iters: int, gen: torch.Generator) -> dict:
+    """Device kernel ms of one full-batch decode step of full-width
+    OLMoE-1B-7B (random bf16 weights, dense cache, DECODE_POS; mean of
+    ``iters`` profiled steps) and, of that, ``moe_gating``'s 16 calls."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.lm import Model
+
+    model = Model(get_config("olmoe-1b-7b"), device="cuda", dtype=torch.bfloat16)
+    params = model.init(gen)
+    b = len(DECODE_POS)
+    pos = torch.tensor(DECODE_POS, dtype=torch.int32, device="cuda")
+    tok = torch.zeros(b, dtype=torch.int32, device="cuda")
+    cache = model.init_cache(b, DECODE_MAX_SEQ)
+    total, gating = step_kernel_ms(
+        lambda: model.decode_step(params, cache, tok, pos, attend_len=DECODE_MAX_SEQ),
+        iters, ("moe_gating_kernel",))
+    return {"moe_step_kernel_ms": total, "moe_step_gating_ms": gating}
 
 
 def time_kernels(iters: int, only=GROUPS) -> dict:
@@ -280,7 +358,8 @@ def time_kernels(iters: int, only=GROUPS) -> dict:
         out[f"rmsnorm_{name}_device"] = cuda_ms(lambda: rmsnorm(x, w, 1e-6), iters * 5,
                                                 queued=True)
     for group, fn in (("decode", time_decode), ("verify", time_verify), ("shfl", time_shfl),
-                      ("step", time_verify_step)):
+                      ("gating", time_gating), ("step", time_verify_step),
+                      ("moe_step", time_moe_step)):
         if group in only:
             out.update(fn(iters, gen))
     return out

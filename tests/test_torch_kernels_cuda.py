@@ -35,7 +35,10 @@ from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
 )
 from repro_torch.kernels.matmul.ops import matmul  # noqa: E402
 from repro_torch.kernels.moe_gating.ops import moe_gating  # noqa: E402
-from repro_torch.kernels.moe_gating.ref import moe_gating_ref  # noqa: E402
+from repro_torch.kernels.moe_gating.ref import (  # noqa: E402
+    moe_gating_rank_ref,
+    moe_gating_ref,
+)
 from repro_torch.kernels.matmul.ref import (  # noqa: E402
     matmul_1xtf32_emulated,
     matmul_ref,
@@ -935,8 +938,11 @@ def test_cuda_decode_refuses_unaligned_rows():
 
 def _gating_logits(t, e, dtype, rng):
     """Random logits with special rows: all ties, a NaN lane, all -inf,
-    one value above -inf, and (bf16) rows of small integers tied many
-    times over."""
+    one value above -inf, (bf16) rows of small integers tied many times
+    over, and (t > 16) the Pallas kernel's sentinel edges: -1e30 below and
+    above the values above it, -3e38, +inf, +0/-0 ties, all -1e30, and
+    -1e30 on every even id under one value (bf16 rounds -1e30 to
+    -1.00026e30, below the sentinel)."""
     x = (rng.standard_normal((t, e)) * 2).astype(np.float32)
     x[0] = 0.0
     x[1 % t, e // 3] = np.nan
@@ -945,25 +951,43 @@ def _gating_logits(t, e, dtype, rng):
     x[3 % t, e - 1] = 1.5
     if t > 8:
         x[4:8] = rng.integers(-3, 4, (4, e)) * 0.5
+    if t > 16:
+        x[8:10] = x[15] = -np.inf
+        x[8, [1, 9, 10, 12, e - 1]] = (-1e30, 2.0, -0.0, 0.0, -1e30)
+        x[9, [3, 5, 7]] = (1.0, -1e30, -3e38)
+        x[10] = -3e38
+        x[10, 0] = -np.inf
+        x[11, 4] = np.inf
+        x[12, 0::2], x[12, 1::2] = 0.0, -0.0
+        x[12, e - 2:] = 1.0
+        x[13] = -1e30
+        x[15, 0::2] = -1e30
+        x[15, e - 1] = 0.5
     return _cuda(x, dtype)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("t,e,k", [(2048, 64, 8), (4, 64, 8), (512, 32, 8),
-                                   (128, 128, 2), (512, 64, 1)])
+                                   (128, 128, 2), (512, 64, 1), (256, 16, 16),
+                                   (256, 32, 32), (256, 64, 64), (256, 128, 128),
+                                   (256, 16, 5), (256, 128, 10)])
 def test_cuda_moe_gating_matches_plain(t, e, k, dtype):
     """Masks exactly and weights within 1e-6 (a few f32 ulps of values
-    <= 1 summed in another order), NaN where the plain version has NaN:
-    a NaN row selects nothing, an all -inf row only expert 0."""
+    <= 1 summed in another order), NaN where the plain version has NaN,
+    against both plain versions (the Pallas kernel's rounds and their
+    rank closed form, which agree bit for bit): a NaN row selects
+    nothing, an all -inf row only expert 0."""
     requires_cuda()
     x = _gating_logits(t, e, dtype, np.random.default_rng(t + e + k))
     before = moe_gating.launches
     w, m = moe_gating(x, k)
     torch.cuda.synchronize()
     assert moe_gating.launches == before + 1
-    w_ref, m_ref = moe_gating_ref(x, k)
     assert w.dtype == torch.float32 and m.dtype == torch.int32
+    (w_ref, m_ref), (w_rank, m_rank) = moe_gating_ref(x, k), moe_gating_rank_ref(x, k)
+    assert torch.equal(m_ref, m_rank)
+    assert torch.equal(w_ref.nan_to_num(nan=-1.0), w_rank.nan_to_num(nan=-1.0))
     assert torch.equal(m, m_ref)
     torch.testing.assert_close(w, w_ref, atol=1e-6, rtol=0, equal_nan=True)
     assert m[0, :k].all() and m[0].sum() == k                  # ties: lowest ids
@@ -971,6 +995,13 @@ def test_cuda_moe_gating_matches_plain(t, e, k, dtype):
         assert m[1].sum() == 0 and torch.isnan(w[1]).all()     # NaN row
     if t > 2:
         assert m[2].tolist() == [1] + [0] * (e - 1)             # all -inf
+    if t > 16 and k >= 4:
+        exact = dtype == torch.float32                          # -1e30 kept
+        assert m[8].nonzero().flatten().tolist() == ([1] if exact else []) + [9, 10, 12]
+        assert m[9].nonzero().flatten().tolist() == [3]
+        assert m[10].nonzero().flatten().tolist() == [1]
+        assert m[13].nonzero().flatten().tolist() == [0]
+        assert m[15].nonzero().flatten().tolist() == ([0] if exact else []) + [e - 1]
 
 
 @pytest.mark.cuda
