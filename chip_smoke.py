@@ -23,7 +23,13 @@ its paths:
    the int8 branches of paged decode and verify (``paged_flash_decode[int8]``,
    ``paged_flash_verify[int8]``) at the serving shapes on pages quantized on
    the card, whose bytes must equal the CPU's, each also held against the
-   float kernel on the dequantized pages (bf16 and f32 q).  rmsnorm is timed
+   float kernel on the dequantized pages (bf16 and f32 q), and the
+   long-window branch of paged_flash_verify (T*G > 32 rows a KV head, a
+   shared prefix's suffix prefill) at B 1, Hkv 2, G 6, D 128 behind a
+   cached 256-token prefix, T 16 and 256, on bf16 pages (the tensor-core
+   kernel, ``paged_flash_verify[long]``), f32 and int8 pages (the CUDA-core
+   kernel), beside SDPA on the dense view under the window's mask, for
+   scale.  rmsnorm is timed
    at prefill's 4 x 512 rows and training's 8192 rows under an fp32 weight
    (beside ``F.rms_norm``); matmul in f32 (3xTF32 on the tensor cores;
    its bound is the smaller of the f32 CUDA cores' and three TF32
@@ -90,6 +96,25 @@ its paths:
    shows stored with other int8 bytes in the two runs (prefilled in
    another group or bucket); their bf16 agreement, and int8 against bf16
    paged and dense, are reported.
+4c. Prefix sharing (``shared ...`` lines): 9 requests, 8 of them sharing
+   one 256-token system prompt with suffixes of 17-240 tokens and one an
+   exact copy of a page-aligned prompt, served with ``prefix_sharing`` on
+   and off on (a) an ample pool and (b) the serving cell's preempting
+   pool, and (c) with the eviction policies lfu and deepest on pool (b),
+   and shared on an ample int8 pool.  Each shared admission prefills only
+   its un-cached suffix through ``Model.prefill_suffix``, so through the
+   long-window verify branch.  It fails unless every shared run launched
+   the long branch and never the split verify kernel, shared something,
+   leaked no page, (b) and (c) evicted and forked a page copy-on-write,
+   the unshared (b) run preempted, the shared (b) run's slots mapped more
+   pages than the pool held at its peak, the suffix prefill after a
+   cached prefix gives the full prefill's logits within the logit
+   tolerance (kernel and plain path), and, in an fp32 control, each
+   shared run serves its unshared run's tokens and the three policies
+   the same tokens (bf16 agreement is reported).  It prints TTFT of the
+   warm admissions, tok/s and preemptions with and without sharing, peak
+   physical against logical pages, and one warm against one cold
+   admission's prefill device time (torch.profiler).
 5. Training (``train ...`` lines): full-width, full-depth qwen2-1.5b with
    fp32 master weights and AdamW state, bf16 compute, remat per layer and
    the 8-chunk loss, at the reference's train_4k length (S 4096; batch 2,
@@ -265,6 +290,13 @@ DECODE_ITERS = 100
 DECODE_KERNELS = ("decode_split_kernel", "decode_combine_kernel")
 # the gating kernel, as the profiler names it
 GATING_KERNEL = "moe_gating_kernel"
+# prefix sharing: the system prompt the shared requests open with (16
+# full pages), and the long-window verify branch's suffix buckets
+SYSTEM_PROMPT = 256
+LONG_T = (16, 256)
+# the long branch's f32 (CUDA-core) kernel vs its plain version: the same
+# f32 products summed in another order over <= 512 keys, |o| <= max |v| ~ 4
+LONG_F32_TOL = dict(atol=1e-5, rtol=1e-5)
 
 
 def fail(msg: str):
@@ -1369,6 +1401,284 @@ def run_tiered(cfg, model, params, spec, dense, paged, paged_tok_s, num_pages,
                 verify_windows=windows, fp32_control_launches=control_counts), counts
 
 
+# ---------------------------------------------------------------------------
+# phase 3d: prefix sharing, suffix prefill through the long-window verify
+# ---------------------------------------------------------------------------
+
+def make_shared_requests(seed: int, vocab: int):
+    """(uid, prompt, max_new_tokens) for 9 requests: 8 share one
+    SYSTEM_PROMPT-token system prompt, each with its own suffix of 17-240
+    tokens, and request 2 is an exact copy of request 1, whose 48 make a
+    page-aligned prompt (the copy-on-write admission).  The first four
+    prompts fill the serving cell's preempting pool but for one growth
+    page a slot, so unshared the batch preempts, and shared the prefix
+    index outgrows the pool and evicts."""
+    rng = np.random.default_rng(seed + 1)
+    system = rng.integers(0, vocab, SYSTEM_PROMPT).tolist()
+    lens = [240, 48, 239, 17, 236, 228, 220, 212]
+    prompts = [system + rng.integers(0, vocab, n).tolist() for n in lens]
+    prompts.insert(2, list(prompts[1]))
+    return [(i, p, MAX_NEW) for i, p in enumerate(prompts)]
+
+
+def long_window_case(cfg, gen: torch.Generator, t: int):
+    """The long branch's shape: B 1, qwen2's Hkv 2, G 6, D 128, a window of
+    ``t`` rows behind a cached SYSTEM_PROMPT-token prefix, in shuffled
+    16-token pages of a MAX_SEQ table.  Returns f32 (q, k pages, v pages),
+    the table and pos."""
+    hkv, dh = cfg.n_kv_heads, cfg.d_head
+    g = cfg.n_heads // hkv
+    nb = MAX_SEQ // PAGE_SIZE
+    q = torch.randn(1, hkv, t * g, dh, generator=gen, device="cuda")
+    kp = torch.randn(nb + 1, PAGE_SIZE, hkv, dh, generator=gen, device="cuda")
+    vp = torch.randn(nb + 1, PAGE_SIZE, hkv, dh, generator=gen, device="cuda")
+    bt = (torch.randperm(nb, generator=gen, device="cuda") + 1).to(torch.int32)[None]
+    pos = torch.tensor([SYSTEM_PROMPT], dtype=torch.int32, device="cuda")
+    return q, kp, vp, bt, pos
+
+
+def check_verify_long(cfg, rows: dict, gen: torch.Generator) -> dict:
+    """The long-window branch of paged_flash_verify against its plain
+    version at the suffix prefill's shape (long_window_case), T 16 and
+    256: bf16 pages (the tensor-core kernel), f32 and int8 pages (the
+    CUDA-core kernel; int8 under bf16 q), each timed with the calls queued
+    beside its bound and, for scale, SDPA on the dense view of the same
+    keys under the window's mask.  The T 256 cases are the kernel rows;
+    the T 16 ones are printed."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.verify_attention.ops import paged_flash_verify
+    from repro_torch.kernels.verify_attention.ref import paged_verify_attention_ref
+    from repro_torch.serve.kv_cache import quantize_kv_rows
+
+    source = "src/repro_torch/kernels/verify_attention/verify_attention.cu"
+    replaces = "src/repro/kernels/verify_attention/verify_attention.py:118"
+    hkv, dh = cfg.n_kv_heads, cfg.d_head
+    g = cfg.n_heads // hkv
+    out = {}
+    for t in LONG_T:
+        q, kf, vf, bt, pos = long_window_case(cfg, gen, t)
+        kq, ks = quantize_kv_rows(kf)
+        vq, vs = quantize_kv_rows(vf)
+        n_keys = SYSTEM_PROMPT + t
+        # row r scores pos + r // G + 1 keys, in each of hkv KV heads
+        flops = 4 * dh * hkv * sum(SYSTEM_PROMPT + r // g + 1 for r in range(t * g))
+        tables = -(-n_keys // PAGE_SIZE) * 4
+        # the same keys as a dense (1, Hkv, n_keys, D) view, for SDPA
+        dense = [x[bt[0].long()].reshape(-1, hkv, dh)[:n_keys][None].transpose(1, 2)
+                 for x in (kf, vf)]
+        mask = (torch.arange(n_keys, device="cuda")[None, :]
+                <= SYSTEM_PROMPT + torch.arange(t, device="cuda")[:, None])
+        for label, qx, kp, vp, sc, tol, peak, elt, extra in (
+                ("bf16", q.to(torch.bfloat16), kf.to(torch.bfloat16), vf.to(torch.bfloat16),
+                 {}, KERNEL_TOL, BF16_FLOPS_S, 2, 0),
+                ("f32", q, kf, vf, {}, LONG_F32_TOL, F32_FLOPS_S, 4, 0),
+                ("int8", q.to(torch.bfloat16), kq, vq, dict(k_scales=ks, v_scales=vs),
+                 KERNEL_TOL, BF16_FLOPS_S, 1, 4)):
+            got = paged_flash_verify(qx, kp, vp, bt, pos, t_window=t, **sc)
+            want = paged_verify_attention_ref(qx, kp, vp, bt, pos, t, **sc)
+            n_bytes = (2 * qx.numel() * qx.element_size()
+                       + 2 * n_keys * hkv * (dh * elt + extra) + tables)
+            t_kernel = queued_ms(lambda: paged_flash_verify(qx, kp, vp, bt, pos, t_window=t,
+                                                            **sc))
+            t_plain = queued_ms(lambda: paged_verify_attention_ref(qx, kp, vp, bt, pos, t, **sc))
+            qs = qx.reshape(1, hkv, t, g, dh).transpose(2, 3).reshape(1, hkv * g, t, dh)
+            kd, vd = (x.to(qx.dtype) for x in dense)
+            t_sdpa = queued_ms(lambda: F.scaled_dot_product_attention(
+                qs, kd, vd, attn_mask=mask, enable_gqa=True))
+            name = {"bf16": "paged_flash_verify[long]", "f32": "paged_flash_verify[long] (f32)",
+                    "int8": "paged_flash_verify[long,int8]"}[label]
+            if t == max(LONG_T):
+                record_kernel(rows, name, source, replaces, got, want, tol, t_kernel, t_plain,
+                              n_bytes, flops, peak, None)
+            else:
+                torch.cuda.synchronize()
+                err = max_err(got, want)
+                b_ms, b_by = bound(n_bytes, flops, peak)
+                print(f"kernel {name} T={t}: max_abs_err={err:.3e} tol={tol} ms={t_kernel:.4f} "
+                      f"plain_ms={t_plain:.4f} bound_ms={b_ms:.4f} ({b_by})", flush=True)
+                if not agrees(got, want, tol):
+                    fail(f"{name} at T={t} disagrees with its plain version beyond {tol}")
+            print(f"kernel {name} T={t} ({t * g} rows a KV head, pos {SYSTEM_PROMPT}): "
+                  f"library_ms none (no PyTorch call reads paged K/V); SDPA on the dense "
+                  f"view under the window's mask, for scale: {t_sdpa:.4f} ms, factor "
+                  f"{t_kernel / t_sdpa:.2f}", flush=True)
+            out[f"{label} T={t}"] = dict(ms=t_kernel, plain_ms=t_plain, sdpa_ms=t_sdpa,
+                                         max_abs_err=max_err(got, want))
+    return out
+
+
+def run_shared(cfg, model, params, num_pages: int, seed: int):
+    """Prefix-sharing serving of make_shared_requests, each prompt's
+    un-cached suffix prefilled through ``Model.prefill_suffix`` (the
+    long-window verify branch): (a) an ample pool, (b) the serving cell's
+    preempting pool, each with sharing on and off, (c) the policies lfu
+    and deepest on pool (b), and an int8 ample pool with sharing; the
+    suffix prefill teacher-forced against a full prefill; one warm and
+    one cold admission's prefill profiled; then the fp32 control, whose
+    shared runs must serve their unshared run's tokens and whose three
+    policies the same tokens.  Returns (record, launch counts summed over
+    the bf16 runs, the int8 run's, the fp32 control's, profiles)."""
+    from repro_torch.models.lm import Model
+
+    spec = make_shared_requests(seed, cfg.vocab)
+    print(f"shared requests: {len(spec)} prompts of {[len(p) for _, p, _ in spec]} "
+          f"tokens, a {SYSTEM_PROMPT}-token system prompt, request 2 a copy of request 1",
+          flush=True)
+    runs, counts, int8_counts, control_counts = {}, {}, {}, {}
+
+    def run(label, m, p, into, **kw):
+        out, eng, c, wall, n_tok = serve(m, p, spec, cache_layout="paged",
+                                         page_size=PAGE_SIZE, **kw)
+        pool, st = eng.last_pool_stats, eng.last_stats
+        sharing = kw.get("prefix_sharing", False)
+        warm = [u for u, _, _ in spec if st[u].get("cached_prefix_tokens", 0) > 0]
+        ttft = {u: st[u]["first_token_s"] - st[u]["admitted_s"] for u, _, _ in spec}
+        rec = dict(tok_s=n_tok / wall, wall_s=wall, tokens=n_tok, num_pages=eng.num_pages,
+                   preemptions=eng.preemptions, peak_used_pages=pool.peak_used_pages,
+                   peak_logical_pages=pool.peak_logical_pages,
+                   sharing_ratio=pool.sharing_ratio, shares=pool.shares,
+                   cow_forks=pool.cow_forks, evictions=pool.evictions,
+                   cached_prefix_tokens=pool.cached_prefix_tokens,
+                   index_pages=pool.index_pages, warm=warm, admit_to_first_token_s=ttft,
+                   first_token_s={u: st[u]["first_token_s"] for u, _, _ in spec},
+                   prefill_groups=eng.last_prefill_groups,
+                   launches={k: v for k, v in c.items() if v})
+        print(f"shared {label}: {n_tok} tokens in {wall:.3f} s = {n_tok / wall:.1f} tok/s; "
+              f"pool {eng.num_pages} pages; preemptions {eng.preemptions}; peak physical "
+              f"{pool.peak_used_pages} pages, peak logical {pool.peak_logical_pages}, "
+              f"sharing ratio {pool.sharing_ratio:.3f}; cached_prefix_tokens "
+              f"{pool.cached_prefix_tokens}, shares {pool.shares}, cow_forks "
+              f"{pool.cow_forks}, evictions {pool.evictions}, index pages "
+              f"{pool.index_pages}; warm {warm}; prefill groups "
+              f"{eng.last_prefill_groups}; launches {rec['launches']}", flush=True)
+        if pool.logical_pages != 0 or pool.used_pages != pool.index_pages:
+            fail(f"the shared {label} run leaked pages: {pool}")
+        if sharing:
+            if c["paged_flash_verify[long]"] + c["paged_flash_verify[long,int8]"] == 0:
+                fail(f"the shared {label} run prefilled no suffix through the "
+                     "long-window verify branch")
+            if c["paged_flash_verify"] + c["paged_flash_verify[int8]"]:
+                fail(f"the shared {label} run launched the split verify kernel: a "
+                     "suffix went through per-sub-window calls")
+            if pool.sharing_ratio <= 1.0 or pool.cached_prefix_tokens == 0:
+                fail(f"the shared {label} run shared nothing: {pool}")
+        for k, v in c.items():
+            into[k] = into.get(k, 0) + v
+        runs[label] = rec
+        return out
+
+    pools = {"a": {}, "b": dict(num_pages=num_pages)}
+    bf = {}
+    for cell, kw in pools.items():
+        for on in (True, False):
+            label = f"{cell} {'on' if on else 'off'}"
+            bf[label] = run(label, model, params, counts, prefix_sharing=on, **kw)
+    for policy in ("lfu", "deepest"):
+        bf[f"c {policy}"] = run(f"c {policy}", model, params, counts, prefix_sharing=True,
+                                evict_policy=policy, **pools["b"])
+    run("int8 a on", model, params, int8_counts, prefix_sharing=True, kv_dtype="int8")
+    if int8_counts["paged_flash_verify[long,int8]"] == 0:
+        fail("the int8 shared run never launched the long branch's int8 kernel")
+    for label in ("b on", "c lfu", "c deepest"):
+        r = runs[label]
+        if r["evictions"] < 1 or r["cow_forks"] < 1:
+            fail(f"the shared {label} run was sized to evict and fork, and recorded "
+                 f"{r['evictions']} evictions and {r['cow_forks']} CoW forks")
+    if runs["b off"]["preemptions"] < 1:
+        fail("the unshared (b) run was sized to preempt and did not")
+    b_on = runs["b on"]
+    if b_on["peak_used_pages"] >= b_on["peak_logical_pages"]:
+        fail(f"the shared (b) run's slots never mapped more pages than the pool held: "
+             f"peak physical {b_on['peak_used_pages']}, peak logical "
+             f"{b_on['peak_logical_pages']}")
+    a_on, a_off = runs["a on"], runs["a off"]
+    warm = a_on["warm"]
+    ttft = {k: float(np.mean([runs[k]["admit_to_first_token_s"][u] for u in warm]))
+            for k in ("a on", "a off")}
+    first = {k: float(np.mean([runs[k]["first_token_s"][u] for u in warm]))
+             for k in ("a on", "a off")}
+    reports = {"a on vs off": agreement(bf["a on"], bf["a off"]),
+               "b on vs off": agreement(bf["b on"], bf["b off"]),
+               "lfu vs lru": agreement(bf["c lfu"], bf["b on"]),
+               "deepest vs lru": agreement(bf["c deepest"], bf["b on"])}
+    print(f"shared summary: warm requests {warm}; admission to first token, mean over "
+          f"them, {ttft['a on'] * 1e3:.1f} ms shared against {ttft['a off'] * 1e3:.1f} ms "
+          f"unshared; first token since serve() {first['a on'] * 1e3:.1f} against "
+          f"{first['a off'] * 1e3:.1f} ms; tok/s a {a_on['tok_s']:.1f} against "
+          f"{a_off['tok_s']:.1f}, b {runs['b on']['tok_s']:.1f} against "
+          f"{runs['b off']['tok_s']:.1f}; preemptions at {num_pages} pages "
+          f"{runs['b on']['preemptions']} shared, {runs['b off']['preemptions']} unshared; "
+          f"peak physical pages a {a_on['peak_used_pages']} shared (peak logical "
+          f"{a_on['peak_logical_pages']}) against {a_off['peak_used_pages']} unshared, "
+          f"b {b_on['peak_used_pages']} shared (peak logical "
+          f"{b_on['peak_logical_pages']}) against {runs['b off']['peak_used_pages']}; "
+          f"bf16 token agreement (reported, not gated) {reports}", flush=True)
+
+    # the suffix prefill after a cached system prompt, teacher-forced
+    # against a full prefill of the same prompt (request 0), kernel path
+    # and plain path; then one warm and one cold admission's prefill
+    # profiled
+    uid, prompt, _ = spec[0]
+    suffix = prompt[SYSTEM_PROMPT:]
+    _, cache = prefilled(model, params, prompt[:SYSTEM_PROMPT], "paged")
+    toks = torch.tensor([suffix], device="cuda")
+    start = torch.tensor([SYSTEM_PROMPT], dtype=torch.int32, device="cuda")
+    last = torch.tensor([len(suffix) - 1], device="cuda")
+    attend = min(MAX_SEQ, -(-len(prompt) // 64) * 64)
+    full, _ = model.prefill(params, torch.tensor([prompt], device="cuda"), len(prompt))
+    forced = {}
+    plain = Model(cfg, device="cuda", dtype=torch.bfloat16, use_kernels=False)
+    for label, m in (("kernel", model), ("plain", plain)):
+        got, _ = m.prefill_suffix(params, cache, toks, start, last, attend)
+        err, scale, agree = compare_logits(
+            f"uid {uid} suffix prefill after a cached {SYSTEM_PROMPT}-token prefix "
+            f"({label} path) vs the kernel path's full prefill", got, full)
+        forced[label] = dict(max_err=err, logit_scale=scale, argmax_agreement=agree)
+    del plain
+    profiles = {
+        "prefill_warm_suffix": profile_phase(
+            f"prefill_warm_suffix (uid {uid}: {len(suffix)} of {len(prompt)} tokens, "
+            f"{SYSTEM_PROMPT} cached)",
+            lambda: model.prefill_suffix(params, cache, toks, start, last, attend), 3),
+        "prefill_cold": profile_phase(
+            f"prefill_cold (uid {uid}: {len(prompt)} tokens)",
+            lambda: model.prefill(params, torch.tensor([prompt], device="cuda"),
+                                  len(prompt)), 3)}
+    print(f"shared prefill device ms: warm {profiles['prefill_warm_suffix']['device_ms']:.3f} "
+          f"against cold {profiles['prefill_cold']['device_ms']:.3f} "
+          f"({len(suffix) / len(prompt):.3f} of the prompt uncached)", flush=True)
+    del cache
+
+    # the fp32 control: sharing is invisible below the block tables
+    model32, params32 = fp32_model(cfg, params)
+    c = {}
+    for cell, kw in pools.items():
+        for on in (True, False):
+            label = f"{cell} {'on' if on else 'off'}"
+            c[label] = run(f"fp32 control {label}", model32, params32, control_counts,
+                           prefix_sharing=on, **kw)
+    for policy in ("lfu", "deepest"):
+        c[f"c {policy}"] = run(f"fp32 control c {policy}", model32, params32,
+                               control_counts, prefix_sharing=True, evict_policy=policy,
+                               **pools["b"])
+    control = {"a on vs off": agreement(c["a on"], c["a off"]),
+               "b on vs off": agreement(c["b on"], c["b off"]),
+               "lfu vs lru": agreement(c["c lfu"], c["b on"]),
+               "deepest vs lru": agreement(c["c deepest"], c["b on"]),
+               "a off vs b off": agreement(c["a off"], c["b off"])}
+    print(f"shared fp32 control token agreement: {control}", flush=True)
+    for k, v in control.items():
+        if k != "a off vs b off" and v < 1.0:
+            fail(f"in fp32 the shared runs served other tokens ({k}: {v:.4f}): sharing "
+                 "is not invisible below the block tables")
+    del model32, params32
+    return (dict(runs=runs, agreement_bf16=reports, agreement_fp32=control,
+                 teacher_forced=forced, warm_admit_to_first_token_s=ttft,
+                 warm_first_token_s=first, num_pages=num_pages),
+            counts, int8_counts, control_counts, profiles)
+
+
 def _kernel_us(evt) -> float:
     """Device time of a kernel event (CPU-side ops, whose device time
     repeats their kernels', count 0)."""
@@ -2121,8 +2431,8 @@ def print_ptxas(report: dict, build) -> dict:
     matmul and split kernels' dynamic bytes from the library) and the
     HMMA count of each kernel of matmul.cu, rmsnorm.cu,
     decode_attention.cu, verify_attention.cu and warp_ops.cu; fail unless
-    every matmul kernel runs on the tensor cores and ptxas reported both
-    decode kernels."""
+    every matmul kernel and verify's long-window bf16 kernel run on the
+    tensor cores and ptxas reported both decode kernels."""
     smem = build.LIB.fn("repro_matmul_smem_bytes", [build.I])
     decode_smem = build.LIB.fn("repro_decode_smem_bytes", [build.I] * 3)
     for name, r in sorted(report.items()):
@@ -2139,6 +2449,10 @@ def print_ptxas(report: dict, build) -> dict:
     if len(mm) != 4 or any(not report[n].get("hmma") for n in mm):
         fail(f"the matmul kernels do not all run on the tensor cores: "
              f"{ {n: report[n].get('hmma', 0) for n in mm} }")
+    long_tc = [n for n in report if "verify_long_tc_kernel" in n]
+    if len(long_tc) != 2 or any(not report[n].get("hmma") for n in long_tc):
+        fail(f"verify's long-window bf16 kernels do not both run on the tensor cores: "
+             f"{ {n: report[n].get('hmma', 0) for n in long_tc} }")
     for k in DECODE_KERNELS:
         if not any(k in n for n in report):
             fail(f"ptxas reported no {k}")
@@ -2177,6 +2491,7 @@ def main():
     cfg = get_config(ARCH)
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     rows, t1_err, int8_checks = check_kernels(cfg, gen)
+    long_checks = check_verify_long(cfg, rows, gen)
     serving_kernels = ("rmsnorm", "flash_attention_fwd", "flash_decode",
                        "paged_flash_decode")
     rows.update(check_warp_kernels(gen))
@@ -2276,7 +2591,20 @@ def main():
     for name in serving_kernels + ("paged_flash_decode[int8]", "paged_flash_verify[int8]"):
         rows[name]["launches"] += tiered_counts[name]
 
+    shared_rec, shared_counts, shared_int8, shared_fp32, shared_profiles = run_shared(
+        cfg, model, params, num_pages, args.seed)
+    if shared_fp32["paged_flash_verify[long]"] == 0:
+        fail("the shared fp32 control never launched the long branch's f32 kernel")
+    for name in serving_kernels:
+        rows[name]["launches"] += shared_counts[name] + shared_int8[name]
+    rows["paged_flash_decode[int8]"]["launches"] += shared_int8["paged_flash_decode[int8]"]
+    rows["paged_flash_verify[long]"]["launches"] = shared_counts["paged_flash_verify[long]"]
+    rows["paged_flash_verify[long,int8]"]["launches"] = shared_int8[
+        "paged_flash_verify[long,int8]"]
+    rows["paged_flash_verify[long] (f32)"]["launches"] = shared_fp32["paged_flash_verify[long]"]
+
     phases = where_time_goes(model, params, gen)
+    phases.update(shared_profiles)
 
     # the serving weights, engine and logits make way for training's
     preemptions = eng.preemptions
@@ -2292,8 +2620,9 @@ def main():
     phases["train_step"] = train_rec.pop("profile")
     flash_branch_launches(
         {"serve dense": dense_counts, "serve paged": paged_counts,
-         "tiered bf16 runs": tiered_counts, "moe serve": moe_counts, "train": train_counts},
-        {"C1 control fp32": c1["launches"],
+         "tiered bf16 runs": tiered_counts, "shared bf16 runs": shared_counts,
+         "shared int8 run": shared_int8, "moe serve": moe_counts, "train": train_counts},
+        {"C1 control fp32": c1["launches"], "shared fp32 control": shared_fp32,
          "tiered fp32 control": tiered_rec["fp32_control_launches"],
          "moe control fp32 no drops": moe_rec["preemption_controls"]["fp32 no drops"]["launches"]})
     # training's launches belong to the training-shape rows
@@ -2311,6 +2640,7 @@ def main():
         fig5=fig5_rows, fig5_counts=fig5_counts, fig5_device=fig5_device,
         warp_forms=warp_forms, spec=spec_rec, verify_t1_err=t1_err, moe=moe_rec,
         c1_control=c1, tiered=tiered_rec, int8_kernel_checks=int8_checks,
+        shared=shared_rec, verify_long=long_checks,
         moe_gating=gating_readings, flash_branches=BRANCHES_RUN,
         matmul=MATMUL_READINGS, ptxas=ptxas),
         indent=1))

@@ -96,7 +96,7 @@ VERIFY_KERNELS = ("verify_kernel", "decode_split_kernel", "decode_combine_kernel
 SPIN_S = 0.02
 SPIN_CYCLES_S = 2.0e9
 KERNELS = re.compile(r"(matmul_tc_kernel|matmul_kernel|rmsnorm_\w*kernel|decode_\w*kernel"
-                     r"|verify_kernel|shfl_\w*kernel|moe_gating_kernel)")
+                     r"|verify_\w*kernel|shfl_\w*kernel|moe_gating_kernel)")
 # the sources whose kernels --ptxas reports
 PTXAS_SOURCES = ("matmul/matmul.cu", "rmsnorm/rmsnorm.cu",
                  "decode_attention/decode_attention.cu",

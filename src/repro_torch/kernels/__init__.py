@@ -6,7 +6,8 @@ on a CPU tensor, never a fallback) and ``ref.py`` (the plain PyTorch
 version).  ``build.py`` compiles every ``.cu`` into one library at first
 use.  Each wrapper counts its kernel launches in ``<wrapper>.launches``
 (the two paged attention wrappers count their int8 branch apart, in
-``.launches_int8``, the two flash wrappers their f32 branch, in
+``.launches_int8``, verify its long-window branch in ``.launches_long``
+and ``.launches_long_int8``, the two flash wrappers their f32 branch, in
 ``.launches_f32``, and rmsnorm its block-per-row ragged branch, in
 ``.launches_ragged``); :func:`launch_counts` / :func:`reset_launches` read
 and clear them all.
@@ -53,6 +54,8 @@ COUNTERS: Dict[str, Tuple[object, str]] = {
     **{name: (fn, "launches") for name, fn in WRAPPERS.items()},
     "paged_flash_decode[int8]": (paged_flash_decode, "launches_int8"),
     "paged_flash_verify[int8]": (paged_flash_verify, "launches_int8"),
+    "paged_flash_verify[long]": (paged_flash_verify, "launches_long"),
+    "paged_flash_verify[long,int8]": (paged_flash_verify, "launches_long_int8"),
     "flash_attention_fwd[f32]": (flash_attention_fwd, "launches_f32"),
     "flash_attention_bwd[f32]": (flash_attention_bwd, "launches_f32"),
     "rmsnorm[ragged]": (rmsnorm, "launches_ragged"),

@@ -4,9 +4,16 @@ of ``repro.kernels.verify_attention.verify_attention.paged_flash_verify``,
 with the same layouts, int8 pages with f32 row scales included (counted
 apart in ``paged_flash_verify.launches_int8``).
 
-A call launches decode's split kernel over the window's rows and its
-combine pass (``decode_attention/split.cuh``), and counts as one launch.
-The split count comes from the shapes alone (:func:`verify_splits`)."""
+A window of T * G <= 32 query rows a KV head (``MAX_ROWS``; speculative
+windows) launches decode's split kernel over the window's rows and its
+combine pass (``decode_attention/split.cuh``), and counts as one launch;
+the split count comes from the shapes alone (:func:`verify_splits`).  A
+longer window (a shared prefix's suffix prefill: 16-token buckets at G =
+6 are 96 rows and up) launches the long-window branch, one kernel a call:
+tensor-core tiles for bf16 pages, CUDA cores for f32 and int8 pages
+(``verify_attention.cu``), counted apart in
+``paged_flash_verify.launches_long`` and ``.launches_long_int8``.  There
+is no fallback between the branches: a failed build or launch raises."""
 
 from __future__ import annotations
 
@@ -29,9 +36,13 @@ from repro_torch.kernels.verify_attention.ref import (
 )
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-MAX_ROWS = 32   # T * G query rows a KV head
+MAX_ROWS = 32   # T * G query rows a KV head the split kernel takes
 _ARGS = [build.P] * 6 + [build.I64] * 7 + [build.I] * 7 + _TAIL
 _INT8_ARGS = [build.P] * 8 + [build.I64] * 11 + [build.I] * 7 + _TAIL
+# the long-window branch: ... d, scale, dtype, stream (no scratch)
+_LONG_TAIL = [build.I, build.F, build.I, build.P]
+_LONG_ARGS = [build.P] * 6 + [build.I64] * 7 + [build.I] * 6 + _LONG_TAIL
+_LONG_INT8_ARGS = [build.P] * 8 + [build.I64] * 11 + [build.I] * 6 + _LONG_TAIL
 
 
 def row_blocks(rows: int) -> int:
@@ -74,8 +85,9 @@ def paged_flash_verify(q: torch.Tensor, k_pages: torch.Tensor,
                                           v_scales=v_scales)
     b, hkv, rows, d = q.shape
     _group(rows, t_window)
+    long_window = rows > MAX_ROWS
     q, pos = _check(q, k_pages, v_pages, pos, "paged_flash_verify",
-                    max_group=MAX_ROWS, quantized=quantized)
+                    max_group=rows if long_window else MAX_ROWS, quantized=quantized)
     _check_rows(k_pages, v_pages, "paged_flash_verify")
     if (block_tables.device != q.device or block_tables.dim() != 2
             or block_tables.shape[0] != b):
@@ -83,6 +95,8 @@ def paged_flash_verify(q: torch.Tensor, k_pages: torch.Tensor,
     bt = block_tables.to(torch.int32)
     if bt.stride(-1) != 1:
         bt = bt.contiguous()
+    if long_window:
+        return _verify_long(q, k_pages, v_pages, bt, pos, t_window, k_scales, v_scales)
     o = torch.empty_like(q)
     splits = verify_splits(b, hkv, rows, t_window, bt.shape[1] * k_pages.shape[1])
     work = _work(q, splits)
@@ -105,5 +119,33 @@ def paged_flash_verify(q: torch.Tensor, k_pages: torch.Tensor,
     return o
 
 
+def _verify_long(q, k_pages, v_pages, bt, pos, t_window, k_scales, v_scales):
+    """The long-window branch (T * G > MAX_ROWS), one kernel a call; the
+    operands are checked by :func:`paged_flash_verify`."""
+    b, hkv, rows, d = q.shape
+    if q.data_ptr() % 16:          # the tensor-core tile copies 16-byte rows
+        q = q.clone()
+    o = torch.empty_like(q)
+    shape = (b, bt.shape[1], k_pages.shape[1], hkv, rows, t_window, d, d ** -0.5,
+             _DTYPES[q.dtype])
+    if k_scales is not None:
+        build.launch("repro_paged_flash_verify_long_int8", _LONG_INT8_ARGS, q.device,
+                     q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+                     k_scales.data_ptr(), v_scales.data_ptr(), bt.data_ptr(),
+                     pos.data_ptr(), o.data_ptr(), *k_pages.stride()[:3],
+                     *v_pages.stride()[:3], *k_scales.stride(), *v_scales.stride(),
+                     bt.stride(0), *shape)
+        paged_flash_verify.launches_long_int8 += 1
+        return o
+    build.launch("repro_paged_flash_verify_long", _LONG_ARGS, q.device,
+                 q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), bt.data_ptr(),
+                 pos.data_ptr(), o.data_ptr(), *k_pages.stride()[:3],
+                 *v_pages.stride()[:3], bt.stride(0), *shape)
+    paged_flash_verify.launches_long += 1
+    return o
+
+
 paged_flash_verify.launches = 0
 paged_flash_verify.launches_int8 = 0
+paged_flash_verify.launches_long = 0
+paged_flash_verify.launches_long_int8 = 0

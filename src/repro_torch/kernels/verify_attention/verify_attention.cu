@@ -37,6 +37,32 @@
 // keys (288 blocks), which ran in 0.0142 ms on one H100 at 700 W against
 // 0.0163 for decode's 18 one-tile splits (576 blocks, 2.2 waves;
 // src/repro_torch/bench/kernel_ab.py).
+//
+// The long-window branch (T*G > 32 query rows a KV head, past the split
+// kernel's register blocks): a shared prefix's suffix prefill, T a
+// 16-token bucket of the suffix, so 96 to 3072 rows at qwen2's G = 6.
+// The work is prefill-shaped, bound by operations (4 * D flops for each
+// live (row, key) pair against each K/V row read once a block of rows),
+// so it takes the flash forward's tensor-core tile (flash_attention.cu's
+// flash_fwd_tc_kernel on flash_attention/tc.cuh) with the verify mask:
+// a block of 4 warps owns 64 query rows of one (b, KV head), 16 a warp,
+// and streams 64-key K/V tiles through a 2-stage cp.async ring, each tile
+// gathered row by row through the block table (16-token pages give 4
+// pages a tile; each thread resolves the table entry of the rows it
+// copies).  Rows at or past the block's key limit are zero-filled
+// (src-size 0), so no key past the window's last position pos + T - 1 is
+// loaded and those V rows are zeros.  S = Q.K^T is m16n8k16 bf16 mma.sync
+// with fp32 sums; row r's limit pos + r/G is computed once a fragment
+// row, since G (6) need not divide the 16 rows of a warp, whose rows then
+// straddle window positions; a tile is masked only where it reaches past
+// a row's limit or the table's end (masked scores kMaskValue, their p
+// zeroed by the mask); P enters P.V as bf16 hi + lo, as in the flash
+// forward.  Key tiles past the block's last row's limit are neither
+// loaded nor computed, and the row blocks with the most keys launch
+// first.  f32 pages (the fp32 controls) and int8 pages take a CUDA-core
+// kernel instead: 16 rows a block, 4 a warp, 32-key tiles, lane j
+// scoring key j; int8 elements are dequantized while staged, as
+// float(q8) * the row's scale, as the plain version dequantizes.
 #include "decode_attention/split.cuh"
 
 namespace split = repro::split;
@@ -81,4 +107,423 @@ extern "C" int repro_paged_flash_verify_int8(
                       bt_stride, page_size, nb * page_size, b, hkv, rows, rows / t_window,
                       scale};
   return split::dispatch<true, true, true>(a, d, dtype, stream);
+}
+
+// ---------------------------------------------------------------------------
+// the long-window branch: T*G > 32 rows a KV head
+// ---------------------------------------------------------------------------
+
+namespace {
+
+namespace tc = repro::tc;
+using bf16 = __nv_bfloat16;
+
+// one call's operands; k_scales / v_scales are null for float pages
+struct Window {
+  const void* k;
+  const void* v;
+  const float* ks;
+  const float* vs;
+  const int* bt;
+  const int* pos;
+  long long k_sp, k_so, k_sh, v_sp, v_so, v_sh;
+  long long ks_p, ks_o, vs_p, vs_o;
+  long long bt_stride;
+  int page_size, nb, hkv, rows, group, t_window;
+  float scale;
+};
+
+// the keys a block of query rows [q0, q0 + n) reads: the window's live
+// keys n_keys = min(pos + T, NB * page_size), cut at the block's last
+// row's limit pos + r / G
+struct Span {
+  int p, n_keys, kv_end, last_blk;
+};
+
+__device__ __forceinline__ Span window_keys(const Window& a, int b, int q0, int n) {
+  Span s;
+  s.p = a.pos[b];
+  s.n_keys = max(0, min(s.p + a.t_window, a.nb * a.page_size));
+  const int last_row = min(q0 + n, a.rows) - 1;
+  s.kv_end = min(s.n_keys, s.p + last_row / a.group + 1);
+  s.last_blk = (s.p + a.t_window - 1) / a.page_size;
+  return s;
+}
+
+// the page and offset of key kj: the block table entry min(kj /
+// page_size, last_blk), the Pallas index map's clamp
+__device__ __forceinline__ void key_row(const Window& a, const Span& s, int b, int kj,
+                                        long long& page, int& off) {
+  page = a.bt[b * a.bt_stride + min(kj / a.page_size, s.last_blk)];
+  off = kj % a.page_size;
+}
+
+constexpr int kLwThreads = 128;  // 4 warps
+constexpr int kLwBlockQ = 64;    // tensor cores: 16 query rows a warp
+constexpr int kLwBlockK = 64;    // keys a staged K/V tile
+
+template <int D>
+constexpr size_t lw_smem_bytes() {
+  return sizeof(bf16) * tc::pitch<D>() * (kLwBlockQ + 4 * kLwBlockK);
+}
+
+// one 64-key tile of K and V rows, gathered through the block table into
+// a padded stage; rows at or past kv_end are zero-filled
+template <int D>
+__device__ __forceinline__ void stage_kv(bf16* k_s, bf16* v_s, const Window& a, const Span& s,
+                                         int b, int h, int kv0) {
+  constexpr int kChunks = D / 8;                   // 16-byte pieces a row
+  constexpr int kRowsPass = kLwThreads / kChunks;  // rows a pass copies
+  static_assert(kLwBlockK % kRowsPass == 0, "whole rows a pass");
+  const int c = threadIdx.x % kChunks;
+  const bf16* k = static_cast<const bf16*>(a.k);
+  const bf16* v = static_cast<const bf16*>(a.v);
+#pragma unroll
+  for (int j = 0; j < kLwBlockK / kRowsPass; ++j) {
+    const int r = threadIdx.x / kChunks + j * kRowsPass;
+    const int kj = kv0 + r;
+    const bool in = kj < s.kv_end;
+    long long ko = 0, vo = 0;
+    if (in) {
+      long long page;
+      int off;
+      key_row(a, s, b, kj, page, off);
+      ko = page * a.k_sp + off * a.k_so + h * a.k_sh;
+      vo = page * a.v_sp + off * a.v_so + h * a.v_sh;
+    }
+    tc::cp_async16(k_s + r * tc::pitch<D>() + c * 8, k + ko + c * 8, in);
+    tc::cp_async16(v_s + r * tc::pitch<D>() + c * 8, v + vo + c * 8, in);
+  }
+}
+
+// bf16 q and pages: the flash forward's tensor-core tile with the
+// window's mask.  q (B, Hkv, rows, D), o likewise, both contiguous.
+template <int D>
+__global__ void __launch_bounds__(kLwThreads)
+verify_long_tc_kernel(const bf16* __restrict__ q, bf16* __restrict__ o, Window a) {
+  constexpr int P = tc::pitch<D>();
+  constexpr int KD = D / 16;         // k16 steps over the head dim
+  constexpr int ND = D / 8;          // n8 tiles of the output row
+  constexpr int NK = kLwBlockK / 8;  // n8 tiles of a score tile
+  extern __shared__ __align__(16) unsigned char lw_smem[];
+  bf16* q_s = reinterpret_cast<bf16*>(lw_smem);  // [kLwBlockQ][P]
+  bf16* k_s = q_s + kLwBlockQ * P;               // [2][kLwBlockK][P]
+  bf16* v_s = k_s + 2 * kLwBlockK * P;           // [2][kLwBlockK][P]
+
+  // t-major rows: the last row blocks see the most keys, and go first
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kLwBlockQ;
+  const int bh = blockIdx.y, b = bh / a.hkv, h = bh % a.hkv;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t4 = lane & 3;  // fragment row, column pair
+  const int r0 = warp * 16;                // the warp's rows in the tile
+  const long long qrow0 = static_cast<long long>(bh) * a.rows;
+
+  tc::load_tile<kLwBlockQ, D, kLwThreads>(q_s, q + qrow0 * D, D, q0, a.rows);
+  const Span s = window_keys(a, b, q0, kLwBlockQ);
+  const int n_tiles = (s.kv_end + kLwBlockK - 1) / kLwBlockK;
+  if (n_tiles > 0) stage_kv<D>(k_s, v_s, a, s, b, h, 0);
+  tc::cp_async_commit();
+
+  // the limits of this lane's two fragment rows, and of the warp's first
+  // row (the least of its 16): a tile wholly at or below it, and inside
+  // the table, needs no mask for this warp
+  int lim[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) lim[i] = s.p + (q0 + r0 + g + 8 * i) / a.group;
+  const int warp_lim = s.p + (q0 + r0) / a.group;
+
+  const float scale2 = a.scale * tc::kLog2e;  // scores in log2 units
+  float m[2] = {-INFINITY, -INFINITY};        // rows g and g + 8 of the warp
+  float l[2] = {0.f, 0.f};                    // this lane's part of the row sums
+  float acc[ND][4] = {};
+
+  for (int t = 0; t < n_tiles; ++t) {
+    if (t + 1 < n_tiles) {  // the next tile streams in while this one computes
+      const int st = (t + 1) & 1;
+      stage_kv<D>(k_s + st * kLwBlockK * P, v_s + st * kLwBlockK * P, a, s, b, h,
+                  (t + 1) * kLwBlockK);
+    }
+    tc::cp_async_commit();
+    tc::cp_async_wait<1>();
+    __syncthreads();
+    const bf16* ks = k_s + (t & 1) * kLwBlockK * P;
+    const bf16* vs = v_s + (t & 1) * kLwBlockK * P;
+
+    float sc[NK][4] = {};
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk) {
+      uint32_t qa[4];
+      tc::ldmatrix_x4(qa, tc::a_row<P>(q_s, r0, kk * 16, lane));
+#pragma unroll
+      for (int nn = 0; nn < NK; nn += 2) {
+        uint32_t bk[4];
+        tc::ldmatrix_x4(bk, tc::b_row<P>(ks, nn * 8, kk * 16, lane));
+        tc::mma(sc[nn], qa, bk[0], bk[1]);
+        tc::mma(sc[nn + 1], qa, bk[2], bk[3]);
+      }
+    }
+
+    const int kv0 = t * kLwBlockK;
+    const bool edge = kv0 + kLwBlockK - 1 > warp_lim || kv0 + kLwBlockK > s.n_keys;
+    auto live = [&](int nt, int e) {
+      const int kj = kv0 + nt * 8 + 2 * t4 + (e & 1);
+      return kj < s.n_keys && kj <= lim[e >> 1];
+    };
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int nt = 0; nt < NK; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = sc[nt][e] * scale2;
+        if (edge && !live(nt, e)) x = repro::kMaskValue;
+        sc[nt][e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      }
+    }
+    float alpha[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = repro::quad_max(mx[i]);
+      alpha[i] = tc::exp2_fast(m[i] - mx[i]);
+      m[i] = mx[i];
+      l[i] *= alpha[i];
+    }
+#pragma unroll
+    for (int nt = 0; nt < NK; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float p = tc::exp2_fast(sc[nt][e] - mx[e >> 1]);
+        if (edge && !live(nt, e)) p = 0.f;  // set by the mask, not left to underflow
+        sc[nt][e] = p;
+        l[e >> 1] += p;
+      }
+    }
+#pragma unroll
+    for (int dt = 0; dt < ND; ++dt) {
+      acc[dt][0] *= alpha[0];
+      acc[dt][1] *= alpha[0];
+      acc[dt][2] *= alpha[1];
+      acc[dt][3] *= alpha[1];
+    }
+
+    // O += P V with P = hi + lo; V's rows run along k
+#pragma unroll
+    for (int kk = 0; kk < NK / 2; ++kk) {
+      uint32_t ph[4], pl[4];
+      tc::split_a(sc[2 * kk], sc[2 * kk + 1], ph, pl);
+#pragma unroll
+      for (int dn = 0; dn < ND; dn += 2) {
+        uint32_t bv[4];
+        tc::ldmatrix_x4_trans(bv, tc::b_col<P>(vs, kk * 16, dn * 8, lane));
+        tc::mma(acc[dn], ph, bv[0], bv[1]);
+        tc::mma(acc[dn + 1], ph, bv[2], bv[3]);
+        tc::mma(acc[dn], pl, bv[0], bv[1]);
+        tc::mma(acc[dn + 1], pl, bv[2], bv[3]);
+      }
+    }
+    __syncthreads();  // this stage is consumed before the next copy refills it
+  }
+  tc::cp_async_wait<0>();
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const float li = repro::quad_sum(l[i]);
+    const int qi = q0 + r0 + g + 8 * i;
+    if (qi >= a.rows) continue;
+    const float safe = li == 0.f ? 1.f : li;
+    bf16* orow = o + (qrow0 + qi) * D;
+#pragma unroll
+    for (int dt = 0; dt < ND; ++dt) {
+      *reinterpret_cast<__nv_bfloat162*>(orow + dt * 8 + 2 * t4) =
+          __floats2bfloat162_rn(acc[dt][2 * i] / safe, acc[dt][2 * i + 1] / safe);
+    }
+  }
+}
+
+constexpr int kLcRowsWarp = 4;                 // CUDA cores: query rows a warp
+constexpr int kLcBlockQ = kLcRowsWarp * 4;     // 16 rows a block
+constexpr int kLcBlockK = 32;                  // one key a lane
+
+// f32 pages (T = TC = float) and int8 pages (TC = int8_t, q f32 or bf16):
+// CUDA cores, every product in f32 as the plain version computes it
+template <typename T, typename TC, int D>
+__global__ void __launch_bounds__(kLwThreads)
+verify_long_core_kernel(const T* __restrict__ q, T* __restrict__ o, Window a) {
+  constexpr bool kQuant = std::is_same<TC, int8_t>::value;
+  constexpr int C = D / 32;  // output columns a lane
+  __shared__ float q_s[kLcBlockQ][D];
+  __shared__ float k_s[kLcBlockK][D + 1];  // +1: lane j reads row j conflict-free
+  __shared__ float v_s[kLcBlockK][D];
+
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kLcBlockQ;
+  const int bh = blockIdx.y, b = bh / a.hkv, h = bh % a.hkv;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const long long qrow0 = static_cast<long long>(bh) * a.rows;
+  const TC* k = static_cast<const TC*>(a.k);
+  const TC* v = static_cast<const TC*>(a.v);
+
+  for (int i = threadIdx.x; i < kLcBlockQ * D; i += kLwThreads) {
+    const int r = i / D, c = i % D;
+    q_s[r][c] = q0 + r < a.rows ? repro::to_f32(q[(qrow0 + q0 + r) * D + c]) : 0.f;
+  }
+  const Span s = window_keys(a, b, q0, kLcBlockQ);
+  int lim[kLcRowsWarp];
+  float m[kLcRowsWarp], l[kLcRowsWarp], acc[kLcRowsWarp][C];
+#pragma unroll
+  for (int i = 0; i < kLcRowsWarp; ++i) {
+    lim[i] = s.p + (q0 + warp * kLcRowsWarp + i) / a.group;
+    m[i] = -INFINITY;
+    l[i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < C; ++c) acc[i][c] = 0.f;
+  }
+
+  const int n_tiles = (s.kv_end + kLcBlockK - 1) / kLcBlockK;
+  for (int t = 0; t < n_tiles; ++t) {
+    const int kv0 = t * kLcBlockK;
+    __syncthreads();  // the previous tile is consumed (and q_s is in)
+    for (int jr = warp; jr < kLcBlockK; jr += 4) {  // a warp a key row
+      const int kj = kv0 + jr;
+      const bool in = kj < s.kv_end;
+      long long ko = 0, vo = 0;
+      float ksc = 1.f, vsc = 1.f;
+      if (in) {
+        long long page;
+        int off;
+        key_row(a, s, b, kj, page, off);
+        ko = page * a.k_sp + off * a.k_so + h * a.k_sh;
+        vo = page * a.v_sp + off * a.v_so + h * a.v_sh;
+        if constexpr (kQuant) {
+          ksc = a.ks[page * a.ks_p + off * a.ks_o];
+          vsc = a.vs[page * a.vs_p + off * a.vs_o];
+        }
+      }
+#pragma unroll
+      for (int cc = 0; cc < C; ++cc) {
+        const int c = lane + 32 * cc;
+        float kx = in ? repro::to_f32(k[ko + c]) : 0.f;
+        float vx = in ? repro::to_f32(v[vo + c]) : 0.f;
+        if constexpr (kQuant) kx *= ksc, vx *= vsc;
+        k_s[jr][c] = kx;
+        v_s[jr][c] = vx;
+      }
+    }
+    __syncthreads();
+
+    const int kid = kv0 + lane;
+#pragma unroll
+    for (int i = 0; i < kLcRowsWarp; ++i) {
+      const int r = warp * kLcRowsWarp + i;
+      float sc = 0.f;
+#pragma unroll 8
+      for (int c = 0; c < D; ++c) sc = fmaf(q_s[r][c], k_s[lane][c], sc);
+      const bool valid = kid < s.n_keys && kid <= lim[i];
+      sc = valid ? sc * a.scale : repro::kMaskValue;
+      const float m_new = fmaxf(m[i], repro::warp_max(sc));
+      const float alpha = expf(m[i] - m_new);
+      const float p = valid ? expf(sc - m_new) : 0.f;
+      l[i] = alpha * l[i] + repro::warp_sum(p);
+#pragma unroll
+      for (int c = 0; c < C; ++c) acc[i][c] *= alpha;
+#pragma unroll 8
+      for (int j = 0; j < kLcBlockK; ++j) {
+        const float pj = __shfl_sync(repro::kFullMask, p, j);
+#pragma unroll
+        for (int c = 0; c < C; ++c) acc[i][c] = fmaf(pj, v_s[j][lane + 32 * c], acc[i][c]);
+      }
+      m[i] = m_new;
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < kLcRowsWarp; ++i) {
+    const int qi = q0 + warp * kLcRowsWarp + i;
+    if (qi >= a.rows) continue;
+    const float safe = l[i] == 0.f ? 1.f : l[i];
+#pragma unroll
+    for (int c = 0; c < C; ++c)
+      o[(qrow0 + qi) * D + lane + 32 * c] = repro::from_f32<T>(acc[i][c] / safe);
+  }
+}
+
+template <int D>
+cudaError_t launch_long_tc(const void* q, void* o, const Window& a, int b, cudaStream_t st) {
+  constexpr size_t bytes = lw_smem_bytes<D>();  // above 48 KB: opt in
+  const cudaError_t e = cudaFuncSetAttribute(
+      verify_long_tc_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(bytes));
+  if (e != cudaSuccess) return e;
+  const dim3 grid((a.rows + kLwBlockQ - 1) / kLwBlockQ, b * a.hkv);
+  verify_long_tc_kernel<D><<<grid, kLwThreads, bytes, st>>>(
+      static_cast<const bf16*>(q), static_cast<bf16*>(o), a);
+  return cudaGetLastError();
+}
+
+template <typename T, typename TC, int D>
+cudaError_t launch_long_core(const void* q, void* o, const Window& a, int b, cudaStream_t st) {
+  const dim3 grid((a.rows + kLcBlockQ - 1) / kLcBlockQ, b * a.hkv);
+  verify_long_core_kernel<T, TC, D><<<grid, kLwThreads, 0, st>>>(
+      static_cast<const T*>(q), static_cast<T*>(o), a);
+  return cudaGetLastError();
+}
+
+// q's type from dtype; int8 pages when a.ks is set, else pages of q's type
+int long_dispatch(const void* q, void* o, Window a, int b, int d, int dtype, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (b <= 0 || a.hkv <= 0 || a.rows <= 0) return 0;
+  if (a.t_window <= 0 || a.rows % a.t_window != 0 || (d != 64 && d != 128) ||
+      b * a.hkv > 65535 || a.page_size <= 0 || a.nb <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  a.group = a.rows / a.t_window;
+  const bool bf = dtype == repro::kBF16;
+  cudaError_t e;
+  if (a.ks != nullptr) {
+    if (bf)
+      e = d == 128 ? launch_long_core<bf16, int8_t, 128>(q, o, a, b, st)
+                   : launch_long_core<bf16, int8_t, 64>(q, o, a, b, st);
+    else
+      e = d == 128 ? launch_long_core<float, int8_t, 128>(q, o, a, b, st)
+                   : launch_long_core<float, int8_t, 64>(q, o, a, b, st);
+  } else if (bf) {
+    e = d == 128 ? launch_long_tc<128>(q, o, a, b, st) : launch_long_tc<64>(q, o, a, b, st);
+  } else {
+    e = d == 128 ? launch_long_core<float, float, 128>(q, o, a, b, st)
+                 : launch_long_core<float, float, 64>(q, o, a, b, st);
+  }
+  return static_cast<int>(e);
+}
+
+}  // namespace
+
+// The long-window branch, float pages of q's type: q (B, Hkv, rows, D) and
+// o contiguous, rows = T*G of any size; pages, strides, block_tables and
+// pos as repro_paged_flash_verify takes them (bf16: page and q bases and
+// row strides 16-byte aligned).  No scratch: one kernel a call.
+extern "C" int repro_paged_flash_verify_long(
+    const void* q, const void* k_pages, const void* v_pages, const void* block_tables,
+    const void* pos, void* o, long long k_sp, long long k_so, long long k_sh, long long v_sp,
+    long long v_so, long long v_sh, long long bt_stride, int b, int nb, int page_size,
+    int hkv, int rows, int t_window, int d, float scale, int dtype, void* stream) {
+  const Window a{k_pages, v_pages, nullptr, nullptr, static_cast<const int*>(block_tables),
+                 static_cast<const int*>(pos), k_sp, k_so, k_sh, v_sp, v_so, v_sh, 0, 0, 0,
+                 0, bt_stride, page_size, nb, hkv, rows, 0, t_window, scale};
+  return long_dispatch(q, o, a, b, d, dtype, stream);
+}
+
+// ... and int8 pages with their row scales (P, page_size) f32, dequantized
+// while staged; q f32 or bf16
+extern "C" int repro_paged_flash_verify_long_int8(
+    const void* q, const void* k_pages, const void* v_pages, const void* k_scales,
+    const void* v_scales, const void* block_tables, const void* pos, void* o, long long k_sp,
+    long long k_so, long long k_sh, long long v_sp, long long v_so, long long v_sh,
+    long long ks_p, long long ks_o, long long vs_p, long long vs_o, long long bt_stride, int b,
+    int nb, int page_size, int hkv, int rows, int t_window, int d, float scale, int dtype,
+    void* stream) {
+  if (k_scales == nullptr || v_scales == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Window a{k_pages, v_pages, static_cast<const float*>(k_scales),
+                 static_cast<const float*>(v_scales), static_cast<const int*>(block_tables),
+                 static_cast<const int*>(pos), k_sp, k_so, k_sh, v_sp, v_so, v_sh, ks_p, ks_o,
+                 vs_p, vs_o, bt_stride, page_size, nb, hkv, rows, 0, t_window, scale};
+  return long_dispatch(q, o, a, b, d, dtype, stream);
 }

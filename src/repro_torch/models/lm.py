@@ -15,6 +15,8 @@ can carry the reference's weights over leaf for leaf:
   decode_step(params, cache, tok, pos, attend_len) -> (logits (B, V), cache)
   decode_verify_step(params, paged cache, window (B, T), pos, attend_len)
                                              -> (logits (B, T, V), cache)
+  prefill_suffix(params, paged cache, suffix (B, T), start_pos, last_idx,
+                 attend_len)                 -> (logits (B, V), cache)
 
 Where the reference jits with donated buffers, the port writes cache rows
 in place (``ck[l, bidx, pos] = k``): ``decode_step`` returns the very
@@ -404,9 +406,10 @@ class Model:
         fresh K/V rows land at table-resolved (page, offset) pairs, then
         verify attention masks each query row at its own position.
         Returns (hidden (B, T, d), cache).  A quantized pool stores each row
-        quantized, as :meth:`_gqa_decode_paged`.  (The reference also
-        prefills a shared prefix's suffix through it; that arrives with
-        ROADMAP A9b.)"""
+        quantized, as :meth:`_gqa_decode_paged`.  It backs both the
+        speculative verify (:meth:`decode_verify_step`) and the shared
+        prefix's suffix prefill (:meth:`prefill_suffix`), so their
+        arithmetic is one."""
         use_kernel = self.uses_kernel(verify_backend, "verify_backend")
         bt = cache["block_tables"]
         page_size = cache["k_pages"].shape[2]
@@ -428,3 +431,37 @@ class Model:
                                           use_kernel=use_kernel)
 
         return self._gqa_decode_layers(params, x, positions, write_attend), cache
+
+    # ------------------------------------------------- shared-prefix prefill
+    @torch.no_grad()
+    def prefill_suffix(self, params, cache: Dict[str, torch.Tensor],
+                       tokens: torch.Tensor, start_pos: torch.Tensor,
+                       last_idx: torch.Tensor, attend_len: Optional[int] = None,
+                       verify_backend: Optional[str] = None):
+        """Prefill only the un-cached suffix of a prompt whose prefix pages
+        are mapped already (prefix sharing: the cached positions' K/V sit in
+        pages other slots share, reached through this slot's block table).
+
+        tokens (B, T): right-padded suffixes; row b's real tokens sit at
+        positions start_pos[b] .. start_pos[b] + last_idx[b], last_idx[b]
+        the index of its last real token in the window.  Returns (logits
+        (B, V) at each row's last real token, cache).
+
+        The speculative window aimed at admission: each suffix row's K/V
+        is written through the block tables (shared prefix pages are never
+        written: the plan puts the suffix past them), each query row
+        attends the cached prefix and the window causally, and only T
+        tokens are computed.  Padding rows past last_idx land in the
+        slot's private tail page or in the trash page.  A window of T * G
+        > 32 rows a KV head runs the long-window branch of
+        ``paged_flash_verify``."""
+        if "k_pages" not in cache:
+            raise ValueError("prefill_suffix needs a paged cache "
+                             "(k_pages/v_pages/block_tables); got leaves "
+                             f"{sorted(cache)}")
+        x = self._embed(params, tokens.to(self.device))
+        x, cache = self._paged_window(params, cache, x, start_pos.to(self.device),
+                                      attend_len, verify_backend)
+        rows = torch.arange(x.shape[0], device=self.device)
+        last = x[rows, last_idx.to(self.device).long()][:, None]
+        return self._head(params, last)[:, 0, :self.cfg.vocab], cache

@@ -52,10 +52,25 @@ re-admission, restores them into fresh pages with no prefill;
 (``cost_model.swap_gbps``) costs less than recomputing it (2 * parameters
 FLOPs over ``cost_model.decode_flops_s``), as the reference decides.
 
+Prefix sharing (``prefix_sharing=True``, paged layout, dense family)
+admits a prompt by resolving its longest cached page-granular prefix in a
+radix index (``serve.prefix_index``) and mapping those physical pages into
+the new slot's block table: no copies, a reference more in the allocator.
+Requests then admit one at a time, each prompt published to the index
+before the next is planned, and prefill only the un-cached suffix through
+the paged cache (:meth:`Model.prefill_suffix`; a suffix of T tokens is T *
+G query rows a KV head in ``paged_flash_verify``).  The admission gate
+charges only the private pages, and a released request's prefix lingers
+in the index as reclaimable cache (``evict_policy`` picks the victims
+under allocation pressure; ``min_cached_tokens`` keeps short prompts
+out).  A page-aligned prompt that matches in full forks its last page
+copy-on-write.  Greedy outputs are those of unshared paged serving:
+sharing lives below the block tables.
+
 Not ported yet: sampling at temperature > 0 (ROADMAP A6), the overlapped
 pipeline and its asynchronous swap copies (A6b), measured cost models
-(``preempt_calibrate``, A11), prefix sharing (A9b), chunked prefill,
-faults and recovery, priorities and deadlines.
+(``preempt_calibrate``, A11), chunked prefill, faults and recovery,
+priorities and deadlines.
 """
 
 from __future__ import annotations
@@ -72,15 +87,18 @@ from repro_torch.optim.optimizer import leaves
 from repro_torch.serve import calibrate, spec_decode
 from repro_torch.serve.kv_cache import (
     CACHE_LAYOUTS,
+    AdmitPlan,
     PagedCacheManager,
     SwapHandle,
     blocks_for,
     cdiv,
+    copy_pages,
     resolve_kv_dtype,
     scatter_prefill,
     swap_in_pages,
     write_slots,
 )
+from repro_torch.serve.prefix_index import EVICT_POLICIES, PrefixIndex
 
 STATUS_OK = "ok"
 STATUS_FAILED = "failed"
@@ -149,6 +167,10 @@ class _SchedState:
     spec_mask: Any = None      # speculative decoding: per-slot spec flag
     spec_hist: Dict[int, deque] = dataclasses.field(default_factory=dict)
     spec_disabled: Dict[int, int] = dataclasses.field(default_factory=dict)
+    # prefix sharing: the (request, allocator, index) state at which the
+    # queue head's gate last failed (it is not planned again until that
+    # state moves)
+    gate_block: Any = None
 
 
 class ServeEngine:
@@ -156,7 +178,8 @@ class ServeEngine:
                  temperature: float = 0.0, cache_layout: str = "dense",
                  page_size: int = 16, num_pages: Optional[int] = None,
                  kv_dtype: Optional[str] = None, preempt: str = "requeue",
-                 spec_k: int = 1, draft=None,
+                 prefix_sharing: bool = False, evict_policy: str = "lru",
+                 min_cached_tokens: int = 0, spec_k: int = 1, draft=None,
                  verify_backend: Optional[str] = None,
                  cost_model: Optional[calibrate.CostModel] = None,
                  preempt_calibrate: bool = False):
@@ -183,6 +206,23 @@ class ServeEngine:
         if preempt != "requeue" and cache_layout != "paged":
             raise ValueError("swap-tier preemption pages the paged pool "
                              "to host; pass cache_layout='paged'")
+        if evict_policy not in EVICT_POLICIES:
+            raise ValueError(f"evict_policy must be one of {EVICT_POLICIES}; "
+                             f"got {evict_policy!r}")
+        if min_cached_tokens < 0:
+            raise ValueError(f"min_cached_tokens must be >= 0; "
+                             f"got {min_cached_tokens}")
+        if prefix_sharing:
+            if cache_layout != "paged":
+                raise ValueError("prefix sharing maps prompt prefixes through "
+                                 "the paged block tables; pass "
+                                 "cache_layout='paged'")
+            if model.cfg.family not in _PADDED_PREFILL_FAMILIES:
+                raise ValueError(
+                    "prefix sharing resolves prompts by token ids and prefills "
+                    f"only the un-cached suffix; family {model.cfg.family!r} "
+                    "prefills with length-dependent expert capacity, so cached "
+                    "K/V would not be exact: supported family: 'dense'")
         if cost_model is None and preempt_calibrate:
             raise NotImplementedError(
                 "measuring the swap bandwidth and decode rate on the card "
@@ -201,6 +241,10 @@ class ServeEngine:
         self.num_pages = num_pages
         self.kv_dtype = kv_dtype
         self.preempt = preempt
+        self.prefix_sharing = prefix_sharing
+        self.evict_policy = evict_policy
+        self.min_cached_tokens = min_cached_tokens
+        self.verify_backend = verify_backend
         self.cost_model = cost_model or calibrate.DEFAULT_COST_MODEL
         # preempt="auto": recompute costs ~2 * params FLOPs a token
         self._n_params = sum(t.numel() for t in leaves(params))
@@ -216,7 +260,8 @@ class ServeEngine:
         self.last_stats: Dict[Any, Any] = {}
         self.last_pool_stats = None
         # (uids, bucket, prompt lengths) of every prefill call of the last
-        # serve(), in order
+        # serve(), in order; a suffix prefill's bucket counts the suffix's
+        # tokens alone
         self.last_prefill_groups: List[tuple] = []
         self.preemptions = 0
 
@@ -241,9 +286,12 @@ class ServeEngine:
             st.stats[req.uid] = {"status": None, "preemptions": 0}
             st.queue.append(req)
         if self.cache_layout == "paged":
+            index = (PrefixIndex(self.page_size, policy=self.evict_policy,
+                                 min_cached_tokens=self.min_cached_tokens)
+                     if self.prefix_sharing else None)
             st.mgr = PagedCacheManager(self.num_pages, self.page_size,
                                        self.slots, self.max_seq,
-                                       kv_dtype=self.kv_dtype)
+                                       prefix_index=index, kv_dtype=self.kv_dtype)
         for req in st.queue:
             self._check_fits(st, req)
         self._init_device(st)
@@ -298,7 +346,10 @@ class ServeEngine:
     def _round(self, st: _SchedState):
         """One scheduler round: admission, page growth (paged), one decode
         step for every slot."""
-        self._admit(st)
+        if self.prefix_sharing:
+            self._admit_shared(st)
+        else:
+            self._admit(st)
         if st.live and st.mgr is not None:
             self._grow_or_preempt(st)
         if st.live:
@@ -463,6 +514,52 @@ class ServeEngine:
         for slot, req in taken:
             self._finish_admission(st, slot, req)
 
+    def _admit_shared(self, st: _SchedState):
+        """Prefix-sharing admission: requests admit one at a time, FIFO,
+        and each prompt's prefill publishes its full pages to the index
+        before the next request is planned, so identical prompts arriving
+        together share with each other, not only with earlier traffic.
+        The gate charges only the plan's private pages (the shared prefix
+        is resident already), beyond one growth page per live slot.  A
+        host-swapped resume bypasses the planner: its pages come back
+        verbatim, private, outside the sharing graph."""
+        for slot in range(self.slots):
+            if slot in st.live or not st.queue:
+                continue
+            req = st.queue[0]
+            if req.uid in st.swaps:
+                if not self._admit_swapped_row(st, slot, req):
+                    break
+                continue
+            # the gate is a function of the allocator and the index alone:
+            # a blocked head is planned again only once either has moved
+            # (planning also refreshes the matched entries' LRU stamps)
+            a = st.mgr.allocator
+            key = (id(req), a.alloc_count, a.release_count, a.share_count,
+                   st.mgr.index.version)
+            if st.gate_block == key:
+                break
+            plan = st.mgr.plan_admit(req.prompt)
+            if (not st.mgr.can_admit_plan(plan, headroom=len(st.live))
+                    or st.mgr.admit_prefix(slot, plan) is None):
+                st.gate_block = key
+                break
+            st.gate_block = None
+            st.queue.popleft()
+            self._bookkeep_admit(st, slot, req, time.perf_counter() - st.t0)
+            # the first admission's figure: a preemption resume re-matches
+            # its own folded prompt, which would count the reuse twice
+            st.stats[req.uid].setdefault("cached_prefix_tokens", plan.cached_tokens)
+            if plan.cached_tokens > 0:
+                self._prefill_suffix_row(st, slot, req, plan)
+            else:
+                self._prefill_group(st, [(slot, req)], min(
+                    self.max_seq, _round_up(len(req.prompt), PROMPT_BLOCK)))
+            if st.stats[req.uid]["status"] is None:
+                # a failed prefill released the slot: nothing to publish
+                st.mgr.register_prefix(slot, req.prompt)
+            self._finish_admission(st, slot, req)
+
     def _bookkeep_admit(self, st: _SchedState, slot: int, req: Request,
                         t_admit: float):
         """Admission bookkeeping shared by prefill and swap resumes."""
@@ -496,7 +593,7 @@ class ServeEngine:
         preemption interrupted.  False when the pool cannot grant the
         pages yet (admission blocks, as for a too-big prompt)."""
         handle = st.swaps[req.uid]
-        if st.mgr.allocator.free - len(st.live) < handle.n_blocks:
+        if st.mgr.available() - len(st.live) < handle.n_blocks:
             return False
         pages = st.mgr.admit_swapped(slot, handle)
         if pages is None:
@@ -516,17 +613,50 @@ class ServeEngine:
             st.spec_mask[slot] = bool(req.spec) and req.uid not in st.spec_disabled
             # the draft's dense cache died with the slot: prefill it again
             # from the folded prompt (the draft only steers acceptance)
-            bucket = min(self.max_seq, _round_up(len(req.prompt), PROMPT_BLOCK))
-            toks = torch.zeros((1, bucket), dtype=torch.int64, device=self.device)
-            toks[0, :len(req.prompt)] = torch.as_tensor(req.prompt)
-            last = torch.as_tensor([len(req.prompt) - 1], device=self.device)
-            _, dcache = self.draft_model.prefill(self.draft_params, toks,
-                                                 self.max_seq, last)
-            write_slots(st.draft_cache, dcache, [slot])
+            self._draft_prefill_row(st, slot, req.prompt)
         s = st.stats[req.uid]
         s["swap_ins"] = s.get("swap_ins", 0) + 1
         self._finish_admission(st, slot, req)
         return True
+
+    def _draft_prefill_row(self, st: _SchedState, slot: int, prompt: List[int]):
+        """Prefill the draft's dense cache of ``slot`` from a whole prompt
+        (its logits are dropped: the draft only steers acceptance)."""
+        bucket = min(self.max_seq, _round_up(len(prompt), PROMPT_BLOCK))
+        toks = torch.zeros((1, bucket), dtype=torch.int64, device=self.device)
+        toks[0, :len(prompt)] = torch.as_tensor(prompt)
+        last = torch.as_tensor([len(prompt) - 1], device=self.device)
+        _, dcache = self.draft_model.prefill(self.draft_params, toks, self.max_seq, last)
+        write_slots(st.draft_cache, dcache, [slot])
+
+    def _prefill_suffix_row(self, st: _SchedState, slot: int, req: Request,
+                            plan: AdmitPlan):
+        """Admission prefill for a prefix-index hit: fork the boundary page
+        if the plan says so (the copy is queued before the suffix prefill,
+        then the source's pin drops), then compute only the un-cached
+        suffix through the paged cache, the cached prefix read through the
+        block tables in place."""
+        if plan.cow_src is not None:
+            copy_pages(st.pool, [plan.cow_src], [plan.cow_dst])
+        st.mgr.cow_release(plan)
+        suffix = req.prompt[plan.cached_tokens:]
+        t_b = _round_up(len(suffix), PROMPT_BLOCK)
+        self.last_prefill_groups.append(([req.uid], t_b, [len(req.prompt)]))
+        toks = torch.zeros((1, t_b), dtype=torch.int64, device=self.device)
+        toks[0, :len(suffix)] = torch.as_tensor(suffix)
+        if st.mgr.dirty:
+            st.bt_dev = st.mgr.device_tables(self.device)
+        cache = dict(st.pool, block_tables=st.bt_dev[slot:slot + 1])
+        start = torch.tensor([plan.cached_tokens], dtype=torch.int32, device=self.device)
+        last = torch.tensor([len(suffix) - 1], device=self.device)
+        logits, _ = self.model.prefill_suffix(
+            self.params, cache, toks, start, last,
+            self._attend_len(plan.cached_tokens + t_b), self.verify_backend)
+        if self.spec_k > 1:
+            # the draft's cache is a dense slot pool with no sharing: it
+            # prefills the whole prompt
+            self._draft_prefill_row(st, slot, req.prompt)
+        self._commit_prefill(st, [slot], [req], logits)
 
     def _prefill_group(self, st: _SchedState, group: List[tuple], bucket: int):
         """One prefill for the admitted (slot, request) pairs, right-padded
@@ -558,6 +688,16 @@ class ServeEngine:
             _, dcache = self.draft_model.prefill(self.draft_params, toks,
                                                  self.max_seq, last_pos)
             write_slots(st.draft_cache, dcache, slots)
+        self._commit_prefill(st, slots, reqs, logits)
+
+    def _commit_prefill(self, st: _SchedState, slots: List[int],
+                        reqs: List[Request], logits: torch.Tensor):
+        """The slot state after an admission prefill, shared by the full
+        and the suffix prefill: each row's first token (greedy, at
+        position len(prompt)), pos / tok / remaining (and the spec flags),
+        then the one host copy; a row whose logits are not finite fails
+        on its own."""
+        lens = [len(r.prompt) for r in reqs]
         first = torch.argmax(logits, dim=-1).to(torch.int32)
         finite = torch.isfinite(logits).all(dim=-1)
         idx = torch.as_tensor(slots, device=self.device)

@@ -37,11 +37,25 @@ Tiered memory:
             before it releases them; :meth:`PagedCacheManager.admit_swapped`
             and :func:`swap_in_pages` restore them into fresh pages.
 
-Not ported yet: prefix sharing and its refcounted pages with
-copy-on-write (ROADMAP A9b), and the asynchronous
-``swap_out_pages_async`` / ``SwapHandle.materialize`` pair, which belongs
-to the pipelined engine (ROADMAP A6b); the swap copies here are
-synchronous.
+Prefix sharing.  Pages are refcounted, so slots whose prompts share a
+page-aligned prefix map the same physical pages (``serve.prefix_index``
+resolves the prefix, :meth:`PagedCacheManager.admit_prefix` maps it).
+The ownership rules are hard errors, not best effort:
+
+  * a page frees only when its refcount reaches 0 (``release`` is a
+    decrement; releasing a free page raises);
+  * a shared page (refcount > 1) is read-only: every write span must be
+    private (:meth:`PageAllocator.assert_writable`);
+  * a writer landing inside a shared page forks it copy-on-write: a
+    private page, the rows copied (:func:`copy_pages`), the table
+    remapped.  By construction that happens only to the last page of a
+    fully matched, page-aligned prompt; decode growth and the suffix
+    prefill always write private pages.
+
+Not ported yet: the asynchronous ``swap_out_pages_async`` /
+``SwapHandle.materialize`` pair, which belongs to the pipelined engine
+(ROADMAP A6b); the swap copies here are synchronous.  ``PagedStats``
+leaves out the reference's ``audit_*`` fields (ROADMAP A10).
 """
 
 from __future__ import annotations
@@ -51,6 +65,8 @@ from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
+
+from repro_torch.serve.prefix_index import PrefixIndex
 
 CACHE_LAYOUTS = ("dense", "paged")
 
@@ -112,13 +128,19 @@ def dequantize_kv(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
 
 
 class PageAllocator:
-    """Free-list allocator over pages [1, num_pages).
+    """Refcounted free-list allocator over pages [1, num_pages).
 
     ``alloc(n)`` is all-or-nothing and LIFO: freed pages are reused
     most-recently-freed first, which keeps the working set of hot pages
-    small.  Releasing a page that is not allocated, or writing to one
-    (:meth:`assert_writable`), is a hard error.  (The reference refcounts
-    pages for prefix sharing; that arrives with ROADMAP A9b.)"""
+    small.  Every allocated page carries a refcount: ``alloc`` starts it at
+    1, ``share`` adds one (prefix sharing maps the same physical page into
+    another table), ``release`` takes one away and frees the page only at
+    0.  Releasing a page that is not allocated, sharing one, or writing to
+    a shared one (:meth:`assert_writable`) is a hard error.
+
+    ``used`` counts physical pages (a page shared by N holders counts
+    once; ``used + free == usable``) and ``logical`` counts references:
+    ``logical - used`` pages are what sharing saves."""
 
     def __init__(self, num_pages: int):
         if num_pages < 2:
@@ -127,10 +149,14 @@ class PageAllocator:
         self.num_pages = num_pages
         # LIFO free list; initialized so page 1 is handed out first
         self._free: List[int] = list(range(num_pages - 1, 0, -1))
-        self._used: set = set()
+        self._refs: Dict[int, int] = {}
+        self._logical = 0
         self.alloc_count = 0      # pages ever handed out
         self.free_count = 0       # pages ever returned to the free list
+        self.share_count = 0      # references ever added by sharing
+        self.release_count = 0    # references ever dropped (freed or not)
         self.peak_used = 0
+        self.peak_logical = 0
 
     @property
     def usable(self) -> int:
@@ -142,44 +168,115 @@ class PageAllocator:
 
     @property
     def used(self) -> int:
-        return len(self._used)
+        """Physical pages allocated: a shared page counts once."""
+        return len(self._refs)
+
+    @property
+    def logical(self) -> int:
+        """Sum of the refcounts: the pages the holders together believe
+        they own."""
+        return self._logical
+
+    def utilization(self) -> float:
+        return self.used / self.usable
+
+    def refcount(self, page: int) -> int:
+        return self._refs.get(page, 0)
+
+    def is_shared(self, page: int) -> bool:
+        return self.refcount(page) > 1
 
     def assert_writable(self, page: int):
-        """Write spans must target allocated pages."""
-        if page not in self._used:
-            raise ValueError(f"write to unallocated page {page}")
+        """Write spans must target private pages: a shared page is
+        read-only until copy-on-write forks it."""
+        r = self.refcount(page)
+        if r != 1:
+            kind = "shared" if r > 1 else "unallocated"
+            raise ValueError(f"write to {kind} page {page} (refcount {r})")
 
     def alloc(self, n: int) -> Optional[List[int]]:
-        """n pages, or None if fewer than n are free (nothing allocated)."""
+        """n pages at refcount 1, or None if fewer than n are free (nothing
+        allocated)."""
         if n < 0:
             raise ValueError(f"alloc({n})")
         if n > len(self._free):
             return None
         pages = [self._free.pop() for _ in range(n)]
-        self._used.update(pages)
+        for p in pages:
+            self._refs[p] = 1
+        self._logical += n
         self.alloc_count += n
         self.peak_used = max(self.peak_used, self.used)
+        self.peak_logical = max(self.peak_logical, self._logical)
         return pages
 
-    def release(self, pages: Sequence[int]):
-        """Return pages to the free list."""
+    def share(self, pages: Sequence[int]):
+        """Add one reference to each page (all must be allocated)."""
         for p in pages:
-            if p not in self._used:
+            if p not in self._refs:
+                raise ValueError(f"share of unallocated page {p}")
+        for p in pages:
+            self._refs[p] += 1
+        self._logical += len(pages)
+        self.share_count += len(pages)
+        self.peak_logical = max(self.peak_logical, self._logical)
+
+    def release(self, pages: Sequence[int]) -> int:
+        """Drop one reference a page; pages reaching refcount 0 return to
+        the free list.  Returns how many were freed."""
+        freed = 0
+        for p in pages:
+            r = self._refs.get(p)
+            if r is None:
                 raise ValueError(f"double free / foreign page {p}")
-            self._used.remove(p)
-            self._free.append(p)
-        self.free_count += len(pages)
+            if r == 1:
+                del self._refs[p]
+                self._free.append(p)
+                freed += 1
+            else:
+                self._refs[p] = r - 1
+        self._logical -= len(pages)
+        self.free_count += freed
+        self.release_count += len(pages)
+        return freed
 
 
 @dataclasses.dataclass
 class PagedStats:
-    """Pool accounting snapshot (see :meth:`PagedCacheManager.stats`)."""
+    """Pool accounting snapshot (see :meth:`PagedCacheManager.stats`).
+
+    ``peak_used_pages`` / ``peak_tokens`` / ``peak_utilization`` are the
+    pool's physical high-water marks (a page shared by N slots counts
+    once; with prefix sharing, the end-of-serve ``used_pages`` are what
+    the prefix index still caches).  ``logical_*`` count every slot's
+    mapping apart, and ``sharing_ratio`` is the high-water logical /
+    physical ratio of the slots' mappings (1.0 when nothing is shared).
+    ``cow_forks`` counts pages forked copy-on-write at admission,
+    ``evictions`` index entries reclaimed under allocation pressure,
+    ``cached_prefix_tokens`` prompt tokens admissions took from cache."""
+    num_pages: int
+    page_size: int
     used_pages: int
     free_pages: int
     peak_used_pages: int
+    peak_tokens: int
+    utilization: float
+    peak_utilization: float
     allocs: int
     frees: int
     retracts: int     # pages taken back by speculative write-then-retract
+    # prefix sharing
+    logical_pages: int = 0
+    physical_pages: int = 0
+    logical_tokens: int = 0
+    physical_tokens: int = 0
+    peak_logical_pages: int = 0
+    sharing_ratio: float = 1.0
+    shares: int = 0
+    cow_forks: int = 0
+    evictions: int = 0
+    index_pages: int = 0
+    cached_prefix_tokens: int = 0
     # tiered memory: storage dtype and host-swap traffic
     kv_dtype: Optional[str] = None
     swap_outs: int = 0
@@ -188,68 +285,243 @@ class PagedStats:
     swapped_in_bytes: int = 0
 
 
+@dataclasses.dataclass
+class AdmitPlan:
+    """One prompt's admission, resolved against the prefix index
+    (:meth:`PagedCacheManager.plan_admit`): the indexed pages the slot
+    will share, whether the boundary page is forked copy-on-write
+    (``cow_src`` -> ``cow_dst``, the latter filled at admission), how many
+    prompt positions come from cache (``cached_tokens``: prefill computes
+    only the rest), and how many private pages admission allocates (the
+    only pages the admission gate charges)."""
+    prompt_len: int
+    n_blocks: int
+    shared_pages: List[int]
+    cached_tokens: int
+    private_blocks: int
+    cow_src: Optional[int] = None
+    cow_dst: Optional[int] = None
+
+
 class PagedCacheManager:
     """Host mirror of the paged cache: allocator + per-slot block tables.
 
     The engine owns the device pool; this class owns the mapping and hands
     the engine a fresh (slots, max_blocks) table whenever it changed
-    (``dirty``), one small host-to-device copy per change, not per token."""
+    (``dirty``), one small host-to-device copy per change, not per token.
+
+    With a ``prefix_index`` it also owns prefix sharing: :meth:`plan_admit`
+    resolves a prompt to its longest cached prefix, :meth:`admit_prefix`
+    maps those pages into the slot's table (refcount + 1, no copies), and
+    :meth:`register_prefix` publishes a prompt's full pages after its
+    prefill.  The index holds a reference of its own on every published
+    page, so a released request's prefix lingers as reusable cache;
+    pages only the index holds are reclaimed, in the index's victim
+    order, when an allocation would otherwise fail."""
 
     def __init__(self, num_pages: int, page_size: int, slots: int, max_seq: int,
+                 prefix_index: Optional[PrefixIndex] = None,
                  kv_dtype: Optional[str] = None):
         self.page_size = page_size
         self.max_blocks = cdiv(max_seq, page_size)
         self.allocator = PageAllocator(num_pages)
         self.tables = np.full((slots, self.max_blocks), TRASH_PAGE, np.int32)
         self.owned: List[List[int]] = [[] for _ in range(slots)]
+        self.index = prefix_index
         self.kv_dtype = kv_dtype
         self.dirty = True
         self.retract_count = 0    # pages taken back by speculative rollback
+        self.cow_forks = 0
+        self.evictions = 0
+        self.cached_tokens_total = 0
+        self.peak_logical_pages = 0
+        self.peak_sharing_ratio = 1.0
         self.swap_outs = 0
         self.swap_ins = 0
         self.swapped_out_bytes = 0
         self.swapped_in_bytes = 0
 
+    # ----------------------------------------------------------- internals
+    def _evictable_pred(self, page: int) -> bool:
+        # reclaimable when the index holds the only reference
+        return self.allocator.refcount(page) == 1
+
+    def _alloc(self, n: int) -> Optional[List[int]]:
+        """``allocator.alloc`` with lazy index eviction: when the free list
+        cannot cover ``n``, reclaim index-only entries first."""
+        pages = self.allocator.alloc(n)
+        if pages is None and self.index is not None:
+            evicted = self.index.evict(n - self.allocator.free, self._evictable_pred)
+            if evicted:
+                self.allocator.release(evicted)
+                self.evictions += len(evicted)
+                pages = self.allocator.alloc(n)
+        return pages
+
+    def _probe(self):
+        """Track the slots' logical / physical high-water marks."""
+        logical = sum(len(o) for o in self.owned)
+        self.peak_logical_pages = max(self.peak_logical_pages, logical)
+        distinct = len({p for o in self.owned for p in o})
+        if distinct:
+            self.peak_sharing_ratio = max(self.peak_sharing_ratio, logical / distinct)
+
+    def _map(self, slot: int, pages: Sequence[int]):
+        if self.owned[slot]:
+            raise ValueError(f"slot {slot} already mapped")
+        self.tables[slot, :len(pages)] = pages
+        self.owned[slot] = list(pages)
+        self.dirty = True
+        self._probe()
+
+    # ------------------------------------------------------------- queries
     def can_admit(self, prompt_len: int, headroom: int = 0) -> bool:
         """Enough free pages for a prompt, keeping ``headroom`` pages in
         reserve (the engine passes one growth page per live slot)."""
         return (self.allocator.free
                 >= blocks_for(prompt_len, self.page_size) + headroom)
 
+    def can_admit_plan(self, plan: AdmitPlan, headroom: int = 0) -> bool:
+        """The prefix-sharing gate: only the plan's private pages are
+        charged (the shared ones are resident already), and index-only
+        entries count as reclaimable, bar the pages this plan is about to
+        share or fork from."""
+        pinned = set(plan.shared_pages)
+        if plan.cow_src is not None:
+            pinned.add(plan.cow_src)
+        return self.available(exclude=pinned) >= plan.private_blocks + headroom
+
+    def available(self, exclude: Optional[set] = None) -> int:
+        """Pages an allocation can get now: the free ones, and with an
+        index the entries only it holds (bar ``exclude``)."""
+        avail = self.allocator.free
+        if self.index is not None:
+            avail += self.index.evictable(self._evictable_pred, exclude=exclude)
+        return avail
+
     def fits_worst_case(self, prompt_len: int, max_new: int, max_seq: int) -> bool:
         """Can this request ever complete alone in the pool?  Positions
         written: the prompt plus one per decode step (the last sampled
-        token is never written), capped by max_seq."""
+        token is never written), capped by max_seq.  (Index-held pages do
+        not shrink this: alone in the pool, every one is evictable.)"""
         longest = min(prompt_len + max(max_new - 1, 0), max_seq)
         return blocks_for(longest, self.page_size) <= self.allocator.usable
 
+    # ----------------------------------------------------------- mutation
     def admit(self, slot: int, prompt_len: int) -> Optional[List[int]]:
         """Map blocks for a prompt; None (nothing changed) if pages lack."""
-        pages = self.allocator.alloc(blocks_for(prompt_len, self.page_size))
-        if pages is None:
-            return None
         if self.owned[slot]:
             raise ValueError(f"slot {slot} already mapped")
-        self.tables[slot, :len(pages)] = pages
-        self.owned[slot] = list(pages)
-        self.dirty = True
+        pages = self._alloc(blocks_for(prompt_len, self.page_size))
+        if pages is None:
+            return None
+        self._map(slot, pages)
         return pages
+
+    def plan_admit(self, prompt: Sequence[int]) -> AdmitPlan:
+        """Resolve a prompt against the prefix index (its longest cached
+        page-granular prefix); nothing is allocated or shared until
+        :meth:`admit_prefix`.
+
+        The write frontier is always private: when the match covers every
+        page of a page-aligned prompt, the last matched page would take
+        the suffix's recompute and the first decode row, so the plan forks
+        it copy-on-write (``cow_src``) instead of sharing it: one page
+        allocated and copied, ``cached_tokens`` all but the last token.
+        Otherwise the suffix (at least one token, from the first
+        un-cached position) prefills into fresh private pages."""
+        p = len(prompt)
+        n_blocks = blocks_for(p, self.page_size)
+        if self.index is None:
+            return AdmitPlan(prompt_len=p, n_blocks=n_blocks, shared_pages=[],
+                             cached_tokens=0, private_blocks=n_blocks)
+        matched = self.index.match(prompt)
+        cow_src = None
+        if matched and len(matched) * self.page_size == p:
+            if p == 1:
+                # a one-token prompt: a fork would cache 0 tokens
+                matched, cached = [], 0
+            else:
+                cow_src = matched[-1]
+                matched = matched[:-1]
+                cached = p - 1
+        else:
+            cached = len(matched) * self.page_size
+        return AdmitPlan(prompt_len=p, n_blocks=n_blocks, shared_pages=list(matched),
+                         cached_tokens=cached, private_blocks=n_blocks - len(matched),
+                         cow_src=cow_src)
+
+    def admit_prefix(self, slot: int, plan: AdmitPlan) -> Optional[AdmitPlan]:
+        """Map a planned admission: share the cached prefix pages into the
+        slot's table, allocate the private pages (and the fork's target,
+        returned in ``plan.cow_dst``; the engine copies the page).
+        All-or-nothing: when pages lack, the shares are rolled back and
+        nothing changed (None).
+
+        ``cow_src`` is pinned (an extra reference) from here until
+        :meth:`cow_release`: without the pin the fork's source could sit
+        at refcount 1 (index only), and an allocation before the copy
+        could evict and reuse the very page the copy reads."""
+        if self.owned[slot]:
+            raise ValueError(f"slot {slot} already mapped")
+        pins = list(plan.shared_pages)
+        if plan.cow_src is not None:
+            pins.append(plan.cow_src)
+        if pins:
+            self.allocator.share(pins)
+        pages = self._alloc(plan.private_blocks)
+        if pages is None:
+            if pins:
+                self.allocator.release(pins)
+            return None
+        if plan.cow_src is not None:
+            plan.cow_dst = pages[0]
+            self.cow_forks += 1
+        self._map(slot, list(plan.shared_pages) + pages)
+        self.cached_tokens_total += plan.cached_tokens
+        return plan
+
+    def cow_release(self, plan: AdmitPlan):
+        """Drop the fork-source pin :meth:`admit_prefix` took; call it once
+        the copy into ``cow_dst`` is queued."""
+        if plan.cow_src is not None:
+            self.allocator.release([plan.cow_src])
+
+    def register_prefix(self, slot: int, prompt: Sequence[int]) -> int:
+        """Publish a prompt's full pages to the index (after its prefill
+        wrote them).  The index takes a reference of its own on each page
+        it newly holds, so the prefix outlives the request; pages already
+        indexed (the shared prefix, or a CoW fork whose original sits at
+        that node) are left as they are.  Returns the pages newly
+        published."""
+        if self.index is None:
+            return 0
+        fp = len(prompt) // self.page_size
+        if fp == 0:
+            return 0
+        new = self.index.insert(list(prompt), [int(self.tables[slot, j]) for j in range(fp)])
+        if new:
+            self.allocator.share(new)
+        return len(new)
 
     def ensure_block(self, slot: int, block: int) -> bool:
         """Map logical block ``block`` for ``slot`` (growth at a step
-        boundary).  True if already mapped or newly allocated."""
+        boundary).  True if already mapped or newly allocated.  A mapped
+        block must be private: growth spans are write spans (decode growth
+        lands past a shared prefix by construction)."""
         if block >= self.max_blocks:
             return True  # position cap: decode stops at max_seq anyway
         page = int(self.tables[slot, block])
         if page != TRASH_PAGE:
             self.allocator.assert_writable(page)
             return True
-        pages = self.allocator.alloc(1)
+        pages = self._alloc(1)
         if pages is None:
             return False
         self.tables[slot, block] = pages[0]
         self.owned[slot].append(pages[0])
         self.dirty = True
+        self._probe()
         return True
 
     def ensure_span(self, slot: int, first_pos: int, last_pos: int) -> bool:
@@ -269,8 +541,10 @@ class PagedCacheManager:
         pos + k - 1 before the verify step; when fewer tokens commit, the
         tail blocks hold only rejected rows and a table edit hands their
         pages back, no copies.  Stale rows in the kept boundary block are
-        overwritten by the next window (masked until then).  Returns the
-        number of pages retracted."""
+        overwritten by the next window (masked until then).  Retraction is
+        a refcount release: a page another slot or the index still holds
+        leaves this slot's table but not the pool.  Returns the number of
+        pages retracted from the slot."""
         keep = blocks_for(n_tokens, self.page_size)   # blocks [0, keep)
         dropped = []
         for blk in range(keep, self.max_blocks):
@@ -284,23 +558,29 @@ class PagedCacheManager:
             self.allocator.release(dropped)
             self.retract_count += len(dropped)
             self.dirty = True
+            self._probe()
         return len(dropped)
 
     def release(self, slot: int):
-        """Drop the slot's pages and point its table at trash."""
+        """Drop the slot's reference on every page it maps and point its
+        table at trash.  Pages shared with other slots or published to the
+        index stay allocated until their last holder lets go."""
         if self.owned[slot]:
             self.allocator.release(self.owned[slot])
             self.owned[slot] = []
             self.tables[slot, :] = TRASH_PAGE
             self.dirty = True
+            self._probe()
 
     # ----------------------------------------------------- host-swap tier
     def swap_out(self, slot: int, pool: Dict[str, torch.Tensor],
                  n_tokens: int) -> "SwapHandle":
         """Page a slot out to host buffers: copy every mapped page of the
         slot (values and scales) device-to-host, then release the slot's
-        pages.  The copy comes strictly before the release, so a
-        same-round admission cannot overwrite pages still being copied."""
+        references.  The copy comes strictly before the release, so a
+        same-round admission cannot overwrite pages still being copied.
+        Shared pages are copied like private ones: a swap-in restores them
+        into fresh private pages, outside the sharing graph."""
         blocks = [int(p) for p in self.tables[slot] if p != TRASH_PAGE]
         handle = SwapHandle(n_blocks=len(blocks), n_tokens=n_tokens,
                             data=swap_out_pages(pool, blocks),
@@ -311,8 +591,8 @@ class PagedCacheManager:
         return handle
 
     def admit_swapped(self, slot: int, handle: "SwapHandle") -> Optional[List[int]]:
-        """Map fresh pages for a swapped-out slot (the engine then writes
-        ``handle.data`` into them with :func:`swap_in_pages`).
+        """Map fresh private pages for a swapped-out slot (the engine then
+        writes ``handle.data`` into them with :func:`swap_in_pages`).
         All-or-nothing like :meth:`admit`: None when pages lack.  The
         handle may come from another manager, but its page format must
         match: another ``page_size`` or ``kv_dtype`` raises instead of
@@ -327,16 +607,14 @@ class PagedCacheManager:
                 f"swap handle kv_dtype={handle.kv_dtype!r} cannot restore "
                 f"into a kv_dtype={self.kv_dtype!r} pool (quantized bytes "
                 "do not cast)")
-        pages = self.allocator.alloc(handle.n_blocks)
-        if pages is None:
-            return None
         if self.owned[slot]:
             raise ValueError(f"slot {slot} already mapped")
-        self.tables[slot, :len(pages)] = pages
-        self.owned[slot] = list(pages)
+        pages = self._alloc(handle.n_blocks)
+        if pages is None:
+            return None
+        self._map(slot, pages)
         self.swap_ins += 1
         self.swapped_in_bytes += handle.nbytes
-        self.dirty = True
         return pages
 
     def device_tables(self, device) -> torch.Tensor:
@@ -345,7 +623,10 @@ class PagedCacheManager:
 
     def prefill_page_idx(self, slot: int, n_blocks: int) -> np.ndarray:
         """(n_blocks,) page indices for a slot's first blocks, trash-padded
-        past what the slot owns (scatter targets for padded prefill)."""
+        past what the slot owns (scatter targets for padded prefill).
+        Scatter targets are writes, so every page must be private: a
+        shared-prefix admission scatters nothing (its suffix prefill
+        writes through the block tables), and a shared page here raises."""
         idx = np.full((n_blocks,), TRASH_PAGE, np.int32)
         m = min(n_blocks, len(self.owned[slot]))
         for j in range(m):
@@ -355,13 +636,25 @@ class PagedCacheManager:
 
     def stats(self) -> PagedStats:
         a = self.allocator
-        return PagedStats(used_pages=a.used, free_pages=a.free,
-                          peak_used_pages=a.peak_used, allocs=a.alloc_count,
-                          frees=a.free_count, retracts=self.retract_count,
-                          kv_dtype=self.kv_dtype, swap_outs=self.swap_outs,
-                          swap_ins=self.swap_ins,
-                          swapped_out_bytes=self.swapped_out_bytes,
-                          swapped_in_bytes=self.swapped_in_bytes)
+        logical = sum(len(o) for o in self.owned)
+        distinct = len({p for o in self.owned for p in o})
+        return PagedStats(
+            num_pages=a.num_pages, page_size=self.page_size,
+            used_pages=a.used, free_pages=a.free, peak_used_pages=a.peak_used,
+            peak_tokens=a.peak_used * self.page_size, utilization=a.utilization(),
+            peak_utilization=a.peak_used / a.usable, allocs=a.alloc_count,
+            frees=a.free_count, retracts=self.retract_count,
+            logical_pages=logical, physical_pages=distinct,
+            logical_tokens=logical * self.page_size,
+            physical_tokens=distinct * self.page_size,
+            peak_logical_pages=self.peak_logical_pages,
+            sharing_ratio=self.peak_sharing_ratio, shares=a.share_count,
+            cow_forks=self.cow_forks, evictions=self.evictions,
+            index_pages=len(self.index) if self.index is not None else 0,
+            cached_prefix_tokens=self.cached_tokens_total, kv_dtype=self.kv_dtype,
+            swap_outs=self.swap_outs, swap_ins=self.swap_ins,
+            swapped_out_bytes=self.swapped_out_bytes,
+            swapped_in_bytes=self.swapped_in_bytes)
 
 
 # ---------------------------------------------------------------------------
@@ -417,6 +710,19 @@ def scatter_prefill(pages: Dict[str, torch.Tensor],
     return pages
 
 
+def copy_pages(pages: Dict[str, torch.Tensor], src_idx: Sequence[int],
+               dst_idx: Sequence[int]) -> Dict[str, torch.Tensor]:
+    """Copy-on-write fork: copy physical pages ``src_idx`` into ``dst_idx``
+    across every layer of every pool leaf (a quantized pool's row scales
+    too), in place.  One page copy a fork, against recomputing the whole
+    prefix without sharing."""
+    for leaf in pages.values():
+        src = torch.as_tensor(list(src_idx), dtype=torch.long, device=leaf.device)
+        dst = torch.as_tensor(list(dst_idx), dtype=torch.long, device=leaf.device)
+        leaf.index_copy_(1, dst, leaf.index_select(1, src))
+    return pages
+
+
 def write_slots(cache: Dict[str, torch.Tensor], pcache: Dict[str, torch.Tensor],
                 slots: Sequence[int]) -> Dict[str, torch.Tensor]:
     """Copy a k-row prefilled dense cache (L, k, S, H, D) into positions
@@ -432,8 +738,10 @@ def write_slots(cache: Dict[str, torch.Tensor], pcache: Dict[str, torch.Tensor],
 def gather_slot(pages: Dict[str, torch.Tensor], table_row: torch.Tensor
                 ) -> Dict[str, torch.Tensor]:
     """Debug/test helper: one slot's dense (L, NB * ps, H, D) K/V view
-    through its block-table row; unmapped (trash) entries read as NaN.  A
-    quantized pool comes back dequantized (float32), poison included."""
+    through its block-table row; unmapped (trash) entries read as NaN.
+    Shared pages resolve like private ones: sharing lives in the tables
+    alone.  A quantized pool comes back dequantized (float32), poison
+    included."""
     idx = table_row.to(device=pages["k_pages"].device, dtype=torch.long)
     unmapped = idx == TRASH_PAGE
     out = {}

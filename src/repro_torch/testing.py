@@ -174,6 +174,39 @@ def verify_split_case(rng: np.random.Generator, t: int, hkv: int, g: int, d: int
     return q, kp, vp, bt, np.asarray(VERIFY_SPLIT_POS, np.int32)
 
 
+# long verify windows (T * G > 32, a suffix prefill's shape) on 16-token
+# pages: slot 0's window starts at pos 0, slot 1's mid-page after three
+# full pages, and with ``at_end`` slot 1's runs past the table's end
+# instead (its overflow rows land in the trash page in the engine)
+VERIFY_LONG_PAGE = 16
+
+
+def verify_long_case(rng: np.random.Generator, t: int, g: int, hkv: int = 2,
+                     d: int = 128, at_end: bool = False):
+    """Inputs for the long-window verify tests, as numpy: (q (2, Hkv, T*G,
+    D), k_pages, v_pages, block_tables, pos), the pages shuffled behind a
+    trash page 0 of garbage (1e6 keys, NaN values).  The table holds
+    ceil((3 * ps + 5 + T) / ps) + 1 pages a slot; rows past each window's
+    last position hold the same garbage, which a correct kernel never
+    reads."""
+    ps = VERIFY_LONG_PAGE
+    nb = -(-(3 * ps + 5 + t) // ps) + 1
+    pos = np.asarray([0, nb * ps - t // 2 if at_end else 3 * ps + 5], np.int32)
+    q = rng.standard_normal((2, hkv, t * g, d)).astype(np.float32)
+    kp = rng.standard_normal((2 * nb + 1, ps, hkv, d)).astype(np.float32)
+    vp = rng.standard_normal((2 * nb + 1, ps, hkv, d)).astype(np.float32)
+    bt = (rng.permutation(2 * nb) + 1).reshape(2, nb).astype(np.int32)
+    kp[0], vp[0] = 1e6, np.nan
+    for i, p in enumerate(pos):
+        last = int(p) + t - 1
+        if last < nb * ps - 1:
+            page, row = bt[i, last // ps], last % ps + 1
+            kp[page, row:], vp[page, row:] = 1e6, np.nan
+            for j in range(last // ps + 1, nb):
+                kp[bt[i, j]], vp[bt[i, j]] = 1e6, np.nan
+    return q, kp, vp, bt, pos
+
+
 def quantized_pool_from_numpy(kv: np.ndarray, *, device: DeviceLike = None) -> dict:
     """A float K/V pair ``kv`` (2, L, P, page_size, Hkv, D), as numpy,
     quantized into an int8 pool {"k_pages", "v_pages", "k_scales",

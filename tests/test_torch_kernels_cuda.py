@@ -71,6 +71,7 @@ from repro_torch.testing import (  # noqa: E402
     paged_decode_case,
     paged_verify_case,
     quantized_pool_from_numpy,
+    verify_long_case,
     verify_split_case,
 )
 
@@ -444,15 +445,21 @@ def test_cuda_paged_verify_matches_plain(t, g, d, dtype):
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_cuda_paged_verify_row_limit(dtype):
     """T*G = 32 rows (6 row blocks of the split kernel) is the largest the
-    kernel takes; above it the wrapper raises."""
+    split kernel takes; 33 rows go to the long-window branch, and both
+    agree with the plain version."""
     requires_cuda()
     args = _verify_args(4, 8, 128, dtype, hkv=1)
+    before = paged_flash_verify.launches
     got = paged_flash_verify(*args, t_window=4)
     torch.cuda.synchronize()
+    assert paged_flash_verify.launches == before + 1
     _close(got, paged_verify_attention_ref(*args, 4), dtype)
     args = _verify_args(3, 11, 64, dtype, hkv=1)
-    with pytest.raises(ValueError, match="<= 32"):
-        paged_flash_verify(*args, t_window=3)
+    before = paged_flash_verify.launches_long
+    got = paged_flash_verify(*args, t_window=3)
+    torch.cuda.synchronize()
+    assert paged_flash_verify.launches_long == before + 1
+    _close(got, paged_verify_attention_ref(*args, 3), dtype)
     with pytest.raises(ValueError, match="multiple of t_window"):
         paged_flash_verify(*args, t_window=2)
     scales = torch.ones(args[1].shape[:2], device="cuda")
@@ -696,6 +703,147 @@ def test_cuda_verify_repeats_bit_for_bit(int8):
     second = paged_flash_verify(*args, t_window=4, **sc)
     torch.cuda.synchronize()
     assert torch.equal(first, second)
+
+
+# ---------------------------------------------------------------------------
+# the long-window branch of paged_flash_verify (T * G > 32 rows a KV head)
+# ---------------------------------------------------------------------------
+
+def _verify_long_args(t, g, dtype, int8, at_end=False, d=128, seed=21):
+    """verify_long_case on the card: (q, k pages, v pages, tables, pos) and
+    int8 pages' scales as keywords (NaN scales on the trash page)."""
+    q, kp, vp, bt, pos = verify_long_case(np.random.default_rng(seed + t), t, g, d=d,
+                                          at_end=at_end)
+    head = [_cuda(q, dtype)]
+    tail = [torch.as_tensor(bt, device="cuda"), torch.as_tensor(pos, device="cuda")]
+    if int8:
+        kq, vq, ks, vs = _int8_pages(np.nan_to_num(kp), np.nan_to_num(vp))
+        ks[0], vs[0] = float("nan"), float("nan")
+        return head + [kq, vq] + tail, dict(k_scales=ks, v_scales=vs)
+    return head + [_cuda(kp, dtype), _cuda(vp, dtype)] + tail, {}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pages", ["bf16", "f32", "int8-bf16q", "int8-f32q"])
+@pytest.mark.parametrize("at_end", [False, True], ids=["pos0-midpage", "past-table"])
+@pytest.mark.parametrize("t,g", [(3, 11), (16, 6), (256, 6), (512, 6)],
+                         ids=["tg33", "tg96", "tg1536", "tg3072"])
+def test_cuda_verify_long_matches_plain(t, g, at_end, pages):
+    """T*G = 33, 96, 1536 and 3072 rows a KV head: slot 0's window from pos
+    0, slot 1's from mid-page (or, past-table, running past the table's
+    end), garbage in the trash page and past each window; against the
+    plain version, one long-branch launch a call and nothing else."""
+    requires_cuda()
+    from repro_torch import kernels
+
+    dtype = torch.float32 if "f32" in pages else torch.bfloat16
+    int8 = pages.startswith("int8")
+    args, sc = _verify_long_args(t, g, dtype, int8, at_end)
+    before = kernels.launch_counts()
+    got = paged_flash_verify(*args, t_window=t, **sc)
+    torch.cuda.synchronize()
+    after = kernels.launch_counts()
+    counter = "paged_flash_verify[long,int8]" if int8 else "paged_flash_verify[long]"
+    assert {n: after[n] - before[n] for n in after if after[n] != before[n]} == {counter: 1}
+    assert got.dtype == dtype and got.shape == args[0].shape and torch.isfinite(got).all()
+    _close(got, paged_verify_attention_ref(*args, t, **sc), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_cuda_verify_long_head_dim_64(dtype):
+    """D = 64 (the reduced configs' head), a 96-row window."""
+    requires_cuda()
+    args, _ = _verify_long_args(16, 6, dtype, False, d=64)
+    got = paged_flash_verify(*args, t_window=16)
+    torch.cuda.synchronize()
+    _close(got, paged_verify_attention_ref(*args, 16), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+def test_cuda_verify_long_repeats_bit_for_bit(int8):
+    """No atomics and no split: two launches give the same bits."""
+    requires_cuda()
+    args, sc = _verify_long_args(256, 6, torch.bfloat16, int8)
+    first = paged_flash_verify(*args, t_window=256, **sc)
+    second = paged_flash_verify(*args, t_window=256, **sc)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+def test_cuda_verify_short_window_dispatch_unchanged(int8):
+    """T*G <= 32 (the smoke's spec_k 4 window at G = 6) still runs the
+    split kernel: the wrapper's output equals, bit for bit, a direct call
+    of the split kernel's entry point on the wrapper's split count, and
+    no long-branch counter moves."""
+    requires_cuda()
+    from repro_torch.kernels.decode_attention.ops import _work
+    from repro_torch.kernels.verify_attention import ops as vops
+
+    args, sc = _verify_split_args(4, 6, 128, int8)
+    q, kp, vp, bt, pos = args
+    longs = (paged_flash_verify.launches_long, paged_flash_verify.launches_long_int8)
+    got = paged_flash_verify(*args, t_window=4, **sc)
+    b, hkv, rows, d = q.shape
+    splits = verify_splits(b, hkv, rows, 4, bt.shape[1] * kp.shape[1])
+    work, o = _work(q, splits), torch.empty_like(q)
+    bt32, pos32 = bt.to(torch.int32), pos.to(torch.int32)
+    shape = (b, bt.shape[1], kp.shape[1], hkv, rows, 4, d, d ** -0.5, vops._DTYPES[q.dtype],
+             work.data_ptr(), splits)
+    if int8:
+        ks, vs = sc["k_scales"], sc["v_scales"]
+        build.launch("repro_paged_flash_verify_int8", vops._INT8_ARGS, q.device,
+                     q.data_ptr(), kp.data_ptr(), vp.data_ptr(), ks.data_ptr(),
+                     vs.data_ptr(), bt32.data_ptr(), pos32.data_ptr(), o.data_ptr(),
+                     *kp.stride()[:3], *vp.stride()[:3], *ks.stride(), *vs.stride(),
+                     bt32.stride(0), *shape)
+    else:
+        build.launch("repro_paged_flash_verify", vops._ARGS, q.device, q.data_ptr(),
+                     kp.data_ptr(), vp.data_ptr(), bt32.data_ptr(), pos32.data_ptr(),
+                     o.data_ptr(), *kp.stride()[:3], *vp.stride()[:3], bt32.stride(0), *shape)
+    torch.cuda.synchronize()
+    assert torch.equal(got, o)
+    assert (paged_flash_verify.launches_long, paged_flash_verify.launches_long_int8) == longs
+
+
+@pytest.mark.cuda
+def test_cuda_prefix_sharing_serve_matches_cpu_plain_path():
+    """Prefix-sharing serving on the card (reduced qwen2 in fp32, G = 4:
+    each suffix prefill is a 16-token bucket, 64 rows a KV head, through
+    the long branch's f32 kernel) gives the greedy tokens of the same
+    engine on the CPU, and of unshared serving on the card."""
+    requires_cuda()
+    from repro_torch import kernels
+    from repro_torch.configs import reduced_config
+    from repro_torch.models.lm import Model
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    cfg = reduced_config("qwen2-1.5b")
+    cpu = Model(cfg, device="cpu", dtype=torch.float32)
+    params = cpu.init(torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(4)
+    prefix = rng.integers(0, cfg.vocab, 16).tolist()
+    spec = [(i, prefix + rng.integers(0, cfg.vocab, int(rng.integers(1, 20))).tolist(),
+             int(rng.integers(2, 9))) for i in range(5)] + [(5, list(prefix), 4)]
+    kw = dict(max_seq=64, batch_slots=3, cache_layout="paged", page_size=8, num_pages=12)
+
+    def serve(model, p, **extra):
+        eng = ServeEngine(model, p, **kw, **extra)
+        return eng.serve([Request(u, list(t), n) for u, t, n in spec]), eng
+
+    want, _ = serve(cpu, params, prefix_sharing=True)
+    gpu = Model(cfg, dtype=torch.float32)
+    unshared, _ = serve(gpu, _to_cuda(params))
+    kernels.reset_launches()
+    got, eng = serve(gpu, _to_cuda(params), prefix_sharing=True)
+    counts = kernels.launch_counts()
+    assert got == want == unshared
+    assert counts["paged_flash_verify[long]"] > 0
+    p = eng.last_pool_stats
+    assert p.cow_forks >= 1 and p.cached_prefix_tokens > 0 and p.sharing_ratio > 1
 
 
 @pytest.mark.cuda
@@ -1282,7 +1430,8 @@ def test_port_imports_neither_jax_nor_repro():
                  "data.pipeline", "launch.train", "models.moe",
                  "kernels.moe_gating.ops", "kernels.moe_gating.ref",
                  "configs.olmoe_1b_7b", "configs.granite_moe_1b_a400m",
-                 "serve.calibrate", "serve.kv_cache"):
+                 "serve.calibrate", "serve.kv_cache", "serve.prefix_index",
+                 "serve.engine"):
         assert f"repro_torch.{name}" in mods, name
 
 
