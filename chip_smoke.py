@@ -26,10 +26,12 @@ its paths:
    float kernel on the dequantized pages (bf16 and f32 q), and the
    long-window branch of paged_flash_verify (T*G > 32 rows a KV head, a
    shared prefix's suffix prefill) at B 1, Hkv 2, G 6, D 128 behind a
-   cached 256-token prefix, T 16 and 256, on bf16 pages (the tensor-core
-   kernel, ``paged_flash_verify[long]``), f32 and int8 pages (the CUDA-core
-   kernel), beside SDPA on the dense view under the window's mask, for
-   scale.  rmsnorm is timed
+   cached 256-token prefix, T 16 and 256, on bf16 pages and int8 pages
+   under bf16 q (the tensor-core kernel, ``paged_flash_verify[long]`` and
+   ``[long,int8]``) and f32 pages (the CUDA-core kernel), each with the key
+   axis split across blocks and its split count and its split and combine
+   kernels' profiled ms printed, beside SDPA on the dense view under the
+   window's mask, for scale.  rmsnorm is timed
    at prefill's 4 x 512 rows and training's 8192 rows under an fp32 weight
    (beside ``F.rms_norm``); matmul in f32 (3xTF32 on the tensor cores;
    its bound is the smaller of the f32 CUDA cores' and three TF32
@@ -46,8 +48,10 @@ its paths:
    -sass`` of ``matmul.cu``, ``rmsnorm.cu``, ``decode_attention.cu``,
    ``verify_attention.cu`` and ``warp_ops.cu`` run beside this phase
    (``ptxas ...`` lines, keyed by source: registers, spills, shared
-   memory, HMMA count); it fails unless every matmul kernel has HMMA
-   instructions and both decode kernels were reported.
+   memory, HMMA count); it fails unless every matmul kernel and every
+   instance of verify's long-window tensor-core kernel (bf16 and int8
+   pages, D 64 and 128) has HMMA instructions and both decode kernels were
+   reported.
 2. The paper's layer: Figure 5 (``repro_torch.bench.fig5_microbench``) at
    the reference's size, HW through the warp-intrinsic kernels against SW
    through the PR-transformation lane loops; it fails if they disagree or
@@ -114,7 +118,8 @@ its paths:
    the same tokens (bf16 agreement is reported).  It prints TTFT of the
    warm admissions, tok/s and preemptions with and without sharing, peak
    physical against logical pages, and one warm against one cold
-   admission's prefill device time (torch.profiler).
+   admission's prefill device time (torch.profiler), with the warm
+   prefill's long-branch device ms beside the unsplit design's.
 5. Training (``train ...`` lines): full-width, full-depth qwen2-1.5b with
    fp32 master weights and AdamW state, bf16 compute, remat per layer and
    the 8-chunk loss, at the reference's train_4k length (S 4096; batch 2,
@@ -297,6 +302,13 @@ LONG_T = (16, 256)
 # the long branch's f32 (CUDA-core) kernel vs its plain version: the same
 # f32 products summed in another order over <= 512 keys, |o| <= max |v| ~ 4
 LONG_F32_TOL = dict(atol=1e-5, rtol=1e-5)
+# the long branch's kernels as the profiler names them: its split kernel
+# (verify_long_tc_kernel / verify_long_core_kernel) and split.cuh's combine
+LONG_KERNELS = ("verify_long", "decode_combine_kernel")
+# a warm suffix prefill's long-branch device ms (28 calls) in this smoke
+# before the key axis was split (one kernel a call; one H100 80GB HBM3 at
+# 700 W), printed beside the current reading
+LONG_UNSPLIT_WARM_MS = 1.005
 
 
 def fail(msg: str):
@@ -1444,10 +1456,16 @@ def check_verify_long(cfg, rows: dict, gen: torch.Generator) -> dict:
     CUDA-core kernel; int8 under bf16 q), each timed with the calls queued
     beside its bound and, for scale, SDPA on the dense view of the same
     keys under the window's mask.  The T 256 cases are the kernel rows;
-    the T 16 ones are printed."""
+    the T 16 ones are printed.  Each case also prints the key axis's split
+    count (``verify_long_splits``) and its split and combine kernels'
+    device ms a call (torch.profiler)."""
     import torch.nn.functional as F
 
-    from repro_torch.kernels.verify_attention.ops import paged_flash_verify
+    from repro_torch.kernels.verify_attention.ops import (
+        long_rows_per_block,
+        paged_flash_verify,
+        verify_long_splits,
+    )
     from repro_torch.kernels.verify_attention.ref import paged_verify_attention_ref
     from repro_torch.serve.kv_cache import quantize_kv_rows
 
@@ -1488,6 +1506,13 @@ def check_verify_long(cfg, rows: dict, gen: torch.Generator) -> dict:
                 qs, kd, vd, attn_mask=mask, enable_gqa=True))
             name = {"bf16": "paged_flash_verify[long]", "f32": "paged_flash_verify[long] (f32)",
                     "int8": "paged_flash_verify[long,int8]"}[label]
+            splits = verify_long_splits(1, hkv, t * g, bt.shape[1] * PAGE_SIZE,
+                                        long_rows_per_block(qx.dtype))
+            parts = kernel_parts_ms(lambda: paged_flash_verify(qx, kp, vp, bt, pos, t_window=t,
+                                                               **sc), LONG_KERNELS)
+            print(f"kernel {name} T={t}: splits {splits}, split kernel "
+                  f"{parts[LONG_KERNELS[0]]:.4f} ms, combine {parts[LONG_KERNELS[1]]:.4f} ms "
+                  f"(device, profiled)", flush=True)
             if t == max(LONG_T):
                 record_kernel(rows, name, source, replaces, got, want, tol, t_kernel, t_plain,
                               n_bytes, flops, peak, None)
@@ -1504,7 +1529,9 @@ def check_verify_long(cfg, rows: dict, gen: torch.Generator) -> dict:
                   f"view under the window's mask, for scale: {t_sdpa:.4f} ms, factor "
                   f"{t_kernel / t_sdpa:.2f}", flush=True)
             out[f"{label} T={t}"] = dict(ms=t_kernel, plain_ms=t_plain, sdpa_ms=t_sdpa,
-                                         max_abs_err=max_err(got, want))
+                                         max_abs_err=max_err(got, want), splits=splits,
+                                         split_ms=parts[LONG_KERNELS[0]],
+                                         combine_ms=parts[LONG_KERNELS[1]])
     return out
 
 
@@ -1645,9 +1672,15 @@ def run_shared(cfg, model, params, num_pages: int, seed: int):
             f"prefill_cold (uid {uid}: {len(prompt)} tokens)",
             lambda: model.prefill(params, torch.tensor([prompt], device="cuda"),
                                   len(prompt)), 3)}
-    print(f"shared prefill device ms: warm {profiles['prefill_warm_suffix']['device_ms']:.3f} "
+    warm_p = profiles["prefill_warm_suffix"]
+    # a prefill runs no decode step: every combine in it is the long branch's
+    long_ms = warm_p["verify_long_ms"] + warm_p["decode_kernels"]["decode_combine_kernel"]
+    print(f"shared prefill device ms: warm {warm_p['device_ms']:.3f} "
           f"against cold {profiles['prefill_cold']['device_ms']:.3f} "
-          f"({len(suffix) / len(prompt):.3f} of the prompt uncached)", flush=True)
+          f"({len(suffix) / len(prompt):.3f} of the prompt uncached); the warm prefill's "
+          f"long branch {long_ms:.3f} ms (split kernel {warm_p['verify_long_ms']:.3f}, "
+          f"combine {warm_p['decode_kernels']['decode_combine_kernel']:.3f}; unsplit "
+          f"design: {LONG_UNSPLIT_WARM_MS})", flush=True)
     del cache
 
     # the fp32 control: sharing is invisible below the block tables
@@ -1734,6 +1767,21 @@ def where_time_goes(model, params, gen):
     return phases
 
 
+def kernel_parts_ms(fn, names, n: int = 20) -> dict:
+    """Device ms a call of ``fn`` of the kernels whose names hold each of
+    ``names`` (torch.profiler over ``n`` calls after a warm-up call)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    return {k: sum(_kernel_us(e) for e in events if k in e.key) / 1e3 / n for k in names}
+
+
 def profile_phase(name, fn, n: int) -> dict:
     """Host wall time of ``n`` calls of ``fn`` after one warm-up call,
     ended by a synchronize, then the summed device kernel time of ``n``
@@ -1758,7 +1806,9 @@ def profile_phase(name, fn, n: int) -> dict:
     decode = {k: sum(_kernel_us(e) for e in events if k in e.key) / 1e3 / n
               for k in DECODE_KERNELS}
     gating = sum(_kernel_us(e) for e in events if GATING_KERNEL in e.key) / 1e3 / n
+    long_ms = sum(_kernel_us(e) for e in events if LONG_KERNELS[0] in e.key) / 1e3 / n
     rec = dict(wall_ms=wall_ms, device_ms=dev_ms, decode_kernels=decode, gating_ms=gating,
+               verify_long_ms=long_ms,
                top=[(e.key[:70], _kernel_us(e) / 1e3 / n) for e in top if _kernel_us(e) > 0])
     busy = f"{dev_ms / wall_ms:.3f}" if dev_ms > 0 else "not measured"
     print(f"time {name}: wall {wall_ms:.3f} ms, device kernels {dev_ms:.3f} ms, "
@@ -2431,8 +2481,9 @@ def print_ptxas(report: dict, build) -> dict:
     matmul and split kernels' dynamic bytes from the library) and the
     HMMA count of each kernel of matmul.cu, rmsnorm.cu,
     decode_attention.cu, verify_attention.cu and warp_ops.cu; fail unless
-    every matmul kernel and verify's long-window bf16 kernel run on the
-    tensor cores and ptxas reported both decode kernels."""
+    every matmul kernel and verify's long-window tensor-core kernel (bf16
+    and int8 pages, D 64 and 128) run on the tensor cores and ptxas
+    reported both decode kernels."""
     smem = build.LIB.fn("repro_matmul_smem_bytes", [build.I])
     decode_smem = build.LIB.fn("repro_decode_smem_bytes", [build.I] * 3)
     for name, r in sorted(report.items()):
@@ -2450,8 +2501,10 @@ def print_ptxas(report: dict, build) -> dict:
         fail(f"the matmul kernels do not all run on the tensor cores: "
              f"{ {n: report[n].get('hmma', 0) for n in mm} }")
     long_tc = [n for n in report if "verify_long_tc_kernel" in n]
-    if len(long_tc) != 2 or any(not report[n].get("hmma") for n in long_tc):
-        fail(f"verify's long-window bf16 kernels do not both run on the tensor cores: "
+    if (len(long_tc) != 4 or sum("char" in n for n in long_tc) != 2
+            or any(not report[n].get("hmma") for n in long_tc)):
+        fail(f"verify's long-window tensor-core kernels (bf16 and int8 pages, D 64 and 128) "
+             f"do not all run on the tensor cores: "
              f"{ {n: report[n].get('hmma', 0) for n in long_tc} }")
     for k in DECODE_KERNELS:
         if not any(k in n for n in report):

@@ -20,6 +20,17 @@ For the package tree whose ``src/`` is SRC, one JSON line:
   beside paged decode on the same inputs, with ``verify_t1_bits``: the two
   outputs equal bit for bit); where SRC has ``verify_splits``, the T = 4
   cases also on paged decode's split count (``..._decode_splits``);
+- ``verify_long``: ``paged_flash_verify``'s long-window branch at the
+  smoke's suffix prefill (B 1, qwen2's Hkv 2 and G 6, D 128, pos 256
+  behind a cached prefix, shuffled 16-token pages of a 576-key table), T
+  16, 64, 256 and 512, over bf16 pages, int8 pages under bf16 q and f32
+  pages, queued, through the public wrapper (so it runs on a tree without
+  the split too); each case's kernels timed apart by ``torch.profiler``
+  (``_split_ms``: the kernel whose name holds ``verify_long``;
+  ``_combine_ms``: ``decode_combine_kernel``); where SRC has
+  ``verify_long_splits``, its count (``_splits``) and a sweep of forced
+  counts (``_s{n}_device``), overriding the rule as ``verify`` overrides
+  ``verify_splits``;
 - ``shfl``: Fig. 5's butterfly (bfly 16) on a (2^20, 32) f32 block, beside
   ``torch.gather`` of the same permutation;
 - ``gating``: ``moe_gating`` on bf16 router logits, top-8, at OLMoE's
@@ -88,7 +99,12 @@ SHFL_SHAPE = (2 ** 20, 32)
 # moe_gating: (tokens, experts) of bf16 router logits at top_k GATING_TOP_K
 GATING_SHAPES = {"4x64": (4, 64), "512x64": (512, 64), "512x32": (512, 32)}
 GATING_TOP_K = 8
-GROUPS = ("matmul", "rmsnorm", "decode", "verify", "shfl", "gating", "step", "moe_step")
+# verify's long-window branch: the smoke's suffix prefill behind a cached
+# LONG_POS-token prefix, the windows timed, the forced split counts swept
+LONG_POS, LONG_T = 256, (16, 64, 256, 512)
+LONG_SWEEP = (1, 2, 3, 4, 6, 8, 9, 12, 18)
+GROUPS = ("matmul", "rmsnorm", "decode", "verify", "verify_long", "shfl", "gating", "step",
+          "moe_step")
 # the verify attention's kernels, as the profiler names them in either tree
 VERIFY_KERNELS = ("verify_kernel", "decode_split_kernel", "decode_combine_kernel")
 # the spin that queues timed calls: long enough for the host to launch a
@@ -214,6 +230,54 @@ def time_verify(iters: int, gen: torch.Generator) -> dict:
     return out
 
 
+def time_verify_long(iters: int, gen: torch.Generator) -> dict:
+    """ms of the long-window branch (queued, ``_device``) at the smoke's
+    suffix prefill, T in LONG_T, bf16 / int8-under-bf16-q / f32 pages;
+    its split and combine kernels' profiled ms; where the tree has
+    ``verify_long_splits``, the rule's count and LONG_SWEEP's forced
+    counts up to the table's tiles."""
+    from repro_torch.kernels.verify_attention import ops as verify_ops
+    from repro_torch.serve.kv_cache import quantize_kv_rows
+
+    paged_flash_verify = verify_ops.paged_flash_verify
+    hkv, g = DECODE_SHAPES["g6"]
+    d, nb = 128, DECODE_MAX_SEQ // DECODE_PAGE
+    pos = torch.tensor([LONG_POS], dtype=torch.int32, device="cuda")
+    kp, vp = (torch.randn(nb + 1, DECODE_PAGE, hkv, d, generator=gen, device="cuda")
+              for _ in "kv")
+    bt = (torch.randperm(nb, generator=gen, device="cuda") + 1).to(torch.int32)[None]
+    (kq, ks), (vq, vs) = quantize_kv_rows(kp), quantize_kv_rows(vp)
+    pages = {"bf16": (torch.bfloat16, kp.to(torch.bfloat16), vp.to(torch.bfloat16), {}),
+             "int8": (torch.bfloat16, kq, vq, dict(k_scales=ks, v_scales=vs)),
+             "f32": (torch.float32, kp, vp, {})}
+    rule = getattr(verify_ops, "verify_long_splits", None)
+    out = {}
+    for t in LONG_T:
+        q = torch.randn(1, hkv, t * g, d, generator=gen, device="cuda")
+        for kind, (dtype, k, v, sc) in pages.items():
+            qx = q.to(dtype)
+
+            def call():
+                return paged_flash_verify(qx, k, v, bt, pos, t_window=t, **sc)
+
+            key = f"verify_long_{kind}_T{t}"
+            out[f"{key}_device"] = cuda_ms(call, iters * 5, queued=True)
+            _, ms = profiled_ms(call, iters, ("verify_long", "decode_combine_kernel"))
+            out[f"{key}_split_ms"] = ms["verify_long"]
+            out[f"{key}_combine_ms"] = ms["decode_combine_kernel"]
+            if rule is None:
+                continue
+            out[f"{key}_splits"] = rule(1, hkv, t * g, nb * DECODE_PAGE,
+                                        verify_ops.long_rows_per_block(dtype))
+            try:
+                for n in (n for n in LONG_SWEEP if n <= nb * DECODE_PAGE // 32):
+                    verify_ops.verify_long_splits = lambda *a, n=n: n
+                    out[f"{key}_s{n}_device"] = cuda_ms(call, iters * 5, queued=True)
+            finally:
+                verify_ops.verify_long_splits = rule
+    return out
+
+
 def time_shfl(iters: int, gen: torch.Generator) -> dict:
     """ms of the shfl butterfly and of ``torch.gather`` of the same lanes,
     each also queued (``_device``), and whether the two agree bit for
@@ -268,10 +332,10 @@ def time_gating(iters: int, gen: torch.Generator) -> dict:
     return out
 
 
-def step_kernel_ms(step, iters: int, names) -> tuple:
+def profiled_ms(step, iters: int, names) -> tuple:
     """Device kernel ms of ``step`` (mean of ``iters`` profiled calls after
-    one warm-up) and, of that, the ms of every kernel whose name holds one
-    of ``names``."""
+    one warm-up) and, for each of ``names``, the ms of the kernels whose
+    names hold it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -286,7 +350,14 @@ def step_kernel_ms(step, iters: int, names) -> tuple:
     def ms(evts):
         return sum(getattr(e, "self_device_time_total", 0) for e in evts) / 1e3 / iters
 
-    return ms(kernels), ms([e for e in kernels if any(k in e.key for k in names)])
+    return ms(kernels), {k: ms([e for e in kernels if k in e.key]) for k in names}
+
+
+def step_kernel_ms(step, iters: int, names) -> tuple:
+    """Device kernel ms of ``step`` and, of that, the ms of every kernel
+    whose name holds one of ``names`` (names no kernel shares)."""
+    total, by_name = profiled_ms(step, iters, names)
+    return total, sum(by_name.values())
 
 
 def time_verify_step(iters: int, gen: torch.Generator) -> dict:
@@ -357,7 +428,8 @@ def time_kernels(iters: int, only=GROUPS) -> dict:
         out[f"rmsnorm_{name}"] = cuda_ms(lambda: rmsnorm(x, w, 1e-6), iters * 5)
         out[f"rmsnorm_{name}_device"] = cuda_ms(lambda: rmsnorm(x, w, 1e-6), iters * 5,
                                                 queued=True)
-    for group, fn in (("decode", time_decode), ("verify", time_verify), ("shfl", time_shfl),
+    for group, fn in (("decode", time_decode), ("verify", time_verify),
+                      ("verify_long", time_verify_long), ("shfl", time_shfl),
                       ("gating", time_gating), ("step", time_verify_step),
                       ("moe_step", time_moe_step)):
         if group in only:

@@ -466,6 +466,26 @@ struct Args {
   float scale;
 };
 
+// the combine pass over a.part's partials into a.o, as a programmatic
+// dependent launch: it starts while the split grid drains and waits for
+// it (griddepcontrol.wait).  Verify's long-window branch calls it too.
+template <typename T, int D, bool kWindow>
+cudaError_t launch_combine(const Args& a, cudaStream_t stream) {
+  const long long n_rows = static_cast<long long>(a.b) * a.hkv * a.splits * a.rows;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(a.b * a.hkv * a.rows);
+  cfg.blockDim = dim3(D);
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, decode_combine_kernel<T, D, kWindow>,
+                            static_cast<const float*>(a.part), a.pos, static_cast<T*>(a.o),
+                            a.n_keys_max, a.hkv, a.rows, a.group, a.splits, n_rows);
+}
+
 template <typename T, typename TC, int D, int GR, bool kPaged, bool kWindow>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
   constexpr size_t bytes = Smem<TC, D, GR>::BYTES;
@@ -482,21 +502,7 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
       a.rows, a.group, a.scale);
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  // the combine pass as a programmatic dependent launch: it starts while
-  // the split grid drains and waits for it (griddepcontrol.wait)
-  const long long n_rows = static_cast<long long>(a.b) * a.hkv * a.splits * a.rows;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(a.b * a.hkv * a.rows);
-  cfg.blockDim = dim3(D);
-  cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
-  attr[0].val.programmaticStreamSerializationAllowed = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  return cudaLaunchKernelEx(&cfg, decode_combine_kernel<T, D, kWindow>,
-                            static_cast<const float*>(a.part), a.pos, static_cast<T*>(a.o),
-                            a.n_keys_max, a.hkv, a.rows, a.group, a.splits, n_rows);
+  return launch_combine<T, D, kWindow>(a, stream);
 }
 
 // the register block for a head's rows: 1, 4 or 6 (ops.row_blocks)

@@ -9,11 +9,13 @@ windows) launches decode's split kernel over the window's rows and its
 combine pass (``decode_attention/split.cuh``), and counts as one launch;
 the split count comes from the shapes alone (:func:`verify_splits`).  A
 longer window (a shared prefix's suffix prefill: 16-token buckets at G =
-6 are 96 rows and up) launches the long-window branch, one kernel a call:
-tensor-core tiles for bf16 pages, CUDA cores for f32 and int8 pages
-(``verify_attention.cu``), counted apart in
-``paged_flash_verify.launches_long`` and ``.launches_long_int8``.  There
-is no fallback between the branches: a failed build or launch raises."""
+6 are 96 rows and up) launches the long-window branch: tensor-core tiles
+under bf16 q (bf16 and int8 pages), CUDA cores under f32 q
+(``verify_attention.cu``), the key axis split across blocks
+(:func:`verify_long_splits`) and the partials reduced by decode's combine
+pass, counted apart in ``paged_flash_verify.launches_long`` and
+``.launches_long_int8``, one a call.  There is no fallback between the
+branches: a failed build or launch raises."""
 
 from __future__ import annotations
 
@@ -24,6 +26,8 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.decode_attention.ops import (
     _TAIL,
+    SPLIT_BLOCKS,
+    TILE_KEYS,
     _check,
     _check_rows,
     _work,
@@ -39,10 +43,13 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_ROWS = 32   # T * G query rows a KV head the split kernel takes
 _ARGS = [build.P] * 6 + [build.I64] * 7 + [build.I] * 7 + _TAIL
 _INT8_ARGS = [build.P] * 8 + [build.I64] * 11 + [build.I] * 7 + _TAIL
-# the long-window branch: ... d, scale, dtype, stream (no scratch)
-_LONG_TAIL = [build.I, build.F, build.I, build.P]
-_LONG_ARGS = [build.P] * 6 + [build.I64] * 7 + [build.I] * 6 + _LONG_TAIL
-_LONG_INT8_ARGS = [build.P] * 8 + [build.I64] * 11 + [build.I] * 6 + _LONG_TAIL
+# the long-window branch's kernels: query rows a block, keys a tile, and
+# the grid's target in blocks (those an SM holds at once x 132 SMs): the
+# tensor-core tile (bf16 q; 87 KB of shared memory, two an SM) and the
+# CUDA-core kernel (f32 q; 41 KB and 95 registers a thread, five an SM)
+LONG_TC_ROWS, LONG_CORE_ROWS = 64, 16
+_LONG_KERNELS = {LONG_TC_ROWS: (SPLIT_BLOCKS, 64), LONG_CORE_ROWS: (5 * 132, TILE_KEYS)}
+MAX_SPLITS = 264   # split.cuh's kMaxSplits
 
 
 def row_blocks(rows: int) -> int:
@@ -64,6 +71,29 @@ def verify_splits(b: int, hkv: int, rows: int, t_window: int, n_keys_max: int) -
     if t_window == 1:
         return decode_splits(b, hkv, n_keys_max)
     return decode_splits(b * row_blocks(rows), hkv, n_keys_max)
+
+
+def long_rows_per_block(dtype: torch.dtype) -> int:
+    """Query rows a block of the long-window branch takes: the tensor-core
+    tile's 64 under bf16 q, the CUDA-core kernel's 16 under f32 q."""
+    return LONG_TC_ROWS if dtype == torch.bfloat16 else LONG_CORE_ROWS
+
+
+def verify_long_splits(b: int, hkv: int, rows: int, n_keys_max: int,
+                       rows_per_block: int) -> int:
+    """Splits of the key axis for the long-window branch, the counterpart
+    of :func:`verify_splits`: the B * Hkv * ceil(rows / rows_per_block)
+    row blocks count toward the kernel's grid target (two tensor-core
+    blocks an SM, five CUDA-core ones), capped at one of its key tiles a
+    split of ``n_keys_max`` (64 keys, 32) and at MAX_SPLITS; 1 where the
+    row blocks alone fill the target.  The rule comes from a sweep of
+    forced counts on an H100 (``bench/kernel_ab.py``'s ``verify_long``
+    group, in PERF.md): at the smoke's suffix prefill (B 1, Hkv 2, G 6,
+    576 keys) it gives the tensor-core tile 9, 9, 6 and 3 splits at T 16,
+    64, 256 and 512, and the CUDA-core kernel 18, 14, 4 and 2."""
+    target, tile_keys = _LONG_KERNELS[rows_per_block]
+    want = -(-target // (b * hkv * -(-rows // rows_per_block)))
+    return max(1, min(want, -(-n_keys_max // tile_keys), MAX_SPLITS))
 
 
 def paged_flash_verify(q: torch.Tensor, k_pages: torch.Tensor,
@@ -120,16 +150,20 @@ def paged_flash_verify(q: torch.Tensor, k_pages: torch.Tensor,
 
 
 def _verify_long(q, k_pages, v_pages, bt, pos, t_window, k_scales, v_scales):
-    """The long-window branch (T * G > MAX_ROWS), one kernel a call; the
+    """The long-window branch (T * G > MAX_ROWS): the split kernel and, at
+    more than one split, the combine pass, one launch counted a call; the
     operands are checked by :func:`paged_flash_verify`."""
     b, hkv, rows, d = q.shape
     if q.data_ptr() % 16:          # the tensor-core tile copies 16-byte rows
         q = q.clone()
     o = torch.empty_like(q)
+    splits = verify_long_splits(b, hkv, rows, bt.shape[1] * k_pages.shape[1],
+                                long_rows_per_block(q.dtype))
+    work = _work(q, splits) if splits > 1 else None   # one split: no partials
     shape = (b, bt.shape[1], k_pages.shape[1], hkv, rows, t_window, d, d ** -0.5,
-             _DTYPES[q.dtype])
+             _DTYPES[q.dtype], None if work is None else work.data_ptr(), splits)
     if k_scales is not None:
-        build.launch("repro_paged_flash_verify_long_int8", _LONG_INT8_ARGS, q.device,
+        build.launch("repro_paged_flash_verify_long_int8", _INT8_ARGS, q.device,
                      q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
                      k_scales.data_ptr(), v_scales.data_ptr(), bt.data_ptr(),
                      pos.data_ptr(), o.data_ptr(), *k_pages.stride()[:3],
@@ -137,7 +171,7 @@ def _verify_long(q, k_pages, v_pages, bt, pos, t_window, k_scales, v_scales):
                      bt.stride(0), *shape)
         paged_flash_verify.launches_long_int8 += 1
         return o
-    build.launch("repro_paged_flash_verify_long", _LONG_ARGS, q.device,
+    build.launch("repro_paged_flash_verify_long", _ARGS, q.device,
                  q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), bt.data_ptr(),
                  pos.data_ptr(), o.data_ptr(), *k_pages.stride()[:3],
                  *v_pages.stride()[:3], bt.stride(0), *shape)

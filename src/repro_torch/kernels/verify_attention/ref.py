@@ -110,3 +110,41 @@ def paged_flash_verify_split_emulated(q: torch.Tensor, k_pages: torch.Tensor,
         l_sum = l_sum + f * l
         acc = acc + f * a
     return (acc / torch.where(l_sum == 0.0, 1.0, l_sum)).to(q.dtype)
+
+
+def paged_verify_attention_scale_fold_emulated(q: torch.Tensor, k_pages: torch.Tensor,
+                                               v_pages: torch.Tensor,
+                                               block_tables: torch.Tensor, pos: torch.Tensor,
+                                               t_window: int, *, k_scales: torch.Tensor,
+                                               v_scales: torch.Tensor) -> torch.Tensor:
+    """For the tests only; no path calls it.  A plain emulation of the
+    long-window branch's int8 arithmetic under bf16 q (the tensor-core
+    tile in ``verify_attention.cu``): the int8 rows enter the products as
+    integers and their row scales fold in after, the K scale into the
+    score column, s_j = scale * (q . k8_j) * ks_j, and the V scale into P,
+    o = sum_j (p_j * vs_j) v8_j / sum_j p_j, the row sum taking p_j
+    unscaled.  :func:`paged_verify_attention_ref`, the kernel's oracle,
+    dequantizes first ((k8 * ks) . q), as the Pallas kernel does.  Same
+    masks and shapes as that function; int8 pages with (P, page_size)
+    f32 scales."""
+    b, hkv, tg, d = q.shape
+    group = _group(tg, t_window)
+    k8 = gather_pages(k_pages, block_tables).float()
+    v8 = gather_pages(v_pages, block_tables).float()
+    s_len = k8.shape[1]
+    flat = block_tables.reshape(-1).to(device=k_scales.device, dtype=torch.long)
+    ks, vs = (x.index_select(0, flat).reshape(b, s_len) for x in (k_scales, v_scales))
+    pos = pos.to(device=q.device, dtype=torch.long)
+    ki = torch.arange(s_len, device=q.device)
+    limit = pos[:, None] + torch.arange(tg, device=q.device)[None, :] // group
+    live = (ki[None, None, :] <= limit[:, :, None])[:, None]       # (B, 1, TG, S)
+    in_window = ki[None, :] <= (pos + t_window - 1)[:, None]       # (B, S)
+    ks, vs = (torch.where(in_window, x, 0.0) for x in (ks, vs))
+    s = torch.einsum("bhrd,bkhd->bhrk", q.float(), k8) * ks[:, None, None, :] * (d ** -0.5)
+    s = torch.where(live, s, MASK_VALUE)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.where(live, torch.exp(s - m), 0.0)
+    l = p.sum(dim=-1, keepdim=True)
+    v8 = torch.where(in_window[:, :, None, None], v8, 0.0)
+    o = torch.einsum("bhrk,bkhd->bhrd", p * vs[:, None, None, :], v8)
+    return (o / torch.where(l == 0.0, 1.0, l)).to(q.dtype)

@@ -731,8 +731,9 @@ def _verify_long_args(t, g, dtype, int8, at_end=False, d=128, seed=21):
 def test_cuda_verify_long_matches_plain(t, g, at_end, pages):
     """T*G = 33, 96, 1536 and 3072 rows a KV head: slot 0's window from pos
     0, slot 1's from mid-page (or, past-table, running past the table's
-    end), garbage in the trash page and past each window; against the
-    plain version, one long-branch launch a call and nothing else."""
+    end), garbage in the trash page and past each window; the key axis on
+    the wrapper's split rule (verify_long_splits); against the plain
+    version, one long-branch launch a call and nothing else."""
     requires_cuda()
     from repro_torch import kernels
 
@@ -760,12 +761,91 @@ def test_cuda_verify_long_head_dim_64(dtype):
     _close(got, paged_verify_attention_ref(*args, 16), dtype)
 
 
+def _long_splits(args, pages):
+    """The split count the long branch's rule gives the wrapper's call."""
+    from repro_torch.kernels.verify_attention import ops as vops
+
+    q, kp, _, bt, _ = args
+    b, hkv, rows, _ = q.shape
+    return vops.verify_long_splits(b, hkv, rows, bt.shape[1] * kp.shape[1],
+                                   vops.long_rows_per_block(q.dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pages", ["bf16", "f32", "int8-bf16q", "int8-f32q"])
+@pytest.mark.parametrize("t,g", [(16, 6), (256, 6), (512, 6)],
+                         ids=["tg96", "tg1536", "tg3072"])
+def test_cuda_verify_long_one_split_matches_the_rule(t, g, pages, monkeypatch):
+    """The same inputs with the key axis forced into one split (the kernel
+    finalizes in place, no combine), on the rule's count and forced into 5
+    (partials and split.cuh's combine; the rule gives 1 to f32 q at T*G
+    3072 here): within 1e-5 of one split on f32 q, within the bf16
+    tolerance on bf16 q; each against the plain version too."""
+    requires_cuda()
+    from repro_torch.kernels.verify_attention import ops as vops
+
+    dtype = torch.float32 if "f32" in pages else torch.bfloat16
+    int8 = pages.startswith("int8")
+    args, sc = _verify_long_args(t, g, dtype, int8, at_end=True)
+    assert _long_splits(args, pages) > 1 or (dtype == torch.float32 and t == 512)
+    got = {"rule": paged_flash_verify(*args, t_window=t, **sc)}
+    for n in (1, 5):
+        monkeypatch.setattr(vops, "verify_long_splits", lambda *a, n=n: n)
+        got[n] = paged_flash_verify(*args, t_window=t, **sc)
+    torch.cuda.synchronize()
+    tol = dict(atol=1e-5, rtol=1e-5) if dtype == torch.float32 else CUDA_TOL[dtype]
+    want = paged_verify_attention_ref(*args, t, **sc)
+    for key in ("rule", 5):
+        torch.testing.assert_close(got[key].float(), got[1].float(), **tol)
+    for o in got.values():
+        _close(o, want, dtype)
+
+
+@pytest.mark.cuda
+def test_cuda_verify_long_int8_runs_the_tensor_cores():
+    """int8 pages under bf16 q take the tensor-core kernel: its int8
+    counter moves once, the profiler sees verify_long_tc_kernel<signed
+    char, ...> (and split.cuh's combine) and no CUDA-core kernel, and the
+    ptxas/SASS report of verify_attention.cu shows HMMA in every
+    verify_long_tc_kernel instance, bf16 and int8 pages at D 64 and 128."""
+    requires_cuda()
+    from pathlib import Path
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import kernels
+    from repro_torch.bench.kernel_ab import ptxas_report
+
+    args, sc = _verify_long_args(256, 6, torch.bfloat16, True)
+    assert _long_splits(args, "int8-bf16q") > 1
+    paged_flash_verify(*args, t_window=256, **sc)          # build and warm up
+    torch.cuda.synchronize()
+    before = kernels.launch_counts()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        paged_flash_verify(*args, t_window=256, **sc)
+        torch.cuda.synchronize()
+    after = kernels.launch_counts()
+    assert {n: after[n] - before[n] for n in after if after[n] != before[n]} == {
+        "paged_flash_verify[long,int8]": 1}
+    names = [e.key for e in prof.key_averages()]
+    assert any("verify_long_tc_kernel" in n and "char" in n for n in names), names
+    assert any("decode_combine_kernel" in n for n in names), names
+    assert not any("verify_long_core_kernel" in n for n in names), names
+    kdir = Path(kernels.__file__).resolve().parent
+    report = {n: r for n, r in ptxas_report(kdir).items() if "verify_long_tc_kernel" in n}
+    assert len(report) == 4 and sum("char" in n for n in report) == 2, report
+    assert all(r.get("hmma", 0) > 0 for r in report.values()), report
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
 def test_cuda_verify_long_repeats_bit_for_bit(int8):
-    """No atomics and no split: two launches give the same bits."""
+    """The key axis split across blocks (the rule's count at this shape is
+    above 1), the partials reduced in split order by the combine pass, no
+    atomics: two launches give the same bits."""
     requires_cuda()
     args, sc = _verify_long_args(256, 6, torch.bfloat16, int8)
+    assert _long_splits(args, "int8-bf16q" if int8 else "bf16") > 1
     first = paged_flash_verify(*args, t_window=256, **sc)
     second = paged_flash_verify(*args, t_window=256, **sc)
     torch.cuda.synchronize()
