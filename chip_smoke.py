@@ -59,7 +59,25 @@ its paths:
    splits its time into device kernel time and kernel launches per call.
 3. Serving: 8 requests greedily with full-width qwen2-1.5b (random bf16
    weights from the seed) on the dense and on the paged cache layout, the
-   paged pool small enough to force preemption.  It checks that every
+   paged pool small enough to force preemption.  Every serving run is
+   pipelined, the engine's default: overlapped rounds, swap copies
+   queued and materialized at the next commit, and each decode or verify
+   step replayed as one captured CUDA graph (``serve/step_graph.py``); a
+   timed engine first serves the same requests once untimed, which
+   captures its graphs.  First a replay probe (``replay probe`` lines)
+   holds one captured step of each kind (dense, paged, paged int8, spec)
+   against the same step eager from equal states, bf16 at full width:
+   whether logits, output and written cache rows are bit for bit equal.
+   Beside the dense, paged, spec (b), int8 (a) and OLMoE dense runs a
+   serial run (``pipeline=False``, eager: the control) serves the same
+   call (``pipeline ...`` and ``graphs ...`` lines: tok/s of both, the
+   graphs' count and capture seconds, the engines' peak memory, the
+   token agreement, gated where the probe was bit for bit); in the fp32
+   controls (C1's dense and paged, a spec run swapping on the preempting
+   pool, the tiered swap run, the shared run on the preempting pool) the
+   pipelined run must serve the serial run's tokens.  It fails where a
+   captured step launches none of its kernels; the kernel rows' launches
+   count replays (the capture's launches, added a replay).  It checks that every
    request finishes with its token count and that every serving kernel
    launched; teacher-forcing one request's tokens, the plain-version path
    and the models whose norms reduce through the paper's ``hw_warp`` and
@@ -74,7 +92,11 @@ its paths:
    against their summed kernel time (torch.profiler) to show where the
    time goes; each decode step's profile, and the spec_k = 4 verify
    step's, must hold both split-kernel passes (``decode_split_kernel``,
-   ``decode_combine_kernel``), whose times it prints.
+   ``decode_combine_kernel``), whose times it prints.  Beside those eager
+   rows, one captured replay of each step kind (``..._graph`` rows: the
+   dense, paged and int8 decode steps and the whole spec_k = 4 step with
+   the 14-layer draft, beside that step eager), and in phase 6 OLMoE's
+   decode step.
 4. Speculative serving (``spec ...`` lines): the same 8 requests with
    spec_k = 4 on the paged layout, the verify window through
    ``paged_flash_verify``.  (a) A 14-layer self draft on the random
@@ -915,11 +937,27 @@ def make_requests(seed: int, vocab: int):
             for i, n in enumerate(lens)]
 
 
-def serve(model, params, spec, **kw):
+def serve(model, params, spec, warm: bool = False, **kw):
+    """Serve ``spec`` on a fresh engine (pipelined, the engine's default,
+    unless ``pipeline=False``) and time it; ``warm`` first runs one
+    untimed session of the same requests on the engine, which captures
+    every step graph the timed session replays (its graph stats are kept
+    in ``eng.warm_graph_stats``).  The launch counts are the timed
+    session's, replays included; ``eng.peak_bytes`` is the engine's peak
+    device memory: the most allocated over its sessions (its device state,
+    graph pool and the steps' transients) above what was allocated
+    before it was built."""
     from repro_torch import kernels
     from repro_torch.serve.engine import Request, ServeEngine
 
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     eng = ServeEngine(model, params, max_seq=MAX_SEQ, batch_slots=SLOTS, **kw)
+    eng.warm_graph_stats = None
+    if warm:
+        eng.serve([Request(u, list(p), n) for u, p, n in spec])
+        eng.warm_graph_stats = dict(eng.last_graph_stats)
     reqs = [Request(u, list(p), n) for u, p, n in spec]
     torch.cuda.synchronize()
     kernels.reset_launches()
@@ -928,6 +966,8 @@ def serve(model, params, spec, **kw):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = kernels.launch_counts()
+    eng.base_bytes = base
+    eng.peak_bytes = torch.cuda.max_memory_allocated() - base
     no_ragged_rmsnorm("a serving run", counts)
     for u, _, n in spec:
         s = eng.last_stats[u]
@@ -981,6 +1021,162 @@ def layout_agreement(label, dense, paged, eng):
     print(f"{label}: {agree:.4f}; per request {per_req}; preempted {preempted}",
           flush=True)
     return agree, per_req, preempted
+
+
+# the kernels each captured step must launch, by the engine's step kind
+STEP_KERNELS = {"dense": ("rmsnorm", "flash_decode"),
+                "paged": ("rmsnorm", "paged_flash_decode"),
+                "paged_int8": ("rmsnorm", "paged_flash_decode[int8]"),
+                "spec": ("rmsnorm", "flash_decode", "paged_flash_verify"),
+                "spec_int8": ("rmsnorm", "flash_decode", "paged_flash_verify[int8]"),
+                "moe": ("rmsnorm", "flash_decode", "moe_gating")}
+# serial (eager) beside pipelined (captured) runs of one call, by label
+PIPELINE_PAIRS = {}
+
+
+def captured_kernels(label: str, eng, names):
+    """Fail unless the pipelined engine replayed captured steps and each
+    of its graphs launches every kernel of ``names`` (its launches a
+    replay, read at capture), and unless those replays were counted."""
+    g = eng.last_graph_stats
+    per = g["launches_per_replay"]
+    if not g["enabled"] or not per or g["replays"] == 0:
+        fail(f"{label}: the pipelined run replayed no captured step: {g}")
+    for key, d in per.items():
+        missing = [n for n in names if d.get(n, 0) == 0]
+        if missing:
+            fail(f"{label}: the captured step {key} launches none of {missing}: {d}")
+
+
+def pipeline_pair(label, piped, serial, names, gate: bool) -> dict:
+    """A pipelined run (captured steps, queued swap copies) beside the
+    serial, eager run of the same call (``serve``'s tuples): tok/s of
+    both, the graphs' count and capture seconds (the warm session's, where
+    it ran one), replays, peak memory of both, preemptions and the token
+    agreement, which fails the run when ``gate`` (the fp32 controls, and
+    bf16 where the replay probe showed the captured step bit for bit the
+    eager one) is below 1.  Prints two lines, keeps the record."""
+    p_out, p_eng, _, p_wall, p_tok = piped
+    s_out, s_eng, _, s_wall, s_tok = serial
+    captured_kernels(label, p_eng, names)
+    if s_eng.last_graph_stats["replays"]:
+        fail(f"{label}: the serial control replayed captured steps")
+    g = p_eng.warm_graph_stats or p_eng.last_graph_stats
+    agree = agreement(s_out, p_out)
+    ts = {k: p_eng.last_stats["timeseries"][k] for k in ("dispatch_s", "commit_s", "overlap_s")}
+    rec = dict(serial_tok_s=s_tok / s_wall, pipelined_tok_s=p_tok / p_wall,
+               ratio=(p_tok / p_wall) / (s_tok / s_wall), graphs=g["graphs"],
+               capture_s=g["capture_s"], warmed=p_eng.warm_graph_stats is not None,
+               replays=p_eng.last_graph_stats["replays"],
+               captured_in_timed_session=p_eng.last_graph_stats["captured"],
+               serial_peak_gib=s_eng.peak_bytes / 2 ** 30,
+               pipelined_peak_gib=p_eng.peak_bytes / 2 ** 30,
+               serial_preemptions=s_eng.preemptions, pipelined_preemptions=p_eng.preemptions,
+               token_agreement=agree, gated=gate,
+               pipelined_phase_s={k: float(sum(v)) for k, v in ts.items()},
+               launches_per_replay=p_eng.last_graph_stats["launches_per_replay"])
+    print(f"pipeline {label}: serial {rec['serial_tok_s']:.1f} tok/s, pipelined "
+          f"{rec['pipelined_tok_s']:.1f} tok/s ({rec['ratio']:.2f}x); token agreement "
+          f"{agree:.4f} ({'gated' if gate else 'reported'}); preemptions serial "
+          f"{s_eng.preemptions}, pipelined {p_eng.preemptions}; the engine's peak memory "
+          f"serial {rec['serial_peak_gib']:.3f} GiB, pipelined "
+          f"{rec['pipelined_peak_gib']:.3f} GiB; "
+          f"pipelined host phases {rec['pipelined_phase_s']}", flush=True)
+    print(f"graphs {label}: {g['graphs']} captured in {g['capture_s']:.3f} s"
+          f"{' (the warm session)' if rec['warmed'] else ''}; {rec['replays']} replays "
+          f"and {rec['captured_in_timed_session']} captures in the timed session",
+          flush=True)
+    if gate and (agree < 1.0 or s_eng.preemptions != p_eng.preemptions):
+        fail(f"{label}: the pipelined run served other tokens or preemptions than "
+             "the serial one")
+    PIPELINE_PAIRS[label] = rec
+    return rec
+
+
+def step_state(model, params, kind: str, gen: torch.Generator, draft=None) -> dict:
+    """One engine step's fixed buffers at the decode profile's shape
+    (SLOTS rows at DECODE_POS, attend ATTEND; random cache rows, int8
+    pools quantized on the card, each slot's pages in its own table row)
+    and its closure, as the engine builds it (``serve/step_graph.py``,
+    ``spec_decode.build_spec_step``; ``draft`` = (model, params) for the
+    spec kinds).  ``reset()`` puts tok / pos / remaining back."""
+    from repro_torch.serve import spec_decode, step_graph
+    from repro_torch.serve.kv_cache import quantize_kv_rows
+
+    spec_k = SPEC_K if kind.startswith("spec") else 1
+    i32 = dict(dtype=torch.int32, device="cuda")
+    st = dict(tok=torch.randint(0, model.cfg.vocab, (SLOTS,), generator=gen, **i32),
+              pos=torch.tensor(DECODE_POS, **i32),
+              remaining=torch.full((SLOTS,), MAX_NEW, **i32),
+              out=torch.zeros(3 + spec_k, SLOTS, **i32))
+    saved = [st[k].clone() for k in ("tok", "pos", "remaining")]
+    st["reset"] = lambda: [st[k].copy_(v) for k, v in zip(("tok", "pos", "remaining"), saved)]
+    st["restore"] = (st["tok"], st["pos"], st["remaining"])
+    if kind in ("dense", "moe"):
+        cache = model.init_cache(SLOTS, MAX_SEQ)
+    else:
+        cache = model.init_cache(SLOTS, MAX_SEQ, layout="paged", page_size=PAGE_SIZE,
+                                 kv_dtype="int8" if kind.endswith("int8") else None)
+        nb = cache["block_tables"].shape[1]
+        cache["block_tables"].copy_(torch.arange(1, SLOTS * nb + 1, **i32).reshape(SLOTS, nb))
+    for name in [n for n in cache if n in ("k", "v", "k_pages", "v_pages")]:
+        rows = torch.randn(cache[name].shape, generator=gen, device="cuda")
+        if cache[name].dtype == torch.int8:
+            q, scale = quantize_kv_rows(rows)
+            cache[name].copy_(q)
+            cache[name[0] + "_scales"].copy_(scale)
+        else:
+            cache[name].copy_(rows)
+    st["cache"] = cache
+    if spec_k == 1:
+        st["fn"] = step_graph.decode_step_fn(model, params, cache, st["tok"], st["pos"],
+                                             st["remaining"], st["out"], ATTEND, MAX_SEQ)
+        return st
+    dmodel, dparams = draft
+    dcache = dmodel.init_cache(SLOTS, MAX_SEQ)
+    for leaf in dcache.values():
+        leaf.copy_(torch.randn(leaf.shape, generator=gen, device="cuda"))
+    st["draft_cache"] = dcache
+    step = spec_decode.build_spec_step(model, dmodel, max_seq=MAX_SEQ, spec_k=spec_k)
+    pool = {k: v for k, v in cache.items() if k != "block_tables"}
+    mask = torch.ones(SLOTS, dtype=torch.bool, device="cuda")
+    st["fn"] = lambda: step(params, dparams, pool, dcache, cache["block_tables"], st["tok"],
+                            st["pos"], st["remaining"], mask, ATTEND, st["out"])
+    return st
+
+
+def replay_probe(model, params, kind: str, gen: torch.Generator, draft=None) -> dict:
+    """The captured step against the same step eager, from equal states
+    (one seed, two draws): whether the logits, the output buffer and every
+    cache leaf the step wrote are bit for bit equal, and the largest logit
+    difference.  Where they are, nothing in the capture (cuBLAS's pick
+    under capture, the programmatic combine launch as a graph edge)
+    changes the step, so a bf16 serial / pipelined pair must agree on
+    every token."""
+    from repro_torch.serve.step_graph import StepGraphs
+
+    seed = int(torch.randint(0, 2 ** 31, (1,), generator=gen, device="cuda").item())
+    a = step_state(model, params, kind, torch.Generator(device="cuda").manual_seed(seed), draft)
+    b = step_state(model, params, kind, torch.Generator(device="cuda").manual_seed(seed), draft)
+    graphs = StepGraphs("cuda", enabled=True)
+    want = a["fn"]()
+    got = graphs.run((kind, ATTEND), b["fn"], restore=b["restore"])
+    torch.cuda.synchronize()
+    leaves = [(n, a["cache"][n], b["cache"][n]) for n in a["cache"]]
+    leaves += [(f"draft {n}", a["draft_cache"][n], b["draft_cache"][n])
+               for n in a.get("draft_cache", {})]
+    rec = dict(logits_equal=bool(torch.equal(got, want)),
+               max_logit_diff=(got - want).abs().max().item(),
+               out_equal=bool(torch.equal(a["out"], b["out"])),
+               cache_equal={n: bool(torch.equal(x, y)) for n, x, y in leaves})
+    rec["bit_for_bit"] = (rec["logits_equal"] and rec["out_equal"]
+                          and all(rec["cache_equal"].values()))
+    print(f"replay probe {kind} ({model.dtype}): captured vs eager step bit for bit "
+          f"{rec['bit_for_bit']}; logits max diff {rec['max_logit_diff']:.3e}; "
+          f"output equal {rec['out_equal']}; cache leaves unequal "
+          f"{[n for n, e in rec['cache_equal'].items() if not e]}", flush=True)
+    del a, b, graphs
+    return rec
 
 
 def prefilled(model, params, prompt, layout="dense", kv_dtype=None):
@@ -1094,11 +1290,13 @@ def verify_force(model, params, prompt, tokens, n_win, kv_dtype=None):
     return torch.cat(rows)
 
 
-def run_spec(cfg, model, params, spec, paged_tok_s):
+def run_spec(cfg, model, params, spec, paged_tok_s, probe_spec: bool):
     """The speculative phase: (a) self:14 on the random weights with a
     preempting pool, (b) damped weights with self:1 beside non-speculative
-    paged serving, (c) teacher-forced verify windows.  Returns the record
-    and the verify kernel's launches in (a) and (b)."""
+    paged serving, and (b) serial beside pipelined (the tokens gated where
+    ``probe_spec``: the captured spec step was bit for bit the eager one),
+    (c) teacher-forced verify windows.  Returns the record and the verify
+    kernel's launches in (a) and (b)."""
     from repro_torch.models.lm import Model
 
     paged = dict(cache_layout="paged", page_size=PAGE_SIZE)
@@ -1113,12 +1311,16 @@ def run_spec(cfg, model, params, spec, paged_tok_s):
     launches = counts["paged_flash_verify"]
 
     damped = dict(params, layers=_scaled(params["layers"], 0.05))
-    base, _, _, b_wall, b_tok = serve(model, damped, spec, **paged)
+    base, _, _, b_wall, b_tok = serve(model, damped, spec, warm=True, **paged)
     print(f"spec b non-spec paged (damped weights): {b_tok} tokens in "
           f"{b_wall:.3f} s = {b_tok / b_wall:.1f} tok/s", flush=True)
-    d_out, d_eng, d_counts, d_wall, d_tok = serve(model, damped, spec, spec_k=SPEC_K,
-                                                  draft="self:1", **paged)
+    b_kw = dict(paged, spec_k=SPEC_K, draft="self:1")
+    b_run = serve(model, damped, spec, warm=True, **b_kw)
+    d_out, d_eng, d_counts, d_wall, d_tok = b_run
     b = spec_report("b damped self:1", spec, d_out, d_eng, d_counts, d_wall, d_tok)
+    b["pipeline"] = pipeline_pair(
+        "spec b", b_run, serve(model, damped, spec, pipeline=False, warm=True, **b_kw),
+        STEP_KERNELS["spec"], gate=probe_spec)
     agree = np.mean([x == y for u in base for x, y in zip(base[u], d_out[u])])
     b.update(nonspec_tok_s=b_tok / b_wall, token_agreement=float(agree),
              speedup=b["tok_s"] / (b_tok / b_wall))
@@ -1207,7 +1409,11 @@ def c1_control(cfg, model, params, spec, num_pages, dense, paged, dense_groups,
     a request that is never preempted can prefill in another
     right-padded group at another bucket after a preemption, and round
     otherwise in bf16; in fp32 the two layouts must serve the same
-    tokens, or paged admission or decode is at fault."""
+    tokens, or paged admission or decode is at fault.  The same fp32
+    control gates the pipeline: each of its (pipelined) runs against the
+    serial, eager run of the same call, and speculation (damped weights,
+    a self:1 draft, the preempting pool, swapping) pipelined against
+    serial, on every token."""
     probes = {u: stored_difference(model, params, spec, (dense, dense_groups),
                                    (paged, paged_groups), u, False)
               for u in dense if dense[u] != paged[u]}
@@ -1215,9 +1421,10 @@ def c1_control(cfg, model, params, spec, num_pages, dense, paged, dense_groups,
           f"otherwise, as the two runs' prefill calls computed them: {probes}",
           flush=True)
     model32, params32 = fp32_model(cfg, params)
-    dense, d_eng, d_counts, _, _ = serve(model32, params32, spec)
-    paged, p_eng, p_counts, _, _ = serve(model32, params32, spec, cache_layout="paged",
-                                         page_size=PAGE_SIZE, num_pages=num_pages)
+    d_run = serve(model32, params32, spec)
+    p_run = serve(model32, params32, spec, cache_layout="paged", page_size=PAGE_SIZE,
+                  num_pages=num_pages)
+    (dense, d_eng, d_counts, _, _), (paged, p_eng, p_counts, _, _) = d_run, p_run
     print(f"C1 control fp32 prefill groups (uids, bucket, lengths): dense "
           f"{d_eng.last_prefill_groups}; paged {p_eng.last_prefill_groups}", flush=True)
     agree, per_req, preempted = layout_agreement(
@@ -1227,10 +1434,26 @@ def c1_control(cfg, model, params, spec, num_pages, dense, paged, dense_groups,
     if agree < 1.0:
         fail("in fp32 the preempting paged pool served other tokens than dense: "
              "a port fault in paged admission or decode (ROADMAP C1)")
+    paged_kw = dict(cache_layout="paged", page_size=PAGE_SIZE, num_pages=num_pages)
+    spec_kw = dict(paged_kw, preempt="swap", spec_k=SPEC_K, draft="self:1")
+    damped = dict(params32, layers=_scaled(params32["layers"], 0.05))
+    spec_run = serve(model32, damped, spec, **spec_kw)
+    launches = add_counts(d_counts, p_counts)
+    for label, run, p, kw, names in (
+            ("fp32 control dense", d_run, params32, {}, STEP_KERNELS["dense"]),
+            ("fp32 control paged", p_run, params32, paged_kw, STEP_KERNELS["paged"]),
+            ("fp32 control spec", spec_run, damped, spec_kw, STEP_KERNELS["spec"])):
+        serial = serve(model32, p, spec, pipeline=False, **kw)
+        pipeline_pair(label, run, serial, names, gate=True)
+        launches = add_counts(launches, serial[2])
+    launches = add_counts(launches, spec_run[2])
+    if spec_run[1].last_pool_stats.swap_ins < 1:
+        fail("the fp32 spec control was sized to swap and did not")
+    del damped, spec_run, d_run, p_run
     return dict(agreement=agree, per_request=per_req, preempted=preempted,
                 dense_groups=d_eng.last_prefill_groups,
                 paged_groups=p_eng.last_prefill_groups, bf16_probes=probes,
-                launches=add_counts(d_counts, p_counts))
+                launches=launches)
 
 
 # ---------------------------------------------------------------------------
@@ -1267,7 +1490,7 @@ def swap_copy_ms(model, n_blocks: int, n: int = 5):
 
 
 def run_tiered(cfg, model, params, spec, dense, paged, paged_tok_s, num_pages,
-               bf16_preemptions):
+               bf16_preemptions, probe_int8: bool):
     """Greedy serving on int8 pools: (a) the preempting pool under requeue
     and swap, (b) an int8 pool of the bf16 preempting pool's bytes, (c) an
     ample one, (d) spec_k = 4 with the damped self:1 draft on the
@@ -1279,10 +1502,12 @@ def run_tiered(cfg, model, params, spec, dense, paged, paged_tok_s, num_pages,
     from repro_torch.models.lm import Model
 
     int8 = dict(cache_layout="paged", page_size=PAGE_SIZE, kv_dtype="int8")
-    runs, counts, control_counts = {}, {}, {}
+    runs, counts, control_counts, results = {}, {}, {}, {}
 
     def run(label, m, p, **kw):
-        out, eng, c, wall, n_tok = serve(m, p, spec, **int8, **kw)
+        result = serve(m, p, spec, **int8, **kw)
+        out, eng, c, wall, n_tok = result
+        results[label] = result
         pool = eng.last_pool_stats
         print(f"tiered {label}: {n_tok} tokens in {wall:.3f} s = {n_tok / wall:.1f} "
               f"tok/s; pool {eng.num_pages} pages; preemptions {eng.preemptions}; "
@@ -1305,7 +1530,13 @@ def run_tiered(cfg, model, params, spec, dense, paged, paged_tok_s, num_pages,
 
     # (a) the bf16 run's preempting pool, stored int8
     requeue, r_eng = run("a requeue", model, params, num_pages=num_pages)
-    swap, s_eng = run("a swap", model, params, num_pages=num_pages, preempt="swap")
+    swap, s_eng = run("a swap", model, params, num_pages=num_pages, preempt="swap",
+                      warm=True)
+    # the queued swap copies and the captured int8 step against the serial,
+    # eager round (whose swap copies are synchronous)
+    pair_a = pipeline_pair("tiered a swap", results["a swap"], serve(
+        model, params, spec, pipeline=False, warm=True, num_pages=num_pages,
+        preempt="swap", **int8), STEP_KERNELS["paged_int8"], gate=probe_int8)
     if r_eng.preemptions < 1 or s_eng.preemptions < 1:
         fail("the tiered (a) runs were sized to preempt and did not")
     sp = s_eng.last_pool_stats
@@ -1387,6 +1618,13 @@ def run_tiered(cfg, model, params, spec, dense, paged, paged_tok_s, num_pages,
          for label, kw in (("requeue", dict(num_pages=num_pages)),
                            ("swap", dict(num_pages=num_pages, preempt="swap")),
                            ("ample", {}))}
+    # the pipelined swap run (queued swap copies, captured int8 steps)
+    # against the serial, eager one: every token
+    run("fp32 control swap serial", model32, params32, num_pages=num_pages,
+        preempt="swap", pipeline=False)
+    pair_fp32 = pipeline_pair("tiered fp32 control swap", results["fp32 control swap"],
+                              results["fp32 control swap serial"],
+                              STEP_KERNELS["paged_int8"], gate=True)
     control, probes = {}, {}
     for x, y in (("swap", "requeue"), ("ample", "requeue")):
         per_req = {u: float(np.mean([a == b for a, b in zip(c[x][u], c[y][u])]))
@@ -1410,7 +1648,8 @@ def run_tiered(cfg, model, params, spec, dense, paged, paged_tok_s, num_pages,
                 int8_page_bytes=int8_page, bf16_page_bytes=bf16_page,
                 equal_bytes_pages=same_pages, bf16_preemptions=bf16_preemptions,
                 agreement_bf16=reports, agreement_fp32=control, fp32_probes=probes,
-                verify_windows=windows, fp32_control_launches=control_counts), counts
+                verify_windows=windows, fp32_control_launches=control_counts,
+                pipeline=dict(a_swap=pair_a, fp32_swap=pair_fp32)), counts
 
 
 # ---------------------------------------------------------------------------
@@ -1552,11 +1791,11 @@ def run_shared(cfg, model, params, num_pages: int, seed: int):
     print(f"shared requests: {len(spec)} prompts of {[len(p) for _, p, _ in spec]} "
           f"tokens, a {SYSTEM_PROMPT}-token system prompt, request 2 a copy of request 1",
           flush=True)
-    runs, counts, int8_counts, control_counts = {}, {}, {}, {}
+    runs, counts, int8_counts, control_counts, results = {}, {}, {}, {}, {}
 
     def run(label, m, p, into, **kw):
-        out, eng, c, wall, n_tok = serve(m, p, spec, cache_layout="paged",
-                                         page_size=PAGE_SIZE, **kw)
+        result = serve(m, p, spec, cache_layout="paged", page_size=PAGE_SIZE, **kw)
+        out, eng, c, wall, n_tok = results[label] = result
         pool, st = eng.last_pool_stats, eng.last_stats
         sharing = kw.get("prefix_sharing", False)
         warm = [u for u, _, _ in spec if st[u].get("cached_prefix_tokens", 0) > 0]
@@ -1705,10 +1944,16 @@ def run_shared(cfg, model, params, num_pages: int, seed: int):
         if k != "a off vs b off" and v < 1.0:
             fail(f"in fp32 the shared runs served other tokens ({k}: {v:.4f}): sharing "
                  "is not invisible below the block tables")
+    # the pipelined shared run on the preempting pool against the serial one
+    run("fp32 control b on serial", model32, params32, control_counts,
+        prefix_sharing=True, pipeline=False, **pools["b"])
+    pair = pipeline_pair("shared fp32 control b on", results["fp32 control b on"],
+                         results["fp32 control b on serial"], STEP_KERNELS["paged"],
+                         gate=True)
     del model32, params32
     return (dict(runs=runs, agreement_bf16=reports, agreement_fp32=control,
                  teacher_forced=forced, warm_admit_to_first_token_s=ttft,
-                 warm_first_token_s=first, num_pages=num_pages),
+                 warm_first_token_s=first, num_pages=num_pages, pipeline_fp32=pair),
             counts, int8_counts, control_counts, profiles)
 
 
@@ -1729,7 +1974,10 @@ def where_time_goes(model, params, gen):
     paged int8), one 4 x 512 prefill,
     and the two halves of a speculative step (a 14-layer self-draft decode
     step, three per window, and one spec_k = 4 verify step over the paged
-    cache) on the kernel path; their ratio is the device's busy share."""
+    cache) on the kernel path, eager; their ratio is the device's busy
+    share.  Then the whole spec step eager, and each step kind replayed as
+    the pipelined engine replays it, one captured graph a step (``_graph``
+    rows)."""
     from repro_torch.serve.spec_decode import make_self_draft
 
     pos = torch.tensor(DECODE_POS, dtype=torch.int32, device="cuda")
@@ -1761,10 +2009,53 @@ def where_time_goes(model, params, gen):
             ("verify_step_T4", lambda: model.decode_verify_step(
                 params, pcache, win, pos, attend_len=MAX_SEQ), 10)):
         phases[name] = profile_phase(name, fn, n)
+    # the whole spec step (three draft steps, verify, accept) eager, then
+    # each step kind as the pipelined engine replays it: one captured graph
+    spec_eager = step_state(model, params, "spec", gen, (draft, dparams))
+
+    def eager_spec():
+        spec_eager["reset"]()
+        spec_eager["fn"]()
+
+    phases["spec_step_T4_self14"] = profile_phase("spec_step_T4_self14", eager_spec, 10)
+    del spec_eager
+    for name, kind in (("decode_step_graph", "dense"), ("paged_decode_step_graph", "paged"),
+                       ("paged_decode_step_int8_graph", "paged_int8"),
+                       ("spec_step_T4_self14_graph", "spec")):
+        phases[name] = graph_phase(name, model, params, kind, gen, (draft, dparams))
     require_decode_kernels(phases, ("decode_step", "paged_decode_step",
                                     "paged_decode_step_int8", "draft_step_self14",
-                                    "verify_step_T4"))
+                                    "verify_step_T4", "spec_step_T4_self14",
+                                    "decode_step_graph", "paged_decode_step_graph",
+                                    "paged_decode_step_int8_graph",
+                                    "spec_step_T4_self14_graph"))
     return phases
+
+
+def graph_phase(name, model, params, kind: str, gen, draft=None, n: int = 10) -> dict:
+    """``profile_phase`` of one captured step of ``kind`` replayed
+    (``serve/step_graph.py``; the step's state from :func:`step_state`,
+    tok / pos / remaining put back before each replay, three small copies
+    that the device time includes); fails unless the graph launches the
+    kind's kernels.  ``gating_ms`` etc. come from the profile as for the
+    eager rows."""
+    from repro_torch.serve.step_graph import StepGraphs
+
+    st = step_state(model, params, kind, gen, draft)
+    graphs = StepGraphs("cuda", enabled=True)
+    graphs.run((kind, ATTEND), st["fn"], restore=st["restore"])
+    per = graphs.launches().get((kind, ATTEND), {})
+    missing = [k for k in STEP_KERNELS[kind] if per.get(k, 0) == 0]
+    if missing:
+        fail(f"the captured {kind} step launches none of {missing}: {per}")
+
+    def replay():
+        st["reset"]()
+        graphs.run((kind, ATTEND), st["fn"])
+
+    rec = profile_phase(name, replay, n)
+    rec["launches_per_replay"] = per
+    return rec
 
 
 def kernel_parts_ms(fn, names, n: int = 20) -> dict:
@@ -2148,15 +2439,20 @@ def run_moe(seed: int, gen: torch.Generator):
     print(f"moe requests: {len(spec)} prompts of {[len(p) for _, p, _ in spec]} tokens, "
           f"each prefilled alone at its length", flush=True)
     serve(model, params, [(99, spec[1][1][:64], 2)])           # warm-up
-    torch.cuda.reset_peak_memory_stats()
-    dense, _, d_counts, d_wall, d_tok = serve(model, params, spec)
+    probe = replay_probe(model, params, "moe", gen)
+    dense_run = serve(model, params, spec, warm=True)
+    dense, d_eng, d_counts, d_wall, d_tok = dense_run
     print(f"moe serve dense: {d_tok} tokens in {d_wall:.3f} s = {d_tok / d_wall:.1f} "
           f"tok/s; launches {d_counts}", flush=True)
+    pair = pipeline_pair("moe dense", dense_run, serve(model, params, spec, pipeline=False,
+                                                       warm=True),
+                         STEP_KERNELS["moe"], gate=probe["bit_for_bit"])
+    del dense_run
     num_pages = preempting_pool(spec)
     paged, eng, p_counts, p_wall, p_tok = serve(
         model, params, spec, cache_layout="paged", page_size=PAGE_SIZE,
         num_pages=num_pages)
-    peak = torch.cuda.max_memory_allocated()
+    peak = max(e.base_bytes + e.peak_bytes for e in (d_eng, eng))
     print(f"moe serve paged: {p_tok} tokens in {p_wall:.3f} s = {p_tok / p_wall:.1f} "
           f"tok/s; pool {num_pages} pages; preemptions {eng.preemptions}; launches "
           f"{p_counts}; peak memory {peak / 2 ** 30:.2f} GiB", flush=True)
@@ -2188,8 +2484,10 @@ def run_moe(seed: int, gen: torch.Generator):
     # against the preempting pool, with cf = E / k (C = S: nothing drops),
     # in bf16 and in fp32 compute.
     with moe_tap() as tap:
+        # serial: the tap syncs once a dispatch, which no capture allows
         again, _, _, _, _ = serve(model, params, spec, cache_layout="paged",
-                                  page_size=PAGE_SIZE, num_pages=num_pages)
+                                  page_size=PAGE_SIZE, num_pages=num_pages,
+                                  pipeline=False)
     drops = prefill_drops(tap, cfg.n_layers)
     resumed = {u: [d for d in drops if len(p) < d[0] < len(p) + MAX_NEW]
                for u, p, _ in spec if u in preempted}
@@ -2256,9 +2554,11 @@ def run_moe(seed: int, gen: torch.Generator):
     phases = {
         "moe_decode_step": profile_phase("moe_decode_step", lambda: model.decode_step(
             params, cache, tok, pos, attend_len=MAX_SEQ), 10),
+        "moe_decode_step_graph": graph_phase("moe_decode_step_graph", model, params,
+                                             "moe", gen),
         "moe_prefill_1x512": profile_phase("moe_prefill_1x512",
                                            lambda: model.prefill(params, toks, 512), 3)}
-    require_decode_kernels(phases, ("moe_decode_step",))
+    require_decode_kernels(phases, ("moe_decode_step", "moe_decode_step_graph"))
     for name, r in phases.items():
         if r["device_ms"] > 0 and r["gating_ms"] <= 0:
             fail(f"the {name} profile holds no {GATING_KERNEL} time")
@@ -2276,7 +2576,8 @@ def run_moe(seed: int, gen: torch.Generator):
                 peak_bytes=peak, teacher_forced_max_err=err, logit_scale=scale,
                 teacher_forced_argmax_agreement=t_agree, routing_flips=flips,
                 replayed_routing_max_err=r_err, replayed_routing_argmax_agreement=r_agree,
-                gating_per_decode_step=per_step, phases=phases), counts
+                gating_per_decode_step=per_step, phases=phases, replay_probe=probe,
+                pipeline=pair), counts
 
 
 # ---------------------------------------------------------------------------
@@ -2526,6 +2827,7 @@ def main():
         from repro_torch.models.layers import WarpFeatureConfig
         from repro_torch.models.lm import Model
         from repro_torch.optim.optimizer import leaves
+        from repro_torch.serve.spec_decode import make_self_draft
     except ImportError as exc:
         fail(f"cannot import the port from {ROOT / 'src'}: {exc}")
 
@@ -2570,19 +2872,36 @@ def main():
           f"max_new_tokens={MAX_NEW}, slots={SLOTS}, max_seq={MAX_SEQ}", flush=True)
     # warm-up (cuBLAS handles, allocator): one short request, not counted
     serve(model, params, [(99, spec[1][1][:64], 2)])
+    # the captured steps against the same steps eager, bf16, full width:
+    # where bit for bit, the bf16 serial / pipelined pairs are gated
+    draft1 = make_self_draft(model, params, 1)
+    probes = {kind: replay_probe(model, params, kind, gen, draft1)
+              for kind in ("dense", "paged", "paged_int8", "spec")}
 
-    dense, dense_eng, dense_counts, dense_wall, dense_tok = serve(model, params, spec)
+    # the main path, pipelined (the engine's default): each timed engine
+    # first serves the same requests once untimed, capturing its graphs
+    dense_run = serve(model, params, spec, warm=True)
+    dense, dense_eng, dense_counts, dense_wall, dense_tok = dense_run
     print(f"serve dense: {dense_tok} tokens in {dense_wall:.3f} s = "
           f"{dense_tok / dense_wall:.1f} tok/s; launches {dense_counts}", flush=True)
     # the first four prompts fill the pool but for one growth page per
     # slot: the batch cannot grow 32 tokens without preempting
     num_pages = preempting_pool(spec)
-    paged, eng, paged_counts, paged_wall, paged_tok = serve(
-        model, params, spec, cache_layout="paged", page_size=PAGE_SIZE,
-        num_pages=num_pages)
+    paged_kw = dict(cache_layout="paged", page_size=PAGE_SIZE, num_pages=num_pages)
+    paged_run = serve(model, params, spec, warm=True, **paged_kw)
+    paged, eng, paged_counts, paged_wall, paged_tok = paged_run
     print(f"serve paged: {paged_tok} tokens in {paged_wall:.3f} s = "
           f"{paged_tok / paged_wall:.1f} tok/s; pool {num_pages} pages; "
           f"preemptions {eng.preemptions}; launches {paged_counts}", flush=True)
+    # the serial, eager round beside each: the control (the kernel rows
+    # count the pipelined main path's launches, replays included)
+    dense_serial = serve(model, params, spec, pipeline=False, warm=True)
+    pipeline_pair("dense", dense_run, dense_serial, STEP_KERNELS["dense"],
+                  gate=probes["dense"]["bit_for_bit"])
+    paged_serial = serve(model, params, spec, pipeline=False, warm=True, **paged_kw)
+    pipeline_pair("paged", paged_run, paged_serial, STEP_KERNELS["paged"],
+                  gate=probes["paged"]["bit_for_bit"])
+    del dense_serial, paged_serial, dense_run, paged_run
     if eng.preemptions < 1:
         fail("the paged run was sized to preempt and did not")
     if eng.last_pool_stats.used_pages != 0:
@@ -2635,12 +2954,14 @@ def main():
               flush=True)
 
     spec_rec, verify_launches = run_spec(cfg, model, params, spec,
-                                         paged_tok / paged_wall)
+                                         paged_tok / paged_wall,
+                                         probes["spec"]["bit_for_bit"])
     rows["paged_flash_verify"]["launches"] = verify_launches
 
     tiered_rec, tiered_counts = run_tiered(cfg, model, params, spec, dense, paged,
                                            paged_tok / paged_wall, num_pages,
-                                           eng.preemptions)
+                                           eng.preemptions,
+                                           probes["paged_int8"]["bit_for_bit"])
     for name in serving_kernels + ("paged_flash_decode[int8]", "paged_flash_verify[int8]"):
         rows[name]["launches"] += tiered_counts[name]
 
@@ -2693,7 +3014,8 @@ def main():
         fig5=fig5_rows, fig5_counts=fig5_counts, fig5_device=fig5_device,
         warp_forms=warp_forms, spec=spec_rec, verify_t1_err=t1_err, moe=moe_rec,
         c1_control=c1, tiered=tiered_rec, int8_kernel_checks=int8_checks,
-        shared=shared_rec, verify_long=long_checks,
+        shared=shared_rec, verify_long=long_checks, replay_probes=probes,
+        pipeline=PIPELINE_PAIRS,
         moe_gating=gating_readings, flash_branches=BRANCHES_RUN,
         matmul=MATMUL_READINGS, ptxas=ptxas),
         indent=1))

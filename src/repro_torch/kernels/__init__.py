@@ -10,7 +10,9 @@ use.  Each wrapper counts its kernel launches in ``<wrapper>.launches``
 and ``.launches_long_int8``, the two flash wrappers their f32 branch, in
 ``.launches_f32``, and rmsnorm its block-per-row ragged branch, in
 ``.launches_ragged``); :func:`launch_counts` / :func:`reset_launches` read
-and clear them all.
+and clear them all.  A replayed CUDA graph calls no wrapper: its replays
+add the launches its capture recorded through :func:`add_launches`
+(``serve/step_graph.py``).
 """
 
 from __future__ import annotations
@@ -69,3 +71,11 @@ def launch_counts() -> Dict[str, int]:
 def reset_launches():
     for fn, attr in COUNTERS.values():
         setattr(fn, attr, 0)
+
+
+def add_launches(delta: Dict[str, int]):
+    """Add ``delta`` (counter name -> launches, as :func:`launch_counts`
+    names them) to the counters: a CUDA graph replay's launches."""
+    for name, n in delta.items():
+        fn, attr = COUNTERS[name]
+        setattr(fn, attr, getattr(fn, attr) + n)

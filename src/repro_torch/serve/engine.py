@@ -19,9 +19,27 @@ taken at its last real token).  An MoE request prefills alone at its
 exact length: its experts' capacity depends on the row's length, so
 padding would change its output.
 Each decode step reads attention only up to the live prefix (``attend_len``
-bucketed to ``ATTEND_BLOCK``) and makes one device-to-host copy: the
-(tokens, done, bad) triple.  A row whose logits are not finite is failed
-on its own; the rest of the batch goes on.
+bucketed to ``ATTEND_BLOCK``) and makes one device-to-host copy: its
+fixed ``(3 + T, slots)`` int32 output (tokens, commit, done, bad).  A row
+whose logits are not finite is failed on its own; the rest of the batch
+goes on.
+
+Overlapped rounds (``pipeline=True``, the default, as the reference's).
+A round is split in two halves: :meth:`ServeEngine.dispatch_round`
+issues the step and returns, and the next round's :meth:`commit_round`
+waits for it (an event after a ``non_blocking`` copy of the output into
+one pinned host buffer), accounts its tokens, and materializes the
+swap-out copies queued since the last commit.  Every scheduling decision
+lands on the inputs the serial round (``pipeline=False``) gives it, so
+the outputs are the serial round's; a session runs one more round, which
+commits the last step.  On a CUDA device the pipelined engine replays
+each fixed-shape decode or verify step as one captured CUDA graph
+(``serve.step_graph``, one per attend bucket); the serial engine runs
+its steps eagerly, as the control.  The device state (cache or pool,
+block-table buffer, ``tok``/``pos``/``remaining``, the output) lives as
+long as the engine, since the graphs read it by address; a session
+zero-fills it in place.  Prefill and the shared suffix prefill stay
+eager: their shapes change with every admission.
 
 Speculative decoding (``spec_k > 1``, paged layout) replaces the one-token
 step with a propose + verify window (``serve.spec_decode``): a draft
@@ -67,10 +85,9 @@ out).  A page-aligned prompt that matches in full forks its last page
 copy-on-write.  Greedy outputs are those of unshared paged serving:
 sharing lives below the block tables.
 
-Not ported yet: sampling at temperature > 0 (ROADMAP A6), the overlapped
-pipeline and its asynchronous swap copies (A6b), measured cost models
-(``preempt_calibrate``, A11), chunked prefill, faults and recovery,
-priorities and deadlines.
+Not ported yet: sampling at temperature > 0 (ROADMAP A6), measured cost
+models (``preempt_calibrate``, A11), chunked prefill, faults and recovery,
+the straggler watchdog, priorities and deadlines.
 """
 
 from __future__ import annotations
@@ -84,12 +101,14 @@ import numpy as np
 import torch
 
 from repro_torch.optim.optimizer import leaves
-from repro_torch.serve import calibrate, spec_decode
+from repro_torch.serve import calibrate, spec_decode, step_graph
 from repro_torch.serve.kv_cache import (
     CACHE_LAYOUTS,
+    TRASH_PAGE,
     AdmitPlan,
     PagedCacheManager,
     SwapHandle,
+    TableStaging,
     blocks_for,
     cdiv,
     copy_pages,
@@ -144,6 +163,26 @@ class Request:
 
 
 @dataclasses.dataclass
+class PendingRound:
+    """A decode step in flight: dispatched, its output not fetched yet.
+    ``live`` snapshots the dispatch-time slot -> request map, so the
+    commit accounts tokens to exactly the requests the step computed them
+    for.  ``event`` (CUDA) follows the output's copy into the pinned host
+    buffer; the commit waits on it."""
+    live: Dict[int, Request]
+    spec: bool = False
+    event: Any = None
+
+
+def _empty_timeseries() -> Dict[str, list]:
+    """Per-round pipeline phases: host time issuing the dispatch, host
+    time blocked in the commit, and host work done in the gap while a
+    step was in flight (0.0 when serial).  The reference's other columns
+    wait for ROADMAP A6c."""
+    return {"round": [], "dispatch_s": [], "commit_s": [], "overlap_s": []}
+
+
+@dataclasses.dataclass
 class _SchedState:
     """Per-serve() scheduler state (host bookkeeping + device slot state)."""
     queue: deque
@@ -171,6 +210,15 @@ class _SchedState:
     # queue head's gate last failed (it is not planned again until that
     # state moves)
     gate_block: Any = None
+    # overlapped round pipeline
+    pending: Optional[PendingRound] = None   # step dispatched, not committed
+    pending_swaps: List[SwapHandle] = dataclasses.field(
+        default_factory=list)   # queued swap-outs awaiting materialization
+    rnd: int = -1               # scheduler round
+    last_dispatch_s: float = 0.0    # this round's phase timings
+    last_commit_s: float = 0.0      # (reset at every round tick)
+    last_overlap_s: float = 0.0
+    timeseries: Dict[str, list] = dataclasses.field(default_factory=_empty_timeseries)
 
 
 class ServeEngine:
@@ -181,6 +229,7 @@ class ServeEngine:
                  prefix_sharing: bool = False, evict_policy: str = "lru",
                  min_cached_tokens: int = 0, spec_k: int = 1, draft=None,
                  verify_backend: Optional[str] = None,
+                 pipeline: bool = True,
                  cost_model: Optional[calibrate.CostModel] = None,
                  preempt_calibrate: bool = False):
         if temperature > 0.0:
@@ -249,6 +298,12 @@ class ServeEngine:
         # preempt="auto": recompute costs ~2 * params FLOPs a token
         self._n_params = sum(t.numel() for t in leaves(params))
         self.spec_k = spec_k
+        # overlapped rounds; on a CUDA device also the captured steps.
+        # pipeline=False keeps the serial, eager round: the control
+        self.pipeline = pipeline
+        self._graphs = step_graph.StepGraphs(self.device, enabled=pipeline)
+        self._kind = step_graph.step_kind(cache_layout, kv_dtype, spec_k)
+        self._dev: Optional[Dict[str, Any]] = None   # device state, see _init_device
         self.draft_model = self.draft_params = None
         if spec_k > 1:
             self.draft_model, self.draft_params = spec_decode.resolve_draft(
@@ -264,6 +319,8 @@ class ServeEngine:
         # tokens alone
         self.last_prefill_groups: List[tuple] = []
         self.preemptions = 0
+        # graphs, captures, capture seconds and replays of the last serve()
+        self.last_graph_stats: Dict[str, Any] = {}
 
     def _attend_len(self, needed: int) -> int:
         """Attention bound: ``needed`` rounded up to the bucket."""
@@ -295,8 +352,25 @@ class ServeEngine:
         for req in st.queue:
             self._check_fits(st, req)
         self._init_device(st)
-        while st.queue or st.live:
-            self._round(st)
+        g = self._graphs
+        n0, t0, r0 = len(g.graphs), g.capture_s, g.replays
+        if self.pipeline:
+            # overlapped rounds: each round commits the previous round's
+            # step before admission; a live slot keeps the loop going
+            # until its step commits, so it exits with nothing pending
+            while st.queue or st.live or st.pending is not None:
+                self.dispatch_round(st)
+        else:
+            while st.queue or st.live:
+                self._round(st)
+        # the finalize barrier: never end a session over an in-flight
+        # step or an unmaterialized swap copy
+        self.commit_round(st)
+        st.stats["timeseries"] = st.timeseries
+        self.last_graph_stats = dict(
+            enabled=g.enabled, graphs=len(g.graphs), captured=len(g.graphs) - n0,
+            capture_s=g.capture_s - t0, replays=g.replays - r0,
+            launches_per_replay={f"{k[0]}@{k[1]}": v for k, v in g.launches().items()})
         if st.mgr is not None:
             self.last_pool_stats = st.mgr.stats()
         return st.results
@@ -324,28 +398,64 @@ class ServeEngine:
                 + f", pool has {st.mgr.allocator.usable}")
 
     def _init_device(self, st: _SchedState):
-        if st.mgr is not None:
-            st.pool = self.model.init_cache(
-                self.slots, self.max_seq, layout="paged",
-                page_size=self.page_size, num_pages=self.num_pages,
-                kv_dtype=self.kv_dtype)
-            st.pool.pop("block_tables")  # the manager owns the mapping
-            st.bt_dev = st.mgr.device_tables(self.device)
+        """Bind the session to the engine's device state: allocated at the
+        first session, zero-filled in place at every later one (the bytes
+        a fresh ``init_cache`` gives), never rebound, since captured steps
+        read every buffer by address."""
+        dev = self._dev
+        if dev is None:
+            zeros = dict(dtype=torch.int32, device=self.device)
+            dev = {"tok": torch.zeros(self.slots, **zeros),
+                   "pos": torch.zeros(self.slots, **zeros),
+                   "remaining": torch.zeros(self.slots, **zeros),
+                   # (3 + T, slots): targets, commit, done, bad
+                   "out": torch.zeros(3 + self.spec_k, self.slots, **zeros),
+                   "cache": None, "pool": None, "bt": None, "staging": None,
+                   "draft_cache": None, "spec_mask": None}
+            cuda = self.device.type == "cuda"
+            dev["out_host"] = torch.zeros(dev["out"].shape, dtype=torch.int32,
+                                          pin_memory=cuda)
+            if self.cache_layout == "paged":
+                pool = self.model.init_cache(
+                    self.slots, self.max_seq, layout="paged",
+                    page_size=self.page_size, num_pages=self.num_pages,
+                    kv_dtype=self.kv_dtype)
+                dev["bt"] = pool.pop("block_tables")   # the manager owns the mapping
+                dev["staging"] = TableStaging(dev["bt"].shape, self.device)
+                dev["pool"] = pool
+            else:
+                dev["cache"] = self.model.init_cache(self.slots, self.max_seq)
+            if self.spec_k > 1:
+                dev["draft_cache"] = self.draft_model.init_cache(self.slots, self.max_seq)
+                dev["spec_mask"] = torch.zeros(self.slots, dtype=torch.bool,
+                                               device=self.device)
+            self._dev = dev
         else:
-            st.cache = self.model.init_cache(self.slots, self.max_seq)
-        zeros = dict(dtype=torch.int32, device=self.device)
-        st.pos = torch.zeros(self.slots, **zeros)
-        st.tok = torch.zeros(self.slots, **zeros)
-        st.remaining = torch.zeros(self.slots, **zeros)
+            for name in ("tok", "pos", "remaining", "out", "spec_mask"):
+                if dev[name] is not None:
+                    dev[name].zero_()
+            for name in ("cache", "pool", "draft_cache"):
+                for leaf in (dev[name] or {}).values():
+                    leaf.zero_()
+            if dev["bt"] is not None:
+                dev["bt"].fill_(TRASH_PAGE)
+        st.cache, st.pool, st.bt_dev = dev["cache"], dev["pool"], dev["bt"]
+        st.tok, st.pos, st.remaining = dev["tok"], dev["pos"], dev["remaining"]
+        st.draft_cache, st.spec_mask = dev["draft_cache"], dev["spec_mask"]
         st.slot_pos = [0] * self.slots
-        if self.spec_k > 1:
-            st.draft_cache = self.draft_model.init_cache(self.slots, self.max_seq)
-            st.spec_mask = torch.zeros(self.slots, dtype=torch.bool,
-                                       device=self.device)
+        if st.mgr is not None:
+            self._upload_tables(st)
+
+    def _upload_tables(self, st: _SchedState):
+        """The manager's block tables into the fixed device buffer, in
+        place (a queued copy from pinned memory)."""
+        st.mgr.upload_tables(st.bt_dev, self._dev["staging"])
 
     def _round(self, st: _SchedState):
-        """One scheduler round: admission, page growth (paged), one decode
-        step for every slot."""
+        """One serial scheduler round: admission, page growth (paged), one
+        decode step for every slot, dispatched and committed at once."""
+        st.rnd += 1
+        st.last_dispatch_s = st.last_commit_s = st.last_overlap_s = 0.0
         if self.prefix_sharing:
             self._admit_shared(st)
         else:
@@ -353,35 +463,147 @@ class ServeEngine:
         if st.live and st.mgr is not None:
             self._grow_or_preempt(st)
         if st.live:
-            if self.spec_k > 1:
-                self._step_spec(st)
+            self._timed_commit(st, self._timed_dispatch(st))
+        self._sample_timeseries(st)
+
+    # ----------------------------------------------------- round pipeline
+    def dispatch_round(self, st: _SchedState):
+        """Overlapped twin of :meth:`_round`: one round whose step is
+        dispatched but not committed; the fetch happens at the top of the
+        next round.  In the reference's order:
+
+        1. the round tick;
+        2. the overlap gap: host work that the in-flight step's commit
+           cannot influence, run while the device computes.  Of the
+           reference's gap only the tick exists here: its queue-side
+           fault sweeps and queued expiry wait for ROADMAP A10, its
+           admission control (shedding, watermarks) for A6c;
+        3. :meth:`commit_round`: the one wait, token and terminal
+           accounting, the deferred swap-out materialization;
+        4. admission (needs the freed slots), growth and preemption (need
+           the advanced positions and the spec retraction), then the next
+           dispatch.
+
+        The outputs are the serial round's; a session runs one more
+        round, which commits the last step."""
+        st.rnd += 1
+        st.last_dispatch_s = st.last_commit_s = st.last_overlap_s = 0.0
+        t_gap = time.perf_counter()
+        if st.pending is not None:
+            st.last_overlap_s = time.perf_counter() - t_gap
+        self.commit_round(st)
+        if st.queue or st.live:
+            if self.prefix_sharing:
+                self._admit_shared(st)
             else:
-                self._step(st)
+                self._admit(st)
+            if st.live and st.mgr is not None:
+                self._grow_or_preempt(st)
+            if st.live:
+                st.pending = self._timed_dispatch(st)
+        self._sample_timeseries(st)
+
+    def commit_round(self, st: _SchedState):
+        """Commit the in-flight step, if any (popped before the wait), then
+        materialize the swap-out copies queued since the last commit."""
+        pending, st.pending = st.pending, None
+        if pending is not None:
+            self._timed_commit(st, pending)
+        self._drain_swaps(st)
+
+    def _drain_swaps(self, st: _SchedState):
+        """Wait for the queued swap-out copies (device slices -> pinned
+        host buffers).  Idempotent; runs at every commit boundary."""
+        for handle in st.pending_swaps:
+            handle.materialize()
+        st.pending_swaps.clear()
+
+    def _sample_timeseries(self, st: _SchedState):
+        ts = st.timeseries
+        ts["round"].append(st.rnd)
+        ts["dispatch_s"].append(st.last_dispatch_s)
+        ts["commit_s"].append(st.last_commit_s)
+        ts["overlap_s"].append(st.last_overlap_s)
+
+    def _timed_dispatch(self, st: _SchedState) -> PendingRound:
+        """Issue one decode step; the host time it took is the round's
+        ``dispatch_s``."""
+        t_start = time.perf_counter()
+        pending = (self._dispatch_spec(st) if self.spec_k > 1
+                   else self._dispatch_step(st))
+        st.last_dispatch_s = time.perf_counter() - t_start
+        return pending
+
+    def _timed_commit(self, st: _SchedState, pending: PendingRound):
+        """Fetch and account one step; the host time (the wait included)
+        is the round's ``commit_s``."""
+        t_c = time.perf_counter()
+        self._commit_step(st, pending)
+        st.last_commit_s = time.perf_counter() - t_c
 
     # --------------------------------------------------------------- steps
-    def _step(self, st: _SchedState):
-        """Decode one token for every slot, then the one host transfer:
-        (next token, done, bad) per slot, accounted to the live slots.
-        Finished slots coast along inside the batch; the engine ignores
-        their outputs (paged: their writes land in the trash page)."""
+    def _run_step(self, st: _SchedState, attend: int, fn) -> PendingRound:
+        """Run a step over the fixed buffers (a graph replay on the
+        pipelined CUDA engine), then queue the copy of its output into the
+        pinned host buffer and an event after it."""
+        dev = self._dev
+        self._graphs.run((self._kind, attend), fn,
+                         restore=(dev["tok"], dev["pos"], dev["remaining"]))
+        event = None
+        if self.device.type == "cuda":
+            dev["out_host"].copy_(dev["out"], non_blocking=True)
+            event = torch.cuda.Event()
+            event.record()
+        else:
+            dev["out_host"].copy_(dev["out"])
+        return PendingRound(live=dict(st.live), spec=self.spec_k > 1, event=event)
+
+    def _dispatch_step(self, st: _SchedState) -> PendingRound:
+        """Launch one decode step for every slot (finished slots coast
+        along inside the batch; the commit ignores their outputs, and on
+        the paged layout their writes land in the trash page)."""
         attend = self._attend_len(max(st.slot_pos[s] for s in st.live) + 1)
         if st.mgr is not None:
             if st.mgr.dirty:
-                st.bt_dev = st.mgr.device_tables(self.device)
+                self._upload_tables(st)
             cache = dict(st.pool, block_tables=st.bt_dev)
         else:
             cache = st.cache
-        logits, _ = self.model.decode_step(self.params, cache, st.tok, st.pos,
-                                           attend_len=attend)
-        bad = ~torch.isfinite(logits).all(dim=-1)
-        st.tok = torch.argmax(logits, dim=-1).to(torch.int32)
-        st.pos = st.pos + 1
-        st.remaining = st.remaining - 1
-        done = (st.remaining <= 0) | (st.pos >= self.max_seq - 1)
-        nxt_h, done_h, bad_h = torch.stack(
-            [st.tok, done.to(torch.int32), bad.to(torch.int32)]).cpu().numpy()
+        fn = step_graph.decode_step_fn(self.model, self.params, cache, st.tok,
+                                       st.pos, st.remaining, self._dev["out"],
+                                       attend, self.max_seq)
+        return self._run_step(st, attend, fn)
+
+    def _dispatch_spec(self, st: _SchedState) -> PendingRound:
+        """Speculative twin of :meth:`_dispatch_step`: one step proposes,
+        verifies and scores a 1..spec_k token window per slot; the
+        committed prefix and the page retraction are the commit's."""
+        attend = self._attend_len(max(st.slot_pos[s] for s in st.live) + self.spec_k)
+        if st.mgr.dirty:
+            self._upload_tables(st)
+
+        def fn():
+            return self._spec_step(
+                self.params, self.draft_params, st.pool, st.draft_cache, st.bt_dev,
+                st.tok, st.pos, st.remaining, st.spec_mask, attend, self._dev["out"])
+
+        return self._run_step(st, attend, fn)
+
+    def _fetch(self, pending: PendingRound) -> np.ndarray:
+        """The step's output on the host: waits on the copy's event."""
+        if pending.event is not None:
+            pending.event.synchronize()
+        return self._dev["out_host"].numpy()
+
+    def _commit_step(self, st: _SchedState, pending: PendingRound):
+        """The one host transfer a step, then the token and terminal
+        accounting of the slots that were live at dispatch."""
+        if pending.spec:
+            return self._commit_spec(st, pending)
+        host = self._fetch(pending)
+        nxt_h, done_h, bad_h = host[0], host[2], host[3]
         now = time.perf_counter() - st.t0
-        for slot, req in list(st.live.items()):
+        for slot, req in list(pending.live.items()):
             if bad_h[slot]:
                 self._fail(st, slot, req, "nan-logits")
                 continue
@@ -390,26 +612,16 @@ class ServeEngine:
             if done_h[slot]:
                 self._finish(st, slot, now)
 
-    def _step_spec(self, st: _SchedState):
-        """Speculative twin of :meth:`_step`: one propose + verify + accept
-        step commits 1..spec_k tokens per live slot, then the one host
-        transfer (window tokens, commit, done, bad) per slot.  Pages
-        mapped for the window whose rows were all rejected go back to the
-        allocator (write-then-retract)."""
-        needed = max(st.slot_pos[s] for s in st.live) + self.spec_k
-        attend = self._attend_len(needed)
-        if st.mgr.dirty:
-            st.bt_dev = st.mgr.device_tables(self.device)
-        (targets, commit, st.tok, st.pos, st.remaining, done,
-         bad) = self._spec_step(
-            self.params, self.draft_params, st.pool, st.draft_cache, st.bt_dev,
-            st.tok, st.pos, st.remaining, st.spec_mask, attend)
-        host = torch.cat([targets, torch.stack(
-            [commit, done.to(torch.int32), bad.to(torch.int32)], dim=1)],
-            dim=1).cpu().numpy()
-        targets_h, (commit_h, done_h, bad_h) = host[:, :-3], host[:, -3:].T
+    def _commit_spec(self, st: _SchedState, pending: PendingRound):
+        """Commit half of a speculative window: append the committed
+        prefix, then retract pages holding only rejected rows
+        (write-then-retract, a table edit)."""
+        host = self._fetch(pending)
+        t = self.spec_k
+        targets_h = host[:t].T
+        commit_h, done_h, bad_h = host[t], host[t + 1], host[t + 2]
         now = time.perf_counter() - st.t0
-        for slot, req in list(st.live.items()):
+        for slot, req in list(pending.live.items()):
             if bad_h[slot]:
                 self._fail(st, slot, req, "nan-logits")
                 continue
@@ -600,7 +812,7 @@ class ServeEngine:
             return False
         del st.swaps[req.uid]
         st.queue.popleft()
-        swap_in_pages(st.pool, handle.data, pages)
+        swap_in_pages(st.pool, handle, pages)
         self._bookkeep_admit(st, slot, req, time.perf_counter() - st.t0)
         n = handle.n_tokens
         st.slot_pos[slot] = n          # _bookkeep_admit assumed a prefill
@@ -645,7 +857,7 @@ class ServeEngine:
         toks = torch.zeros((1, t_b), dtype=torch.int64, device=self.device)
         toks[0, :len(suffix)] = torch.as_tensor(suffix)
         if st.mgr.dirty:
-            st.bt_dev = st.mgr.device_tables(self.device)
+            self._upload_tables(st)
         cache = dict(st.pool, block_tables=st.bt_dev[slot:slot + 1])
         start = torch.tensor([plan.cached_tokens], dtype=torch.int32, device=self.device)
         last = torch.tensor([len(suffix) - 1], device=self.device)
@@ -751,10 +963,18 @@ class ServeEngine:
         it recreates the exact cache, so greedy output is unchanged.  On
         the swap tier the slot's pages go to host buffers first, and
         admission restores them instead of prefilling (the queue entry is
-        the same folded copy under both policies)."""
+        the same folded copy under both policies).  Pipelined, the swap's
+        device-to-host copy is queued and materialized at the next commit
+        boundary, so a victim never stalls the next dispatch; its device
+        slice is taken before the release, so a same-round admission
+        cannot overwrite the snapshot.  Serial, the copy is synchronous."""
         req = st.live.pop(slot)
         if self._swap_wins(st):
-            st.swaps[req.uid] = st.mgr.swap_out(slot, st.pool, st.slot_pos[slot])
+            handle = st.mgr.swap_out(slot, st.pool, st.slot_pos[slot],
+                                     async_copy=self.pipeline)
+            if self.pipeline:
+                st.pending_swaps.append(handle)
+            st.swaps[req.uid] = handle
             s = st.stats[req.uid]
             s["swap_outs"] = s.get("swap_outs", 0) + 1
         else:

@@ -36,6 +36,12 @@ Tiered memory:
             pages (values and scales) into host buffers, pinned on CUDA,
             before it releases them; :meth:`PagedCacheManager.admit_swapped`
             and :func:`swap_in_pages` restore them into fresh pages.
+            With ``async_copy=True`` the device-to-host copy is queued
+            (``non_blocking``) behind an on-device slice of the pages and
+            an event; :meth:`SwapHandle.materialize` waits on the event
+            (the pipelined engine does so at its next commit boundary), and
+            the handle keeps the device slice alive until then, so the
+            source pages may be released and overwritten at once.
 
 Prefix sharing.  Pages are refcounted, so slots whose prompts share a
 page-aligned prefix map the same physical pages (``serve.prefix_index``
@@ -52,16 +58,14 @@ The ownership rules are hard errors, not best effort:
     fully matched, page-aligned prompt; decode growth and the suffix
     prefill always write private pages.
 
-Not ported yet: the asynchronous ``swap_out_pages_async`` /
-``SwapHandle.materialize`` pair, which belongs to the pipelined engine
-(ROADMAP A6b); the swap copies here are synchronous.  ``PagedStats``
-leaves out the reference's ``audit_*`` fields (ROADMAP A10).
+``PagedStats`` leaves out the reference's ``audit_*`` fields (ROADMAP
+A10).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -574,17 +578,27 @@ class PagedCacheManager:
 
     # ----------------------------------------------------- host-swap tier
     def swap_out(self, slot: int, pool: Dict[str, torch.Tensor],
-                 n_tokens: int) -> "SwapHandle":
+                 n_tokens: int, async_copy: bool = False) -> "SwapHandle":
         """Page a slot out to host buffers: copy every mapped page of the
         slot (values and scales) device-to-host, then release the slot's
         references.  The copy comes strictly before the release, so a
         same-round admission cannot overwrite pages still being copied.
         Shared pages are copied like private ones: a swap-in restores them
-        into fresh private pages, outside the sharing graph."""
+        into fresh private pages, outside the sharing graph.
+
+        ``async_copy=True`` queues the copy (:func:`swap_out_pages_async`)
+        and returns a handle that must be materialized
+        (:meth:`SwapHandle.materialize`) before it is restored; its device
+        slice of the pages is taken before the release, in stream order,
+        so later writes to the released pages cannot reach it."""
         blocks = [int(p) for p in self.tables[slot] if p != TRASH_PAGE]
-        handle = SwapHandle(n_blocks=len(blocks), n_tokens=n_tokens,
-                            data=swap_out_pages(pool, blocks),
-                            page_size=self.page_size, kv_dtype=self.kv_dtype)
+        if async_copy:
+            data, pending = swap_out_pages_async(pool, blocks)
+        else:
+            data, pending = swap_out_pages(pool, blocks), None
+        handle = SwapHandle(n_blocks=len(blocks), n_tokens=n_tokens, data=data,
+                            page_size=self.page_size, kv_dtype=self.kv_dtype,
+                            pending=pending)
         self.swap_outs += 1
         self.swapped_out_bytes += handle.nbytes
         self.release(slot)
@@ -620,6 +634,13 @@ class PagedCacheManager:
     def device_tables(self, device) -> torch.Tensor:
         self.dirty = False
         return torch.as_tensor(self.tables, device=device)
+
+    def upload_tables(self, out: torch.Tensor, staging: "TableStaging"):
+        """Write the block tables into the fixed device buffer ``out`` in
+        place (a captured step reads it by address), through ``staging``'s
+        pinned host copy: a queued, non-blocking upload."""
+        self.dirty = False
+        staging.upload(self.tables, out)
 
     def prefill_page_idx(self, slot: int, n_blocks: int) -> np.ndarray:
         """(n_blocks,) page indices for a slot's first blocks, trash-padded
@@ -760,6 +781,29 @@ def gather_slot(pages: Dict[str, torch.Tensor], table_row: torch.Tensor
 # host-swap tier: page-out / page-in between the device pool and host RAM
 # ---------------------------------------------------------------------------
 
+class TableStaging:
+    """A pinned host copy of the block tables for queued uploads into a
+    fixed device buffer.  The host copy is rewritten only after the
+    previous upload has run (an event fences it), since a queued copy
+    reads pinned memory when it executes, not when it is issued.  On
+    CPU the upload is a plain copy."""
+
+    def __init__(self, shape, device):
+        cuda = torch.device(device).type == "cuda"
+        self.host = torch.empty(shape, dtype=torch.int32, pin_memory=cuda)
+        self.event = torch.cuda.Event() if cuda else None
+        self._queued = False
+
+    def upload(self, tables: np.ndarray, out: torch.Tensor):
+        if self._queued:
+            self.event.synchronize()
+        self.host.numpy()[...] = tables
+        out.copy_(self.host, non_blocking=self.event is not None)
+        if self.event is not None:
+            self.event.record()
+            self._queued = True
+
+
 @dataclasses.dataclass
 class SwapHandle:
     """A slot's cache, held in host memory while it is preempted.
@@ -771,16 +815,32 @@ class SwapHandle:
     (values and scales), so a swap resume continues exactly where the
     slot stopped.  ``n_tokens`` is the slot's valid prefix at swap time.
     ``page_size`` / ``kv_dtype`` stamp the producing pool's page format,
-    which :meth:`PagedCacheManager.admit_swapped` checks."""
+    which :meth:`PagedCacheManager.admit_swapped` checks.  ``pending``
+    holds a queued copy's (device slices, event) until
+    :meth:`materialize`: ``data`` is not to be read before then."""
     n_blocks: int
     n_tokens: int
     data: Dict[str, torch.Tensor]
     page_size: Optional[int] = None
     kv_dtype: Optional[str] = None
+    pending: Optional[Any] = None
 
     @property
     def nbytes(self) -> int:
         return sum(t.numel() * t.element_size() for t in self.data.values())
+
+    @property
+    def materialized(self) -> bool:
+        return self.pending is None
+
+    def materialize(self) -> "SwapHandle":
+        """Wait for a queued swap-out copy (``swap_out(...,
+        async_copy=True)``) to land in ``data``, then drop the device
+        slice it read.  Idempotent; returns self."""
+        if self.pending is not None:
+            self.pending[1].synchronize()
+            self.pending = None
+        return self
 
 
 def swap_out_pages(pool: Dict[str, torch.Tensor],
@@ -800,11 +860,39 @@ def swap_out_pages(pool: Dict[str, torch.Tensor],
     return out
 
 
-def swap_in_pages(pool: Dict[str, torch.Tensor], host: Dict[str, torch.Tensor],
+def swap_out_pages_async(pool: Dict[str, torch.Tensor], page_idx: Sequence[int]):
+    """Queued twin of :func:`swap_out_pages`: slice the pages out on
+    the device (a fresh tensor, so releasing and overwriting the source
+    pages afterwards cannot reach it), then queue a ``non_blocking`` copy
+    into pinned host tensors and record an event after it.  Returns
+    ``(host tensors, (device slices, event))``; the second item is what
+    :meth:`SwapHandle.materialize` waits on and keeps alive until then.
+    On CPU the copy is synchronous and the second item is None."""
+    if next(iter(pool.values())).device.type == "cpu":
+        return swap_out_pages(pool, page_idx), None
+    host, dev = {}, {}
+    for name, leaf in pool.items():
+        idx = torch.as_tensor(list(page_idx), dtype=torch.long, device=leaf.device)
+        dev[name] = leaf.index_select(1, idx)
+        host[name] = torch.empty(dev[name].shape, dtype=leaf.dtype, pin_memory=True)
+        host[name].copy_(dev[name], non_blocking=True)
+    event = torch.cuda.Event()
+    event.record()
+    return host, (dev, event)
+
+
+def swap_in_pages(pool: Dict[str, torch.Tensor], host,
                   page_idx: Sequence[int]) -> Dict[str, torch.Tensor]:
-    """Write host buffers from :func:`swap_out_pages` into pages
-    ``page_idx`` of the pool, in place: the resume half of swap-tier
-    preemption."""
+    """Write host buffers from :func:`swap_out_pages` (or a
+    :class:`SwapHandle`'s) into pages ``page_idx`` of the pool, in place:
+    the resume half of swap-tier preemption.  A handle whose queued copy
+    was not materialized raises: its host buffers may not hold the pages
+    yet, and waiting here would hide a missed commit boundary."""
+    if isinstance(host, SwapHandle):
+        if not host.materialized:
+            raise RuntimeError("swap handle restored before its queued copy "
+                               "was materialized (SwapHandle.materialize)")
+        host = host.data
     for name, leaf in pool.items():
         idx = torch.as_tensor(list(page_idx), dtype=torch.long, device=leaf.device)
         leaf.index_copy_(1, idx, host[name].to(device=leaf.device, dtype=leaf.dtype))

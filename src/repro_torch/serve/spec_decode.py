@@ -96,10 +96,14 @@ def build_spec_step(model, draft_model, *, max_seq: int, spec_k: int,
     """The propose + verify + accept step as a plain function:
 
       (params, draft_params, pool, draft_cache, block_tables, tok, pos,
-       remaining, spec_mask, attend_len) ->
-      (targets (B, T), commit (B,), tok, pos, remaining, done, bad (B,))
+       remaining, spec_mask, attend_len, out) -> window logits (B, T, V)
 
-    The pool and the draft cache are written in place; a quantized pool's
+    Every output lands in place, so that one captured CUDA graph holds
+    draft, verify and accept (``serve.step_graph``): the pool and the
+    draft cache take the window's rows, ``tok``, ``pos`` and
+    ``remaining`` advance by each row's commit, and ``out`` ((3 + T, B)
+    int32, ``step_graph.write_out``) takes the target tokens (rows
+    [0, T)), the commit counts, done and bad.  A quantized pool's
     ``k_scales``/``v_scales`` ride in ``pool`` beside the values, so the
     verify window stores its rows quantized and reads them through the
     int8 kernel (the reference rebuilds the donated pool leaf by leaf for
@@ -109,10 +113,12 @@ def build_spec_step(model, draft_model, *, max_seq: int, spec_k: int,
     overwritten before they are ever attended, like a rejected draft tail.
     ``bad`` flags rows whose window logits are not finite anywhere: the
     engine fails those requests instead of committing garbage."""
+    from repro_torch.serve.step_graph import write_out
+
     t_window = spec_k
 
     def spec_step(params, draft_params, pool, draft_cache, block_tables, tok,
-                  pos, remaining, spec_mask, attend_len):
+                  pos, remaining, spec_mask, attend_len, out):
         # propose: T - 1 greedy draft decode steps on the dense draft cache
         window = [tok]
         dtok = tok
@@ -143,10 +149,11 @@ def build_spec_step(model, draft_model, *, max_seq: int, spec_k: int,
         commit = torch.minimum(commit, torch.clamp(remaining, min=1))
         commit = torch.clamp(torch.minimum(commit, max_seq - 1 - pos), min=1)
         commit = commit.to(torch.int32)
-        tok = torch.gather(targets, 1, (commit - 1).long()[:, None])[:, 0]
-        pos = pos + commit
-        remaining = remaining - commit
+        tok.copy_(torch.gather(targets, 1, (commit - 1).long()[:, None])[:, 0])
+        pos.add_(commit)
+        remaining.sub_(commit)
         done = (remaining <= 0) | (pos >= max_seq - 1)
-        return targets, commit, tok, pos, remaining, done, bad
+        write_out(out, targets, commit, done, bad)
+        return logits
 
     return spec_step

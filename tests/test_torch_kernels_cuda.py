@@ -1483,6 +1483,170 @@ def test_cuda_matmul_f32_keeps_the_small_terms():
 
 
 # ---------------------------------------------------------------------------
+# captured serving steps (serve/step_graph.py) against the same step eager
+# ---------------------------------------------------------------------------
+
+STEP_KINDS_ON_CARD = ("dense", "paged", "paged_int8", "spec", "spec_int8")
+STEP_ATTEND = 64
+
+
+def _step_state(kind: str, seed: int = 0) -> dict:
+    """A mid-session serving state on the card for one step kind, made
+    from ``seed`` (two calls give equal states): the reduced qwen2 in fp32,
+    a cache or pool of random rows (int8 pools quantized on the card) with
+    each slot's pages in its own table row, tok / pos / remaining, the
+    output buffer, and the step's closure over all of them."""
+    from repro_torch.configs import reduced_config
+    from repro_torch.models.lm import Model
+    from repro_torch.serve import spec_decode, step_graph
+    from repro_torch.serve.kv_cache import quantize_kv_rows
+
+    cfg = reduced_config("qwen2-1.5b")
+    model = Model(cfg, dtype=torch.float32)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    params = model.init(gen)
+    slots, max_seq, page = 2, 96, 8
+    int8 = kind.endswith("int8")
+    if kind == "dense":
+        cache = model.init_cache(slots, max_seq)
+        for leaf in cache.values():
+            leaf.copy_(torch.randn(leaf.shape, generator=gen, device="cuda"))
+    else:
+        cache = model.init_cache(slots, max_seq, layout="paged", page_size=page,
+                                 kv_dtype="int8" if int8 else None)
+        nb = cache["block_tables"].shape[1]
+        cache["block_tables"].copy_(torch.arange(1, slots * nb + 1, dtype=torch.int32,
+                                                 device="cuda").reshape(slots, nb))
+        for name in ("k_pages", "v_pages"):
+            rows = torch.randn(cache[name].shape, generator=gen, device="cuda")
+            if int8:
+                cache[name], cache[name[0] + "_scales"][...] = quantize_kv_rows(rows)
+            else:
+                cache[name].copy_(rows)
+    st = dict(model=model, params=params, cache=cache, restore=None,
+              tok=torch.randint(0, cfg.vocab, (slots,), generator=gen, device="cuda",
+                                dtype=torch.int32),
+              pos=torch.tensor([21, 40], dtype=torch.int32, device="cuda"),
+              remaining=torch.tensor([30, 30], dtype=torch.int32, device="cuda"))
+    spec_k = 4 if kind.startswith("spec") else 1
+    st["out"] = torch.zeros(3 + spec_k, slots, dtype=torch.int32, device="cuda")
+    st["restore"] = (st["tok"], st["pos"], st["remaining"])
+    if spec_k == 1:
+        st["fn"] = step_graph.decode_step_fn(model, params, cache, st["tok"], st["pos"],
+                                             st["remaining"], st["out"], STEP_ATTEND,
+                                             max_seq)
+        return st
+    draft, dparams = spec_decode.make_self_draft(model, params, 1)
+    dcache = draft.init_cache(slots, max_seq)
+    for leaf in dcache.values():
+        leaf.copy_(torch.randn(leaf.shape, generator=gen, device="cuda"))
+    st["cache"] = dict(cache, draft_k=dcache["k"], draft_v=dcache["v"])
+    mask = torch.tensor([True, False], device="cuda")
+    step = spec_decode.build_spec_step(model, draft, max_seq=max_seq, spec_k=spec_k)
+    pool = {k: v for k, v in cache.items() if k != "block_tables"}
+    st["fn"] = lambda: step(params, dparams, pool, dcache, cache["block_tables"],
+                            st["tok"], st["pos"], st["remaining"], mask, STEP_ATTEND,
+                            st["out"])
+    return st
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", STEP_KINDS_ON_CARD)
+def test_cuda_captured_step_replays_eager_step(kind):
+    """Each step kind captured and replayed against the same step run
+    eagerly from the same state, in fp32: the output buffer, the logits,
+    tok / pos / remaining and every cache leaf (the rows the step wrote)
+    bit for bit, step after step; and n replays count the launches of n
+    eager steps."""
+    requires_cuda()
+    from repro_torch import kernels
+    from repro_torch.serve.step_graph import StepGraphs
+
+    eager, cap = _step_state(kind), _step_state(kind)
+    graphs = StepGraphs("cuda", enabled=True)
+    for _ in range(3):
+        want = eager["fn"]()
+        got = graphs.run((kind, STEP_ATTEND), cap["fn"], restore=cap["restore"])
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+        for name in ("out", "tok", "pos", "remaining"):
+            assert torch.equal(cap[name], eager[name]), name
+        for name, leaf in cap["cache"].items():
+            assert torch.equal(leaf, eager["cache"][name]), name
+    assert len(graphs.graphs) == 1 and graphs.replays == 3
+    n = 4
+    kernels.reset_launches()
+    for _ in range(n):
+        graphs.run((kind, STEP_ATTEND), cap["fn"])
+    replayed = kernels.launch_counts()
+    kernels.reset_launches()
+    for _ in range(n):
+        eager["fn"]()
+    torch.cuda.synchronize()
+    assert replayed == kernels.launch_counts()
+    attn = ("flash_decode" if kind == "dense" else "paged_flash_verify"
+            if kind.startswith("spec") else "paged_flash_decode")
+    if kind.endswith("int8"):
+        attn += "[int8]"
+    assert replayed["rmsnorm"] > 0 and replayed[attn] > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [
+    dict(),
+    dict(cache_layout="paged", page_size=8, num_pages=5),
+    dict(cache_layout="paged", page_size=8, num_pages=5, kv_dtype="int8",
+         preempt="swap"),
+    dict(cache_layout="paged", page_size=8, num_pages=5, preempt="swap", spec_k=4,
+         draft="self:2"),
+    dict(cache_layout="paged", page_size=8, prefix_sharing=True),
+], ids=["dense", "paged-preempt", "int8-swap", "spec-swap", "shared"])
+def test_cuda_pipelined_engine_matches_serial(kw):
+    """The engine on the card, pipelined (captured steps, queued swap
+    copies) against serial (eager), reduced qwen2 in fp32: the same greedy
+    tokens and preemptions; the pipelined run replayed graphs, counted
+    their kernels' launches, and materialized every swap copy; a second
+    session on the warmed engine captures nothing and serves the same."""
+    requires_cuda()
+    from repro_torch import kernels
+    from repro_torch.configs import reduced_config
+    from repro_torch.models.lm import Model
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    cfg = reduced_config("qwen2-1.5b")
+    model = Model(cfg, dtype=torch.float32)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    rng = np.random.default_rng(3)
+    prefix = rng.integers(0, cfg.vocab, 16).tolist() if kw.get("prefix_sharing") else []
+    spec = [(i, prefix + rng.integers(0, cfg.vocab, int(rng.integers(3, 20))).tolist(),
+             int(rng.integers(2, 9))) for i in range(6)]
+
+    def serve(eng):
+        kernels.reset_launches()
+        out = eng.serve([Request(u, list(t), n) for u, t, n in spec])
+        torch.cuda.synchronize()
+        return out, kernels.launch_counts()
+
+    serial = ServeEngine(model, params, max_seq=48, batch_slots=3, pipeline=False, **kw)
+    want, _ = serve(serial)
+    eng = ServeEngine(model, params, max_seq=48, batch_slots=3, **kw)
+    got, counts = serve(eng)
+    assert got == want
+    assert eng.preemptions == serial.preemptions
+    g = eng.last_graph_stats
+    assert g["enabled"] and g["graphs"] >= 1 and g["replays"] >= 1
+    assert serial.last_graph_stats["replays"] == 0
+    per = g["launches_per_replay"]
+    assert per and all(d.get("rmsnorm", 0) > 0 for d in per.values())
+    assert counts["rmsnorm"] >= sum(d["rmsnorm"] for d in per.values())
+    if kw.get("preempt") == "swap":
+        assert eng.last_pool_stats.swap_ins >= 1
+    again, _ = serve(eng)
+    assert again == want
+    assert eng.last_graph_stats["captured"] == 0
+
+
+# ---------------------------------------------------------------------------
 # no-fallback guards
 # ---------------------------------------------------------------------------
 
@@ -1511,7 +1675,7 @@ def test_port_imports_neither_jax_nor_repro():
                  "kernels.moe_gating.ops", "kernels.moe_gating.ref",
                  "configs.olmoe_1b_7b", "configs.granite_moe_1b_a400m",
                  "serve.calibrate", "serve.kv_cache", "serve.prefix_index",
-                 "serve.engine"):
+                 "serve.engine", "serve.step_graph"):
         assert f"repro_torch.{name}" in mods, name
 
 
