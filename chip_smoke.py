@@ -56,7 +56,26 @@ its paths:
    the reference's size, HW through the warp-intrinsic kernels against SW
    through the PR-transformation lane loops; it fails if they disagree or
    if a warp kernel never launched.  A profile of each lowering then
-   splits its time into device kernel time and kernel launches per call.
+   splits its time into device kernel time and kernels per call (from a
+   whole trace only, else n/a: ``fig5_microbench.device_profile``).
+   Then the paper's §IV pass (``pr_transform ...`` lines): the PR
+   transformation's programs (``repro_torch.bench.pr_transform_bench``:
+   the reference test's programs, every collective kind, a vote_uni and
+   ballots with lane 0 of each segment inactive, integer reductions,
+   int32 and bool shuffles, loads and stores outside a buffer, duplicate
+   store indices, a region's carry) at WarpConfig(8, 4) and (32, 32)
+   through the ``kernel`` (collectives on ``shfl``, ``vote`` and
+   ``tile_reduce``), ``hw`` and ``sw`` executors.  It fails unless kernel
+   == hw bit for bit (f32 sums within rtol 1e-6), sw == hw (f32 sums
+   within 1e-5; the out-of-range store and the carry, where the paths'
+   rules differ, each path equal to itself on the CPU), Fig. 3's report
+   reads 2 serialised regions, 1 collective, 1 fissioned if, and each of
+   the three kernels launched; it prints each lowering's event-timed ms,
+   profiled device µs and kernels a call (``sw`` at 32x32 for two
+   programs), and SW/HW.  The Table IV analogue follows (``table4 ...``
+   lines: ATen ops and kernels of the RMSNorm site and a reduced qwen2 forward in each
+   reduction form, and the HW kernels' registers and shared memory
+   against one SM's).
 3. Serving: 8 requests greedily with full-width qwen2-1.5b (random bf16
    weights from the seed) on the dense and on the paged cache layout, the
    paged pool small enough to force preemption.  Every serving run is
@@ -243,6 +262,7 @@ MSE_TOL = dict(atol=0.0, rtol=2e-6)
 # wrong tile or edge moves an entry by O(1)
 MATMUL_TOL = dict(atol=2e-3, rtol=1e-4)
 WARP_KERNELS = ("shfl", "vote", "tile_reduce", "mse_partial_sum", "matmul")
+PR_KERNELS = ("shfl", "vote", "tile_reduce")   # the PR pass's kernel lowering
 WARP_FORM_STEPS = 4
 ARCH = "qwen2-1.5b"
 MOE_ARCH = "olmoe-1b-7b"
@@ -923,6 +943,68 @@ def run_fig5(seed: int):
         if counts[name] == 0:
             fail(f"{name} never launched in the Fig. 5 run")
     return rows, counts
+
+
+# ---------------------------------------------------------------------------
+# phase 1c: the paper's §IV pass — whole thread programs on the warp kernels
+# ---------------------------------------------------------------------------
+
+def run_pr_transform(seed: int) -> dict:
+    """The PR transformation's programs (``bench/pr_transform_bench.py``)
+    at WarpConfig(8, 4) and (32, 32) through the ``kernel``, ``hw`` and
+    ``sw`` executors of ``core.pr_transform``: kernel == hw bit for bit
+    (f32 sums within rtol 1e-6), sw == hw (f32 sums within 1e-5), the
+    out-of-range store and the region carry each path against the same
+    path on the CPU, Fig. 3's transform report; it fails on any gate and
+    unless the kernel lowering launched shfl, vote and tile_reduce.  Then
+    each lowering's event-timed ms and profiled device time and kernels a
+    call, and SW/HW against ``kernel``."""
+    from repro_torch import kernels
+    from repro_torch.bench import pr_transform_bench as prb
+
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    try:
+        inputs = prb.check_all(seed, "cuda")
+    except AssertionError as exc:
+        fail(f"pr_transform: {exc}")
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    launches = {name: counts[name] for name in PR_KERNELS}
+    print(f"pr_transform gates held: {len(prb.CASES)} programs at "
+          f"{', '.join(prb.block_name(w) for w in prb.BLOCKS)}; fig3 report "
+          f"{prb.FIG3_REPORT}; kernel lowering launches {launches}", flush=True)
+    for name in PR_KERNELS:
+        if launches[name] == 0:
+            fail(f"the PR pass's kernel lowering never launched {name}")
+    rows = prb.time_all(inputs)
+    for r in rows:
+        print(f"pr_transform {prb.format_row(r)}", flush=True)
+    geo = {}
+    for block in (prb.block_name(w) for w in prb.BLOCKS):
+        ratios = [r["sw_over_kernel"] for r in rows if r["block"] == block]
+        geo[block] = float(np.exp(np.mean(np.log(ratios))))
+    wall = time.perf_counter() - t0
+    print("pr_transform SW/HW geomean (event ms, sw over kernel): "
+          + "; ".join(f"{b} {g:.2f}" for b, g in geo.items())
+          + f"; the phase took {wall:.1f} s", flush=True)
+    return dict(rows=rows, launches=launches, geomean_sw_over_kernel=geo, phase_s=wall)
+
+
+def run_table4(ptxas: dict) -> dict:
+    """The Table IV analogue (``bench/table4_overhead.py``) on the card:
+    ATen ops and kernels of the RMSNorm site and a reduced qwen2
+    forward in each reduction form, and the HW kernels' registers and
+    shared memory from this run's ptxas report."""
+    from repro_torch.bench import table4_overhead as t4
+
+    r = t4.run("cuda", ptxas=ptxas)
+    for line in t4.format_lines(r):
+        print(f"table4 {line}", flush=True)
+    if not r["footprint"]:
+        fail("table4: ptxas reported none of the HW warp kernels")
+    return r
 
 
 # ---------------------------------------------------------------------------
@@ -1957,17 +2039,6 @@ def run_shared(cfg, model, params, num_pages: int, seed: int):
             counts, int8_counts, control_counts, profiles)
 
 
-def _kernel_us(evt) -> float:
-    """Device time of a kernel event (CPU-side ops, whose device time
-    repeats their kernels', count 0)."""
-    from torch.autograd import DeviceType
-
-    if evt.device_type != DeviceType.CUDA:
-        return 0.0
-    return (getattr(evt, "self_device_time_total", None)
-            or getattr(evt, "self_cuda_time_total", 0) or 0)
-
-
 def where_time_goes(model, params, gen):
     """Host wall time (with a synchronize) and summed device kernel time
     (torch.profiler) of one full-batch decode step (dense, paged bf16 and
@@ -2063,6 +2134,8 @@ def kernel_parts_ms(fn, names, n: int = 20) -> dict:
     ``names`` (torch.profiler over ``n`` calls after a warm-up call)."""
     from torch.profiler import ProfilerActivity, profile
 
+    from repro_torch.bench.fig5_microbench import kernel_us
+
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -2070,7 +2143,7 @@ def kernel_parts_ms(fn, names, n: int = 20) -> dict:
             fn()
         torch.cuda.synchronize()
     events = prof.key_averages()
-    return {k: sum(_kernel_us(e) for e in events if k in e.key) / 1e3 / n for k in names}
+    return {k: sum(kernel_us(e) for e in events if k in e.key) / 1e3 / n for k in names}
 
 
 def profile_phase(name, fn, n: int) -> dict:
@@ -2079,6 +2152,8 @@ def profile_phase(name, fn, n: int) -> dict:
     more under torch.profiler; prints the ``time`` line and returns both,
     the busy share and the largest kernels."""
     from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.bench.fig5_microbench import kernel_us
 
     fn()
     torch.cuda.synchronize()
@@ -2092,15 +2167,15 @@ def profile_phase(name, fn, n: int) -> dict:
             fn()
         torch.cuda.synchronize()
     events = prof.key_averages()
-    dev_ms = sum(_kernel_us(e) for e in events) / 1e3 / n
-    top = sorted(events, key=_kernel_us, reverse=True)[:8]
-    decode = {k: sum(_kernel_us(e) for e in events if k in e.key) / 1e3 / n
+    dev_ms = sum(kernel_us(e) for e in events) / 1e3 / n
+    top = sorted(events, key=kernel_us, reverse=True)[:8]
+    decode = {k: sum(kernel_us(e) for e in events if k in e.key) / 1e3 / n
               for k in DECODE_KERNELS}
-    gating = sum(_kernel_us(e) for e in events if GATING_KERNEL in e.key) / 1e3 / n
-    long_ms = sum(_kernel_us(e) for e in events if LONG_KERNELS[0] in e.key) / 1e3 / n
+    gating = sum(kernel_us(e) for e in events if GATING_KERNEL in e.key) / 1e3 / n
+    long_ms = sum(kernel_us(e) for e in events if LONG_KERNELS[0] in e.key) / 1e3 / n
     rec = dict(wall_ms=wall_ms, device_ms=dev_ms, decode_kernels=decode, gating_ms=gating,
                verify_long_ms=long_ms,
-               top=[(e.key[:70], _kernel_us(e) / 1e3 / n) for e in top if _kernel_us(e) > 0])
+               top=[(e.key[:70], kernel_us(e) / 1e3 / n) for e in top if kernel_us(e) > 0])
     busy = f"{dev_ms / wall_ms:.3f}" if dev_ms > 0 else "not measured"
     print(f"time {name}: wall {wall_ms:.3f} ms, device kernels {dev_ms:.3f} ms, "
           f"device busy share {busy}; decode kernels "
@@ -2738,12 +2813,10 @@ def run_training(cfg, seed: int):
 
 
 def fig5_device_time(seed: int, iters: int = 5) -> dict:
-    """Device side of Fig. 5: summed kernel time (torch.profiler) and
-    kernel launches per call of each lowering.  Event-timed calls above
-    include the host's gaps; this says how much of each is device work."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+    """Device side of Fig. 5: summed kernel time and kernels per call of
+    each lowering (``fig5_microbench.device_profile``: n/a where no whole
+    trace was taken).  Event-timed calls above include the host's gaps;
+    this says how much of each is device work."""
     from repro_torch.bench import fig5_microbench as fig5
 
     inputs = fig5.make_inputs(seed, "cuda")
@@ -2754,21 +2827,15 @@ def fig5_device_time(seed: int, iters: int = 5) -> dict:
             fn, args = spec["make"](low), inputs[name]
             fn(*args)
             torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                for _ in range(iters):
-                    fn(*args)
-                torch.cuda.synchronize()
-            events = prof.key_averages()
-            out[name][low] = dict(
-                device_us=sum(_kernel_us(e) for e in events) / iters,
-                kernels=sum(e.count for e in events
-                            if e.device_type == DeviceType.CUDA) / iters)
-        r = out[name]
-        ratio = (r["sw"]["device_us"] / r["kernel"]["device_us"]
-                 if r["kernel"]["device_us"] > 0 else float("nan"))
+            out[name][low] = fig5.device_profile(lambda: fn(*args), iters)
+        r = {low: p["device_us"] for low, p in out[name].items()}
+        ratio = (f"{r['sw'] / r['kernel']:.2f}" if None not in (r["sw"], r["kernel"])
+                 else "n/a")
         print(f"fig5 device {name}: " + "; ".join(
-            f"{low} {r[low]['device_us']:.1f} us in {r[low]['kernels']:.0f} kernels"
-            for low in fig5.LOWERINGS) + f"; SW/HW device {ratio:.2f}", flush=True)
+            f"{low} {p['device_us']:.1f} us in {p['kernels']:.0f} kernels" if p["whole"]
+            else f"{low} n/a ({p['traced']:.0f} kernel records of "
+                 f"{p['launch_calls']:.0f} launch calls)"
+            for low, p in out[name].items()) + f"; SW/HW device {ratio}", flush=True)
     return out
 
 
@@ -2859,6 +2926,10 @@ def main():
     for name in WARP_KERNELS:
         rows[name]["launches"] = fig5_counts[name]
     fig5_device = fig5_device_time(args.seed)
+    pr_rec = run_pr_transform(args.seed)
+    for name in PR_KERNELS:
+        rows[name]["launches"] += pr_rec["launches"][name]
+    table4 = run_table4(ptxas)
 
     model = Model(cfg, device="cuda", dtype=torch.bfloat16)
     params = model.init(torch.Generator(device="cuda").manual_seed(args.seed))
@@ -3012,6 +3083,7 @@ def main():
         paged_counts=paged_counts, preemptions=preemptions, train=train_rec,
         num_pages=num_pages, teacher_forced_max_err=err, logit_scale=scale,
         fig5=fig5_rows, fig5_counts=fig5_counts, fig5_device=fig5_device,
+        pr_transform=pr_rec, table4=table4,
         warp_forms=warp_forms, spec=spec_rec, verify_t1_err=t1_err, moe=moe_rec,
         c1_control=c1, tiered=tiered_rec, int8_kernel_checks=int8_checks,
         shared=shared_rec, verify_long=long_checks, replay_probes=probes,

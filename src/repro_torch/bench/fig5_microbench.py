@@ -162,20 +162,78 @@ def make_inputs(seed: int = 0, device: DeviceLike = None,
     return out
 
 
-def _cuda_us(fn, args) -> float:
-    """Mean time of one call over ITERS back-to-back calls on the device's
-    clock (CUDA events, after a warm-up call): device work plus any gap
-    the host leaves between launches."""
+def cuda_us(fn, args, iters: int = ITERS) -> float:
+    """Mean time of one call over ``iters`` back-to-back calls on the
+    device's clock (CUDA events, after a warm-up call): device work plus
+    any gap the host leaves between launches."""
     fn(*args)
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
-    for _ in range(ITERS):
+    for _ in range(iters):
         fn(*args)
     end.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) * 1e3 / ITERS
+    return start.elapsed_time(end) * 1e3 / iters
+
+
+def kernel_us(evt) -> float:
+    """Device time of a profiler event (CPU-side ops, whose device time
+    repeats their kernels', count 0)."""
+    from torch.autograd import DeviceType
+
+    if evt.device_type != DeviceType.CUDA:
+        return 0.0
+    return (getattr(evt, "self_device_time_total", None)
+            or getattr(evt, "self_cuda_time_total", 0) or 0)
+
+
+LAUNCH_APIS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+               "cuLaunchKernelEx", "cudaLaunchCooperativeKernel")
+COPY_RECORDS = ("Memcpy", "Memset")   # device records that are no kernel
+PROFILE_TRIES = 3
+
+
+def device_profile(fn: Callable, n: int) -> Dict:
+    """Device µs and kernels a call of ``fn`` over ``n`` calls under
+    torch.profiler, after one traced warm-up call whose records are dropped.
+
+    A trace can lose records of a short window, so a trace counts only
+    when it is whole: its kernel records equal its launch API calls, a
+    multiple of ``n``, and no fewer than the port's wrappers counted
+    (``kernels.launch_counts``) over the same calls.  Up to
+    ``PROFILE_TRIES`` traces are taken; if none is whole, ``device_us``
+    and ``kernels`` are None and ``traced`` / ``launch_calls`` say what
+    the last trace held."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    from repro_torch import kernels as _kernels
+
+    def counted():
+        return sum(_kernels.launch_counts().values())
+
+    for _ in range(PROFILE_TRIES):
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=n, repeat=1)) as prof:
+            for i in range(1 + n):
+                if i == 1:
+                    before = counted()
+                fn()
+                torch.cuda.synchronize()
+                prof.step()
+            wrapped = counted() - before
+        events = prof.key_averages()
+        traced = sum(e.count for e in events if e.device_type == DeviceType.CUDA
+                     and not e.key.startswith(COPY_RECORDS))
+        calls = sum(e.count for e in events if e.key in LAUNCH_APIS)
+        whole = traced == calls and calls % n == 0 and calls >= wrapped
+        if whole:
+            break
+    return dict(device_us=sum(kernel_us(e) for e in events) / n if whole else None,
+                kernels=traced / n if whole else None, whole=whole,
+                traced=traced / n, launch_calls=calls / n, wrapper_launches=wrapped / n)
 
 
 def run(seed: int = 0, device: DeviceLike = None,
@@ -197,7 +255,7 @@ def run(seed: int = 0, device: DeviceLike = None,
                 raise AssertionError(f"fig5 {name}: the {low} lowering differs from "
                                      f"the kernel beyond {TOL}")
             err = max(err, (outs[low] - outs["kernel"]).abs().max().item())
-        t = ({low: _cuda_us(fn, args) for low, fn in fns.items()}
+        t = ({low: cuda_us(fn, args) for low, fn in fns.items()}
              if timed else dict.fromkeys(LOWERINGS))
         rows.append(_row(name, t, err, torch.cuda.get_device_name(dev) if timed else "cpu"))
     rows.append(_geomean_row(rows))

@@ -14,6 +14,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.bench import pr_transform_bench as prb  # noqa: E402
+from repro_torch.core.warp import WarpConfig  # noqa: E402
 from repro_torch.device import requires_cuda  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.decode_attention.ops import (  # noqa: E402
@@ -1407,6 +1409,61 @@ def test_cuda_mse_matches_plain(warp_size, n, dtype):
                                rtol=1e-5, atol=0)
 
 
+# ---------------------------------------------------------------------------
+# the PR transformation's kernel lowering (core.pr_transform, path="kernel")
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block", [(8, 4), (32, 32)], ids=["8x4", "32x32"])
+@pytest.mark.parametrize("name", list(prb.CASES))
+def test_cuda_pr_transform_lowerings_agree(name, block):
+    """Each program of the smoke's pr_transform phase on the card: kernel
+    == hw bit for bit (f32 sums within rtol 1e-6), sw == hw (f32 sums
+    within 1e-5), the out-of-range store and the carry each path against
+    the same path on the CPU (``check`` raises on a failed gate)."""
+    requires_cuda()
+    case, warp = prb.CASES[name], WarpConfig(*block)
+    gen = torch.Generator(device="cuda").manual_seed(sum(map(ord, name)))
+    outs = prb.check(case, warp, prb.make_inputs(case, warp, gen), "cuda")
+    assert all(v.device.type == "cuda" for o in outs.values() for v in o.values())
+
+
+@pytest.mark.cuda
+def test_cuda_pr_transform_kernel_lowering_launches_each_warp_kernel():
+    """The kernel lowering reaches all three wrappers on CUDA tensors; the
+    hw and sw lowerings reach none."""
+    requires_cuda()
+    from repro_torch import kernels
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    warp = prb.BLOCKS[0]
+    for low in prb.LOWERINGS:
+        kernels.reset_launches()
+        for case in prb.CASES.values():
+            prb.run_program(case.make(prb.TORCH, warp), prb.make_inputs(case, warp, gen),
+                            low, "cuda")
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        for name in ("shfl", "vote", "tile_reduce"):
+            assert (counts[name] > 0) == (low == "kernel"), (low, name)
+
+
+@pytest.mark.cuda
+def test_cuda_pr_transform_kernel_route_raises_rather_than_falls_back():
+    """A collective the table sends to a kernel reaches the kernel on a
+    CUDA tensor, so an argument the kernel refuses raises."""
+    requires_cuda()
+    from repro_torch.core import ir
+    from repro_torch.core.pr_transform import run
+
+    prog = ir.ThreadProgram(
+        warp=WarpConfig(8, 4), locals={"r": torch.float32},
+        stmts=[ir.Collective("r", "shfl_up", lambda env, tid, ctx: env["inp"],
+                             {"delta": -1})])
+    with pytest.raises(ValueError, match="imm >= 0"):
+        run(prog, {"inp": torch.ones(32, device="cuda")}, "kernel", "cuda")
+
+
 def _matmul_tol(k, dtype):
     return dict(atol=1e-4 * k ** 0.5, rtol=1e-5) if dtype == torch.float32 else CUDA_TOL[dtype]
 
@@ -1675,7 +1732,8 @@ def test_port_imports_neither_jax_nor_repro():
                  "kernels.moe_gating.ops", "kernels.moe_gating.ref",
                  "configs.olmoe_1b_7b", "configs.granite_moe_1b_a400m",
                  "serve.calibrate", "serve.kv_cache", "serve.prefix_index",
-                 "serve.engine", "serve.step_graph"):
+                 "serve.engine", "serve.step_graph", "core.ir", "core.pr_transform",
+                 "bench.pr_transform_bench", "bench.table4_overhead", "quickstart"):
         assert f"repro_torch.{name}" in mods, name
 
 
