@@ -161,6 +161,21 @@ its paths:
    physical against logical pages, and one warm against one cold
    admission's prefill device time (torch.profiler), with the warm
    prefill's long-branch device ms beside the unsplit design's.
+4d. Sampling at temperature 0.7 (``sampled ...`` lines), the engine's
+   keys ``fold_in(fold_in(PRNGKey(seed), uid), position)`` drawn on the
+   card (``serve/sampling.py``): the sampler's keys, bits, uniforms and
+   scaled logits at the full vocabulary equal the CPU's (the Gumbel
+   values within ``GUMBEL_ATOL``); 4096 draws with distinct uids from one
+   fixed logits row land within 5 sigma of softmax(logits / T) on each
+   of 17 buckets; a sampled replay probe of the dense, paged and spec
+   steps; dense and preempting paged serving pipelined against serial
+   (gated where the sampled probe was bit for bit); the fp32 control
+   sampled (dense = the preempting pool, gated); spec (b) sampled beside
+   non-spec (accept rate and agreement reported); the captured sampled
+   dense and spec steps' wall and kernel ms beside the greedy ones;
+   ``ServeEngine.generate`` at two seeds and ``repro_torch.serve_lm``.
+   It fails unless the sampled streams differ from the greedy ones and
+   across two seeds.
 5. Training (``train ...`` lines): full-width, full-depth qwen2-1.5b with
    fp32 master weights and AdamW state, bf16 compute, remat per layer and
    the 8-chunk loss, at the reference's train_4k length (S 4096; batch 2,
@@ -339,6 +354,13 @@ DECODE_KERNELS = ("decode_split_kernel", "decode_combine_kernel")
 GATING_KERNEL = "moe_gating_kernel"
 # prefix sharing: the system prompt the shared requests open with (16
 # full pages), and the long-window verify branch's suffix buckets
+# phase 4d: sampling
+SAMPLE_T = 0.7
+SAMPLE_SEED = 3
+FREQ_DRAWS = 4096
+FREQ_CHUNK = 256
+FREQ_HOT = 16                 # buckets with ~2-8 % of the mass each
+FREQ_SIGMA = 5.0
 SYSTEM_PROMPT = 256
 LONG_T = (16, 256)
 # the long branch's f32 (CUDA-core) kernel vs its plain version: the same
@@ -1175,13 +1197,15 @@ def pipeline_pair(label, piped, serial, names, gate: bool) -> dict:
     return rec
 
 
-def step_state(model, params, kind: str, gen: torch.Generator, draft=None) -> dict:
+def step_state(model, params, kind: str, gen: torch.Generator, draft=None,
+               sampler=None) -> dict:
     """One engine step's fixed buffers at the decode profile's shape
     (SLOTS rows at DECODE_POS, attend ATTEND; random cache rows, int8
     pools quantized on the card, each slot's pages in its own table row)
     and its closure, as the engine builds it (``serve/step_graph.py``,
     ``spec_decode.build_spec_step``; ``draft`` = (model, params) for the
-    spec kinds).  ``reset()`` puts tok / pos / remaining back."""
+    spec kinds; ``sampler`` the engine's sampled-step draw, None greedy).
+    ``reset()`` puts tok / pos / remaining back."""
     from repro_torch.serve import spec_decode, step_graph
     from repro_torch.serve.kv_cache import quantize_kv_rows
 
@@ -1190,7 +1214,8 @@ def step_state(model, params, kind: str, gen: torch.Generator, draft=None) -> di
     st = dict(tok=torch.randint(0, model.cfg.vocab, (SLOTS,), generator=gen, **i32),
               pos=torch.tensor(DECODE_POS, **i32),
               remaining=torch.full((SLOTS,), MAX_NEW, **i32),
-              out=torch.zeros(3 + spec_k, SLOTS, **i32))
+              out=torch.zeros(3 + spec_k, SLOTS, **i32),
+              uids=torch.arange(SLOTS, **i32))
     saved = [st[k].clone() for k in ("tok", "pos", "remaining")]
     st["reset"] = lambda: [st[k].copy_(v) for k, v in zip(("tok", "pos", "remaining"), saved)]
     st["restore"] = (st["tok"], st["pos"], st["remaining"])
@@ -1212,22 +1237,25 @@ def step_state(model, params, kind: str, gen: torch.Generator, draft=None) -> di
     st["cache"] = cache
     if spec_k == 1:
         st["fn"] = step_graph.decode_step_fn(model, params, cache, st["tok"], st["pos"],
-                                             st["remaining"], st["out"], ATTEND, MAX_SEQ)
+                                             st["remaining"], st["out"], ATTEND, MAX_SEQ,
+                                             uids=st["uids"], sampler=sampler)
         return st
     dmodel, dparams = draft
     dcache = dmodel.init_cache(SLOTS, MAX_SEQ)
     for leaf in dcache.values():
         leaf.copy_(torch.randn(leaf.shape, generator=gen, device="cuda"))
     st["draft_cache"] = dcache
-    step = spec_decode.build_spec_step(model, dmodel, max_seq=MAX_SEQ, spec_k=spec_k)
+    step = spec_decode.build_spec_step(model, dmodel, max_seq=MAX_SEQ, spec_k=spec_k,
+                                       sampler=sampler)
     pool = {k: v for k, v in cache.items() if k != "block_tables"}
     mask = torch.ones(SLOTS, dtype=torch.bool, device="cuda")
     st["fn"] = lambda: step(params, dparams, pool, dcache, cache["block_tables"], st["tok"],
-                            st["pos"], st["remaining"], mask, ATTEND, st["out"])
+                            st["pos"], st["remaining"], st["uids"], mask, ATTEND, st["out"])
     return st
 
 
-def replay_probe(model, params, kind: str, gen: torch.Generator, draft=None) -> dict:
+def replay_probe(model, params, kind: str, gen: torch.Generator, draft=None,
+                 sampler=None) -> dict:
     """The captured step against the same step eager, from equal states
     (one seed, two draws): whether the logits, the output buffer and every
     cache leaf the step wrote are bit for bit equal, and the largest logit
@@ -1238,8 +1266,10 @@ def replay_probe(model, params, kind: str, gen: torch.Generator, draft=None) -> 
     from repro_torch.serve.step_graph import StepGraphs
 
     seed = int(torch.randint(0, 2 ** 31, (1,), generator=gen, device="cuda").item())
-    a = step_state(model, params, kind, torch.Generator(device="cuda").manual_seed(seed), draft)
-    b = step_state(model, params, kind, torch.Generator(device="cuda").manual_seed(seed), draft)
+    a = step_state(model, params, kind, torch.Generator(device="cuda").manual_seed(seed),
+                   draft, sampler)
+    b = step_state(model, params, kind, torch.Generator(device="cuda").manual_seed(seed),
+                   draft, sampler)
     graphs = StepGraphs("cuda", enabled=True)
     want = a["fn"]()
     got = graphs.run((kind, ATTEND), b["fn"], restore=b["restore"])
@@ -1253,7 +1283,8 @@ def replay_probe(model, params, kind: str, gen: torch.Generator, draft=None) -> 
                cache_equal={n: bool(torch.equal(x, y)) for n, x, y in leaves})
     rec["bit_for_bit"] = (rec["logits_equal"] and rec["out_equal"]
                           and all(rec["cache_equal"].values()))
-    print(f"replay probe {kind} ({model.dtype}): captured vs eager step bit for bit "
+    label = kind if sampler is None else f"{kind} sampled"
+    print(f"replay probe {label} ({model.dtype}): captured vs eager step bit for bit "
           f"{rec['bit_for_bit']}; logits max diff {rec['max_logit_diff']:.3e}; "
           f"output equal {rec['out_equal']}; cache leaves unequal "
           f"{[n for n, e in rec['cache_equal'].items() if not e]}", flush=True)
@@ -2103,7 +2134,8 @@ def where_time_goes(model, params, gen):
     return phases
 
 
-def graph_phase(name, model, params, kind: str, gen, draft=None, n: int = 10) -> dict:
+def graph_phase(name, model, params, kind: str, gen, draft=None, n: int = 10,
+                sampler=None) -> dict:
     """``profile_phase`` of one captured step of ``kind`` replayed
     (``serve/step_graph.py``; the step's state from :func:`step_state`,
     tok / pos / remaining put back before each replay, three small copies
@@ -2112,7 +2144,7 @@ def graph_phase(name, model, params, kind: str, gen, draft=None, n: int = 10) ->
     eager rows."""
     from repro_torch.serve.step_graph import StepGraphs
 
-    st = step_state(model, params, kind, gen, draft)
+    st = step_state(model, params, kind, gen, draft, sampler)
     graphs = StepGraphs("cuda", enabled=True)
     graphs.run((kind, ATTEND), st["fn"], restore=st["restore"])
     per = graphs.launches().get((kind, ATTEND), {})
@@ -2194,6 +2226,226 @@ def require_decode_kernels(phases: dict, names):
         if r["device_ms"] > 0 and not all(r["decode_kernels"][k] > 0 for k in DECODE_KERNELS):
             fail(f"the {name} profile holds no {DECODE_KERNELS} time: "
                  f"{r['decode_kernels']}")
+
+
+# ---------------------------------------------------------------------------
+# phase 4d: sampling at temperature > 0
+# ---------------------------------------------------------------------------
+
+def step_sampler(device="cuda"):
+    """The draw a sampled engine's captured steps make (``serve/sampling.py``,
+    the reference's jitted rounding), at SAMPLE_T with SAMPLE_SEED's keys."""
+    from repro_torch.serve import sampling
+
+    return sampling.StepSampler(sampling.prng_key(SAMPLE_SEED, device), SAMPLE_T)
+
+
+def check_sampler(vocab: int, gen: torch.Generator) -> dict:
+    """The sampler on the card against the CPU at a decode step's shape
+    (SLOTS rows of the full vocabulary, each row's (uid, position) key):
+    keys, random bits, uniforms and scaled logits (both roundings) must
+    be equal; the Gumbel values' largest difference (the libraries' log)
+    and the token agreement are reported; the sampler's eager time a
+    call (host-paced) beside one argmax."""
+    from repro_torch.serve import sampling
+
+    uids = torch.tensor([0, 1, 7, 2 ** 31 - 1], dtype=torch.int32)
+    pos = torch.tensor(DECODE_POS, dtype=torch.int32) + 1
+    logits = torch.randn(SLOTS, vocab, generator=gen, device="cuda") * 3
+
+    def draw(dev):
+        base = sampling.prng_key(SAMPLE_SEED, dev)
+        keys = sampling.fold_in(sampling.fold_in(base, uids.to(dev)), pos.to(dev))
+        bits = sampling.random_bits(keys, (vocab,))
+        unif = sampling.uniform_from_bits(bits, sampling.F32_TINY)
+        lg = logits.to(dev)
+        return dict(keys=keys, bits=bits, uniform=unif,
+                    scaled_div=sampling.scale_logits(lg, SAMPLE_T),
+                    scaled_mul=sampling.scale_logits(lg, SAMPLE_T, reciprocal=True),
+                    gumbel=sampling.gumbel(keys, (vocab,)),
+                    tokens=sampling.sample_at(lg, pos.to(dev), uids.to(dev), base,
+                                              SAMPLE_T, reciprocal=True))
+
+    gpu, cpu = draw("cuda"), draw("cpu")
+    equal = {k: bool(torch.equal(gpu[k].cpu(), cpu[k]))
+             for k in ("keys", "bits", "uniform", "scaled_div", "scaled_mul")}
+    g_err = (gpu["gumbel"].cpu() - cpu["gumbel"]).abs().max().item()
+    tok_agree = (gpu["tokens"].cpu() == cpu["tokens"]).float().mean().item()
+    sampler = step_sampler()
+    pos_d, uids_d = pos.cuda(), uids.cuda()
+    sample_ms = cuda_ms(lambda: sampler(logits, pos_d, uids_d))
+    argmax_ms = cuda_ms(lambda: torch.argmax(logits, dim=-1))
+    rec = dict(equal=equal, gumbel_max_abs=g_err, token_agreement=tok_agree,
+               sampler_eager_ms=sample_ms, argmax_ms=argmax_ms,
+               elements=SLOTS * vocab)
+    print(f"sampled sampler: CUDA vs CPU at {SLOTS} x {vocab}: equal {equal}; gumbel "
+          f"max |diff| {g_err:.3e} (tolerance {sampling.GUMBEL_ATOL:.0e}); token "
+          f"agreement {tok_agree:.4f}; the sampler eager {sample_ms:.3f} ms a call "
+          f"(host-paced) against argmax {argmax_ms:.4f} ms", flush=True)
+    if not all(equal.values()):
+        fail(f"the sampler's keys, bits, uniforms or scaled logits differ between "
+             f"the card and the CPU: {equal}")
+    if g_err > sampling.GUMBEL_ATOL:
+        fail(f"the card's Gumbel values are {g_err:.3e} from the CPU's")
+    return rec
+
+
+def frequency_check(vocab: int, gen: torch.Generator) -> dict:
+    """FREQ_DRAWS draws, one per uid, from one fixed logits row: FREQ_HOT
+    tokens set to hold ~2-8 % of softmax(logits / T) each, the rest of the
+    vocabulary the remainder.  Each of the FREQ_HOT + 1 buckets' counts
+    must lie within FREQ_SIGMA binomial sigmas of n p; chi-square
+    reported."""
+    from repro_torch.serve import sampling
+
+    base = sampling.prng_key(SAMPLE_SEED, "cuda")
+    logits = torch.randn(vocab, generator=gen, device="cuda")
+    hot = torch.randperm(vocab, generator=gen, device="cuda")[:FREQ_HOT]
+    w = torch.linspace(0.02, 0.08, FREQ_HOT, dtype=torch.float64, device="cuda")
+    rest = torch.ones(vocab, dtype=torch.bool, device="cuda")
+    rest[hot] = False
+    z_rest = torch.exp(logits.double()[rest] / SAMPLE_T).sum()
+    logits[hot] = (SAMPLE_T * torch.log(w / (1 - w.sum()) * z_rest)).float()
+    p = torch.softmax(logits.double() / SAMPLE_T, dim=0)
+    probs = torch.cat([p[hot], p[rest].sum()[None]])
+    counts = torch.zeros(vocab, dtype=torch.int64, device="cuda")
+    pos = torch.full((FREQ_CHUNK,), 17, dtype=torch.int32, device="cuda")
+    t0 = time.perf_counter()
+    for c in range(0, FREQ_DRAWS, FREQ_CHUNK):
+        uids = torch.arange(c, c + FREQ_CHUNK, dtype=torch.int32, device="cuda")
+        tok = sampling.sample_at(logits.expand(FREQ_CHUNK, vocab), pos, uids, base,
+                                 SAMPLE_T, reciprocal=True)
+        counts += torch.bincount(tok.long(), minlength=vocab)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = torch.cat([counts[hot], counts[rest].sum()[None]]).double()
+    want = FREQ_DRAWS * probs
+    sigma = torch.sqrt(FREQ_DRAWS * probs * (1 - probs))
+    zs = ((got - want) / sigma).tolist()
+    chi2 = float(((got - want) ** 2 / want).sum())
+    rec = dict(draws=FREQ_DRAWS, buckets=FREQ_HOT + 1, max_abs_z=max(abs(z) for z in zs),
+               z=zs, chi2=chi2, wall_s=wall)
+    print(f"sampled frequency: {FREQ_DRAWS} draws with distinct uids from one row of "
+          f"{vocab} logits at T {SAMPLE_T}: max |z| {rec['max_abs_z']:.2f} over "
+          f"{FREQ_HOT + 1} buckets (gate {FREQ_SIGMA}); chi-square {chi2:.2f} "
+          f"({FREQ_HOT} dof); {wall:.2f} s", flush=True)
+    if rec["max_abs_z"] > FREQ_SIGMA:
+        fail(f"sampled frequencies are {rec['max_abs_z']:.2f} sigma from softmax(logits/T)")
+    return rec
+
+
+def run_sampled(cfg, model, params, spec, num_pages, greedy_dense, phases,
+                gen: torch.Generator, draft) -> tuple:
+    """Phase 4d (see the module docstring).  Returns the record, the bf16
+    runs' launch counts (summed) and the fp32 control's."""
+    from repro_torch import serve_lm
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.serve.spec_decode import make_self_draft
+
+    t_phase = time.perf_counter()
+    rec = dict(temperature=SAMPLE_T, seed=SAMPLE_SEED)
+    rec["sampler"] = check_sampler(cfg.vocab, gen)
+    rec["frequency"] = frequency_check(cfg.vocab, gen)
+    sampler = step_sampler()
+    probes = {kind: replay_probe(model, params, kind, gen, draft, sampler)
+              for kind in ("dense", "paged", "spec")}
+    rec["replay_probes"] = probes
+    kw = dict(temperature=SAMPLE_T, seed=SAMPLE_SEED)
+    paged_kw = dict(cache_layout="paged", page_size=PAGE_SIZE, num_pages=num_pages)
+    runs = {}
+    for label, lkw, kind in (("dense", {}, "dense"), ("paged", paged_kw, "paged")):
+        piped = serve(model, params, spec, **kw, **lkw)
+        serial = serve(model, params, spec, pipeline=False, **kw, **lkw)
+        rec[f"pipeline_{label}"] = pipeline_pair(
+            f"sampled {label}", piped, serial, STEP_KERNELS[kind],
+            gate=probes[kind]["bit_for_bit"])
+        runs[label] = (piped, serial)
+    counts = add_counts(add_counts(*(r[2] for r in runs["dense"])),
+                        add_counts(*(r[2] for r in runs["paged"])))
+    sampled_dense = runs["dense"][0][0]
+    if runs["paged"][0][1].preemptions < 1:
+        fail("the sampled paged run was sized to preempt and did not")
+    differ = agreement(greedy_dense, sampled_dense)
+    rec["greedy_agreement"] = differ
+    layout_agreement("sampled dense vs paged token agreement (bf16, reported)",
+                     sampled_dense, runs["paged"][0][0], runs["paged"][0][1])
+    del runs
+
+    # the fp32 control of phase 3a, sampled: dense = the preempting pool
+    model32, params32 = fp32_model(cfg, params)
+    d32 = serve(model32, params32, spec, **kw)
+    p32 = serve(model32, params32, spec, **kw, **paged_kw)
+    agree32, _, preempted = layout_agreement(
+        "sampled fp32 control: dense vs preempting paged", d32[0], p32[0], p32[1])
+    rec["fp32_control"] = dict(agreement=agree32, preempted=preempted)
+    counts32 = add_counts(d32[2], p32[2])
+    if not preempted:
+        fail("the sampled fp32 control was sized to preempt and did not")
+    if agree32 < 1.0:
+        fail("sampled, in fp32, the preempting paged pool served other tokens than dense")
+    del model32, params32, d32, p32
+
+    # spec (b) sampled: damped weights, a self:1 draft, beside non-spec
+    damped = dict(params, layers=_scaled(params["layers"], 0.05))
+    base, _, base_counts, b_wall, b_tok = serve(model, damped, spec, **kw,
+                                                cache_layout="paged", page_size=PAGE_SIZE)
+    s_out, s_eng, s_counts, s_wall, s_tok = serve(
+        model, damped, spec, **kw, cache_layout="paged", page_size=PAGE_SIZE,
+        spec_k=SPEC_K, draft="self:1")
+    b = spec_report("b damped self:1 sampled", spec, s_out, s_eng, s_counts, s_wall, s_tok)
+    b.update(nonspec_tok_s=b_tok / b_wall, token_agreement=agreement(base, s_out),
+             speedup=b["tok_s"] / (b_tok / b_wall))
+    print(f"sampled spec b: spec vs non-spec token agreement {b['token_agreement']:.4f} "
+          f"(reported); tok/s {b['tok_s']:.1f} against non-spec {b_tok / b_wall:.1f}",
+          flush=True)
+    rec["spec_b"] = b
+    counts = add_counts(counts, add_counts(base_counts, s_counts))
+    del damped
+
+    # the captured steps, sampled beside greedy (the same call)
+    for name, kind in (("decode_step_graph", "dense"),
+                       ("spec_step_T4_self14_graph", "spec")):
+        rows = phases[name]
+        s_rec = graph_phase(f"{name}_sampled", model, params, kind, gen,
+                            make_self_draft(model, params, 14) if kind == "spec" else None,
+                            sampler=sampler)
+        phases[f"{name}_sampled"] = s_rec
+        print(f"sampled step {kind}: wall {s_rec['wall_ms']:.3f} ms, kernels "
+              f"{s_rec['device_ms']:.3f} ms against greedy wall {rows['wall_ms']:.3f}, "
+              f"kernels {rows['device_ms']:.3f} (+{s_rec['wall_ms'] - rows['wall_ms']:.3f} "
+              f"/ +{s_rec['device_ms'] - rows['device_ms']:.3f} ms)", flush=True)
+        rec[f"{kind}_step"] = dict(sampled_wall_ms=s_rec["wall_ms"],
+                                   sampled_device_ms=s_rec["device_ms"],
+                                   greedy_wall_ms=rows["wall_ms"],
+                                   greedy_device_ms=rows["device_ms"])
+
+    # generate() at two seeds, and the serve_lm example
+    prompts = torch.randint(0, cfg.vocab, (SLOTS, 64), generator=gen, device="cuda")
+    outs = {}
+    for seed in (SAMPLE_SEED, SAMPLE_SEED + 1):
+        eng = ServeEngine(model, params, max_seq=MAX_SEQ, batch_slots=SLOTS,
+                          temperature=SAMPLE_T, seed=seed)
+        outs[seed] = eng.generate(prompts, 16).cpu()
+        if outs[seed].shape != (SLOTS, 16) or not bool(
+                ((outs[seed] >= 0) & (outs[seed] < cfg.vocab)).all()):
+            fail(f"generate gave {tuple(outs[seed].shape)} tokens or ids out of range")
+    seeds_differ = float((outs[SAMPLE_SEED] != outs[SAMPLE_SEED + 1]).float().mean())
+    rec["generate_seed_difference"] = seeds_differ
+    t0 = time.perf_counter()
+    lm = serve_lm.main([])
+    rec["serve_lm"] = dict(wall_s=time.perf_counter() - t0, tokens=lm["tokens"],
+                           served=lm["served"])
+    print(f"sampled sanity: sampled dense vs greedy dense token agreement {differ:.4f}; "
+          f"generate seed {SAMPLE_SEED} vs {SAMPLE_SEED + 1}: {seeds_differ:.4f} of "
+          f"tokens differ; serve_lm {lm['served']} requests, {lm['tokens']} tokens in "
+          f"{rec['serve_lm']['wall_s']:.1f} s", flush=True)
+    if differ >= 1.0:
+        fail("the sampled dense run served the greedy tokens")
+    if seeds_differ <= 0.0:
+        fail("generate served the same tokens at two seeds")
+    rec["wall_s"] = time.perf_counter() - t_phase
+    print(f"sampled phase: {rec['wall_s']:.1f} s", flush=True)
+    return rec, counts, counts32
 
 
 # ---------------------------------------------------------------------------
@@ -3051,6 +3303,11 @@ def main():
     phases = where_time_goes(model, params, gen)
     phases.update(shared_profiles)
 
+    sampled_rec, sampled_counts, sampled_fp32 = run_sampled(
+        cfg, model, params, spec, num_pages, dense, phases, gen, draft1)
+    for name in serving_kernels + ("paged_flash_verify",):
+        rows[name]["launches"] += sampled_counts[name]
+
     # the serving weights, engine and logits make way for training's
     preemptions = eng.preemptions
     del model, params, plain, m, eng, k_logits, p_logits, f_logits
@@ -3065,9 +3322,11 @@ def main():
     phases["train_step"] = train_rec.pop("profile")
     flash_branch_launches(
         {"serve dense": dense_counts, "serve paged": paged_counts,
+         "sampled bf16 runs": sampled_counts,
          "tiered bf16 runs": tiered_counts, "shared bf16 runs": shared_counts,
          "shared int8 run": shared_int8, "moe serve": moe_counts, "train": train_counts},
         {"C1 control fp32": c1["launches"], "shared fp32 control": shared_fp32,
+         "sampled fp32 control": sampled_fp32,
          "tiered fp32 control": tiered_rec["fp32_control_launches"],
          "moe control fp32 no drops": moe_rec["preemption_controls"]["fp32 no drops"]["launches"]})
     # training's launches belong to the training-shape rows
@@ -3086,7 +3345,8 @@ def main():
         pr_transform=pr_rec, table4=table4,
         warp_forms=warp_forms, spec=spec_rec, verify_t1_err=t1_err, moe=moe_rec,
         c1_control=c1, tiered=tiered_rec, int8_kernel_checks=int8_checks,
-        shared=shared_rec, verify_long=long_checks, replay_probes=probes,
+        shared=shared_rec, sampled=sampled_rec, verify_long=long_checks,
+        replay_probes=probes,
         pipeline=PIPELINE_PAIRS,
         moe_gating=gating_readings, flash_branches=BRANCHES_RUN,
         matmul=MATMUL_READINGS, ptxas=ptxas),

@@ -1,9 +1,9 @@
 """Serving engine: continuous batching over a dense or a paged KV cache.
 
 Counterpart of ``repro.serve.engine.ServeEngine`` with its serial round
-(``pipeline=False``) and greedy sampling.  A fixed pool of batch slots
-decodes together, one token per step for every slot; admission happens at
-step boundaries and finished slots free at once.
+(``pipeline=False``), its sampling and ``generate``.  A fixed pool of
+batch slots decodes together, one token per step for every slot;
+admission happens at step boundaries and finished slots free at once.
 
   dense   one (L, slots, max_seq, H, D) pool; admission needs a free slot.
   paged   a shared (L, num_pages, page_size, H, D) pool; admission needs a
@@ -11,7 +11,7 @@ step boundaries and finished slots free at once.
           growth page per running slot), pages are mapped on demand as
           sequences grow, and when the pool runs out the newest request is
           preempted and requeued with its generated tokens folded into its
-          prompt, so greedy outputs are unchanged.
+          prompt, so outputs are unchanged (greedy or sampled: see below).
 
 Admitted requests of the dense family prefill together as one
 right-padded batch (bucketed to ``PROMPT_BLOCK``; each row's logits are
@@ -23,6 +23,17 @@ bucketed to ``ATTEND_BLOCK``) and makes one device-to-host copy: its
 fixed ``(3 + T, slots)`` int32 output (tokens, commit, done, bad).  A row
 whose logits are not finite is failed on its own; the rest of the batch
 goes on.
+
+Sampling.  ``temperature`` 0 is greedy (argmax).  Above 0 each token is
+drawn as the reference draws it (``serve.sampling``): row i's key is
+``fold_in(fold_in(PRNGKey(seed), uid), P)`` with P the position the
+token will occupy (``len(prompt)`` for the first token after a prefill,
+pos + 1 in a decode step, pos + i + 1 in a speculative window), so a
+request's tokens are a function of (seed, uid, prompt) alone: admission
+order, slot count, layout, preemption (a requeued request's folded
+prompt puts its next token at the same P) and speculation do not move
+them.  The keys are computed on the device from a per-slot ``uids``
+buffer and ``pos``, inside the captured step.
 
 Overlapped rounds (``pipeline=True``, the default, as the reference's).
 A round is split in two halves: :meth:`ServeEngine.dispatch_round`
@@ -37,7 +48,7 @@ each fixed-shape decode or verify step as one captured CUDA graph
 (``serve.step_graph``, one per attend bucket); the serial engine runs
 its steps eagerly, as the control.  The device state (cache or pool,
 block-table buffer, ``tok``/``pos``/``remaining``, the output) lives as
-long as the engine, since the graphs read it by address; a session
+long as the engine, since the graphs read it by address (``uids`` too); a session
 zero-fills it in place.  Prefill and the shared suffix prefill stay
 eager: their shapes change with every admission.
 
@@ -45,9 +56,10 @@ Speculative decoding (``spec_k > 1``, paged layout) replaces the one-token
 step with a propose + verify window (``serve.spec_decode``): a draft
 proposes spec_k - 1 tokens, the target scores all spec_k positions in one
 ``decode_verify_step``, and the longest prefix matching the target's own
-greedy tokens commits, 1..spec_k tokens per step, the same tokens as
-non-speculative decode.  Requests with ``spec=False`` ride the same batch
-committing one token per step.  The window's page span is mapped before
+tokens (greedy, or sampled with the same (uid, position) keys) commits,
+1..spec_k tokens per step, the same tokens as non-speculative decode.
+Requests with ``spec=False`` ride the same batch committing one token
+per step.  The window's page span is mapped before
 the step and blocks holding only rejected rows are retracted after it
 (a table edit, no copies).  The step's one device-to-host copy is then
 (window tokens, commit counts, done, bad).  A governor turns speculation
@@ -82,12 +94,15 @@ charges only the private pages, and a released request's prefix lingers
 in the index as reclaimable cache (``evict_policy`` picks the victims
 under allocation pressure; ``min_cached_tokens`` keeps short prompts
 out).  A page-aligned prompt that matches in full forks its last page
-copy-on-write.  Greedy outputs are those of unshared paged serving:
-sharing lives below the block tables.
+copy-on-write.  Outputs (greedy or sampled) are those of unshared paged
+serving: sharing lives below the block tables.
 
-Not ported yet: sampling at temperature > 0 (ROADMAP A6), measured cost
-models (``preempt_calibrate``, A11), chunked prefill, faults and recovery,
-the straggler watchdog, priorities and deadlines.
+:meth:`ServeEngine.generate` runs an equal-length prompt batch on the
+dense layout for a fixed number of tokens, row i sampling with uid i.
+
+Not ported yet: measured cost models (``preempt_calibrate``, A11),
+chunked prefill, faults and recovery, the straggler watchdog,
+priorities and deadlines.
 """
 
 from __future__ import annotations
@@ -101,7 +116,7 @@ import numpy as np
 import torch
 
 from repro_torch.optim.optimizer import leaves
-from repro_torch.serve import calibrate, spec_decode, step_graph
+from repro_torch.serve import calibrate, sampling, spec_decode, step_graph
 from repro_torch.serve.kv_cache import (
     CACHE_LAYOUTS,
     TRASH_PAGE,
@@ -146,6 +161,23 @@ _PADDED_PREFILL_FAMILIES = ("dense",)
 def _round_up(x: int, block: int) -> int:
     """x rounded up to a positive multiple of block (shape bucketing)."""
     return max(block, -(-x // block) * block)
+
+
+def _int32(x: int) -> int:
+    """x mod 2**32 as a signed int32 value (a uid in the int32 buffer;
+    the sampler reads it back as uint32, as the reference's cast does)."""
+    return ((int(x) + 2 ** 31) & 0xFFFFFFFF) - 2 ** 31
+
+
+def sample_token(logits: torch.Tensor, key: torch.Tensor,
+                 temperature: float = 0.0) -> torch.Tensor:
+    """logits (B, V) -> tokens (B,) int32.  temperature 0 = greedy; above
+    0 one key (``sampling.prng_key``/``fold_in``) draws the whole batch,
+    as ``jax.random.categorical(key, logits / T, axis=-1)``."""
+    if temperature <= 0.0:
+        return torch.argmax(logits, dim=-1).to(torch.int32)
+    return sampling.categorical(
+        key, sampling.scale_logits(logits, temperature)).to(torch.int32)
 
 
 @dataclasses.dataclass
@@ -201,6 +233,7 @@ class _SchedState:
     pos: Any = None
     tok: Any = None
     remaining: Any = None
+    uids: Any = None           # each slot's request uid (int32), the sampling keys'
     swaps: Dict[int, SwapHandle] = dataclasses.field(default_factory=dict)
     draft_cache: Any = None    # speculative decoding: dense draft slot pool
     spec_mask: Any = None      # speculative decoding: per-slot spec flag
@@ -223,7 +256,8 @@ class _SchedState:
 
 class ServeEngine:
     def __init__(self, model, params, *, max_seq: int, batch_slots: int,
-                 temperature: float = 0.0, cache_layout: str = "dense",
+                 temperature: float = 0.0, seed: int = 0,
+                 cache_layout: str = "dense",
                  page_size: int = 16, num_pages: Optional[int] = None,
                  kv_dtype: Optional[str] = None, preempt: str = "requeue",
                  prefix_sharing: bool = False, evict_policy: str = "lru",
@@ -232,10 +266,6 @@ class ServeEngine:
                  pipeline: bool = True,
                  cost_model: Optional[calibrate.CostModel] = None,
                  preempt_calibrate: bool = False):
-        if temperature > 0.0:
-            raise NotImplementedError(
-                "sampling at temperature > 0 needs the reference's threefry "
-                "(uid, position) keys and is not ported yet (ROADMAP A6)")
         if cache_layout not in CACHE_LAYOUTS:
             raise ValueError(f"cache_layout must be one of {CACHE_LAYOUTS}; "
                              f"got {cache_layout!r}")
@@ -298,19 +328,29 @@ class ServeEngine:
         # preempt="auto": recompute costs ~2 * params FLOPs a token
         self._n_params = sum(t.numel() for t in leaves(params))
         self.spec_k = spec_k
+        # sampling: keys from (seed, uid, position), see serve.sampling.
+        # The first token after a prefill scales as the reference's eager
+        # call does (a division by T), a decode or verify step as its
+        # jitted step does (a multiply by f32(1/T)); temperature 0 keeps
+        # every step's argmax, so greedy graphs hold today's ops
+        self.temperature = float(temperature)
+        self._base_key = sampling.prng_key(seed, self.device)
+        self._sampler = (sampling.StepSampler(self._base_key, self.temperature)
+                         if self.temperature > 0.0 else None)
         # overlapped rounds; on a CUDA device also the captured steps.
         # pipeline=False keeps the serial, eager round: the control
         self.pipeline = pipeline
         self._graphs = step_graph.StepGraphs(self.device, enabled=pipeline)
         self._kind = step_graph.step_kind(cache_layout, kv_dtype, spec_k)
         self._dev: Optional[Dict[str, Any]] = None   # device state, see _init_device
+        self._gen: Dict[int, Dict[str, Any]] = {}    # generate()'s, by batch
         self.draft_model = self.draft_params = None
         if spec_k > 1:
             self.draft_model, self.draft_params = spec_decode.resolve_draft(
-                model, params, draft)
+                model, params, draft, seed=seed)
             self._spec_step = spec_decode.build_spec_step(
                 model, self.draft_model, max_seq=max_seq, spec_k=spec_k,
-                verify_backend=verify_backend)
+                verify_backend=verify_backend, sampler=self._sampler)
         # observability, refreshed by every serve() call
         self.last_stats: Dict[Any, Any] = {}
         self.last_pool_stats = None
@@ -325,6 +365,61 @@ class ServeEngine:
     def _attend_len(self, needed: int) -> int:
         """Attention bound: ``needed`` rounded up to the bucket."""
         return min(self.max_seq, _round_up(needed, ATTEND_BLOCK))
+
+    # ------------------------------------------------------------ generation
+    @torch.no_grad()
+    def generate(self, prompts, n_tokens: int) -> torch.Tensor:
+        """prompts (B, S): an equal-length batch (ints, any array type).
+        Returns (B, n_tokens) int32 tokens on the engine's device.
+
+        Always the dense layout (one fixed batch, no scheduling: paging
+        buys nothing here), whatever the engine's ``cache_layout``.  Row i
+        samples with uid i: the first token at position S, then each
+        decode step's at pos + 1.  The steps read fixed per-batch buffers
+        and run as the engine's captured dense step (a pipelined engine on
+        CUDA; one graph per batch size and attend bucket)."""
+        if not isinstance(prompts, torch.Tensor):
+            prompts = torch.as_tensor(np.asarray(prompts))
+        prompts = prompts.to(self.device, torch.int64)
+        b, s = prompts.shape
+        if n_tokens < 1:
+            raise ValueError(f"n_tokens must be >= 1; got {n_tokens}")
+        if s >= self.max_seq:
+            raise ValueError(f"prompts of {s} tokens leave no decode room in "
+                             f"max_seq={self.max_seq}")
+        gen = self._gen_buffers(b)
+        logits, pcache = self.model.prefill(self.params, prompts, self.max_seq)
+        for name, leaf in gen["cache"].items():
+            leaf.copy_(pcache[name][:, :, :self.max_seq])
+        gen["uids"].copy_(torch.arange(b, dtype=torch.int32, device=self.device))
+        gen["pos"].fill_(s)
+        gen["tok"].copy_(sampling.sample_at(logits, gen["pos"], gen["uids"],
+                                            self._base_key, self.temperature))
+        gen["remaining"].fill_(n_tokens - 1)
+        out = [gen["tok"].clone()]
+        for i in range(n_tokens - 1):
+            attend = self._attend_len(s + i + 1)
+            fn = step_graph.decode_step_fn(
+                self.model, self.params, gen["cache"], gen["tok"], gen["pos"],
+                gen["remaining"], gen["out"], attend, self.max_seq,
+                uids=gen["uids"], sampler=self._sampler)
+            self._graphs.run(("generate", b, attend), fn,
+                             restore=(gen["tok"], gen["pos"], gen["remaining"]))
+            out.append(gen["tok"].clone())
+        return torch.stack(out, dim=1)
+
+    def _gen_buffers(self, b: int) -> Dict[str, Any]:
+        """generate()'s fixed buffers for batch ``b``, kept for the
+        engine's lifetime (its captured steps read them by address)."""
+        gen = self._gen.get(b)
+        if gen is None:
+            zeros = dict(dtype=torch.int32, device=self.device)
+            gen = self._gen[b] = {
+                "cache": self.model.init_cache(b, self.max_seq),
+                "tok": torch.zeros(b, **zeros), "pos": torch.zeros(b, **zeros),
+                "remaining": torch.zeros(b, **zeros), "uids": torch.zeros(b, **zeros),
+                "out": torch.zeros(4, b, **zeros)}
+        return gen
 
     # ------------------------------------------------- continuous batching
     @torch.no_grad()
@@ -408,6 +503,7 @@ class ServeEngine:
             dev = {"tok": torch.zeros(self.slots, **zeros),
                    "pos": torch.zeros(self.slots, **zeros),
                    "remaining": torch.zeros(self.slots, **zeros),
+                   "uids": torch.zeros(self.slots, **zeros),
                    # (3 + T, slots): targets, commit, done, bad
                    "out": torch.zeros(3 + self.spec_k, self.slots, **zeros),
                    "cache": None, "pool": None, "bt": None, "staging": None,
@@ -431,7 +527,7 @@ class ServeEngine:
                                                device=self.device)
             self._dev = dev
         else:
-            for name in ("tok", "pos", "remaining", "out", "spec_mask"):
+            for name in ("tok", "pos", "remaining", "uids", "out", "spec_mask"):
                 if dev[name] is not None:
                     dev[name].zero_()
             for name in ("cache", "pool", "draft_cache"):
@@ -441,6 +537,7 @@ class ServeEngine:
                 dev["bt"].fill_(TRASH_PAGE)
         st.cache, st.pool, st.bt_dev = dev["cache"], dev["pool"], dev["bt"]
         st.tok, st.pos, st.remaining = dev["tok"], dev["pos"], dev["remaining"]
+        st.uids = dev["uids"]
         st.draft_cache, st.spec_mask = dev["draft_cache"], dev["spec_mask"]
         st.slot_pos = [0] * self.slots
         if st.mgr is not None:
@@ -571,7 +668,8 @@ class ServeEngine:
             cache = st.cache
         fn = step_graph.decode_step_fn(self.model, self.params, cache, st.tok,
                                        st.pos, st.remaining, self._dev["out"],
-                                       attend, self.max_seq)
+                                       attend, self.max_seq, uids=st.uids,
+                                       sampler=self._sampler)
         return self._run_step(st, attend, fn)
 
     def _dispatch_spec(self, st: _SchedState) -> PendingRound:
@@ -585,7 +683,8 @@ class ServeEngine:
         def fn():
             return self._spec_step(
                 self.params, self.draft_params, st.pool, st.draft_cache, st.bt_dev,
-                st.tok, st.pos, st.remaining, st.spec_mask, attend, self._dev["out"])
+                st.tok, st.pos, st.remaining, st.uids, st.spec_mask, attend,
+                self._dev["out"])
 
         return self._run_step(st, attend, fn)
 
@@ -803,7 +902,16 @@ class ServeEngine:
         the folded prompt's last) re-arms as ``tok`` at position
         ``handle.n_tokens``, so the next step replays the step the
         preemption interrupted.  False when the pool cannot grant the
-        pages yet (admission blocks, as for a too-big prompt)."""
+        pages yet (admission blocks, as for a too-big prompt).
+
+        Under prefix sharing the gate deviates from the reference's: it
+        counts ``available()``, the free pages plus the pages only the
+        prefix index holds (reclaimed by ``admit_swapped``'s allocation),
+        where the reference counts free pages only (its
+        ``allocator.free - _headroom``), which blocks for as long as the
+        index holds the pool.  So a resume that only index-held pages let
+        in admits here and waits there; the tokens are the same either
+        way, since a token is a function of (seed, uid, prompt)."""
         handle = st.swaps[req.uid]
         if st.mgr.available() - len(st.live) < handle.n_blocks:
             return False
@@ -818,6 +926,7 @@ class ServeEngine:
         st.slot_pos[slot] = n          # _bookkeep_admit assumed a prefill
         st.pos[slot] = n
         st.tok[slot] = int(req.prompt[-1])
+        st.uids[slot] = _int32(req.uid)
         # no token samples at a swap resume, so no -1 here: the requeue
         # path's prefill charges its sample against this same budget
         st.remaining[slot] = req.max_new_tokens - len(req.generated)
@@ -905,14 +1014,19 @@ class ServeEngine:
     def _commit_prefill(self, st: _SchedState, slots: List[int],
                         reqs: List[Request], logits: torch.Tensor):
         """The slot state after an admission prefill, shared by the full
-        and the suffix prefill: each row's first token (greedy, at
-        position len(prompt)), pos / tok / remaining (and the spec flags),
-        then the one host copy; a row whose logits are not finite fails
-        on its own."""
+        and the suffix prefill: each row's first token, sampled at position
+        len(prompt) with its uid's key (a requeued request's folded prompt
+        puts it at the position of the token it replaces), pos / tok /
+        remaining / uids (and the spec flags), then the one host copy; a
+        row whose logits are not finite fails on its own."""
         lens = [len(r.prompt) for r in reqs]
-        first = torch.argmax(logits, dim=-1).to(torch.int32)
-        finite = torch.isfinite(logits).all(dim=-1)
         idx = torch.as_tensor(slots, device=self.device)
+        st.uids[idx] = torch.as_tensor([_int32(r.uid) for r in reqs],
+                                       dtype=torch.int32, device=self.device)
+        first = sampling.sample_at(
+            logits, torch.as_tensor(lens, device=self.device), st.uids[idx],
+            self._base_key, self.temperature)
+        finite = torch.isfinite(logits).all(dim=-1)
         if self.spec_k > 1:
             st.spec_mask[idx] = torch.as_tensor(
                 [r.spec and r.uid not in st.spec_disabled for r in reqs],

@@ -8,13 +8,14 @@ the target scores all k window positions in one ``decode_verify_step``
 commit for one pass of the target's launches.
 
 Acceptance is the longest prefix of the draft matching the target's own
-greedy tokens: the target token at position p comes from logits that see
-only positions < p, so the draft cannot change it.  A draft token is kept
-iff it equals that token; the first mismatch is replaced by the target's
-token and the step ends.  The committed stream therefore equals
-non-speculative greedy decode; the draft only sets how many tokens each
-step commits.  (The reference also samples at temperature > 0 with
-(uid, position) keys; the port is greedy until ROADMAP A6.)
+tokens: the target token at position p comes from logits that see only
+positions < p, and is drawn with the (uid, p) key whatever the window's
+shape, so the draft cannot change it.  A draft token is kept iff it
+equals that token; the first mismatch is replaced by the target's token
+and the step ends.  The committed stream therefore equals
+non-speculative decode, greedy or sampled; the draft only sets how many
+tokens each step commits.  The draft samples with the same keys, so a
+well-matched draft reproduces the target's draws.
 
 Drafts (``resolve_draft``):
 
@@ -92,11 +93,17 @@ def resolve_draft(model, params, draft, *, seed: int = 0):
 
 
 def build_spec_step(model, draft_model, *, max_seq: int, spec_k: int,
-                    verify_backend=None):
+                    verify_backend=None, sampler=None):
     """The propose + verify + accept step as a plain function:
 
       (params, draft_params, pool, draft_cache, block_tables, tok, pos,
-       remaining, spec_mask, attend_len, out) -> window logits (B, T, V)
+       remaining, uids, spec_mask, attend_len, out) -> window logits (B, T, V)
+
+    ``sampler`` (``serve.sampling.StepSampler``) draws the draft's row i
+    and the target's window row i at pos + i + 1 with each slot's
+    ``uids`` key: the step draws the Gumbel noise of the window's T
+    positions once, and the draft's row i and the target's row i add
+    the same noise row; None is greedy (argmax).
 
     Every output lands in place, so that one captured CUDA graph holds
     draft, verify and accept (``serve.step_graph``): the pool and the
@@ -118,14 +125,22 @@ def build_spec_step(model, draft_model, *, max_seq: int, spec_k: int,
     t_window = spec_k
 
     def spec_step(params, draft_params, pool, draft_cache, block_tables, tok,
-                  pos, remaining, spec_mask, attend_len, out):
-        # propose: T - 1 greedy draft decode steps on the dense draft cache
+                  pos, remaining, uids, spec_mask, attend_len, out):
+        # propose: T - 1 draft decode steps on the dense draft cache,
+        # drawn with the keys the target uses at the same positions
         window = [tok]
         dtok = tok
+        if sampler is not None:
+            rows = torch.arange(1, t_window + 1, dtype=pos.dtype, device=pos.device)
+            noise = sampler.noise(pos[:, None] + rows, uids[:, None],
+                                  model.cfg.vocab)                # (B, T, V)
         for i in range(t_window - 1):
             dlogits, _ = draft_model.decode_step(draft_params, draft_cache, dtok,
                                                  pos + i, attend_len)
-            dtok = torch.argmax(dlogits, dim=-1).to(torch.int32)
+            if sampler is None:
+                dtok = torch.argmax(dlogits, dim=-1).to(torch.int32)
+            else:
+                dtok = sampler.draw(noise[:, i], dlogits)
             window.append(dtok)
         win = torch.stack(window, dim=1)                          # (B, T)
 
@@ -137,7 +152,10 @@ def build_spec_step(model, draft_model, *, max_seq: int, spec_k: int,
         bad = ~torch.isfinite(logits).all(dim=-1).all(dim=-1)
 
         # accept: the target's token per position, longest matching prefix
-        targets = torch.argmax(logits, dim=-1).to(torch.int32)    # (B, T)
+        if sampler is None:
+            targets = torch.argmax(logits, dim=-1).to(torch.int32)    # (B, T)
+        else:
+            targets = sampler.draw(noise, logits)
         if t_window > 1:
             match = (win[:, 1:] == targets[:, :-1]).to(torch.int32)
             lead = torch.cumprod(match, dim=1).sum(dim=1)

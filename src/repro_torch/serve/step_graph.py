@@ -14,9 +14,12 @@ elementwise ops of the whole step, launched by one call instead of about
 The step functions read fixed buffers and write all their state in place
 (:func:`decode_step_fn`, ``spec_decode.build_spec_step``): the cache or
 pool rows, ``tok``, ``pos``, ``remaining`` and one ``(3 + T, slots)``
-int32 output (:func:`write_out`).  A buffer the engine rebound would
-leave a graph reading the old storage, so the engine keeps every
-captured input for its lifetime.
+int32 output (:func:`write_out`).  A sampled step (temperature > 0) also
+reads the per-slot ``uids`` buffer and derives every row's threefry key
+from it and ``pos`` on the device (``serve.sampling``), so the graph
+holds the sampler too and no replay needs the host.  A buffer the engine
+rebound would leave a graph reading the old storage, so the engine keeps
+every captured input for its lifetime.
 
 :class:`StepGraphs` holds one engine's graphs over one shared graph
 memory pool.  A pair's first use warms the step up on a side stream (the
@@ -36,7 +39,7 @@ and every replay adds that difference (``kernels.add_launches``).
 from __future__ import annotations
 
 import time
-from typing import Callable, Dict, Hashable, Sequence
+from typing import Callable, Dict, Hashable, Optional, Sequence
 
 import torch
 
@@ -72,17 +75,24 @@ def write_out(out: torch.Tensor, targets: torch.Tensor, commit, done: torch.Tens
 
 def decode_step_fn(model, params, cache: Dict[str, torch.Tensor], tok: torch.Tensor,
                    pos: torch.Tensor, remaining: torch.Tensor, out: torch.Tensor,
-                   attend_len: int, max_seq: int) -> Callable[[], torch.Tensor]:
-    """One greedy decode step for every slot as a closure over fixed
-    buffers: the K/V rows at ``pos`` (dense cache, or the pool through
-    its ``block_tables``), then ``tok`` <- argmax, ``pos`` += 1,
+                   attend_len: int, max_seq: int, uids: Optional[torch.Tensor] = None,
+                   sampler: Optional[Callable] = None) -> Callable[[], torch.Tensor]:
+    """One decode step for every slot as a closure over fixed buffers:
+    the K/V rows at ``pos`` (dense cache, or the pool through its
+    ``block_tables``), then ``tok`` <- the next token, ``pos`` += 1,
     ``remaining`` -= 1 and ``out`` (new token, commit 1, done, bad), all
-    in place.  The closure returns the logits (B, V)."""
+    in place.  The next token is the argmax, or with ``sampler``
+    (``serve.sampling.StepSampler``: logits, positions, uids -> tokens)
+    each row's draw at position pos + 1 with its ``uids`` key.  The
+    closure returns the logits (B, V)."""
 
     def step() -> torch.Tensor:
         logits, _ = model.decode_step(params, cache, tok, pos, attend_len=attend_len)
         bad = ~torch.isfinite(logits).all(dim=-1)
-        tok.copy_(torch.argmax(logits, dim=-1))
+        if sampler is None:
+            tok.copy_(torch.argmax(logits, dim=-1))
+        else:
+            tok.copy_(sampler(logits, pos + 1, uids))
         pos.add_(1)
         remaining.sub_(1)
         done = (remaining <= 0) | (pos >= max_seq - 1)

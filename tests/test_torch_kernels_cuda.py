@@ -1547,15 +1547,16 @@ STEP_KINDS_ON_CARD = ("dense", "paged", "paged_int8", "spec", "spec_int8")
 STEP_ATTEND = 64
 
 
-def _step_state(kind: str, seed: int = 0) -> dict:
+def _step_state(kind: str, seed: int = 0, temperature: float = 0.0) -> dict:
     """A mid-session serving state on the card for one step kind, made
     from ``seed`` (two calls give equal states): the reduced qwen2 in fp32,
     a cache or pool of random rows (int8 pools quantized on the card) with
-    each slot's pages in its own table row, tok / pos / remaining, the
-    output buffer, and the step's closure over all of them."""
+    each slot's pages in its own table row, tok / pos / remaining / uids,
+    the output buffer, and the step's closure over all of them (sampled
+    at ``temperature`` > 0 with the engine's keys)."""
     from repro_torch.configs import reduced_config
     from repro_torch.models.lm import Model
-    from repro_torch.serve import spec_decode, step_graph
+    from repro_torch.serve import sampling, spec_decode, step_graph
     from repro_torch.serve.kv_cache import quantize_kv_rows
 
     cfg = reduced_config("qwen2-1.5b")
@@ -1584,14 +1585,17 @@ def _step_state(kind: str, seed: int = 0) -> dict:
               tok=torch.randint(0, cfg.vocab, (slots,), generator=gen, device="cuda",
                                 dtype=torch.int32),
               pos=torch.tensor([21, 40], dtype=torch.int32, device="cuda"),
-              remaining=torch.tensor([30, 30], dtype=torch.int32, device="cuda"))
+              remaining=torch.tensor([30, 30], dtype=torch.int32, device="cuda"),
+              uids=torch.tensor([3, 11], dtype=torch.int32, device="cuda"))
+    sampler = (sampling.StepSampler(sampling.prng_key(7, "cuda"), temperature)
+               if temperature > 0.0 else None)
     spec_k = 4 if kind.startswith("spec") else 1
     st["out"] = torch.zeros(3 + spec_k, slots, dtype=torch.int32, device="cuda")
     st["restore"] = (st["tok"], st["pos"], st["remaining"])
     if spec_k == 1:
         st["fn"] = step_graph.decode_step_fn(model, params, cache, st["tok"], st["pos"],
                                              st["remaining"], st["out"], STEP_ATTEND,
-                                             max_seq)
+                                             max_seq, uids=st["uids"], sampler=sampler)
         return st
     draft, dparams = spec_decode.make_self_draft(model, params, 1)
     dcache = draft.init_cache(slots, max_seq)
@@ -1599,27 +1603,31 @@ def _step_state(kind: str, seed: int = 0) -> dict:
         leaf.copy_(torch.randn(leaf.shape, generator=gen, device="cuda"))
     st["cache"] = dict(cache, draft_k=dcache["k"], draft_v=dcache["v"])
     mask = torch.tensor([True, False], device="cuda")
-    step = spec_decode.build_spec_step(model, draft, max_seq=max_seq, spec_k=spec_k)
+    step = spec_decode.build_spec_step(model, draft, max_seq=max_seq, spec_k=spec_k,
+                                       sampler=sampler)
     pool = {k: v for k, v in cache.items() if k != "block_tables"}
     st["fn"] = lambda: step(params, dparams, pool, dcache, cache["block_tables"],
-                            st["tok"], st["pos"], st["remaining"], mask, STEP_ATTEND,
-                            st["out"])
+                            st["tok"], st["pos"], st["remaining"], st["uids"], mask,
+                            STEP_ATTEND, st["out"])
     return st
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("temperature", [0.0, 0.8], ids=["greedy", "sampled"])
 @pytest.mark.parametrize("kind", STEP_KINDS_ON_CARD)
-def test_cuda_captured_step_replays_eager_step(kind):
+def test_cuda_captured_step_replays_eager_step(kind, temperature):
     """Each step kind captured and replayed against the same step run
-    eagerly from the same state, in fp32: the output buffer, the logits,
-    tok / pos / remaining and every cache leaf (the rows the step wrote)
-    bit for bit, step after step; and n replays count the launches of n
-    eager steps."""
+    eagerly from the same state, in fp32, greedy and sampled (the keys
+    computed inside the graph from uids and pos): the output buffer, the
+    logits, tok / pos / remaining and every cache leaf (the rows the step
+    wrote) bit for bit, step after step; and n replays count the launches
+    of n eager steps."""
     requires_cuda()
     from repro_torch import kernels
     from repro_torch.serve.step_graph import StepGraphs
 
-    eager, cap = _step_state(kind), _step_state(kind)
+    eager = _step_state(kind, temperature=temperature)
+    cap = _step_state(kind, temperature=temperature)
     graphs = StepGraphs("cuda", enabled=True)
     for _ in range(3):
         want = eager["fn"]()
@@ -1649,6 +1657,7 @@ def test_cuda_captured_step_replays_eager_step(kind):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("temperature", [0.0, 0.7], ids=["greedy", "sampled"])
 @pytest.mark.parametrize("kw", [
     dict(),
     dict(cache_layout="paged", page_size=8, num_pages=5),
@@ -1658,10 +1667,10 @@ def test_cuda_captured_step_replays_eager_step(kind):
          draft="self:2"),
     dict(cache_layout="paged", page_size=8, prefix_sharing=True),
 ], ids=["dense", "paged-preempt", "int8-swap", "spec-swap", "shared"])
-def test_cuda_pipelined_engine_matches_serial(kw):
+def test_cuda_pipelined_engine_matches_serial(kw, temperature):
     """The engine on the card, pipelined (captured steps, queued swap
-    copies) against serial (eager), reduced qwen2 in fp32: the same greedy
-    tokens and preemptions; the pipelined run replayed graphs, counted
+    copies) against serial (eager), reduced qwen2 in fp32, greedy and
+    sampled: the same tokens and preemptions; the pipelined run replayed graphs, counted
     their kernels' launches, and materialized every swap copy; a second
     session on the warmed engine captures nothing and serves the same."""
     requires_cuda()
@@ -1684,6 +1693,7 @@ def test_cuda_pipelined_engine_matches_serial(kw):
         torch.cuda.synchronize()
         return out, kernels.launch_counts()
 
+    kw = dict(kw, temperature=temperature, seed=5)
     serial = ServeEngine(model, params, max_seq=48, batch_slots=3, pipeline=False, **kw)
     want, _ = serve(serial)
     eng = ServeEngine(model, params, max_seq=48, batch_slots=3, **kw)
@@ -1701,6 +1711,50 @@ def test_cuda_pipelined_engine_matches_serial(kw):
     again, _ = serve(eng)
     assert again == want
     assert eng.last_graph_stats["captured"] == 0
+
+
+@pytest.mark.cuda
+def test_cuda_sampler_bits_equal_cpu():
+    """The sampler on the card against the CPU at the full vocabulary:
+    keys, random bits, uniforms and both roundings of the scaled logits
+    ``torch.equal``; the Gumbel values within GUMBEL_ATOL; the draw
+    captured in a CUDA graph equals the eager draw."""
+    requires_cuda()
+    from repro_torch.serve import sampling
+
+    vocab = 151936
+    uids = torch.tensor([0, 1, 7, -3], dtype=torch.int32)
+    pos = torch.tensor([544, 401, 301, 65], dtype=torch.int32)
+    logits = torch.randn(4, vocab, generator=torch.Generator().manual_seed(0)) * 3
+    out = {}
+    for dev in ("cpu", "cuda"):
+        keys = sampling.fold_in(sampling.fold_in(sampling.prng_key(3, dev), uids.to(dev)),
+                                pos.to(dev))
+        bits = sampling.random_bits(keys, (vocab,))
+        out[dev] = dict(keys=keys, bits=bits,
+                        uniform=sampling.uniform_from_bits(bits, sampling.F32_TINY),
+                        div=sampling.scale_logits(logits.to(dev), 0.7),
+                        mul=sampling.scale_logits(logits.to(dev), 0.7, reciprocal=True),
+                        gumbel=sampling.gumbel(keys, (vocab,)))
+    for name in ("keys", "bits", "uniform", "div", "mul"):
+        assert torch.equal(out["cuda"][name].cpu(), out["cpu"][name]), name
+    gdiff = (out["cuda"]["gumbel"].cpu() - out["cpu"]["gumbel"]).abs().max()
+    assert gdiff <= sampling.GUMBEL_ATOL
+
+    base = sampling.prng_key(3, "cuda")
+    lg, p, u = logits.cuda(), pos.cuda(), uids.cuda()
+    want = sampling.sample_at(lg, p, u, base, 0.7, reciprocal=True)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        sampling.sample_at(lg, p, u, base, 0.7, reciprocal=True)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = sampling.sample_at(lg, p, u, base, 0.7, reciprocal=True)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
 
 
 # ---------------------------------------------------------------------------
@@ -1733,7 +1787,8 @@ def test_port_imports_neither_jax_nor_repro():
                  "configs.olmoe_1b_7b", "configs.granite_moe_1b_a400m",
                  "serve.calibrate", "serve.kv_cache", "serve.prefix_index",
                  "serve.engine", "serve.step_graph", "core.ir", "core.pr_transform",
-                 "bench.pr_transform_bench", "bench.table4_overhead", "quickstart"):
+                 "bench.pr_transform_bench", "bench.table4_overhead", "quickstart",
+                 "serve.sampling", "serve_lm"):
         assert f"repro_torch.{name}" in mods, name
 
 

@@ -209,8 +209,6 @@ def test_port_dense_equals_paged_and_reserving_is_fresh():
 
 def test_engine_rejects_what_it_cannot_serve():
     m = _models()
-    with pytest.raises(NotImplementedError, match="A6"):
-        ServeEngine(m["tm"], m["tp"], max_seq=32, batch_slots=2, temperature=0.7)
     eng = ServeEngine(m["tm"], m["tp"], max_seq=32, batch_slots=1,
                       cache_layout="paged", page_size=8, num_pages=3)
     with pytest.raises(ValueError, match="never fit"):

@@ -380,8 +380,6 @@ def test_spec_high_acceptance_still_exact():
 
 def test_spec_engine_refusals():
     _, _, tm, tp = _models()
-    with pytest.raises(NotImplementedError, match="A6"):
-        ServeEngine(tm, tp, temperature=0.8, spec_k=4, **PAGED)
     with pytest.raises(ValueError, match="paged"):
         ServeEngine(tm, tp, max_seq=48, batch_slots=2, spec_k=2)
     with pytest.raises(ValueError, match="spec_k"):
