@@ -176,6 +176,30 @@ its paths:
    ``ServeEngine.generate`` at two seeds and ``repro_torch.serve_lm``.
    It fails unless the sampled streams differ from the greedy ones and
    across two seeds.
+4e. The engine's scheduling axes (``sched ...`` lines, after 4c; each
+   number beside the card's name and power limit): (a) 4 long prompts
+   (480-512 tokens, 16 new, priority 1) behind 2 short ones (32-64
+   tokens, 96 new, priority 0), paged bf16 on an ample pool, with whole
+   prefill and with ``prefill_budget=128`` (each long prompt written in
+   128-token chunks through ``Model.prefill_suffix``, verify's long
+   branch, between the decode steps): the short requests' TBT
+   percentiles, the long ones' TTFT and chunk counts, tok/s, rounds and
+   the long branch's launches; it fails unless every long request took
+   more than one chunk and the long branch launched.  (b) The fp32
+   control: chunked = whole prefill, greedy and sampled, serial =
+   pipelined under the budget, and a swap run on a preempting pool under
+   the budget = without it, every token.  (c) Lifecycle on 2 slots, 12
+   requests in three priority classes, one cancel()ed before serve(),
+   one with ``deadline_ms=0.0``: ``max_queue=8`` under reject-newest and
+   reject-largest, and ``queue_watermark=2`` with ``shed_priority=2``;
+   it fails unless every request ends in one terminal status, the shed
+   set is the one the policy names, the cancelled and expired requests
+   end so and the ok ones carry their tokens; the SLA summary
+   (``serve.sla.format_summary``) is printed.  (d) On 1 slot priorities
+   5, 1, 0 finish 0 first, with the all-default run's tokens (bf16).
+   (e) The seed loop (``fused=False``, dense, eager): its fp32 tokens
+   must be the fused run's; its bf16 tok/s beside the captured pipelined
+   dense run.
 5. Training (``train ...`` lines): full-width, full-depth qwen2-1.5b with
    fp32 master weights and AdamW state, bf16 compute, remat per layer and
    the 8-chunk loss, at the reference's train_4k length (S 4096; batch 2,
@@ -2449,6 +2473,330 @@ def run_sampled(cfg, model, params, spec, num_pages, greedy_dense, phases,
 
 
 # ---------------------------------------------------------------------------
+# phase 4e: the engine's scheduling axes
+# ---------------------------------------------------------------------------
+
+SCHED_BUDGET = 128            # prompt tokens prefilled a round in (a) and (b)
+SCHED_SHORT_NEW = 96
+SCHED_LONG_NEW = 16
+LIFECYCLE_SLOTS = 2
+LIFECYCLE_MAX_QUEUE = 8
+LIFECYCLE_WATERMARK = 2
+LIFECYCLE_SHED_PRIORITY = 2
+
+
+def make_sched_requests(seed: int, vocab: int):
+    """(a)'s trace as Request fields: 2 short prompts (32-64 tokens, 96 new
+    tokens, priority 0) after 4 long ones (480-512 tokens, 16 new,
+    priority 1)."""
+    rng = np.random.default_rng(seed + 27)
+    longs = [dict(uid=i, prompt=rng.integers(0, vocab, int(n)).tolist(),
+                  max_new_tokens=SCHED_LONG_NEW, priority=1)
+             for i, n in enumerate(rng.integers(480, 513, 4))]
+    shorts = [dict(uid=4 + i, prompt=rng.integers(0, vocab, int(n)).tolist(),
+                   max_new_tokens=SCHED_SHORT_NEW, priority=0)
+              for i, n in enumerate(rng.integers(32, 65, 2))]
+    return longs + shorts
+
+
+def make_lifecycle_requests(seed: int, vocab: int):
+    """(c)'s trace: 12 short requests, priorities 0 (5 of them), 1 (4) and
+    2 (3); uid 0 is cancelled before serve(), uid 1 carries deadline_ms
+    0.0 (both priority 0, so no queue bound sheds them first), the others
+    ttft_deadline_ms 1e9.  uid 2, the oldest of priority 1, has the
+    largest footprint of its class, so a bound of 8 sheds another request
+    under each policy."""
+    rng = np.random.default_rng(seed + 28)
+    prio = [0, 0, 1, 2, 0, 1, 2, 0, 1, 2, 1, 0]
+    out = []
+    for i, p in enumerate(prio):
+        r = dict(uid=i, prompt=rng.integers(0, vocab, int(rng.integers(16, 65))).tolist(),
+                 max_new_tokens=40 if i == 2 else int(rng.integers(8, 25)), priority=p)
+        r.update(deadline_ms=0.0) if i == 1 else r.update(ttft_deadline_ms=1e9)
+        out.append(r)
+    return out
+
+
+def sched_serve(model, params, spec, *, warm: bool = False, slots: int = SLOTS,
+                cancel=(), check: bool = True, **kw):
+    """``serve``'s twin for Request fields (priorities, deadlines): a
+    fresh engine, ``warm`` first serves the trace once untimed (capturing
+    its graphs), ``cancel`` names uids cancel()ed just before the timed
+    session; each request's time-between-token gaps are tapped from the
+    engine's TBT clock, and the rounds that prefilled a chunk.  Unless
+    ``check`` is False every request must end ``ok`` with its token count.
+    Returns (tokens, engine, launch counts, wall s, tokens served, taps:
+    gaps by uid and the chunk rounds)."""
+    from repro_torch import kernels
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    eng = ServeEngine(model, params, max_seq=MAX_SEQ, batch_slots=slots, **kw)
+    if warm:
+        eng.serve([Request(**r) for r in spec])
+    gaps = {}
+    record = eng._record_tbt
+
+    def tap(st, uid, now, committed):
+        if committed > 0 and uid in st.last_emit:
+            gaps.setdefault(uid, []).append(now - st.last_emit[uid])
+        record(st, uid, now, committed)
+
+    chunk_rounds = set()
+    prefill_chunk = eng._prefill_chunk
+
+    def tap_chunk(st, slot):
+        chunk_rounds.add(st.rnd)
+        return prefill_chunk(st, slot)
+
+    eng._record_tbt, eng._prefill_chunk = tap, tap_chunk
+    for uid in cancel:
+        eng.cancel(uid)
+    reqs = [Request(**r) for r in spec]
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    out = eng.serve(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    no_ragged_rmsnorm("a scheduling run", counts)
+    if check:
+        for r in spec:
+            s = eng.last_stats[r["uid"]]
+            if s["status"] != "ok" or len(out.get(r["uid"], [])) != r["max_new_tokens"]:
+                fail(f"request {r['uid']}: status {s['status']}, {s.get('tokens')} of "
+                     f"{r['max_new_tokens']} tokens")
+    return (out, eng, counts, wall, sum(len(v) for v in out.values()),
+            dict(gaps=gaps, chunk_rounds=chunk_rounds))
+
+
+def round_walls_ms(timeseries, rounds: set) -> tuple:
+    """The percentiles of the rounds' host walls (the gaps between their
+    timeseries stamps), of ``rounds`` and of the others."""
+    from repro_torch.serve import sla
+
+    t, rnd = timeseries["t_s"], timeseries["round"]
+    walls = {rnd[i]: (t[i] - t[i - 1]) * 1e3 for i in range(1, len(t))}
+    return (sla.percentiles([w for r, w in walls.items() if r in rounds]),
+            sla.percentiles([w for r, w in walls.items() if r not in rounds]))
+
+
+def shed_set(spec, policy: str, max_queue: int) -> set:
+    """The uids a ``max_queue`` bound sheds at enqueue, by the policy's
+    rule computed from the trace: the largest (priority, arrival), or
+    (priority, prompt + budget, arrival), first."""
+    cands = list(spec)
+    shed = set()
+    while len(cands) > max_queue:
+        if policy == "reject-newest":
+            victim = max(cands, key=lambda r: (r["priority"], r["uid"]))
+        else:
+            victim = max(cands, key=lambda r: (r["priority"],
+                                               len(r["prompt"]) + r["max_new_tokens"],
+                                               r["uid"]))
+        cands.remove(victim)
+        shed.add(victim["uid"])
+    return shed
+
+
+def run_sched(cfg, model, params, seed: int, smi: str) -> tuple:
+    """Phase 4e (see the module docstring).  Returns the record, the bf16
+    runs' launch counts (summed) and the fp32 runs'."""
+    from repro_torch.serve import sla
+    from repro_torch.serve.engine import TERMINAL_STATUSES
+
+    t_phase = time.perf_counter()
+    spec = make_sched_requests(seed, cfg.vocab)
+    longs = [r["uid"] for r in spec if r["max_new_tokens"] == SCHED_LONG_NEW]
+    shorts = [r["uid"] for r in spec if r["uid"] not in longs]
+    print(f"sched requests: long {[len(r['prompt']) for r in spec[:4]]} tokens "
+          f"(+{SCHED_LONG_NEW}, priority 1), short {[len(r['prompt']) for r in spec[4:]]} "
+          f"(+{SCHED_SHORT_NEW}, priority 0); slots {SLOTS}, max_seq {MAX_SEQ}", flush=True)
+    rec, counts, counts32 = {}, {}, {}
+
+    def into(c, run_counts):
+        for k, v in run_counts.items():
+            c[k] = c.get(k, 0) + v
+
+    # (a) chunked against whole prefill, paged bf16, an ample pool
+    paged = dict(cache_layout="paged", page_size=PAGE_SIZE)
+    a = {}
+    for label, budget in (("whole", None), ("chunked", SCHED_BUDGET)):
+        out, eng, c, wall, n_tok, taps = sched_serve(model, params, spec, warm=True,
+                                                     prefill_budget=budget, **paged)
+        into(counts, c)
+        st = eng.last_stats
+        tbt = sla.percentiles([g * 1e3 for u in shorts for g in taps["gaps"].get(u, [])])
+        chunk_w, other_w = round_walls_ms(st["timeseries"], taps["chunk_rounds"])
+        r = dict(budget=budget, tok_s=n_tok / wall, wall_s=wall,
+                 rounds=len(st["timeseries"]["round"]),
+                 tbt_short_ms=tbt,
+                 ttft_long_ms={u: st[u]["first_token_s"] * 1e3 for u in longs},
+                 prefill_chunks={u: st[u].get("prefill_chunks", 0) for u in longs},
+                 long_launches=c["paged_flash_verify[long]"],
+                 chunk_round_wall_ms=chunk_w, other_round_wall_ms=other_w,
+                 split_verify_launches=c["paged_flash_verify"],
+                 sla=st["sla"], tokens=out)
+        a[label] = r
+        print(f"sched a {label} (prefill_budget {budget}): TBT of the short requests "
+              f"p50 {tbt['p50']:.2f} p95 {tbt['p95']:.2f} p99 {tbt['p99']:.2f} max "
+              f"{tbt['max']:.2f} ms (n {tbt['n']}); TTFT of the long requests "
+              f"{ {u: round(v, 2) for u, v in r['ttft_long_ms'].items()} } ms; prefill "
+              f"chunks {r['prefill_chunks']}; {r['tok_s']:.1f} tok/s; {r['rounds']} rounds; "
+              f"paged_flash_verify[long] launches {r['long_launches']}; round wall ms "
+              f"with a chunk p50 {chunk_w['p50'] or 0:.2f} max {chunk_w['max'] or 0:.2f} "
+              f"(n {chunk_w['n']}), without p50 {other_w['p50']:.2f} max "
+              f"{other_w['max']:.2f} (n {other_w['n']}); [{smi}]", flush=True)
+    ch = a["chunked"]
+    if min(ch["prefill_chunks"].values()) <= 1:
+        fail(f"a long request took one chunk under prefill_budget {SCHED_BUDGET}: "
+             f"{ch['prefill_chunks']}")
+    if ch["long_launches"] == 0:
+        fail("the chunked run never launched paged_flash_verify's long branch")
+    bf16_agree = agreement(a["whole"]["tokens"], ch["tokens"])
+    print(f"sched a: chunked vs whole token agreement {bf16_agree:.4f} (bf16, reported); "
+          f"short TBT max {ch['tbt_short_ms']['max']:.2f} against "
+          f"{a['whole']['tbt_short_ms']['max']:.2f} ms, p99 "
+          f"{ch['tbt_short_ms']['p99']:.2f} against {a['whole']['tbt_short_ms']['p99']:.2f}; "
+          f"[{smi}]", flush=True)
+    for r in a.values():
+        del r["tokens"]
+    rec["a"] = dict(a, bf16_agreement=bf16_agree)
+
+    # (b) the fp32 control: chunking, the pipeline and a preempting pool
+    # under the budget move no token
+    model32, params32 = fp32_model(cfg, params)
+    n_admitted = sum(-(-len(r["prompt"]) // PAGE_SIZE) for r in spec[4:] + spec[:2])
+    pool = n_admitted + SLOTS - 1 + 1
+    b, b_pre = {}, {}
+    runs = {"whole": {}, "chunked": dict(prefill_budget=SCHED_BUDGET),
+            "chunked serial": dict(prefill_budget=SCHED_BUDGET, pipeline=False),
+            "whole sampled": dict(temperature=SAMPLE_T, seed=SAMPLE_SEED),
+            "chunked sampled": dict(prefill_budget=SCHED_BUDGET, temperature=SAMPLE_T,
+                                    seed=SAMPLE_SEED),
+            "swap": dict(num_pages=pool, preempt="swap"),
+            "swap chunked": dict(num_pages=pool, preempt="swap",
+                                 prefill_budget=SCHED_BUDGET)}
+    for label, kw in runs.items():
+        out, eng, c, _, _, _ = sched_serve(model32, params32, spec, **paged, **kw)
+        into(counts32, c)
+        b[label] = out
+        b_pre[label] = eng.preemptions
+    control = {"chunked vs whole": agreement(b["chunked"], b["whole"]),
+               "chunked sampled vs whole sampled": agreement(b["chunked sampled"],
+                                                             b["whole sampled"]),
+               "chunked serial vs pipelined": agreement(b["chunked serial"], b["chunked"]),
+               "swap chunked vs swap": agreement(b["swap chunked"], b["swap"])}
+    print(f"sched b fp32 control: token agreement {control}; preemptions at {pool} pages "
+          f"{ {k: b_pre[k] for k in ('swap', 'swap chunked')} }; sampled vs greedy "
+          f"{agreement(b['whole sampled'], b['whole']):.4f}; [{smi}]", flush=True)
+    for k, v in control.items():
+        if v < 1.0:
+            fail(f"in fp32, {k} served other tokens ({v:.4f})")
+    if b_pre["swap"] < 1:
+        fail(f"the fp32 swap run at {pool} pages was sized to preempt and did not")
+    if agreement(b["whole sampled"], b["whole"]) >= 1.0:
+        fail("the sampled fp32 run served the greedy tokens")
+    rec["b"] = dict(agreement=control, preemptions=b_pre, num_pages=pool)
+    del b
+
+    # (c) lifecycle: shedding, watermark, cancel and deadlines, 2 slots
+    life = make_lifecycle_requests(seed, cfg.vocab)
+    c_rec = {}
+    for label, kw in (("reject-newest", dict(max_queue=LIFECYCLE_MAX_QUEUE)),
+                      ("reject-largest", dict(max_queue=LIFECYCLE_MAX_QUEUE,
+                                              shed_policy="reject-largest")),
+                      ("watermark", dict(queue_watermark=LIFECYCLE_WATERMARK,
+                                         shed_priority=LIFECYCLE_SHED_PRIORITY))):
+        out, eng, c, wall, n_tok, _ = sched_serve(model, params, life, slots=LIFECYCLE_SLOTS,
+                                                  cancel=(0,), check=False, **paged, **kw)
+        into(counts, c)
+        st = eng.last_stats
+        sts = {r["uid"]: st[r["uid"]]["status"] for r in life}
+        shed = {u for u, s in sts.items() if s == "shed"}
+        if label == "watermark":
+            want = {r["uid"] for r in life if r["priority"] >= LIFECYCLE_SHED_PRIORITY}
+        else:
+            want = shed_set(life, kw.get("shed_policy", "reject-newest"), LIFECYCLE_MAX_QUEUE)
+        if any(s not in TERMINAL_STATUSES for s in sts.values()) or len(sts) != len(life):
+            fail(f"sched c {label}: a request has no terminal status: {sts}")
+        if shed != want:
+            fail(f"sched c {label}: shed {sorted(shed)}, the policy names {sorted(want)}")
+        if sts[0] != "cancelled" or sts[1] != "timeout" or st[1].get("reason") != "deadline":
+            fail(f"sched c {label}: the cancelled uid 0 is {sts[0]}, the expired uid 1 "
+                 f"{sts[1]} ({st[1].get('reason')})")
+        for r in life:
+            if sts[r["uid"]] == "ok" and len(out[r["uid"]]) != r["max_new_tokens"]:
+                fail(f"sched c {label}: ok request {r['uid']} has {len(out[r['uid']])} "
+                     f"of {r['max_new_tokens']} tokens")
+            if sts[r["uid"]] not in ("ok", "shed") and r["uid"] > 1:
+                fail(f"sched c {label}: request {r['uid']} ended {sts[r['uid']]}")
+        census = st["sla"]["statuses"]
+        c_rec[label] = dict(statuses=census, shed=sorted(shed), tok_s=n_tok / wall,
+                            sla=st["sla"])
+        print(f"sched c {label}: statuses {census}; shed {sorted(shed)}; {n_tok} tokens "
+              f"in {wall:.3f} s; [{smi}]\n{sla.format_summary(st['sla'])}", flush=True)
+    rec["c"] = c_rec
+
+    # (d) priorities on one slot: 0 first, then 1, then 5; the tokens of
+    # the all-default run (each prefills alone in both)
+    trio = [dict(r, priority=p) for r, p in zip(life[2:5], (5, 1, 0))]
+    for r in trio:
+        r.pop("ttft_deadline_ms", None)
+    plain = [dict(r, priority=1) for r in trio]
+    d_out, d_eng, c1, _, _, _ = sched_serve(model, params, trio, slots=1, **paged)
+    base, _, c2, _, _, _ = sched_serve(model, params, plain, slots=1, **paged)
+    into(counts, add_counts(c1, c2))
+    fin = {r["priority"]: d_eng.last_stats[r["uid"]]["finished_s"] for r in trio}
+    print(f"sched d: finish s by priority {fin}; tokens equal the all-default run: "
+          f"{d_out == base}; [{smi}]", flush=True)
+    if not fin[0] < fin[1] < fin[5]:
+        fail(f"sched d: one slot finished the priorities in another order: {fin}")
+    if d_out != base:
+        fail("sched d: priorities moved the tokens")
+    rec["d"] = dict(finished_s=fin, tokens_equal=True)
+
+    # (e) the seed loop (fused=False) on the dense layout, the 8 requests
+    # of make_requests: fp32 tokens of the fused run; bf16 tok/s beside the
+    # captured pipelined dense run
+    reqs8 = [dict(uid=u, prompt=p, max_new_tokens=n)
+             for u, p, n in make_requests(seed, cfg.vocab)]
+    f32_seed, _, c1, _, _, _ = sched_serve(model32, params32, reqs8, fused=False)
+    f32_fused, _, c2, _, _, _ = sched_serve(model32, params32, reqs8)
+    into(counts32, add_counts(c1, c2))
+    del model32, params32
+    torch.cuda.empty_cache()
+    agree32 = agreement(f32_seed, f32_fused)
+    e = {}
+    for label, kw in (("captured", {}), ("seed loop", dict(fused=False))):
+        out, eng, c, wall, n_tok, _ = sched_serve(model, params, reqs8, warm=True, **kw)
+        into(counts, c)
+        e[label] = dict(tok_s=n_tok / wall, wall_s=wall, tokens=out,
+                        graphs=eng.last_graph_stats["graphs"],
+                        replays=eng.last_graph_stats["replays"],
+                        flash_decode=c["flash_decode"])
+    seed_rec, cap_rec = e["seed loop"], e["captured"]
+    ratio = seed_rec["tok_s"] / cap_rec["tok_s"]
+    bf16_seed = agreement(seed_rec.pop("tokens"), cap_rec.pop("tokens"))
+    print(f"sched e: seed loop {seed_rec['tok_s']:.1f} tok/s against captured pipelined "
+          f"dense {cap_rec['tok_s']:.1f} ({ratio:.3f}x); fp32 token agreement {agree32:.4f} "
+          f"(gated), bf16 {bf16_seed:.4f} (reported); the seed loop's replays "
+          f"{seed_rec['replays']}, flash_decode launches {seed_rec['flash_decode']}; "
+          f"[{smi}]", flush=True)
+    if agree32 < 1.0:
+        fail("in fp32 the seed loop served other tokens than the fused dense run")
+    if seed_rec["replays"] or seed_rec["graphs"]:
+        fail("the seed loop replayed captured steps")
+    if seed_rec["flash_decode"] == 0:
+        fail("the seed loop never launched flash_decode")
+    rec["e"] = dict(seed_loop=seed_rec, captured=cap_rec, ratio=ratio,
+                    fp32_agreement=agree32, bf16_agreement=bf16_seed)
+    rec["wall_s"] = time.perf_counter() - t_phase
+    print(f"sched phase: {rec['wall_s']:.1f} s; [{smi}]", flush=True)
+    return rec, counts, counts32
+
+
+# ---------------------------------------------------------------------------
 # phase 3b: MoE serving through moe_gating
 # ---------------------------------------------------------------------------
 
@@ -3300,6 +3648,11 @@ def main():
         "paged_flash_verify[long,int8]"]
     rows["paged_flash_verify[long] (f32)"]["launches"] = shared_fp32["paged_flash_verify[long]"]
 
+    sched_rec, sched_counts, sched_fp32 = run_sched(cfg, model, params, args.seed, smi)
+    for name in serving_kernels + ("paged_flash_verify[long]",):
+        rows[name]["launches"] += sched_counts[name]
+    rows["paged_flash_verify[long] (f32)"]["launches"] += sched_fp32["paged_flash_verify[long]"]
+
     phases = where_time_goes(model, params, gen)
     phases.update(shared_profiles)
 
@@ -3324,8 +3677,10 @@ def main():
         {"serve dense": dense_counts, "serve paged": paged_counts,
          "sampled bf16 runs": sampled_counts,
          "tiered bf16 runs": tiered_counts, "shared bf16 runs": shared_counts,
-         "shared int8 run": shared_int8, "moe serve": moe_counts, "train": train_counts},
+         "shared int8 run": shared_int8, "sched bf16 runs": sched_counts,
+         "moe serve": moe_counts, "train": train_counts},
         {"C1 control fp32": c1["launches"], "shared fp32 control": shared_fp32,
+         "sched fp32 runs": sched_fp32,
          "sampled fp32 control": sampled_fp32,
          "tiered fp32 control": tiered_rec["fp32_control_launches"],
          "moe control fp32 no drops": moe_rec["preemption_controls"]["fp32 no drops"]["launches"]})
@@ -3345,7 +3700,7 @@ def main():
         pr_transform=pr_rec, table4=table4,
         warp_forms=warp_forms, spec=spec_rec, verify_t1_err=t1_err, moe=moe_rec,
         c1_control=c1, tiered=tiered_rec, int8_kernel_checks=int8_checks,
-        shared=shared_rec, sampled=sampled_rec, verify_long=long_checks,
+        shared=shared_rec, sampled=sampled_rec, sched=sched_rec, verify_long=long_checks,
         replay_probes=probes,
         pipeline=PIPELINE_PAIRS,
         moe_gating=gating_readings, flash_branches=BRANCHES_RUN,

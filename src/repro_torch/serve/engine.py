@@ -14,12 +14,12 @@ admission happens at step boundaries and finished slots free at once.
           prompt, so outputs are unchanged (greedy or sampled: see below).
 
 Admitted requests of the dense family prefill together as one
-right-padded batch (bucketed to ``PROMPT_BLOCK``; each row's logits are
+right-padded batch (bucketed to ``prompt_block``; each row's logits are
 taken at its last real token).  An MoE request prefills alone at its
 exact length: its experts' capacity depends on the row's length, so
 padding would change its output.
 Each decode step reads attention only up to the live prefix (``attend_len``
-bucketed to ``ATTEND_BLOCK``) and makes one device-to-host copy: its
+bucketed to ``attend_block``) and makes one device-to-host copy: its
 fixed ``(3 + T, slots)`` int32 output (tokens, commit, done, bad).  A row
 whose logits are not finite is failed on its own; the rest of the batch
 goes on.
@@ -97,12 +97,51 @@ out).  A page-aligned prompt that matches in full forks its last page
 copy-on-write.  Outputs (greedy or sampled) are those of unshared paged
 serving: sharing lives below the block tables.
 
+Scheduling.  Every request leaves ``serve()`` with exactly one terminal
+status in ``last_stats[uid]["status"]`` (``TERMINAL_STATUSES``):
+
+  ok          finished; its tokens are in the returned dict
+  shed        rejected by the bounded queue: above ``max_queue`` at
+              enqueue (``shed_policy`` reject-newest or reject-largest),
+              or above ``queue_watermark`` in a round, which sheds only
+              priority >= ``shed_priority``, most deadline slack first
+  timeout     its ``deadline_ms`` (enqueue to finish) or
+              ``ttft_deadline_ms`` (enqueue to first token) ran out
+  cancelled   :meth:`ServeEngine.cancel` named it, queued or live
+  failed      its logits were not finite
+
+Admission takes the lowest ``priority`` first, then arrival order, so
+with every request at the default priority it is the FIFO of before.
+The paged gate keeps one growth page per running slot free, and while
+anything runs also ``free_page_watermark`` of the pool.  Preemption
+takes the slot with the most deadline slack, then the least important
+class, then the newest (without deadlines: the newest of the least
+important class).  ``prefill_budget`` bounds the prompt tokens a round
+prefills.  On the paged layout (dense family, no speculation, no
+sharing) a prompt longer than one chunk (the budget rounded down to
+whole ``prompt_block`` buckets) admits with all its pages mapped and is
+written one chunk a round through :meth:`Model.prefill_suffix` (a chunk
+of T tokens is T * G query rows a KV head in ``paged_flash_verify``),
+interleaved with the other slots' decode steps.  Until its last chunk
+samples its first token its row rides the step parked at ``max_seq -
+1`` (in place in the step's buffers), where its write lands past the
+prompt or in the trash page and no commit reads it.  A mid-chunk victim
+always resumes by recompute.  ``last_stats["sla"]`` holds the session's
+TTFT and TBT percentiles, goodput and status census (``serve.sla``),
+and its timeseries one row a round.
+
+The seed loop (``fused=False``, dense layout, no speculation) prefills
+each admitted request alone and decodes with an eager
+``Model.decode_step`` over the whole cache plus ``sampling.sample_at``:
+the per-token dispatch baseline, never captured.
+
 :meth:`ServeEngine.generate` runs an equal-length prompt batch on the
 dense layout for a fixed number of tokens, row i sampling with uid i.
 
 Not ported yet: measured cost models (``preempt_calibrate``, A11),
-chunked prefill, faults and recovery, the straggler watchdog,
-priorities and deadlines.
+faults, recovery and ``Request.max_retries``, the straggler watchdog and
+the pool audit (A10), open-loop submission (A11) and cluster handoff
+(A12).
 """
 
 from __future__ import annotations
@@ -116,7 +155,7 @@ import numpy as np
 import torch
 
 from repro_torch.optim.optimizer import leaves
-from repro_torch.serve import calibrate, sampling, spec_decode, step_graph
+from repro_torch.serve import calibrate, sampling, sla, spec_decode, step_graph
 from repro_torch.serve.kv_cache import (
     CACHE_LAYOUTS,
     TRASH_PAGE,
@@ -134,8 +173,19 @@ from repro_torch.serve.kv_cache import (
 )
 from repro_torch.serve.prefix_index import EVICT_POLICIES, PrefixIndex
 
+# terminal request statuses: every request handed to serve() ends in
+# exactly one
 STATUS_OK = "ok"
+STATUS_SHED = "shed"
+STATUS_TIMEOUT = "timeout"
+STATUS_CANCELLED = "cancelled"
 STATUS_FAILED = "failed"
+TERMINAL_STATUSES = (STATUS_OK, STATUS_SHED, STATUS_TIMEOUT,
+                     STATUS_CANCELLED, STATUS_FAILED)
+
+# bounded-queue shed policies: who is rejected when the waiting queue
+# overflows max_queue
+SHED_POLICIES = ("reject-newest", "reject-largest")
 
 # preemption-resume policies: requeue recomputes the victim's cache from
 # its folded prompt at re-admission; swap pages it to host buffers and
@@ -143,12 +193,14 @@ STATUS_FAILED = "failed"
 PREEMPT_POLICIES = ("requeue", "swap", "auto")
 
 
-# shape buckets: attention reads the live prefix rounded up to
-# ATTEND_BLOCK positions, admission pads prompts to PROMPT_BLOCK tokens
+# the defaults of the shape buckets: attention reads the live prefix
+# rounded up to attend_block positions, admission pads prompts to
+# prompt_block tokens
 ATTEND_BLOCK = 64
 PROMPT_BLOCK = 16
-# acceptance governor: a request whose last SPEC_DISABLE_WINDOW windows
-# committed one token each stops speculating for SPEC_COOLDOWN steps
+# the defaults of the acceptance governor: a request whose last
+# spec_disable_window windows committed one token each stops speculating
+# for spec_cooldown steps
 SPEC_DISABLE_WINDOW = 8
 SPEC_COOLDOWN = 16
 # families for which right-padded, batched prefill is exact (the cache is
@@ -189,6 +241,14 @@ class Request:
     # take part in speculative windows when the engine runs spec_k > 1;
     # spec=False requests share the batch committing one token per step
     spec: bool = True
+    # wall-clock budgets from enqueue, in ms (None: unbounded): to the
+    # finish, and to the first token; either running out -> timeout
+    deadline_ms: Optional[float] = None
+    ttft_deadline_ms: Optional[float] = None
+    # SLA class: lower admits first and survives shedding and preemption
+    # longer; equal classes keep arrival order, so the default (every
+    # request at 1) schedules FIFO
+    priority: int = 1
     # how many ``generated`` tokens a preemption resume already folded
     # into ``prompt`` (a second preemption folds only the rest)
     folded: int = 0
@@ -207,11 +267,23 @@ class PendingRound:
 
 
 def _empty_timeseries() -> Dict[str, list]:
-    """Per-round pipeline phases: host time issuing the dispatch, host
+    """One row a round: seconds since serve() began, the round, the
+    queue depth admission control sees, the busy slots (live and
+    mid-chunk) and their share of the slots, the free pages (paged layout
+    only), and the pipeline phases: host time issuing the dispatch, host
     time blocked in the commit, and host work done in the gap while a
-    step was in flight (0.0 when serial).  The reference's other columns
-    wait for ROADMAP A6c."""
-    return {"round": [], "dispatch_s": [], "commit_s": [], "overlap_s": []}
+    step was in flight (0.0 when serial)."""
+    return {"t_s": [], "round": [], "queue_depth": [], "live_slots": [],
+            "utilization": [], "free_pages": [],
+            "dispatch_s": [], "commit_s": [], "overlap_s": []}
+
+
+@dataclasses.dataclass
+class _ChunkState:
+    """An admitted prompt mid-chunked-prefill: pages mapped, ``done``
+    prompt tokens written, not in the decode batch yet."""
+    req: Request
+    done: int = 0
 
 
 @dataclasses.dataclass
@@ -221,6 +293,14 @@ class _SchedState:
     t0: float
     mgr: Optional[PagedCacheManager] = None
     live: Dict[int, Request] = dataclasses.field(default_factory=dict)
+    # chunked prompts by slot: admitted, pages mapped, not live yet
+    prefilling: Dict[int, _ChunkState] = dataclasses.field(default_factory=dict)
+    arrival: Dict[int, int] = dataclasses.field(default_factory=dict)
+    seq_arrival: int = 0       # the next arrival stamp
+    has_deadlines: bool = False
+    tbt: List[float] = dataclasses.field(default_factory=list)   # gaps, s
+    last_emit: Dict[int, float] = dataclasses.field(default_factory=dict)
+    graphs0: tuple = ()        # the graphs' (count, capture s, replays) at open
     results: Dict[int, List[int]] = dataclasses.field(default_factory=dict)
     stats: Dict[Any, Any] = dataclasses.field(default_factory=dict)
     admit_seq: Dict[int, int] = dataclasses.field(default_factory=dict)
@@ -256,13 +336,22 @@ class _SchedState:
 
 class ServeEngine:
     def __init__(self, model, params, *, max_seq: int, batch_slots: int,
-                 temperature: float = 0.0, seed: int = 0,
+                 temperature: float = 0.0, seed: int = 0, fused: bool = True,
+                 attend_block: int = ATTEND_BLOCK, prompt_block: int = PROMPT_BLOCK,
                  cache_layout: str = "dense",
                  page_size: int = 16, num_pages: Optional[int] = None,
                  kv_dtype: Optional[str] = None, preempt: str = "requeue",
                  prefix_sharing: bool = False, evict_policy: str = "lru",
                  min_cached_tokens: int = 0, spec_k: int = 1, draft=None,
                  verify_backend: Optional[str] = None,
+                 max_queue: Optional[int] = None,
+                 shed_policy: str = "reject-newest",
+                 queue_watermark: Optional[int] = None,
+                 shed_priority: int = 2,
+                 free_page_watermark: float = 0.0,
+                 prefill_budget: Optional[int] = None,
+                 spec_disable_window: int = SPEC_DISABLE_WINDOW,
+                 spec_cooldown: int = SPEC_COOLDOWN,
                  pipeline: bool = True,
                  cost_model: Optional[calibrate.CostModel] = None,
                  preempt_calibrate: bool = False):
@@ -275,6 +364,27 @@ class ServeEngine:
             raise ValueError("speculative decoding (spec_k > 1) verifies "
                              "against the paged cache; pass "
                              "cache_layout='paged'")
+        if spec_k > 1 and not fused:
+            raise ValueError("speculative decoding requires fused=True")
+        if cache_layout == "paged" and not fused:
+            raise ValueError("cache_layout='paged' requires fused=True "
+                             "(the seed loop is the dense baseline)")
+        if shed_policy not in SHED_POLICIES:
+            raise ValueError(f"shed_policy must be one of {SHED_POLICIES}; "
+                             f"got {shed_policy!r}")
+        if max_queue is not None and max_queue < 1:
+            raise ValueError(f"max_queue must be >= 1 (or None for "
+                             f"unbounded); got {max_queue}")
+        if queue_watermark is not None and queue_watermark < 0:
+            raise ValueError(f"queue_watermark must be >= 0 (or None to "
+                             f"disable soft shedding); got {queue_watermark}")
+        if not 0.0 <= free_page_watermark < 1.0:
+            raise ValueError(f"free_page_watermark must be in [0, 1); "
+                             f"got {free_page_watermark}")
+        if prefill_budget is not None and prefill_budget < 1:
+            raise ValueError(f"prefill_budget must be >= 1 (or None for "
+                             f"unbounded prefill per round); got "
+                             f"{prefill_budget}")
         resolve_kv_dtype(kv_dtype, torch.bfloat16)   # validates the flag early
         if kv_dtype not in (None, "auto") and cache_layout != "paged":
             raise ValueError("kv_dtype selects the paged pool's storage "
@@ -328,19 +438,45 @@ class ServeEngine:
         # preempt="auto": recompute costs ~2 * params FLOPs a token
         self._n_params = sum(t.numel() for t in leaves(params))
         self.spec_k = spec_k
+        self.fused = fused
+        self.attend_block = attend_block
+        self.prompt_block = prompt_block
+        self.spec_disable_window = spec_disable_window
+        self.spec_cooldown = spec_cooldown
+        # admission control: the hard queue bound and its shed policy, and
+        # the soft one, above which classes priority >= shed_priority shed
+        # every round
+        self.max_queue = max_queue
+        self.shed_policy = shed_policy
+        self.queue_watermark = queue_watermark
+        self.shed_priority = shed_priority
+        # share of the page pool the admission gate keeps free while
+        # anything runs (growth headroom under bursts)
+        self.free_page_watermark = free_page_watermark
+        # prompt tokens prefilled a round; a chunk is a whole number of
+        # prompt_block buckets, so mid-chunks carry no padding
+        self.prefill_budget = prefill_budget
+        self._chunk_tokens = (
+            max(prompt_block, prefill_budget // prompt_block * prompt_block)
+            if prefill_budget is not None else None)
+        # uids cancel() named that no session has seen yet
+        self._cancel_uids: set = set()
         # sampling: keys from (seed, uid, position), see serve.sampling.
         # The first token after a prefill scales as the reference's eager
         # call does (a division by T), a decode or verify step as its
-        # jitted step does (a multiply by f32(1/T)); temperature 0 keeps
+        # jitted step does (a multiply by f32(1/T)), and a step of the
+        # seed loop as its eager one (a division); temperature 0 keeps
         # every step's argmax, so greedy graphs hold today's ops
         self.temperature = float(temperature)
         self._base_key = sampling.prng_key(seed, self.device)
-        self._sampler = (sampling.StepSampler(self._base_key, self.temperature)
+        self._sampler = (sampling.StepSampler(self._base_key, self.temperature,
+                                              reciprocal=fused)
                          if self.temperature > 0.0 else None)
         # overlapped rounds; on a CUDA device also the captured steps.
-        # pipeline=False keeps the serial, eager round: the control
+        # pipeline=False keeps the serial, eager round: the control.  The
+        # seed loop (fused=False) is never captured
         self.pipeline = pipeline
-        self._graphs = step_graph.StepGraphs(self.device, enabled=pipeline)
+        self._graphs = step_graph.StepGraphs(self.device, enabled=pipeline and fused)
         self._kind = step_graph.step_kind(cache_layout, kv_dtype, spec_k)
         self._dev: Optional[Dict[str, Any]] = None   # device state, see _init_device
         self._gen: Dict[int, Dict[str, Any]] = {}    # generate()'s, by batch
@@ -362,9 +498,36 @@ class ServeEngine:
         # graphs, captures, capture seconds and replays of the last serve()
         self.last_graph_stats: Dict[str, Any] = {}
 
+    def _chunked_capable(self) -> bool:
+        """Chunked prefill needs the paged suffix prefill: the whole
+        prompt's pages are mapped at admission, then written one bucketed
+        chunk a round.  Speculation and prefix sharing drive their own
+        admission prefills, so they opt out (the budget still bounds how
+        many whole prompts admit a round)."""
+        return (self.prefill_budget is not None
+                and self.cache_layout == "paged"
+                and self.spec_k == 1
+                and not self.prefix_sharing
+                and self.model.cfg.family in _PADDED_PREFILL_FAMILIES)
+
+    def cancel(self, uid: int):
+        """Cancel request ``uid``: queued, it ends ``cancelled`` at the
+        next round; live or mid-chunk, its slot is released and its
+        partial output dropped.  A uid no session has seen yet is kept
+        until one does."""
+        self._cancel_uids.add(uid)
+
     def _attend_len(self, needed: int) -> int:
         """Attention bound: ``needed`` rounded up to the bucket."""
-        return min(self.max_seq, _round_up(needed, ATTEND_BLOCK))
+        return min(self.max_seq, _round_up(needed, self.attend_block))
+
+    def _prompt_bucket(self, lens: List[int]) -> int:
+        """The prefill length of one group: the dense family pads to the
+        prompt bucket, the others prefill one request at its exact
+        length."""
+        if self.model.cfg.family in _PADDED_PREFILL_FAMILIES:
+            return min(self.max_seq, _round_up(max(lens), self.prompt_block))
+        return max(lens)
 
     # ------------------------------------------------------------ generation
     @torch.no_grad()
@@ -377,7 +540,8 @@ class ServeEngine:
         samples with uid i: the first token at position S, then each
         decode step's at pos + 1.  The steps read fixed per-batch buffers
         and run as the engine's captured dense step (a pipelined engine on
-        CUDA; one graph per batch size and attend bucket)."""
+        CUDA; one graph per batch size and attend bucket).  The seed loop
+        (``fused=False``) runs each step eagerly over the whole cache."""
         if not isinstance(prompts, torch.Tensor):
             prompts = torch.as_tensor(np.asarray(prompts))
         prompts = prompts.to(self.device, torch.int64)
@@ -398,15 +562,21 @@ class ServeEngine:
         gen["remaining"].fill_(n_tokens - 1)
         out = [gen["tok"].clone()]
         for i in range(n_tokens - 1):
-            attend = self._attend_len(s + i + 1)
-            fn = step_graph.decode_step_fn(
-                self.model, self.params, gen["cache"], gen["tok"], gen["pos"],
-                gen["remaining"], gen["out"], attend, self.max_seq,
-                uids=gen["uids"], sampler=self._sampler)
+            attend = self._attend_len(s + i + 1) if self.fused else None
+            fn = self._step_fn(gen["cache"], gen["tok"], gen["pos"], gen["remaining"],
+                               gen["uids"], gen["out"], attend)
             self._graphs.run(("generate", b, attend), fn,
                              restore=(gen["tok"], gen["pos"], gen["remaining"]))
             out.append(gen["tok"].clone())
         return torch.stack(out, dim=1)
+
+    def _step_fn(self, cache, tok, pos, remaining, uids, out, attend: Optional[int]):
+        """One decode step over fixed buffers (``step_graph.decode_step_fn``);
+        the seed loop's (``fused=False``) has ``attend`` None: it reads the
+        whole cache."""
+        return step_graph.decode_step_fn(self.model, self.params, cache, tok, pos,
+                                         remaining, out, attend, self.max_seq,
+                                         uids=uids, sampler=self._sampler)
 
     def _gen_buffers(self, b: int) -> Dict[str, Any]:
         """generate()'s fixed buffers for batch ``b``, kept for the
@@ -426,17 +596,39 @@ class ServeEngine:
     def serve(self, requests: List[Request]) -> Dict[int, List[int]]:
         """Waiting queue -> admission -> joint decode, until every request
         is done.  Returns {uid: generated tokens} for requests that
-        finished OK; every request gets a terminal ``status`` and its
-        token count in ``self.last_stats[uid]``."""
+        finished OK; every request gets one terminal ``status``
+        (``TERMINAL_STATUSES``) and its figures in ``self.last_stats[uid]``,
+        the session its SLA summary in ``self.last_stats["sla"]`` and its
+        per-round columns in ``self.last_stats["timeseries"]``."""
+        st = self._open_session(requests)
+        if self.pipeline:
+            # overlapped rounds: each round commits the previous round's
+            # step before admission; a live slot keeps the loop going
+            # until its step commits, so it exits with nothing pending
+            while st.queue or st.live or st.prefilling or st.pending is not None:
+                self.dispatch_round(st)
+        else:
+            while st.queue or st.live or st.prefilling:
+                self._round(st)
+        return self._finalize_session(st)
+
+    # --------------------------------------------------- session primitives
+    # serve() drives a session through three primitives: _open_session,
+    # the rounds (_round, or dispatch_round / commit_round) and
+    # _finalize_session, on which open-loop submission (A11) and cluster
+    # handoff (A12) build
+    def _open_session(self, requests: List[Request]) -> _SchedState:
+        """Register a (possibly empty) request batch, shed it down to
+        ``max_queue``, and bind a fresh manager and the device state;
+        returns the session state the rounds advance."""
         st = _SchedState(queue=deque(), t0=time.perf_counter())
         self.last_stats = st.stats
         self.last_prefill_groups = []
         self.preemptions = 0
         for req in requests:
-            if req.uid in st.stats:
-                raise ValueError(f"duplicate request uid {req.uid}")
-            st.stats[req.uid] = {"status": None, "preemptions": 0}
+            self._register(st, req)
             st.queue.append(req)
+        self._shed_overflow(st)
         if self.cache_layout == "paged":
             index = (PrefixIndex(self.page_size, policy=self.evict_policy,
                                  min_cached_tokens=self.min_cached_tokens)
@@ -448,20 +640,35 @@ class ServeEngine:
             self._check_fits(st, req)
         self._init_device(st)
         g = self._graphs
-        n0, t0, r0 = len(g.graphs), g.capture_s, g.replays
-        if self.pipeline:
-            # overlapped rounds: each round commits the previous round's
-            # step before admission; a live slot keeps the loop going
-            # until its step commits, so it exits with nothing pending
-            while st.queue or st.live or st.pending is not None:
-                self.dispatch_round(st)
-        else:
-            while st.queue or st.live:
-                self._round(st)
-        # the finalize barrier: never end a session over an in-flight
-        # step or an unmaterialized swap copy
+        st.graphs0 = (len(g.graphs), g.capture_s, g.replays)
+        return st
+
+    def _register(self, st: _SchedState, req: Request, now: float = 0.0):
+        """The request's ledger entry and arrival stamp (one per uid)."""
+        if req.uid in st.stats:
+            raise ValueError(f"duplicate request uid {req.uid}: the status "
+                             "ledger and sampling keys are keyed by uid")
+        st.arrival[req.uid] = st.seq_arrival
+        st.seq_arrival += 1
+        st.stats[req.uid] = {"enqueued_s": now, "preemptions": 0, "retries": 0,
+                             "status": None, "priority": req.priority}
+        if req.deadline_ms is not None or req.ttft_deadline_ms is not None:
+            st.has_deadlines = True
+
+    def _finalize_session(self, st: _SchedState) -> Dict[int, List[int]]:
+        """Close a session: the finalize barrier (never end over an
+        in-flight step or an unmaterialized swap copy), the check that
+        the statuses partition the request set, the SLA summary, and the
+        graph and pool figures.  Returns the OK requests' tokens."""
         self.commit_round(st)
-        st.stats["timeseries"] = st.timeseries
+        missing = [uid for uid, s in st.stats.items()
+                   if s.get("status") not in TERMINAL_STATUSES]
+        if missing:
+            raise RuntimeError(f"requests left without a terminal status: {missing}")
+        self._cancel_uids -= set(st.stats)
+        self._attach_observability(st)
+        g = self._graphs
+        n0, t0, r0 = st.graphs0
         self.last_graph_stats = dict(
             enabled=g.enabled, graphs=len(g.graphs), captured=len(g.graphs) - n0,
             capture_s=g.capture_s - t0, replays=g.replays - r0,
@@ -469,6 +676,14 @@ class ServeEngine:
         if st.mgr is not None:
             self.last_pool_stats = st.mgr.stats()
         return st.results
+
+    def _attach_observability(self, st: _SchedState):
+        """The SLA summary and the timeseries under ``last_stats``'s string
+        keys (the requests' entries stay keyed by int uid)."""
+        st.stats["sla"] = sla.summarize(st.stats, tbt_s=st.tbt,
+                                        wall_s=time.perf_counter() - st.t0,
+                                        timeseries=st.timeseries)
+        st.stats["timeseries"] = st.timeseries
 
     def _check_fits(self, st: _SchedState, req: Request):
         """Fail fast, before any device work, on a request that could
@@ -549,19 +764,28 @@ class ServeEngine:
         st.mgr.upload_tables(st.bt_dev, self._dev["staging"])
 
     def _round(self, st: _SchedState):
-        """One serial scheduler round: admission, page growth (paged), one
-        decode step for every slot, dispatched and committed at once."""
+        """One serial scheduler round: the lifecycle sweep, admission
+        control, admission (and the chunks in flight), page growth (paged),
+        one decode step for every slot, dispatched and committed at once."""
         st.rnd += 1
         st.last_dispatch_s = st.last_commit_s = st.last_overlap_s = 0.0
+        self._expire_and_cancel(st)
+        self._admission_control(st)
+        if st.queue or st.live or st.prefilling:
+            self._admit_and_grow(st)
+            if st.live:
+                self._timed_commit(st, self._timed_dispatch(st))
+        self._sample_timeseries(st)
+
+    def _admit_and_grow(self, st: _SchedState):
+        """Admission (needs the freed slots), then growth and preemption
+        (need the advanced positions and the spec retraction)."""
         if self.prefix_sharing:
             self._admit_shared(st)
         else:
             self._admit(st)
         if st.live and st.mgr is not None:
             self._grow_or_preempt(st)
-        if st.live:
-            self._timed_commit(st, self._timed_dispatch(st))
-        self._sample_timeseries(st)
 
     # ----------------------------------------------------- round pipeline
     def dispatch_round(self, st: _SchedState):
@@ -571,31 +795,29 @@ class ServeEngine:
 
         1. the round tick;
         2. the overlap gap: host work that the in-flight step's commit
-           cannot influence, run while the device computes.  Of the
-           reference's gap only the tick exists here: its queue-side
-           fault sweeps and queued expiry wait for ROADMAP A10, its
-           admission control (shedding, watermarks) for A6c;
+           cannot influence, run while the device computes: the queued
+           requests' cancel and expiry sweep and admission control
+           (shedding, watermark), none of which reads a live slot or the
+           allocator (the reference's fault sweeps wait for ROADMAP A10);
         3. :meth:`commit_round`: the one wait, token and terminal
            accounting, the deferred swap-out materialization;
-        4. admission (needs the freed slots), growth and preemption (need
-           the advanced positions and the spec retraction), then the next
-           dispatch.
+        4. the sweep of the held slots (live and mid-chunk: a commit can
+           free or fail them), then admission (and the chunks in flight),
+           growth and preemption, then the next dispatch.
 
         The outputs are the serial round's; a session runs one more
         round, which commits the last step."""
         st.rnd += 1
         st.last_dispatch_s = st.last_commit_s = st.last_overlap_s = 0.0
         t_gap = time.perf_counter()
+        self._expire_and_cancel(st, scope="queued")
+        self._admission_control(st)
         if st.pending is not None:
             st.last_overlap_s = time.perf_counter() - t_gap
         self.commit_round(st)
-        if st.queue or st.live:
-            if self.prefix_sharing:
-                self._admit_shared(st)
-            else:
-                self._admit(st)
-            if st.live and st.mgr is not None:
-                self._grow_or_preempt(st)
+        self._expire_and_cancel(st, scope="held")
+        if st.queue or st.live or st.prefilling:
+            self._admit_and_grow(st)
             if st.live:
                 st.pending = self._timed_dispatch(st)
         self._sample_timeseries(st)
@@ -617,10 +839,126 @@ class ServeEngine:
 
     def _sample_timeseries(self, st: _SchedState):
         ts = st.timeseries
+        ts["t_s"].append(time.perf_counter() - st.t0)
         ts["round"].append(st.rnd)
+        ts["queue_depth"].append(self._queue_depth(st))
+        busy = len(st.live) + len(st.prefilling)
+        ts["live_slots"].append(busy)
+        ts["utilization"].append(busy / max(1, self.slots))
         ts["dispatch_s"].append(st.last_dispatch_s)
         ts["commit_s"].append(st.last_commit_s)
         ts["overlap_s"].append(st.last_overlap_s)
+        if st.mgr is not None:
+            ts["free_pages"].append(st.mgr.allocator.free)
+
+    # ------------------------------------------------ lifecycle, admission control
+    def _queue_depth(self, st: _SchedState) -> int:
+        """The waiting queue's depth as admission control counts it:
+        preemption requeues are exempt (the bound applies at enqueue)."""
+        return sum(1 for r in st.queue if id(r) not in st.resumed)
+
+    def _shed_overflow(self, st: _SchedState):
+        """The bounded queue: reject down to ``max_queue``.  reject-newest
+        drops the latest arrivals of the least important class (FIFO
+        within a class); reject-largest the largest worst-case footprint
+        (prompt + budget), newest first among ties.  Requeues are
+        exempt."""
+        if self.max_queue is None:
+            return
+        while self._queue_depth(st) > self.max_queue:
+            cands = [r for r in st.queue if id(r) not in st.resumed]
+            if self.shed_policy == "reject-newest":
+                victim = max(cands, key=lambda r: (r.priority, st.arrival[r.uid]))
+            else:
+                victim = max(cands, key=lambda r: (r.priority,
+                                                   len(r.prompt) + r.max_new_tokens,
+                                                   st.arrival[r.uid]))
+            st.queue.remove(victim)
+            self._terminal(st, victim, STATUS_SHED,
+                           reason=f"queue overflow (max_queue={self.max_queue}, "
+                                  f"policy={self.shed_policy})")
+
+    def _admission_control(self, st: _SchedState):
+        """Every round: the hard ``max_queue`` bound (a no-op in serve(),
+        which applied it at enqueue), then the soft ``queue_watermark``:
+        depth above it sheds only classes priority >= ``shed_priority``,
+        most slack first (a request with no deadline has infinite slack),
+        then the least important class, then the newest."""
+        self._shed_overflow(st)
+        if self.queue_watermark is None:
+            return
+        now_ms = (time.perf_counter() - st.t0) * 1e3
+        while self._queue_depth(st) > self.queue_watermark:
+            cands = [r for r in st.queue if id(r) not in st.resumed
+                     and r.priority >= self.shed_priority]
+            if not cands:
+                break
+            victim = max(cands, key=lambda r: (self._slack_ms(st, r, now_ms),
+                                               r.priority, st.arrival[r.uid]))
+            st.queue.remove(victim)
+            self._terminal(st, victim, STATUS_SHED,
+                           reason=f"queue watermark (depth > {self.queue_watermark}, "
+                                  f"priority >= {self.shed_priority})")
+
+    def _expired(self, st: _SchedState, req: Request, now_ms: float) -> Optional[str]:
+        """Which of the request's deadlines ran out (None if neither).
+        Both run from the request's own enqueue time."""
+        age_ms = now_ms - st.stats[req.uid]["enqueued_s"] * 1e3
+        if req.deadline_ms is not None and age_ms > req.deadline_ms:
+            return "deadline"
+        if (req.ttft_deadline_ms is not None and age_ms > req.ttft_deadline_ms
+                and "first_token_s" not in st.stats[req.uid]):
+            return "ttft_deadline"
+        return None
+
+    def _expire_and_cancel(self, st: _SchedState, scope: str = "all"):
+        """End cancelled and expired requests, queued and held alike; a
+        held one's slot frees at once.  The pipelined round splits the
+        sweep: ``scope="queued"`` (the waiting queue, which no commit
+        changes: it runs in the overlap gap) and ``scope="held"`` (live and
+        mid-chunk slots, which a commit can free or fail: after it)."""
+        if not (self._cancel_uids or st.has_deadlines):
+            return
+        now_ms = (time.perf_counter() - st.t0) * 1e3
+
+        def sweep(req, slot=None):
+            why = self._expired(st, req, now_ms)
+            if req.uid in self._cancel_uids:
+                self._terminal(st, req, STATUS_CANCELLED, slot=slot, reason="cancelled")
+            elif why is not None:
+                self._terminal(st, req, STATUS_TIMEOUT, slot=slot, reason=why)
+            return st.stats[req.uid]["status"] is None
+
+        if scope in ("all", "queued"):
+            st.queue = deque(r for r in list(st.queue) if sweep(r))
+        if scope == "queued":
+            return
+        for slot in list(st.live):
+            sweep(st.live[slot], slot)
+        for slot in list(st.prefilling):
+            sweep(st.prefilling[slot].req, slot)
+
+    def _terminal(self, st: _SchedState, req: Request, status: str, *,
+                  slot: Optional[int] = None, reason: Optional[str] = None):
+        """A non-OK terminal transition (idempotent): the status and
+        reason, and the slot freed if the request held one.  Partial
+        output is dropped: only OK requests are in the returned dict."""
+        s = st.stats[req.uid]
+        if s.get("status") is not None:
+            return
+        s["status"] = status
+        if reason:
+            s["reason"] = reason
+        s["finished_s"] = time.perf_counter() - st.t0
+        s["tokens"] = len(req.generated or [])
+        st.spec_hist.pop(req.uid, None)
+        st.last_emit.pop(req.uid, None)
+        st.swaps.pop(req.uid, None)     # the host snapshot of a dead request
+        if slot is not None:
+            st.live.pop(slot, None)
+            st.prefilling.pop(slot, None)
+            if st.mgr is not None:
+                st.mgr.release(slot)
 
     def _timed_dispatch(self, st: _SchedState) -> PendingRound:
         """Issue one decode step; the host time it took is the round's
@@ -658,18 +996,20 @@ class ServeEngine:
     def _dispatch_step(self, st: _SchedState) -> PendingRound:
         """Launch one decode step for every slot (finished slots coast
         along inside the batch; the commit ignores their outputs, and on
-        the paged layout their writes land in the trash page)."""
-        attend = self._attend_len(max(st.slot_pos[s] for s in st.live) + 1)
+        the paged layout their writes land in the trash page; a parked
+        mid-chunk row writes at ``max_seq - 1``).  The attend bucket
+        covers the live rows only.  The seed loop's step reads the whole
+        cache, eagerly."""
+        attend = (self._attend_len(max(st.slot_pos[s] for s in st.live) + 1)
+                  if self.fused else None)
         if st.mgr is not None:
             if st.mgr.dirty:
                 self._upload_tables(st)
             cache = dict(st.pool, block_tables=st.bt_dev)
         else:
             cache = st.cache
-        fn = step_graph.decode_step_fn(self.model, self.params, cache, st.tok,
-                                       st.pos, st.remaining, self._dev["out"],
-                                       attend, self.max_seq, uids=st.uids,
-                                       sampler=self._sampler)
+        fn = self._step_fn(cache, st.tok, st.pos, st.remaining, st.uids,
+                           self._dev["out"], attend)
         return self._run_step(st, attend, fn)
 
     def _dispatch_spec(self, st: _SchedState) -> PendingRound:
@@ -704,10 +1044,12 @@ class ServeEngine:
         now = time.perf_counter() - st.t0
         for slot, req in list(pending.live.items()):
             if bad_h[slot]:
-                self._fail(st, slot, req, "nan-logits")
+                # quarantine: the row fails alone, the batch commits on
+                self._terminal(st, req, STATUS_FAILED, slot=slot, reason="nan-logits")
                 continue
             req.generated.append(int(nxt_h[slot]))
             st.slot_pos[slot] += 1
+            self._record_tbt(st, req.uid, now, 1)
             if done_h[slot]:
                 self._finish(st, slot, now)
 
@@ -722,11 +1064,12 @@ class ServeEngine:
         now = time.perf_counter() - st.t0
         for slot, req in list(pending.live.items()):
             if bad_h[slot]:
-                self._fail(st, slot, req, "nan-logits")
+                self._terminal(st, req, STATUS_FAILED, slot=slot, reason="nan-logits")
                 continue
             c = int(commit_h[slot])
             req.generated.extend(int(x) for x in targets_h[slot, :c])
             st.slot_pos[slot] += c
+            self._record_tbt(st, req.uid, now, c)
             s = st.stats[req.uid]
             s["spec_steps"] = s.get("spec_steps", 0) + 1
             s["spec_tokens"] = s.get("spec_tokens", 0) + c
@@ -740,16 +1083,16 @@ class ServeEngine:
     def _spec_governor(self, st: _SchedState, slot: int, req: Request,
                        committed: int):
         """Per-request acceptance governor: when a speculating request's
-        last SPEC_DISABLE_WINDOW windows averaged <= 1 committed token, its
-        draft is wasted work; turn speculation off for it (it commits one
-        token per step, like spec=False) for SPEC_COOLDOWN steps."""
+        last ``spec_disable_window`` windows averaged <= 1 committed token,
+        its draft is wasted work; turn speculation off for it (it commits
+        one token per step, like spec=False) for ``spec_cooldown`` steps."""
         if not req.spec or req.uid in st.spec_disabled:
             return
-        hist = st.spec_hist.setdefault(req.uid, deque(maxlen=SPEC_DISABLE_WINDOW))
+        hist = st.spec_hist.setdefault(req.uid, deque(maxlen=self.spec_disable_window))
         hist.append(committed)
-        if len(hist) == SPEC_DISABLE_WINDOW and sum(hist) <= len(hist):
+        if len(hist) == self.spec_disable_window and sum(hist) <= len(hist):
             st.spec_mask[slot] = False
-            st.spec_disabled[req.uid] = SPEC_COOLDOWN
+            st.spec_disabled[req.uid] = self.spec_cooldown
             s = st.stats[req.uid]
             s["spec_auto_disables"] = s.get("spec_auto_disables", 0) + 1
             hist.clear()
@@ -765,37 +1108,73 @@ class ServeEngine:
                     if req.uid == uid and req.spec:
                         st.spec_mask[slot] = True
 
+    def _record_tbt(self, st: _SchedState, uid: int, now: float, committed: int):
+        """Time-between-token samples for ``committed`` tokens delivered at
+        ``now``: one real gap since the request's last emission, and a zero
+        for each further token (a speculative window lands its burst at
+        once)."""
+        if committed <= 0:
+            return
+        last = st.last_emit.get(uid)
+        if last is not None:
+            st.tbt.append(now - last)
+            st.tbt.extend([0.0] * (committed - 1))
+        st.last_emit[uid] = now
+
     def _finish(self, st: _SchedState, slot: int, now: float):
         req = st.live.pop(slot)
         st.results[req.uid] = req.generated
         if st.mgr is not None:
             st.mgr.release(slot)
         st.spec_hist.pop(req.uid, None)
+        st.last_emit.pop(req.uid, None)
         s = st.stats[req.uid]
-        s.update(status=STATUS_OK, finished_s=now, tokens=len(req.generated))
+        n = len(req.generated)
+        s.update(status=STATUS_OK, finished_s=now, tokens=n)
+        # the steady decode rate: the tokens after the first over the
+        # decode interval (admission to first token is its own figure);
+        # e2e_tok_s over the whole time since admission
+        s["tok_s"] = (n - 1) / max(now - s["first_token_s"], 1e-9) if n > 1 else 0.0
+        s["e2e_tok_s"] = n / max(now - s["admitted_s"], 1e-9)
         if s.get("spec_steps"):
             # mean committed tokens per window (1..spec_k)
             s["accept_rate"] = s["spec_tokens"] / s["spec_steps"]
 
-    def _fail(self, st: _SchedState, slot: int, req: Request, reason: str):
-        st.live.pop(slot, None)
-        if st.mgr is not None:
-            st.mgr.release(slot)
-        st.spec_hist.pop(req.uid, None)
-        st.stats[req.uid].update(status=STATUS_FAILED, reason=reason,
-                                 finished_s=time.perf_counter() - st.t0,
-                                 tokens=len(req.generated or []))
-
     # ------------------------------------------------------------ admission
+    def _next_candidate(self, st: _SchedState) -> Request:
+        """Admission order: the lowest priority class first, then arrival
+        (equal classes keep FIFO; the head of the line blocks, which keeps
+        admission deterministic)."""
+        return min(st.queue, key=lambda r: (r.priority, st.arrival[r.uid]))
+
+    def _headroom(self, st: _SchedState, extra: int) -> int:
+        """Pages the admission gate leaves free: one growth page per
+        running, mid-chunk and just-taken slot, so admission never hands
+        out a page an older sequence needs at the next boundary, plus the
+        ``free_page_watermark`` reserve whenever anything runs (never on
+        an idle pool, so a lone request always admits)."""
+        n = len(st.live) + len(st.prefilling) + extra
+        if n and self.free_page_watermark > 0.0:
+            n += int(np.ceil(self.free_page_watermark * st.mgr.allocator.usable))
+        return n
+
     def _admit(self, st: _SchedState):
-        """Admit queued requests into free slots, FIFO.  Paged gating: a
-        free slot and enough free pages for the prompt beyond one growth
-        page per running or just-taken slot."""
+        """Admit queued requests into free slots, priority then arrival.
+        Paged gating: a free slot and enough free pages for the prompt
+        beyond ``_headroom``.  Under a ``prefill_budget`` at most that
+        many prompt tokens prefill a round (the chunks in flight advance
+        first, and an idle engine always admits one), and a prompt longer
+        than one chunk admits through the chunked path."""
+        used = self._advance_prefilling(st)
+        budget = self.prefill_budget
         taken: List[tuple] = []
         for slot in range(self.slots):
-            if slot in st.live or not st.queue:
+            if slot in st.live or slot in st.prefilling or not st.queue:
                 continue
-            req = st.queue[0]
+            if budget is not None and used >= budget and (
+                    st.live or st.prefilling or taken):
+                break
+            req = self._next_candidate(st)
             if st.mgr is not None and req.uid in st.swaps:
                 # a host-swapped resume restores its pages instead of
                 # prefilling; blocked exactly like a too-big prompt
@@ -804,40 +1183,140 @@ class ServeEngine:
                 continue
             if st.mgr is not None:
                 if not st.mgr.can_admit(len(req.prompt),
-                                        headroom=len(st.live) + len(taken)):
+                                        headroom=self._headroom(st, len(taken))):
                     break
                 if st.mgr.admit(slot, len(req.prompt)) is None:
                     break
-            st.queue.popleft()
+                if self._chunkable(req):
+                    # the whole prompt is mapped now and written one chunk
+                    # a round, between the other slots' decode steps
+                    st.queue.remove(req)
+                    self._bookkeep_chunked(st, slot, req)
+                    used += self._prefill_chunk(st, slot)
+                    continue
+            st.queue.remove(req)
             taken.append((slot, req))
-        if not taken:
-            return
-        t_admit = time.perf_counter() - st.t0
-        for slot, req in taken:
-            self._bookkeep_admit(st, slot, req, t_admit)
-        if self.model.cfg.family in _PADDED_PREFILL_FAMILIES:
-            longest = max(len(r.prompt) for _, r in taken)
-            self._prefill_group(st, taken, min(self.max_seq,
-                                               _round_up(longest, PROMPT_BLOCK)))
-        else:
+            used += len(req.prompt)
+        if taken:
+            t_admit = time.perf_counter() - st.t0
             for slot, req in taken:
-                self._prefill_group(st, [(slot, req)], len(req.prompt))
-        for slot, req in taken:
+                self._bookkeep_admit(st, slot, req, t_admit)
+            # the dense family prefills the group as one right-padded batch;
+            # the seed loop and the other families one request at a time
+            if self.fused and self.model.cfg.family in _PADDED_PREFILL_FAMILIES:
+                groups = [taken]
+            else:
+                groups = [[t] for t in taken]
+            for group in groups:
+                self._prefill_group(st, group, self._prompt_bucket(
+                    [len(r.prompt) for _, r in group]))
+            for slot, req in taken:
+                self._finish_admission(st, slot, req)
+        self._park_prefilling(st)
+
+    # ----------------------------------------------------- chunked prefill
+    def _chunkable(self, req: Request) -> bool:
+        return self._chunked_capable() and len(req.prompt) > self._chunk_tokens
+
+    def _bookkeep_chunked(self, st: _SchedState, slot: int, req: Request):
+        """Admission bookkeeping of a chunked prompt: the slot is reserved
+        (pages mapped, an admission number) but not live; it joins the
+        decode batch when its last chunk commits."""
+        if id(req) not in st.resumed:
+            req.generated = []
+        st.prefilling[slot] = _ChunkState(req)
+        st.admit_seq[slot] = st.next_seq
+        st.next_seq += 1
+        st.slot_pos[slot] = len(req.prompt)
+        st.stats[req.uid].setdefault("admitted_s", time.perf_counter() - st.t0)
+
+    def _advance_prefilling(self, st: _SchedState) -> int:
+        """One chunk of each prompt in flight, in slot order, until the
+        round's budget is spent (the first always advances: a budget below
+        a chunk must not stall).  Returns the prompt tokens written."""
+        used = 0
+        for slot in sorted(st.prefilling):
+            if self.prefill_budget is not None and used >= self.prefill_budget:
+                break
+            used += self._prefill_chunk(st, slot)
+        return used
+
+    def _prefill_chunk(self, st: _SchedState, slot: int) -> int:
+        """Write the slot's next prompt chunk through its block-table row,
+        as the suffix of the chunks already resident
+        (:meth:`Model.prefill_suffix`, the prefix-sharing suffix prefill
+        aimed at admission).  The final chunk's logits sample the first
+        token, as a whole prefill's do; a mid-chunk is whole prompt_block
+        buckets (no padding) and its logits are dropped.  Returns the
+        chunk's tokens."""
+        cs = st.prefilling[slot]
+        req = cs.req
+        chunk = req.prompt[cs.done:cs.done + self._chunk_tokens]
+        final = cs.done + len(chunk) >= len(req.prompt)
+        t_b = _round_up(len(chunk), self.prompt_block)
+        self.last_prefill_groups.append(([req.uid], t_b, [len(req.prompt)]))
+        logits = self._prefill_window(st, slot, chunk, cs.done, t_b)
+        cs.done += len(chunk)
+        s = st.stats[req.uid]
+        s["prefill_chunks"] = s.get("prefill_chunks", 0) + 1
+        if final:
+            del st.prefilling[slot]
+            st.live[slot] = req
+            self._commit_prefill(st, [slot], [req], logits)
             self._finish_admission(st, slot, req)
+        return len(chunk)
+
+    def _prefill_window(self, st: _SchedState, slot: int, toks: List[int],
+                        start: int, t_b: int) -> torch.Tensor:
+        """Prefill ``toks`` at positions ``start`` on, right-padded to
+        ``t_b``, through the slot's block-table row; the rows before
+        ``start`` are read in place.  Returns the last real token's
+        logits (1, V)."""
+        window = torch.zeros((1, t_b), dtype=torch.int64, device=self.device)
+        window[0, :len(toks)] = torch.as_tensor(toks)
+        if st.mgr.dirty:
+            self._upload_tables(st)
+        cache = dict(st.pool, block_tables=st.bt_dev[slot:slot + 1])
+        logits, _ = self.model.prefill_suffix(
+            self.params, cache, window,
+            torch.tensor([start], dtype=torch.int32, device=self.device),
+            torch.tensor([len(toks) - 1], device=self.device),
+            self._attend_len(start + t_b), self.verify_backend)
+        return logits
+
+    def _park_prefilling(self, st: _SchedState):
+        """Pin the mid-chunk slots out of the decode step's way: position
+        ``max_seq - 1`` puts the row's write past its prompt (in its last
+        mapped page or the trash page), where no read reaches it before
+        decode overwrites it, and a huge ``remaining`` keeps its done flag
+        meaningless.  Written in place into the step's buffers (a captured
+        step reads them by address) before every step, since a step
+        advances ``pos``."""
+        if not st.prefilling:
+            return
+        idx = torch.as_tensor(sorted(st.prefilling), device=self.device)
+        st.pos[idx] = self.max_seq - 1
+        st.remaining[idx] = 1 << 30
 
     def _admit_shared(self, st: _SchedState):
-        """Prefix-sharing admission: requests admit one at a time, FIFO,
-        and each prompt's prefill publishes its full pages to the index
-        before the next request is planned, so identical prompts arriving
-        together share with each other, not only with earlier traffic.
-        The gate charges only the plan's private pages (the shared prefix
-        is resident already), beyond one growth page per live slot.  A
-        host-swapped resume bypasses the planner: its pages come back
-        verbatim, private, outside the sharing graph."""
+        """Prefix-sharing admission: requests admit one at a time, priority
+        then arrival, and each prompt's prefill publishes its full pages to
+        the index before the next request is planned, so identical prompts
+        arriving together share with each other, not only with earlier
+        traffic.  The gate charges only the plan's private pages (the
+        shared prefix is resident already), beyond ``_headroom``.  A
+        ``prefill_budget`` charges the un-cached suffix tokens, the ones
+        the admission prefills.  A host-swapped resume bypasses the
+        planner: its pages come back verbatim, private, outside the
+        sharing graph, and charge nothing."""
+        used = 0
+        budget = self.prefill_budget
         for slot in range(self.slots):
             if slot in st.live or not st.queue:
                 continue
-            req = st.queue[0]
+            if budget is not None and used >= budget and (st.live or used):
+                break
+            req = self._next_candidate(st)
             if req.uid in st.swaps:
                 if not self._admit_swapped_row(st, slot, req):
                     break
@@ -851,12 +1330,13 @@ class ServeEngine:
             if st.gate_block == key:
                 break
             plan = st.mgr.plan_admit(req.prompt)
-            if (not st.mgr.can_admit_plan(plan, headroom=len(st.live))
+            if (not st.mgr.can_admit_plan(plan, headroom=self._headroom(st, 0))
                     or st.mgr.admit_prefix(slot, plan) is None):
                 st.gate_block = key
                 break
             st.gate_block = None
-            st.queue.popleft()
+            st.queue.remove(req)
+            used += len(req.prompt) - plan.cached_tokens
             self._bookkeep_admit(st, slot, req, time.perf_counter() - st.t0)
             # the first admission's figure: a preemption resume re-matches
             # its own folded prompt, which would count the reuse twice
@@ -864,8 +1344,8 @@ class ServeEngine:
             if plan.cached_tokens > 0:
                 self._prefill_suffix_row(st, slot, req, plan)
             else:
-                self._prefill_group(st, [(slot, req)], min(
-                    self.max_seq, _round_up(len(req.prompt), PROMPT_BLOCK)))
+                self._prefill_group(st, [(slot, req)],
+                                    self._prompt_bucket([len(req.prompt)]))
             if st.stats[req.uid]["status"] is None:
                 # a failed prefill released the slot: nothing to publish
                 st.mgr.register_prefix(slot, req.prompt)
@@ -885,18 +1365,24 @@ class ServeEngine:
         st.stats[req.uid].setdefault("admitted_s", t_admit)
 
     def _finish_admission(self, st: _SchedState, slot: int, req: Request):
-        """First-token time, and completion of a budget the admission
-        already exhausted (no-op for a request prefill failed)."""
-        if st.stats[req.uid]["status"] is not None:
+        """First-token time, admission to first token, the TBT clock, and
+        completion of a budget the admission already exhausted (no-op for a
+        request prefill failed).  A resume keeps its first token's time
+        and its last emission, so a preemption's stall is one honest
+        gap."""
+        s = st.stats[req.uid]
+        if s["status"] is not None:
             return
         now = time.perf_counter() - st.t0
-        st.stats[req.uid].setdefault("first_token_s", now)
+        s.setdefault("first_token_s", now)
+        s["admit_to_first_s"] = s["first_token_s"] - s["admitted_s"]
+        st.last_emit.setdefault(req.uid, s["first_token_s"])
         if req.max_new_tokens - len(req.generated) <= 0:
             self._finish(st, slot, now)
 
     def _admit_swapped_row(self, st: _SchedState, slot: int, req: Request) -> bool:
         """Resume a host-swapped request: map fresh pages under the
-        growth-page headroom of the live slots, write the saved pages
+        admission gate's ``_headroom``, write the saved pages
         back, and re-arm the slot as it stood at preemption, with no
         prefill and no sampling.  The pending token (``generated[-1]``,
         the folded prompt's last) re-arms as ``tok`` at position
@@ -913,13 +1399,13 @@ class ServeEngine:
         in admits here and waits there; the tokens are the same either
         way, since a token is a function of (seed, uid, prompt)."""
         handle = st.swaps[req.uid]
-        if st.mgr.available() - len(st.live) < handle.n_blocks:
+        if st.mgr.available() - self._headroom(st, 0) < handle.n_blocks:
             return False
         pages = st.mgr.admit_swapped(slot, handle)
         if pages is None:
             return False
         del st.swaps[req.uid]
-        st.queue.popleft()
+        st.queue.remove(req)
         swap_in_pages(st.pool, handle, pages)
         self._bookkeep_admit(st, slot, req, time.perf_counter() - st.t0)
         n = handle.n_tokens
@@ -943,7 +1429,7 @@ class ServeEngine:
     def _draft_prefill_row(self, st: _SchedState, slot: int, prompt: List[int]):
         """Prefill the draft's dense cache of ``slot`` from a whole prompt
         (its logits are dropped: the draft only steers acceptance)."""
-        bucket = min(self.max_seq, _round_up(len(prompt), PROMPT_BLOCK))
+        bucket = min(self.max_seq, _round_up(len(prompt), self.prompt_block))
         toks = torch.zeros((1, bucket), dtype=torch.int64, device=self.device)
         toks[0, :len(prompt)] = torch.as_tensor(prompt)
         last = torch.as_tensor([len(prompt) - 1], device=self.device)
@@ -961,18 +1447,9 @@ class ServeEngine:
             copy_pages(st.pool, [plan.cow_src], [plan.cow_dst])
         st.mgr.cow_release(plan)
         suffix = req.prompt[plan.cached_tokens:]
-        t_b = _round_up(len(suffix), PROMPT_BLOCK)
+        t_b = _round_up(len(suffix), self.prompt_block)
         self.last_prefill_groups.append(([req.uid], t_b, [len(req.prompt)]))
-        toks = torch.zeros((1, t_b), dtype=torch.int64, device=self.device)
-        toks[0, :len(suffix)] = torch.as_tensor(suffix)
-        if st.mgr.dirty:
-            self._upload_tables(st)
-        cache = dict(st.pool, block_tables=st.bt_dev[slot:slot + 1])
-        start = torch.tensor([plan.cached_tokens], dtype=torch.int32, device=self.device)
-        last = torch.tensor([len(suffix) - 1], device=self.device)
-        logits, _ = self.model.prefill_suffix(
-            self.params, cache, toks, start, last,
-            self._attend_len(plan.cached_tokens + t_b), self.verify_backend)
+        logits = self._prefill_window(st, slot, suffix, plan.cached_tokens, t_b)
         if self.spec_k > 1:
             # the draft's cache is a dense slot pool with no sharing: it
             # prefills the whole prompt
@@ -1039,7 +1516,7 @@ class ServeEngine:
         first_h, finite_h = torch.stack([first, finite.to(torch.int32)]).cpu().numpy()
         for slot, req, f, ok in zip(slots, reqs, first_h, finite_h):
             if not ok:
-                self._fail(st, slot, req, "nan-logits")
+                self._terminal(st, req, STATUS_FAILED, slot=slot, reason="nan-logits")
                 continue
             req.generated.append(int(f))
 
@@ -1049,14 +1526,40 @@ class ServeEngine:
         one position for plain decode and ``spec_k`` for a speculative
         window (positions past max_seq need no page; their writes land in
         the trash page).  Grow on demand, oldest first; when the pool runs
-        out, preempt the newest live request (LIFO: the oldest always makes
-        progress)."""
+        out, preempt :meth:`_preempt_victim` (without deadlines the newest
+        of the least important class: the oldest always makes progress)."""
         for slot in sorted(st.live, key=lambda s: st.admit_seq[s]):
             while slot in st.live:
                 first = st.slot_pos[slot]
                 if st.mgr.ensure_span(slot, first, first + self.spec_k - 1):
                     break
-                self._preempt(st, max(st.live, key=lambda s: st.admit_seq[s]))
+                self._preempt(st, self._preempt_victim(st))
+
+    def _slack_ms(self, st: _SchedState, req: Request, now_ms: float) -> float:
+        """The request's deadline slack in ms, the least over its deadlines
+        still running (inf with none), from its own enqueue time as in
+        :meth:`_expired`."""
+        dls = []
+        age_ms = now_ms - st.stats[req.uid]["enqueued_s"] * 1e3
+        if req.deadline_ms is not None:
+            dls.append(req.deadline_ms - age_ms)
+        if (req.ttft_deadline_ms is not None
+                and "first_token_s" not in st.stats[req.uid]):
+            dls.append(req.ttft_deadline_ms - age_ms)
+        return min(dls) if dls else float("inf")
+
+    def _preempt_victim(self, st: _SchedState) -> int:
+        """The most slack first (a request with no deadline, or the most
+        time to spare, yields before one about to miss), then the least
+        important class, then the newest, live or mid-chunk alike (a
+        chunked prompt holds its whole page span).  Without deadlines every
+        slack is inf and, at equal priorities, this is the newest slot."""
+        now_ms = (time.perf_counter() - st.t0) * 1e3
+
+        def key(slot):
+            req = st.live[slot] if slot in st.live else st.prefilling[slot].req
+            return (self._slack_ms(st, req, now_ms), req.priority, st.admit_seq[slot])
+        return max([*st.live, *st.prefilling], key=key)
 
     def _swap_wins(self, st: _SchedState) -> bool:
         """Should this preemption take the swap tier?  Both resume costs
@@ -1081,9 +1584,14 @@ class ServeEngine:
         device-to-host copy is queued and materialized at the next commit
         boundary, so a victim never stalls the next dispatch; its device
         slice is taken before the release, so a same-round admission
-        cannot overwrite the snapshot.  Serial, the copy is synchronous."""
-        req = st.live.pop(slot)
-        if self._swap_wins(st):
+        cannot overwrite the snapshot.  Serial, the copy is synchronous.
+        A mid-chunk prompt has no complete page image worth keeping: it
+        always resumes by recompute."""
+        if slot in st.prefilling:
+            req, swap = st.prefilling.pop(slot).req, False
+        else:
+            req, swap = st.live.pop(slot), self._swap_wins(st)
+        if swap:
             handle = st.mgr.swap_out(slot, st.pool, st.slot_pos[slot],
                                      async_copy=self.pipeline)
             if self.pipeline:

@@ -1714,6 +1714,62 @@ def test_cuda_pipelined_engine_matches_serial(kw, temperature):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("pipeline", [True, False], ids=["pipelined", "serial"])
+def test_cuda_chunked_prefill_parks_rows_in_captured_steps(pipeline):
+    """Chunked prefill on the card, reduced qwen2 in fp32: a 60-token
+    prompt written in 16-token chunks (T * G = 64 rows a KV head: verify's
+    long branch) while a short request decodes in captured steps, the
+    chunked row parked at max_seq - 1 beyond the live rows' attend
+    bucket.  The tokens are the unchunked run's, every step
+    synchronizes clean, and the long branch launched."""
+    requires_cuda()
+    from repro_torch import kernels
+    from repro_torch.configs import reduced_config
+    from repro_torch.models.lm import Model
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    cfg = reduced_config("qwen2-1.5b")
+    model = Model(cfg, dtype=torch.float32)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    rng = np.random.default_rng(7)
+    spec = [(0, rng.integers(0, cfg.vocab, 5).tolist(), 24),
+            (1, rng.integers(0, cfg.vocab, 60).tolist(), 6),
+            (2, rng.integers(0, cfg.vocab, 40).tolist(), 4)]
+    kw = dict(max_seq=96, batch_slots=2, cache_layout="paged", page_size=8,
+              pipeline=pipeline)
+
+    def serve(eng):
+        kernels.reset_launches()
+        out = eng.serve([Request(u, list(t), n) for u, t, n in spec])
+        torch.cuda.synchronize()
+        return out, kernels.launch_counts()
+
+    want, _ = serve(ServeEngine(model, params, **kw))
+    eng = ServeEngine(model, params, prefill_budget=16, prompt_block=16, **kw)
+    parked = []
+    dispatch = eng._dispatch_step
+
+    def checked_dispatch(st):
+        pending = dispatch(st)
+        torch.cuda.synchronize()    # a read out of range faults here
+        if st.prefilling:
+            parked.append(sorted(st.prefilling))
+            assert all(int(st.pos[s]) == 96 for s in st.prefilling)   # stepped once
+        return pending
+
+    eng._dispatch_step = checked_dispatch
+    got, counts = serve(eng)
+    assert got == want
+    assert parked, "no step ran beside a parked mid-chunk row"
+    assert eng.last_stats[1]["prefill_chunks"] == 4
+    assert counts["paged_flash_verify[long]"] > 0
+    if pipeline:
+        assert eng.last_graph_stats["replays"] > 0
+    p = eng.last_pool_stats
+    assert p.used_pages == 0
+
+
+@pytest.mark.cuda
 def test_cuda_sampler_bits_equal_cpu():
     """The sampler on the card against the CPU at the full vocabulary:
     keys, random bits, uniforms and both roundings of the scaled logits
@@ -1788,7 +1844,7 @@ def test_port_imports_neither_jax_nor_repro():
                  "serve.calibrate", "serve.kv_cache", "serve.prefix_index",
                  "serve.engine", "serve.step_graph", "core.ir", "core.pr_transform",
                  "bench.pr_transform_bench", "bench.table4_overhead", "quickstart",
-                 "serve.sampling", "serve_lm"):
+                 "serve.sampling", "serve_lm", "serve.sla"):
         assert f"repro_torch.{name}" in mods, name
 
 
