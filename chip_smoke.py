@@ -200,6 +200,37 @@ its paths:
    (e) The seed loop (``fused=False``, dense, eager): its fp32 tokens
    must be the fused run's; its bf16 tok/s beside the captured pipelined
    dense run.
+4f. Faults, recovery, the HW->SW degrade and the pool audit (``faults
+   ...`` lines, after 4e; each number beside the card's name and power
+   limit): 4e's 12 lifecycle requests (deadlines dropped) on 4 slots of
+   an ample paged pool, each engine warmed by fault-free sessions (which
+   capture its graphs), pipelined and captured beside the serial
+   control.  (a) One ``serve.faults`` schedule: NaN logits for a live
+   uid (rounds 3-4), a cancel (round 5) and a forced deadline (round 6)
+   of two other live uids, a seeded page corruption (round 8), a 3-round
+   soft OOM (10-12) and a hard OOM at the first later round that
+   allocates (found by running the rest of the schedule with a probe of
+   the allocator's hook): the targets end failed, cancelled and timeout,
+   each engine recovers once without degrading, the pool drains
+   audit-clean, and pipelined = serial on statuses and tokens (gated
+   where the paged replay probe was bit for bit).  (b) A ``kernel``
+   fault at round 6: the engine degrades once onto the plain lowering
+   (launch counts from the degrade on hold no rmsnorm, flash or decode
+   launch; the dropped graphs are captured again and name none), every
+   request ends ok.  (c) A 0.2 s straggler at round 8: the watchdog's
+   event over 3x the median step.  (d) spec_k 4 on the damped weights
+   with a self:1 draft, ``spec_collapse`` on one uid for 8 rounds: the
+   governor (window 4, cooldown 4) turns speculation off and back on.
+   The fp32 control runs (a), (b) and (d) on the widened weights: every
+   ok request of (a) has the fault-free tokens, (b) the kernel run's
+   (where one differs it prints the step's top-2 margin against the
+   kernel-vs-plain logit error, and fails), (d) the fault-free spec
+   run's.  (e) The wall from the hard OOM's recovery to the requeued
+   requests' next tokens on the host, and the captured dense and paged
+   decode steps' kernel ms with the fault-mask buffer the engine's steps
+   read against without.  Every other phase's engines run without a
+   fault schedule: each must end with no recovery, no degrade and (paged)
+   an audit-clean pool (``fault-free engines`` line).
 5. Training (``train ...`` lines): full-width, full-depth qwen2-1.5b with
    fp32 master weights and AdamW state, bf16 compute, remat per layer and
    the 8-chunk loss, at the reference's train_4k length (S 4096; batch 2,
@@ -1097,6 +1128,7 @@ def serve(model, params, spec, warm: bool = False, **kw):
     eng.base_bytes = base
     eng.peak_bytes = torch.cuda.max_memory_allocated() - base
     no_ragged_rmsnorm("a serving run", counts)
+    fault_free("a serving run", eng)
     for u, _, n in spec:
         s = eng.last_stats[u]
         if s["status"] != "ok" or s["tokens"] != n or len(out.get(u, [])) != n:
@@ -1222,14 +1254,16 @@ def pipeline_pair(label, piped, serial, names, gate: bool) -> dict:
 
 
 def step_state(model, params, kind: str, gen: torch.Generator, draft=None,
-               sampler=None) -> dict:
+               sampler=None, masks=None) -> dict:
     """One engine step's fixed buffers at the decode profile's shape
     (SLOTS rows at DECODE_POS, attend ATTEND; random cache rows, int8
     pools quantized on the card, each slot's pages in its own table row)
     and its closure, as the engine builds it (``serve/step_graph.py``,
     ``spec_decode.build_spec_step``; ``draft`` = (model, params) for the
-    spec kinds; ``sampler`` the engine's sampled-step draw, None greedy).
-    ``reset()`` puts tok / pos / remaining back."""
+    spec kinds; ``sampler`` the engine's sampled-step draw, None greedy;
+    ``masks`` the engine's (2, SLOTS) fault-mask buffer, which a decode
+    step then reads, as the engine's do).  ``reset()`` puts tok / pos /
+    remaining back."""
     from repro_torch.serve import spec_decode, step_graph
     from repro_torch.serve.kv_cache import quantize_kv_rows
 
@@ -1262,7 +1296,8 @@ def step_state(model, params, kind: str, gen: torch.Generator, draft=None,
     if spec_k == 1:
         st["fn"] = step_graph.decode_step_fn(model, params, cache, st["tok"], st["pos"],
                                              st["remaining"], st["out"], ATTEND, MAX_SEQ,
-                                             uids=st["uids"], sampler=sampler)
+                                             uids=st["uids"], sampler=sampler,
+                                             nan_mask=None if masks is None else masks[0])
         return st
     dmodel, dparams = draft
     dcache = dmodel.init_cache(SLOTS, MAX_SEQ)
@@ -2159,16 +2194,17 @@ def where_time_goes(model, params, gen):
 
 
 def graph_phase(name, model, params, kind: str, gen, draft=None, n: int = 10,
-                sampler=None) -> dict:
+                sampler=None, masks=None, parts=()) -> dict:
     """``profile_phase`` of one captured step of ``kind`` replayed
     (``serve/step_graph.py``; the step's state from :func:`step_state`,
     tok / pos / remaining put back before each replay, three small copies
     that the device time includes); fails unless the graph launches the
     kind's kernels.  ``gating_ms`` etc. come from the profile as for the
-    eager rows."""
+    eager rows; ``parts`` names kernels whose device ms a replay is
+    profiled apart (``kernel_parts_ms``, in ``parts_ms``)."""
     from repro_torch.serve.step_graph import StepGraphs
 
-    st = step_state(model, params, kind, gen, draft, sampler)
+    st = step_state(model, params, kind, gen, draft, sampler, masks)
     graphs = StepGraphs("cuda", enabled=True)
     graphs.run((kind, ATTEND), st["fn"], restore=st["restore"])
     per = graphs.launches().get((kind, ATTEND), {})
@@ -2182,6 +2218,8 @@ def graph_phase(name, model, params, kind: str, gen, draft=None, n: int = 10,
 
     rec = profile_phase(name, replay, n)
     rec["launches_per_replay"] = per
+    if parts:
+        rec["parts_ms"] = kernel_parts_ms(replay, parts)
     return rec
 
 
@@ -2450,6 +2488,7 @@ def run_sampled(cfg, model, params, spec, num_pages, greedy_dense, phases,
         eng = ServeEngine(model, params, max_seq=MAX_SEQ, batch_slots=SLOTS,
                           temperature=SAMPLE_T, seed=seed)
         outs[seed] = eng.generate(prompts, 16).cpu()
+        fault_free("generate", eng)
         if outs[seed].shape != (SLOTS, 16) or not bool(
                 ((outs[seed] >= 0) & (outs[seed] < cfg.vocab)).all()):
             fail(f"generate gave {tuple(outs[seed].shape)} tokens or ids out of range")
@@ -2457,6 +2496,9 @@ def run_sampled(cfg, model, params, spec, num_pages, greedy_dense, phases,
     rec["generate_seed_difference"] = seeds_differ
     t0 = time.perf_counter()
     lm = serve_lm.main([])
+    if lm["backend_degraded"] or lm["recoveries"]:
+        fail(f"serve_lm's engine recovered {lm['recoveries']} time(s), degraded "
+             f"{lm['backend_degraded']}")
     rec["serve_lm"] = dict(wall_s=time.perf_counter() - t0, tokens=lm["tokens"],
                            served=lm["served"])
     print(f"sampled sanity: sampled dense vs greedy dense token agreement {differ:.4f}; "
@@ -2560,6 +2602,7 @@ def sched_serve(model, params, spec, *, warm: bool = False, slots: int = SLOTS,
     wall = time.perf_counter() - t0
     counts = kernels.launch_counts()
     no_ragged_rmsnorm("a scheduling run", counts)
+    fault_free("a scheduling run", eng)
     if check:
         for r in spec:
             s = eng.last_stats[r["uid"]]
@@ -2793,6 +2836,391 @@ def run_sched(cfg, model, params, seed: int, smi: str) -> tuple:
                     fp32_agreement=agree32, bf16_agreement=bf16_seed)
     rec["wall_s"] = time.perf_counter() - t_phase
     print(f"sched phase: {rec['wall_s']:.1f} s; [{smi}]", flush=True)
+    return rec, counts, counts32
+
+
+# ---------------------------------------------------------------------------
+# phase 4f: faults, recovery, the HW->SW degrade and the pool audit
+# ---------------------------------------------------------------------------
+
+FAULTS_WARM = 2               # fault-free sessions before a fault schedule's
+FAULT_STRAGGLER_S = 0.2
+FAULT_SPEC_WINDOW = 4         # (d)'s governor: disable after 4 one-token windows,
+FAULT_SPEC_COOLDOWN = 4       # re-arm 4 steps later
+FAULT_COLLAPSE_SPAN = 8
+# fault-free engines checked by ``fault_free`` (every serving phase's)
+FAULT_FREE = {"engines": 0}
+
+
+def fault_free(label: str, eng):
+    """An engine that served without a fault schedule: a recovery or a
+    degrade there would hide a failure behind the plain lowering, so it
+    must have neither, and its pool (paged) must audit clean."""
+    FAULT_FREE["engines"] += 1
+    if eng.backend_degraded or eng.recoveries:
+        fail(f"{label}: a fault-free engine recovered {eng.recoveries} time(s) "
+             f"(backend_degraded {eng.backend_degraded})")
+    p = eng.last_pool_stats
+    if p is not None and not p.audit_ok:
+        fail(f"{label}: the pool audit failed: {p.audit_errors}")
+
+
+def fault_requests(seed: int, vocab: int, priorities: bool = True):
+    """Phase 4f's trace: 4e's 12 lifecycle requests (prompts, budgets and,
+    unless ``priorities`` is False, their classes), the deadlines dropped:
+    the schedule's faults decide who ends how."""
+    out = []
+    for r in make_lifecycle_requests(seed, vocab):
+        r = {k: v for k, v in r.items() if k not in ("deadline_ms", "ttft_deadline_ms")}
+        if not priorities:
+            r.pop("priority")
+        out.append(r)
+    return out
+
+
+class FaultRun:
+    """One engine of phase 4f (paged, SLOTS slots, ample pool), warmed by
+    fault-free sessions (each checked by ``fault_free``), then sessions
+    under a schedule.  What a run reads comes from the engine's own
+    records (the timeseries' live uids, ``last_stats["recovery_log"]``)
+    and from the schedule's public queries (:class:`ProbeSchedule`)."""
+
+    def __init__(self, model, params, spec, warm: int = FAULTS_WARM, **kw):
+        from repro_torch.serve.engine import ServeEngine
+
+        self.spec = spec
+        self.eng = ServeEngine(model, params, max_seq=MAX_SEQ, batch_slots=SLOTS,
+                               cache_layout="paged", page_size=PAGE_SIZE, **kw)
+        for i in range(warm):
+            self.base = self._serve(None)[0]
+            fault_free(f"faults warm-up {i}", self.eng)
+        self.warm_graphs = dict(self.eng.last_graph_stats)
+
+    def _reqs(self):
+        from repro_torch.serve.engine import Request
+
+        return [Request(**r) for r in self.spec]
+
+    def _serve(self, faults):
+        from repro_torch import kernels
+
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        out = self.eng.serve(self._reqs(), faults=faults)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0, kernels.launch_counts()
+
+    def run(self, faults):
+        """The session under ``faults``: (tokens, wall s, launch counts)."""
+        out, wall, counts = self._serve(faults)
+        self.out = out
+        return out, wall, counts
+
+    def live_after(self) -> dict:
+        """The last session's uids decoding at each round's end."""
+        ts = self.eng.last_stats["timeseries"]
+        return dict(zip(ts["round"], ts["live_uids"]))
+
+    def recovery(self):
+        """The last session's first recovery (None if none): its round,
+        exception, requeued uids and each one's next token in ms after it."""
+        log = self.eng.last_stats["recovery_log"]
+        if not log:
+            return None
+        e = log[0]
+        return dict(rnd=e["round"], exc=e["exc"], held=e["requeued"],
+                    next_token_ms={u: (t - e["t_s"]) * 1e3
+                                   for u, t in e["next_token_s"].items()})
+
+    def statuses(self):
+        return {r["uid"]: self.eng.last_stats[r["uid"]]["status"] for r in self.spec}
+
+    def no_recovery(self, label: str):
+        """A run whose faults recover nothing (a straggler, a collapse):
+        the engine must not have recovered or left the kernels."""
+        if self.eng.recoveries or self.eng.backend_degraded:
+            fail(f"{label}: {self.eng.recoveries} recoveries, degraded "
+                 f"{self.eng.backend_degraded}; this run's faults recover nothing")
+
+
+def probe_schedule(faults, seed):
+    """``faults`` as a schedule whose public queries also record what the
+    engine asked: ``alloc_rounds``, every round whose allocation asked the
+    OOM hook (the rounds a hard OOM can hit), and ``at_kernel``, the launch
+    counts when a ``kernel`` fault fired (the degrade follows at once)."""
+    from repro_torch import kernels
+    from repro_torch.serve.faults import FaultSchedule
+
+    class ProbeSchedule(FaultSchedule):
+        def oom_denied(self, rnd):
+            self.alloc_rounds.add(rnd)
+            return super().oom_denied(rnd)
+
+        def kernel_at(self, rnd):
+            f = super().kernel_at(rnd)
+            if f is not None and self.at_kernel is None:
+                self.at_kernel = kernels.launch_counts()
+            return f
+
+    sched = ProbeSchedule(faults, seed=seed)
+    sched.alloc_rounds, sched.at_kernel = set(), None
+    return sched
+
+
+def run_faults(cfg, model, params, seed: int, smi: str, probes: dict) -> tuple:
+    """Phase 4f (see the module docstring).  Returns the record, the bf16
+    runs' launch counts (summed) and the fp32 runs'."""
+    from repro_torch.models.lm import Model
+    from repro_torch.serve.faults import Fault, FaultSchedule
+
+    t_phase = time.perf_counter()
+    spec = fault_requests(seed, cfg.vocab)
+    rec, counts, counts32 = {}, {}, {}
+    serving = ("rmsnorm", "flash_attention_fwd", "flash_decode", "paged_flash_decode",
+               "paged_flash_verify")
+
+    def into(c, run_counts):
+        for k, v in run_counts.items():
+            c[k] = c.get(k, 0) + v
+
+    def ok_tokens(run, base):
+        """Every ok request's tokens against ``base``: (agreeing, ok)."""
+        oks = [u for u, s in run.statuses().items() if s == "ok"]
+        return sum(run.out[u] == base[u] for u in oks), len(oks)
+
+    # (a) nan, page corruption, cancel, a forced deadline, a soft oom and a
+    # hard oom: the rounds and targets come from the fault-free serial run
+    serial = FaultRun(model, params, spec, pipeline=False)
+    serial.run(None)
+    fault_free("faults a serial targets run", serial.eng)
+    live = serial.live_after()
+    early = set(live[3]) & set(live[4])
+    nan_uid = min(early)
+    later = [u for u in sorted(set(live[3]) & set(live[7])) if u != nan_uid]
+    if len(early) < 1 or len(later) < 2:
+        fail(f"faults a: too few requests live across rounds 3-7 to target: {live}")
+    cancel_uid, deadline_uid = later[0], later[1]
+    faults = [Fault("nan", step=3, uid=nan_uid, span=2),
+              Fault("cancel", step=5, uid=cancel_uid),
+              Fault("deadline", step=6, uid=deadline_uid),
+              Fault("page_corruption", step=8),
+              Fault("oom", step=10, span=3)]
+    probe = probe_schedule(faults, seed)
+    serial.run(probe)
+    allocs = probe.alloc_rounds
+    hard = min((r for r in allocs if r >= 14), default=None)
+    if hard is None:
+        fail(f"faults a: no round from 14 on allocated a page: {sorted(allocs)}")
+    faults.append(Fault("oom", step=hard, raise_exc=True))
+    sched = FaultSchedule(faults, seed=seed)
+    print(f"faults a schedule: nan uid {nan_uid} rounds 3-4, cancel uid {cancel_uid} round "
+          f"5, deadline uid {deadline_uid} round 6, page corruption round 8 (seed {seed}), "
+          f"soft oom rounds 10-12, hard oom round {hard}", flush=True)
+    s_out, s_wall, s_counts = serial.run(sched)
+    piped = FaultRun(model, params, spec)
+    p_out, p_wall, p_counts = piped.run(sched)
+    into(counts, add_counts(s_counts, p_counts))
+    gate = probes["paged"]["bit_for_bit"]
+    same = piped.statuses() == serial.statuses() and p_out == s_out
+    want = {nan_uid: "failed", cancel_uid: "cancelled", deadline_uid: "timeout"}
+    sts = piped.statuses()
+    p_stats = piped.eng.last_pool_stats
+    agree_a, n_ok = ok_tokens(piped, piped.base)
+    rec["a"] = dict(schedule=[dataclasses.asdict(f) for f in faults], statuses=sts,
+                    pipelined_equals_serial=same, gated=gate,
+                    recoveries=piped.eng.recoveries, serial_recoveries=serial.eng.recoveries,
+                    preemptions=piped.eng.preemptions,
+                    retries={u: piped.eng.last_stats[u]["retries"] for u in sts},
+                    reasons={u: piped.eng.last_stats[u].get("reason") for u in sts},
+                    ok_equal_fault_free_bf16=[agree_a, n_ok],
+                    wall_s=p_wall, serial_wall_s=s_wall, recovery=piped.recovery(),
+                    audit_ok=p_stats.audit_ok, used_pages=p_stats.used_pages)
+    print(f"faults a (bf16, pipelined / serial): statuses {sts}; equal {same} "
+          f"({'gated' if gate else 'reported: the paged replay probe was not bit for bit'}); "
+          f"recoveries {piped.eng.recoveries} / {serial.eng.recoveries}; preemptions "
+          f"{piped.eng.preemptions} / {serial.eng.preemptions}; ok requests with the "
+          f"fault-free tokens {agree_a} of {n_ok} (bf16, reported: a requeue re-prefills "
+          f"at another bucket, C1); {p_wall:.3f} / {s_wall:.3f} s; audit_ok "
+          f"{p_stats.audit_ok}, pages in use {p_stats.used_pages}; [{smi}]", flush=True)
+    if gate and not same:
+        fail("faults a: the pipelined run ended other statuses or tokens than the serial one")
+    for eng, label in ((piped.eng, "pipelined"), (serial.eng, "serial")):
+        st = {r["uid"]: eng.last_stats[r["uid"]]["status"] for r in spec}
+        if any(st[u] != s for u, s in want.items()):
+            fail(f"faults a {label}: targets ended {st}, the schedule names {want}")
+        if eng.recoveries != 1 or eng.backend_degraded:
+            fail(f"faults a {label}: {eng.recoveries} recoveries, degraded "
+                 f"{eng.backend_degraded}; the hard oom recovers once, on the kernels")
+        p = eng.last_pool_stats
+        if not p.audit_ok or p.used_pages:
+            fail(f"faults a {label}: audit {p.audit_errors}, {p.used_pages} pages in use")
+    # (e) the recovery's wall to the requeued requests' next tokens
+    r = piped.recovery()
+    if r is None or set(r["next_token_ms"]) != set(r["held"]):
+        fail(f"faults e: the requeued requests' next tokens were not all seen: {r}")
+    wall_ms = max(r["next_token_ms"].values()) if r["next_token_ms"] else 0.0
+    print(f"faults e: the hard oom at round {r['rnd']} requeued {sorted(r['held'])}; their "
+          f"next tokens {', '.join(f'{u} {ms:.2f}' for u, ms in sorted(r['next_token_ms'].items()))}"
+          f" ms after the recovery (last {wall_ms:.2f} ms); [{smi}]", flush=True)
+    rec["e"] = dict(recovery_round=r["rnd"], next_token_ms=r["next_token_ms"],
+                    last_ms=wall_ms)
+    del serial
+
+    # (b) a kernel fault mid-decode: the degrade onto the plain lowering
+    kfault = probe_schedule([Fault("kernel", step=6)], seed)
+    deg = FaultRun(model, params, spec)
+    d_out, d_wall, d_counts = deg.run(kfault)
+    into(counts, d_counts)
+    names = ("rmsnorm", "flash_attention_fwd", "flash_decode", "paged_flash_decode")
+    deg.at_degrade = kfault.at_kernel
+    after = {n: d_counts[n] - deg.at_degrade[n] for n in names} if deg.at_degrade else None
+    g = deg.eng.last_graph_stats
+    recaptured = {k: {n: v.get(n, 0) for n in names} for k, v in g["launches_per_replay"].items()}
+    print(f"faults b (bf16, pipelined): kernel fault at round 6; backend_degraded "
+          f"{deg.eng.backend_degraded}, recoveries {deg.eng.recoveries}; launches after the "
+          f"degrade {after} (before it {deg.at_degrade and {n: deg.at_degrade[n] for n in names}}); "
+          f"graphs dropped {g['dropped']}, re-captured {g['captured']}, their kernel launches a "
+          f"replay {recaptured}; statuses {set(deg.statuses().values())}; "
+          f"{d_wall:.3f} s; [{smi}]", flush=True)
+    if not deg.eng.backend_degraded or deg.eng.recoveries != 1 or after is None:
+        fail("faults b: the kernel fault did not degrade the engine once")
+    if any(after.values()) or any(any(v.values()) for v in recaptured.values()):
+        fail(f"faults b: a hand-written serving kernel launched after the degrade: {after}, "
+             f"{recaptured}")
+    if g["dropped"] < 1 or g["captured"] < 1:
+        fail(f"faults b: the degrade dropped {g['dropped']} graphs and captured {g['captured']}")
+    if deg.eng.model.use_kernels or deg.eng.verify_backend != "torch":
+        fail("faults b: the degraded model still routes to the kernels")
+    if set(deg.statuses().values()) != {"ok"}:
+        fail(f"faults b: {deg.statuses()}")
+    rec["b"] = dict(after_degrade=after, at_degrade={n: deg.at_degrade[n] for n in names},
+                    graphs=g, wall_s=d_wall,
+                    bf16_agreement=agreement(d_out, deg.base))
+    del deg
+
+    # (c) a straggler after >= 5 steps
+    strag = FaultRun(model, params, spec)
+    c_out, _, c_counts = strag.run(FaultSchedule([Fault("straggler", step=8,
+                                                        sleep_s=FAULT_STRAGGLER_S)]))
+    into(counts, c_counts)
+    ev = strag.eng.last_stats["stragglers"]
+    print(f"faults c: straggler {FAULT_STRAGGLER_S} s at round 8: events {ev}; tokens equal "
+          f"the fault-free run's {c_out == strag.base}; [{smi}]", flush=True)
+    if not ev or not all(e["duration_s"] > strag.eng.straggler_factor * e["median_s"]
+                         for e in ev) or max(e["duration_s"] for e in ev) < FAULT_STRAGGLER_S:
+        fail(f"faults c: the watchdog recorded {ev}")
+    if c_out != strag.base:
+        fail("faults c: a straggler moved the tokens")
+    strag.no_recovery("faults c")
+    rec["c"] = dict(events=ev)
+    del strag
+
+    # (d) speculation's collapse: spec_k 4, damped weights, self:1 draft
+    fifo = fault_requests(seed, cfg.vocab, priorities=False)
+    target = max(fifo[:SLOTS], key=lambda r: r["max_new_tokens"])["uid"]
+    collapse = FaultSchedule([Fault("spec_collapse", step=0, uid=target,
+                                    span=FAULT_COLLAPSE_SPAN)], seed=seed)
+    damped = dict(params, layers=_scaled(params["layers"], 0.05))
+    spec_kw = dict(spec_k=SPEC_K, draft="self:1", spec_disable_window=FAULT_SPEC_WINDOW,
+                   spec_cooldown=FAULT_SPEC_COOLDOWN)
+    sp = FaultRun(model, damped, fifo, **spec_kw)
+    sp_out, _, sp_counts = sp.run(collapse)
+    into(counts, sp_counts)
+    s = sp.eng.last_stats[target]
+    rearms = s.get("spec_rearms", 0)
+    print(f"faults d (bf16): spec_collapse on uid {target} rounds 0-{FAULT_COLLAPSE_SPAN - 1}: "
+          f"auto-disables {s.get('spec_auto_disables', 0)}, re-armed {rearms}, "
+          f"{s.get('spec_tokens', 0)} tokens in {s.get('spec_steps', 0)} windows; tokens "
+          f"equal the fault-free spec run's {agreement(sp_out, sp.base):.4f} (bf16, "
+          f"reported); [{smi}]", flush=True)
+    if s.get("spec_auto_disables", 0) < 1 or rearms < 1:
+        fail("faults d: the governor did not disable and re-enable speculation")
+    sp.no_recovery("faults d")
+    rec["d"] = dict(target=target, auto_disables=s.get("spec_auto_disables", 0),
+                    rearms=rearms, spec_steps=s.get("spec_steps", 0),
+                    spec_tokens=s.get("spec_tokens", 0),
+                    bf16_agreement=agreement(sp_out, sp.base))
+    del sp
+
+    # the fp32 controls: (a), (b) and (d) on the same weights widened
+    model32, params32 = fp32_model(cfg, params)
+    c32 = {}
+    a32 = FaultRun(model32, params32, spec, warm=1)
+    into(counts32, a32.run(sched)[2])
+    agree, n_ok = ok_tokens(a32, a32.base)
+    p = a32.eng.last_pool_stats
+    c32["a"] = dict(agreeing=agree, ok=n_ok, recoveries=a32.eng.recoveries,
+                    audit_ok=p.audit_ok, used_pages=p.used_pages, statuses=a32.statuses())
+    b32 = FaultRun(model32, params32, spec, warm=1)
+    into(counts32, b32.run(FaultSchedule([Fault("kernel", step=6)], seed=seed))[2])
+    b_agree = agreement(b32.out, b32.base)
+    c32["b"] = dict(agreement=b_agree, degraded=b32.eng.backend_degraded)
+    damped32 = dict(params32, layers=_scaled(params32["layers"], 0.05))
+    d32 = FaultRun(model32, damped32, fifo, warm=1, **spec_kw)
+    into(counts32, d32.run(collapse)[2])
+    d32.no_recovery("faults d fp32")
+    c32["d"] = dict(agreement=agreement(d32.out, d32.base),
+                    auto_disables=d32.eng.last_stats[target].get("spec_auto_disables", 0))
+    print(f"faults fp32 control: (a) ok requests with the fault-free tokens {agree} of "
+          f"{n_ok}, recoveries {a32.eng.recoveries}, audit_ok {p.audit_ok}, pages in use "
+          f"{p.used_pages}, statuses {a32.statuses()}; (b) degraded "
+          f"{b32.eng.backend_degraded}, tokens equal the fault-free kernel run's {b_agree:.4f}; "
+          f"(d) {c32['d']['agreement']:.4f}, auto-disables {c32['d']['auto_disables']}; "
+          f"[{smi}]", flush=True)
+    if agree != n_ok or a32.eng.recoveries != 1 or not p.audit_ok or p.used_pages:
+        fail("faults a fp32: a survivor's tokens moved, or the recovery or pool is off")
+    if b_agree < 1.0:
+        # the plain lowering served another token: its margin against the
+        # kernels' error at that step, then fail
+        plain32 = Model(cfg, device="cuda", dtype=torch.float32, use_kernels=False)
+        for u in sorted(b32.base):
+            if b32.out.get(u) == b32.base[u]:
+                continue
+            prompt = next(r["prompt"] for r in spec if r["uid"] == u)
+            k = teacher_force(model32, params32, prompt, b32.base[u])
+            pl = teacher_force(plain32, params32, prompt, b32.base[u])
+            i = next(j for j, (x, y) in enumerate(zip(b32.out[u], b32.base[u])) if x != y)
+            top = torch.topk(k[i], 2).values
+            print(f"faults b fp32: uid {u} step {i}: top-2 margin "
+                  f"{(top[0] - top[1]).item():.3e}, kernel vs plain logits error "
+                  f"{(k[i] - pl[i]).abs().max().item():.3e}", flush=True)
+        fail("faults b fp32: the degraded run served other tokens than the kernel run")
+    if not b32.eng.backend_degraded:
+        fail("faults b fp32: no degrade")
+    if c32["d"]["agreement"] < 1.0 or c32["d"]["auto_disables"] < 1:
+        fail("faults d fp32: the collapse moved a token or never tripped the governor")
+    rec["fp32"] = c32
+    del a32, b32, d32, model32, params32
+    torch.cuda.empty_cache()
+
+    # (e) the captured step with the fault-mask buffer the engine's steps
+    # read, against the same step without it: the two profiles' kernel ms
+    # (their difference is within run-to-run spread) and the select's own
+    # kernel (masked_fill) a replay
+    gen = torch.Generator(device="cuda").manual_seed(seed + 28)
+    masks = torch.zeros(2, SLOTS, dtype=torch.bool, device="cuda")
+    steps = {}
+    for kind in ("dense", "paged"):
+        for label, m in (("", None), ("_masked", masks)):
+            name = f"{kind}_decode_step_graph{label}"
+            steps[name] = graph_phase(name, model, params, kind, gen, masks=m,
+                                      parts=("masked_fill",))
+    cost = {k: steps[f"{k}_decode_step_graph_masked"]["device_ms"]
+            - steps[f"{k}_decode_step_graph"]["device_ms"] for k in ("dense", "paged")}
+    select = {k: steps[f"{k}_decode_step_graph_masked"]["parts_ms"]["masked_fill"]
+              for k in ("dense", "paged")}
+    shown = {k: (round(v, 5) if v > 0.0 else "not measured (no masked_fill kernel in "
+                 "the profile)") for k, v in select.items()}
+    print(f"faults e: the fault masks in a captured step: the select's kernel (masked_fill) "
+          f"{shown} ms a replay; kernel ms with - without {cost} (two profiles); [{smi}]",
+          flush=True)
+    rec["e"]["mask_cost_ms"] = cost
+    rec["e"]["select_ms"] = select
+    rec["e"]["steps"] = {k: dict(wall_ms=v["wall_ms"], device_ms=v["device_ms"])
+                         for k, v in steps.items()}
+    rec["wall_s"] = time.perf_counter() - t_phase
+    print(f"faults phase: {rec['wall_s']:.1f} s; [{smi}]", flush=True)
     return rec, counts, counts32
 
 
@@ -3653,6 +4081,11 @@ def main():
         rows[name]["launches"] += sched_counts[name]
     rows["paged_flash_verify[long] (f32)"]["launches"] += sched_fp32["paged_flash_verify[long]"]
 
+    faults_rec, faults_counts, faults_fp32 = run_faults(cfg, model, params, args.seed, smi,
+                                                        probes)
+    for name in serving_kernels + ("paged_flash_verify",):
+        rows[name]["launches"] += faults_counts[name]
+
     phases = where_time_goes(model, params, gen)
     phases.update(shared_profiles)
 
@@ -3678,9 +4111,10 @@ def main():
          "sampled bf16 runs": sampled_counts,
          "tiered bf16 runs": tiered_counts, "shared bf16 runs": shared_counts,
          "shared int8 run": shared_int8, "sched bf16 runs": sched_counts,
+         "faults bf16 runs": faults_counts,
          "moe serve": moe_counts, "train": train_counts},
         {"C1 control fp32": c1["launches"], "shared fp32 control": shared_fp32,
-         "sched fp32 runs": sched_fp32,
+         "sched fp32 runs": sched_fp32, "faults fp32 runs": faults_fp32,
          "sampled fp32 control": sampled_fp32,
          "tiered fp32 control": tiered_rec["fp32_control_launches"],
          "moe control fp32 no drops": moe_rec["preemption_controls"]["fp32 no drops"]["launches"]})
@@ -3689,6 +4123,8 @@ def main():
     rows["flash_attention_bwd"]["launches"] += train_counts["flash_attention_bwd"]
     rows["flash_attention_fwd (training)"]["launches"] = train_counts["flash_attention_fwd"]
 
+    print(f"fault-free engines: {FAULT_FREE['engines']} checked, none recovered or "
+          f"degraded, every paged pool audit-clean", flush=True)
     result = {"kernels": list(rows.values())}
     DETAILS.parent.mkdir(parents=True, exist_ok=True)
     DETAILS.write_text(json.dumps(dict(
@@ -3700,7 +4136,8 @@ def main():
         pr_transform=pr_rec, table4=table4,
         warp_forms=warp_forms, spec=spec_rec, verify_t1_err=t1_err, moe=moe_rec,
         c1_control=c1, tiered=tiered_rec, int8_kernel_checks=int8_checks,
-        shared=shared_rec, sampled=sampled_rec, sched=sched_rec, verify_long=long_checks,
+        shared=shared_rec, sampled=sampled_rec, sched=sched_rec, faults=faults_rec,
+        fault_free_engines=FAULT_FREE["engines"], verify_long=long_checks,
         replay_probes=probes,
         pipeline=PIPELINE_PAIRS,
         moe_gating=gating_readings, flash_branches=BRANCHES_RUN,

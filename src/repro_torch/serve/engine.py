@@ -107,8 +107,10 @@ status in ``last_stats[uid]["status"]`` (``TERMINAL_STATUSES``):
               priority >= ``shed_priority``, most deadline slack first
   timeout     its ``deadline_ms`` (enqueue to finish) or
               ``ttft_deadline_ms`` (enqueue to first token) ran out
-  cancelled   :meth:`ServeEngine.cancel` named it, queued or live
-  failed      its logits were not finite
+  cancelled   :meth:`ServeEngine.cancel` named it, queued or live (or a
+              ``cancel`` fault did)
+  failed      its logits were not finite (the row fails alone, the batch
+              commits on), or its retries ran out across recoveries
 
 Admission takes the lowest ``priority`` first, then arrival order, so
 with every request at the default priority it is the FIFO of before.
@@ -138,15 +140,49 @@ the per-token dispatch baseline, never captured.
 :meth:`ServeEngine.generate` runs an equal-length prompt batch on the
 dense layout for a fixed number of tokens, row i sampling with uid i.
 
+Faults and recovery.  ``serve.faults`` injects every failure mode the
+engine survives at a chosen scheduler round (``ServeEngine(faults=)`` or
+``serve(requests, faults=)``): soft and hard allocator OOMs, NaN logits,
+stragglers, speculative collapse, page corruption, kernel-backend
+failures, cancels and deadline expiries.  The NaN and collapse
+injections ride two fixed (slots,) bool device buffers that every step
+reads by address (a captured step too); they are written only in rounds
+a fault targets a live row, and zeroed after that step.  Recovery is
+step-restart: a recoverable exception in admission, growth, dispatch or
+commit requeues every held request with its generated tokens folded into
+its prompt (charging one of its ``Request.max_retries``; none left ->
+``failed``), rebuilds the host manager and prefix index from scratch and
+zero-fills the device state in place (no buffer is rebound, so every
+captured graph stays valid).  An injected kernel-backend failure
+(``KernelBackendError``) also degrades the engine onto the plain PyTorch
+lowering (``backend_degraded``): the model is rebuilt with
+``use_kernels=False``, verify goes to ``"torch"``, and every captured
+graph is dropped, to be captured again on the plain lowering.  Only
+injected faults are recovered from.  Any other exception (a kernel that
+fails to build or launch, a bug in a step, an audit failure), a fatal
+fault, or a recovery past ``max_recoveries`` escapes ``serve()``, which
+first fails everything still held or queued and leaves an audit-clean
+pool: unlike the reference, which recovers from any exception and
+degrades on any that is not injected, the port never hides a real
+failure behind a recovery or the plain lowering.  Each recovery's round,
+time, exception, degrade and requeued uids, with each requeued request's
+time to its next token, are in ``last_stats["recovery_log"]``.  The
+straggler watchdog records a step whose dispatch-to-commit wall exceeds
+``straggler_factor`` times the median of the last ``straggler_window``
+in ``last_stats["stragglers"]``.
+``audit=True`` commits and sweeps the allocator, block tables, prefix
+index and the pool's quantization metadata every round
+(``serve.audit``); ``last_pool_stats`` always carries the sweep's
+verdict.
+
 Not ported yet: measured cost models (``preempt_calibrate``, A11),
-faults, recovery and ``Request.max_retries``, the straggler watchdog and
-the pool audit (A10), open-loop submission (A11) and cluster handoff
-(A12).
+open-loop submission (A11) and cluster handoff (A12).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import statistics
 import time
 from collections import deque
 from typing import Any, Dict, List, Optional
@@ -156,6 +192,8 @@ import torch
 
 from repro_torch.optim.optimizer import leaves
 from repro_torch.serve import calibrate, sampling, sla, spec_decode, step_graph
+from repro_torch.serve.audit import audit_pool
+from repro_torch.serve.faults import InjectedFault, KernelBackendError, poison_pages
 from repro_torch.serve.kv_cache import (
     CACHE_LAYOUTS,
     TRASH_PAGE,
@@ -245,6 +283,8 @@ class Request:
     # finish, and to the first token; either running out -> timeout
     deadline_ms: Optional[float] = None
     ttft_deadline_ms: Optional[float] = None
+    # step-restart recoveries this request may ride before it fails
+    max_retries: int = 2
     # SLA class: lower admits first and survives shedding and preemption
     # longer; equal classes keep arrival order, so the default (every
     # request at 1) schedules FIFO
@@ -260,21 +300,25 @@ class PendingRound:
     ``live`` snapshots the dispatch-time slot -> request map, so the
     commit accounts tokens to exactly the requests the step computed them
     for.  ``event`` (CUDA) follows the output's copy into the pinned host
-    buffer; the commit waits on it."""
+    buffer; the commit waits on it.  The rest is the watchdog's: the
+    clock's start (at dispatch) and the live slots the step served."""
     live: Dict[int, Request]
     spec: bool = False
     event: Any = None
+    t_start: float = 0.0
+    live_before: int = 0
 
 
 def _empty_timeseries() -> Dict[str, list]:
     """One row a round: seconds since serve() began, the round, the
     queue depth admission control sees, the busy slots (live and
-    mid-chunk) and their share of the slots, the free pages (paged layout
-    only), and the pipeline phases: host time issuing the dispatch, host
-    time blocked in the commit, and host work done in the gap while a
-    step was in flight (0.0 when serial)."""
+    mid-chunk) and their share of the slots, the uids decoding at the
+    round's end (sorted), the free pages (paged layout only), and the
+    pipeline phases: host time issuing the dispatch, host time blocked in
+    the commit, and host work done in the gap while a step was in flight
+    (0.0 when serial)."""
     return {"t_s": [], "round": [], "queue_depth": [], "live_slots": [],
-            "utilization": [], "free_pages": [],
+            "utilization": [], "live_uids": [], "free_pages": [],
             "dispatch_s": [], "commit_s": [], "overlap_s": []}
 
 
@@ -332,6 +376,15 @@ class _SchedState:
     last_commit_s: float = 0.0      # (reset at every round tick)
     last_overlap_s: float = 0.0
     timeseries: Dict[str, list] = dataclasses.field(default_factory=_empty_timeseries)
+    # faults and recovery
+    faults: Any = None          # this session's FaultSchedule (or None)
+    forced_expired: set = dataclasses.field(default_factory=set)   # deadline faults
+    recoveries: int = 0         # step restarts this session
+    recovery_log: List[dict] = dataclasses.field(default_factory=list)
+    awaiting_next: Dict[int, dict] = dataclasses.field(default_factory=dict)  # uid -> entry
+    stragglers: List[dict] = dataclasses.field(default_factory=list)
+    durations: List[float] = dataclasses.field(default_factory=list)  # step walls, s
+    step_no: int = 0            # steps committed (the watchdog's clock)
 
 
 class ServeEngine:
@@ -354,7 +407,9 @@ class ServeEngine:
                  spec_cooldown: int = SPEC_COOLDOWN,
                  pipeline: bool = True,
                  cost_model: Optional[calibrate.CostModel] = None,
-                 preempt_calibrate: bool = False):
+                 preempt_calibrate: bool = False, audit: bool = False,
+                 faults=None, max_recoveries: int = 2,
+                 straggler_factor: float = 3.0, straggler_window: int = 20):
         if cache_layout not in CACHE_LAYOUTS:
             raise ValueError(f"cache_layout must be one of {CACHE_LAYOUTS}; "
                              f"got {cache_layout!r}")
@@ -461,6 +516,18 @@ class ServeEngine:
             if prefill_budget is not None else None)
         # uids cancel() named that no session has seen yet
         self._cancel_uids: set = set()
+        # faults and recovery: the default schedule (serve(faults=)
+        # overrides it a session), the per-round audit, the recovery budget
+        # and the straggler watchdog's threshold and window
+        self.audit = audit
+        self.faults = faults
+        self.max_recoveries = max_recoveries
+        self.straggler_factor = straggler_factor
+        self.straggler_window = straggler_window
+        self.backend_degraded = False   # kernel -> plain lowering engaged
+        self.recoveries = 0             # step restarts, over every session
+        self._draft_spec = draft
+        self._seed = seed
         # sampling: keys from (seed, uid, position), see serve.sampling.
         # The first token after a prefill scales as the reference's eager
         # call does (a division by T), a decode or verify step as its
@@ -570,13 +637,15 @@ class ServeEngine:
             out.append(gen["tok"].clone())
         return torch.stack(out, dim=1)
 
-    def _step_fn(self, cache, tok, pos, remaining, uids, out, attend: Optional[int]):
+    def _step_fn(self, cache, tok, pos, remaining, uids, out, attend: Optional[int],
+                 nan_mask: Optional[torch.Tensor] = None):
         """One decode step over fixed buffers (``step_graph.decode_step_fn``);
         the seed loop's (``fused=False``) has ``attend`` None: it reads the
-        whole cache."""
+        whole cache.  ``nan_mask``: the serving steps' fault mask buffer."""
         return step_graph.decode_step_fn(self.model, self.params, cache, tok, pos,
                                          remaining, out, attend, self.max_seq,
-                                         uids=uids, sampler=self._sampler)
+                                         uids=uids, sampler=self._sampler,
+                                         nan_mask=nan_mask)
 
     def _gen_buffers(self, b: int) -> Dict[str, Any]:
         """generate()'s fixed buffers for batch ``b``, kept for the
@@ -593,23 +662,37 @@ class ServeEngine:
 
     # ------------------------------------------------- continuous batching
     @torch.no_grad()
-    def serve(self, requests: List[Request]) -> Dict[int, List[int]]:
+    def serve(self, requests: List[Request], faults=None) -> Dict[int, List[int]]:
         """Waiting queue -> admission -> joint decode, until every request
         is done.  Returns {uid: generated tokens} for requests that
         finished OK; every request gets one terminal ``status``
         (``TERMINAL_STATUSES``) and its figures in ``self.last_stats[uid]``,
-        the session its SLA summary in ``self.last_stats["sla"]`` and its
-        per-round columns in ``self.last_stats["timeseries"]``."""
-        st = self._open_session(requests)
-        if self.pipeline:
-            # overlapped rounds: each round commits the previous round's
-            # step before admission; a live slot keeps the loop going
-            # until its step commits, so it exits with nothing pending
-            while st.queue or st.live or st.prefilling or st.pending is not None:
-                self.dispatch_round(st)
-        else:
-            while st.queue or st.live or st.prefilling:
-                self._round(st)
+        the session its SLA summary in ``self.last_stats["sla"]``, its
+        per-round columns in ``self.last_stats["timeseries"]``, the
+        watchdog's events in ``self.last_stats["stragglers"]`` and the
+        recoveries in ``self.last_stats["recovery_log"]``; the pool's
+        accounting and audit verdict are in ``self.last_pool_stats``.
+        ``faults`` (a ``serve.faults.FaultSchedule``) overrides the
+        engine's default schedule for this call.  An exception that
+        escapes (any that is not an injected fault, a fatal fault, one
+        recovery too many) first fails every request still held or
+        queued."""
+        st = self._open_session(requests, faults)
+        try:
+            if self.pipeline:
+                # overlapped rounds: each round commits the previous round's
+                # step before admission; a live slot keeps the loop going
+                # until its step commits, so it exits with nothing pending
+                while st.queue or st.live or st.prefilling or st.pending is not None:
+                    self.dispatch_round(st)
+            else:
+                while st.queue or st.live or st.prefilling:
+                    self._round(st)
+        except BaseException as exc:
+            # whatever escapes, no slot or page stays held and every
+            # request has a terminal status: the next serve() starts clean
+            self._abort(st, exc)
+            raise
         return self._finalize_session(st)
 
     # --------------------------------------------------- session primitives
@@ -617,11 +700,13 @@ class ServeEngine:
     # the rounds (_round, or dispatch_round / commit_round) and
     # _finalize_session, on which open-loop submission (A11) and cluster
     # handoff (A12) build
-    def _open_session(self, requests: List[Request]) -> _SchedState:
+    def _open_session(self, requests: List[Request], faults=None) -> _SchedState:
         """Register a (possibly empty) request batch, shed it down to
-        ``max_queue``, and bind a fresh manager and the device state;
-        returns the session state the rounds advance."""
+        ``max_queue``, and bind a fresh manager (with the schedule's OOM
+        hook) and the device state; returns the session state the rounds
+        advance."""
         st = _SchedState(queue=deque(), t0=time.perf_counter())
+        st.faults = faults if faults is not None else self.faults
         self.last_stats = st.stats
         self.last_prefill_groups = []
         self.preemptions = 0
@@ -629,19 +714,40 @@ class ServeEngine:
             self._register(st, req)
             st.queue.append(req)
         self._shed_overflow(st)
-        if self.cache_layout == "paged":
-            index = (PrefixIndex(self.page_size, policy=self.evict_policy,
-                                 min_cached_tokens=self.min_cached_tokens)
-                     if self.prefix_sharing else None)
-            st.mgr = PagedCacheManager(self.num_pages, self.page_size,
-                                       self.slots, self.max_seq,
-                                       prefix_index=index, kv_dtype=self.kv_dtype)
+        self._init_mgr(st)
         for req in st.queue:
             self._check_fits(st, req)
         self._init_device(st)
         g = self._graphs
-        st.graphs0 = (len(g.graphs), g.capture_s, g.replays)
+        st.graphs0 = (g.captures, g.capture_s, g.replays, g.dropped)
         return st
+
+    def _init_mgr(self, st: _SchedState):
+        """A fresh paged-cache manager (and prefix index), with the fault
+        schedule's OOM hook: a hard OOM raises ``InjectedFault`` at its
+        round, a soft one denies the allocation.  Recovery calls it again:
+        a stale index must never point into the zero-filled pool."""
+        if self.cache_layout != "paged":
+            st.mgr = None
+            return
+        index = (PrefixIndex(self.page_size, policy=self.evict_policy,
+                             min_cached_tokens=self.min_cached_tokens)
+                 if self.prefix_sharing else None)
+        st.mgr = PagedCacheManager(self.num_pages, self.page_size, self.slots,
+                                   self.max_seq, prefix_index=index,
+                                   kv_dtype=self.kv_dtype)
+        if st.faults is not None:
+            fs = st.faults
+
+            def oom_hook(n, _st=st, _fs=fs):
+                f = _fs.oom_raise(_st.rnd)
+                if f is not None:
+                    raise InjectedFault(
+                        f"injected allocator OOM (hard) at round {_st.rnd}",
+                        fatal=f.fatal)
+                return _fs.oom_denied(_st.rnd)
+
+            st.mgr.allocator.fault_hook = oom_hook
 
     def _register(self, st: _SchedState, req: Request, now: float = 0.0):
         """The request's ledger entry and arrival stamp (one per uid)."""
@@ -666,16 +772,23 @@ class ServeEngine:
         if missing:
             raise RuntimeError(f"requests left without a terminal status: {missing}")
         self._cancel_uids -= set(st.stats)
+        st.stats["stragglers"] = st.stragglers
+        st.stats["recovery_log"] = st.recovery_log
         self._attach_observability(st)
-        g = self._graphs
-        n0, t0, r0 = st.graphs0
-        self.last_graph_stats = dict(
-            enabled=g.enabled, graphs=len(g.graphs), captured=len(g.graphs) - n0,
-            capture_s=g.capture_s - t0, replays=g.replays - r0,
-            launches_per_replay={f"{k[0]}@{k[1]}": v for k, v in g.launches().items()})
         if st.mgr is not None:
             self.last_pool_stats = st.mgr.stats()
         return st.results
+
+    def _graph_stats(self, st: _SchedState):
+        """The session's graph figures into ``last_graph_stats``: the graphs
+        held now, captured, dropped (a degrade) and replayed this session,
+        the capture seconds, and each held graph's launches a replay."""
+        g = self._graphs
+        c0, t0, r0, d0 = st.graphs0
+        self.last_graph_stats = dict(
+            enabled=g.enabled, graphs=len(g.graphs), captured=g.captures - c0,
+            dropped=g.dropped - d0, capture_s=g.capture_s - t0, replays=g.replays - r0,
+            launches_per_replay={f"{k[0]}@{k[1]}": v for k, v in g.launches().items()})
 
     def _attach_observability(self, st: _SchedState):
         """The SLA summary and the timeseries under ``last_stats``'s string
@@ -684,6 +797,7 @@ class ServeEngine:
                                         wall_s=time.perf_counter() - st.t0,
                                         timeseries=st.timeseries)
         st.stats["timeseries"] = st.timeseries
+        self._graph_stats(st)
 
     def _check_fits(self, st: _SchedState, req: Request):
         """Fail fast, before any device work, on a request that could
@@ -709,9 +823,9 @@ class ServeEngine:
 
     def _init_device(self, st: _SchedState):
         """Bind the session to the engine's device state: allocated at the
-        first session, zero-filled in place at every later one (the bytes
-        a fresh ``init_cache`` gives), never rebound, since captured steps
-        read every buffer by address."""
+        first session, zero-filled in place at every later one and at a
+        recovery (the bytes a fresh ``init_cache`` gives), never rebound,
+        since captured steps read every buffer by address."""
         dev = self._dev
         if dev is None:
             zeros = dict(dtype=torch.int32, device=self.device)
@@ -721,6 +835,11 @@ class ServeEngine:
                    "uids": torch.zeros(self.slots, **zeros),
                    # (3 + T, slots): targets, commit, done, bad
                    "out": torch.zeros(3 + self.spec_k, self.slots, **zeros),
+                   # the fault masks: row 0 nan, row 1 spec collapse
+                   "masks": torch.zeros(2, self.slots, dtype=torch.bool,
+                                        device=self.device),
+                   "mask_staging": TableStaging((2, self.slots), self.device,
+                                                dtype=torch.bool),
                    "cache": None, "pool": None, "bt": None, "staging": None,
                    "draft_cache": None, "spec_mask": None}
             cuda = self.device.type == "cuda"
@@ -742,7 +861,7 @@ class ServeEngine:
                                                device=self.device)
             self._dev = dev
         else:
-            for name in ("tok", "pos", "remaining", "uids", "out", "spec_mask"):
+            for name in ("tok", "pos", "remaining", "uids", "out", "masks", "spec_mask"):
                 if dev[name] is not None:
                     dev[name].zero_()
             for name in ("cache", "pool", "draft_cache"):
@@ -755,6 +874,7 @@ class ServeEngine:
         st.uids = dev["uids"]
         st.draft_cache, st.spec_mask = dev["draft_cache"], dev["spec_mask"]
         st.slot_pos = [0] * self.slots
+        st.gate_block = None
         if st.mgr is not None:
             self._upload_tables(st)
 
@@ -764,18 +884,33 @@ class ServeEngine:
         st.mgr.upload_tables(st.bt_dev, self._dev["staging"])
 
     def _round(self, st: _SchedState):
-        """One serial scheduler round: the lifecycle sweep, admission
-        control, admission (and the chunks in flight), page growth (paged),
-        one decode step for every slot, dispatched and committed at once."""
+        """One serial scheduler round: the round's faults, the lifecycle
+        sweep, admission control, admission (and the chunks in flight),
+        page growth (paged), one decode step for every slot, dispatched and
+        committed at once; an exception in admission, growth or the step
+        takes the recovery gate, and ``audit=True`` sweeps the pool."""
         st.rnd += 1
         st.last_dispatch_s = st.last_commit_s = st.last_overlap_s = 0.0
+        self._apply_round_faults(st)
         self._expire_and_cancel(st)
         self._admission_control(st)
         if st.queue or st.live or st.prefilling:
-            self._admit_and_grow(st)
-            if st.live:
-                self._timed_commit(st, self._timed_dispatch(st))
+            try:
+                self._admit_and_grow(st)
+                if st.live:
+                    self._timed_commit(st, self._timed_dispatch(st))
+            except Exception as exc:
+                self._recover_or_raise(st, exc)
+            self._audit_round(st)
         self._sample_timeseries(st)
+
+    def _audit_round(self, st: _SchedState):
+        """``audit=True``: the manager's sweep and the pool's structural
+        check (structure only: injected page corruption must surface as NaN
+        logits, not as an audit failure)."""
+        if self.audit and st.mgr is not None:
+            st.mgr.audit().raise_if_failed()
+            audit_pool(st.mgr, st.pool).raise_if_failed()
 
     def _admit_and_grow(self, st: _SchedState):
         """Admission (needs the freed slots), then growth and preemption
@@ -795,31 +930,55 @@ class ServeEngine:
 
         1. the round tick;
         2. the overlap gap: host work that the in-flight step's commit
-           cannot influence, run while the device computes: the queued
-           requests' cancel and expiry sweep and admission control
+           cannot influence, run while the device computes: the round's
+           cancel and deadline faults (they only build uid sets), the
+           queued requests' cancel and expiry sweep and admission control
            (shedding, watermark), none of which reads a live slot or the
-           allocator (the reference's fault sweeps wait for ROADMAP A10);
+           allocator;
         3. :meth:`commit_round`: the one wait, token and terminal
            accounting, the deferred swap-out materialization;
-        4. the sweep of the held slots (live and mid-chunk: a commit can
-           free or fail them), then admission (and the chunks in flight),
-           growth and preemption, then the next dispatch.
+        4. the page-corruption faults (their target is drawn from the
+           pages mapped after the commit's releases), the sweep of the held
+           slots (live and mid-chunk: a commit can free or fail them), then
+           admission (and the chunks in flight), growth and preemption,
+           then the next dispatch.
 
-        The outputs are the serial round's; a session runs one more
-        round, which commits the last step."""
+        An exception in the commit, or in admission, growth or the
+        dispatch, takes the recovery gate; the commit pops the pending
+        round before its wait, so a recovery never commits a stale round.
+        ``audit=True`` commits the step at once and sweeps the pool.  The
+        outputs are the serial round's; a session runs one more round,
+        which commits the last step."""
         st.rnd += 1
         st.last_dispatch_s = st.last_commit_s = st.last_overlap_s = 0.0
         t_gap = time.perf_counter()
+        self._apply_round_faults(st, poison=False)
         self._expire_and_cancel(st, scope="queued")
         self._admission_control(st)
         if st.pending is not None:
             st.last_overlap_s = time.perf_counter() - t_gap
-        self.commit_round(st)
+        try:
+            self.commit_round(st)
+        except Exception as exc:
+            self._recover_or_raise(st, exc)
+        self._apply_poison_faults(st)
         self._expire_and_cancel(st, scope="held")
         if st.queue or st.live or st.prefilling:
-            self._admit_and_grow(st)
-            if st.live:
-                st.pending = self._timed_dispatch(st)
+            try:
+                self._admit_and_grow(st)
+                if st.live:
+                    st.pending = self._timed_dispatch(st)
+            except Exception as exc:
+                self._recover_or_raise(st, exc)
+            if self.audit and st.mgr is not None:
+                # a debug mode: the step commits now, so the sweep sees a
+                # quiescent pool (the spec retraction applied); this round
+                # loses its overlap
+                try:
+                    self.commit_round(st)
+                except Exception as exc:
+                    self._recover_or_raise(st, exc)
+                self._audit_round(st)
         self._sample_timeseries(st)
 
     def commit_round(self, st: _SchedState):
@@ -832,10 +991,24 @@ class ServeEngine:
 
     def _drain_swaps(self, st: _SchedState):
         """Wait for the queued swap-out copies (device slices -> pinned
-        host buffers).  Idempotent; runs at every commit boundary."""
-        for handle in st.pending_swaps:
-            handle.materialize()
-        st.pending_swaps.clear()
+        host buffers).  Idempotent; runs at every commit boundary.  A
+        handle leaves the list only once materialized, so an exception
+        leaves the rest queued for the next boundary."""
+        while st.pending_swaps:
+            st.pending_swaps[0].materialize()
+            st.pending_swaps.pop(0)
+
+    def _recover_or_raise(self, st: _SchedState, exc: Exception):
+        """The recovery gate of both round drivers: only a recoverable
+        injected fault takes step-restart recovery.  Any other exception
+        (a kernel that fails to build or launch, a bug in a step, an audit
+        failure) escapes, as do a fatal fault and a recovery past
+        ``max_recoveries``: ``serve()`` unwinds through ``_abort`` and
+        re-raises, so no real failure is hidden behind a recovery."""
+        if (not isinstance(exc, InjectedFault) or exc.fatal
+                or st.recoveries >= self.max_recoveries):
+            raise exc
+        self._recover(st, exc)
 
     def _sample_timeseries(self, st: _SchedState):
         ts = st.timeseries
@@ -845,6 +1018,7 @@ class ServeEngine:
         busy = len(st.live) + len(st.prefilling)
         ts["live_slots"].append(busy)
         ts["utilization"].append(busy / max(1, self.slots))
+        ts["live_uids"].append(sorted(r.uid for r in st.live.values()))
         ts["dispatch_s"].append(st.last_dispatch_s)
         ts["commit_s"].append(st.last_commit_s)
         ts["overlap_s"].append(st.last_overlap_s)
@@ -901,8 +1075,11 @@ class ServeEngine:
                                   f"priority >= {self.shed_priority})")
 
     def _expired(self, st: _SchedState, req: Request, now_ms: float) -> Optional[str]:
-        """Which of the request's deadlines ran out (None if neither).
-        Both run from the request's own enqueue time."""
+        """Which of the request's deadlines ran out (None if neither): a
+        ``deadline`` fault's, or one of its own, both from its enqueue
+        time."""
+        if req.uid in st.forced_expired:
+            return "deadline"
         age_ms = now_ms - st.stats[req.uid]["enqueued_s"] * 1e3
         if req.deadline_ms is not None and age_ms > req.deadline_ms:
             return "deadline"
@@ -917,7 +1094,7 @@ class ServeEngine:
         sweep: ``scope="queued"`` (the waiting queue, which no commit
         changes: it runs in the overlap gap) and ``scope="held"`` (live and
         mid-chunk slots, which a commit can free or fail: after it)."""
-        if not (self._cancel_uids or st.has_deadlines):
+        if not (self._cancel_uids or st.forced_expired or st.has_deadlines):
             return
         now_ms = (time.perf_counter() - st.t0) * 1e3
 
@@ -960,30 +1137,210 @@ class ServeEngine:
             if st.mgr is not None:
                 st.mgr.release(slot)
 
+    # ------------------------------------------------------- fault plumbing
+    def _apply_round_faults(self, st: _SchedState, poison: bool = True):
+        """The injections that land at a round's start: cancels, forced
+        deadline expiries (both only build uid sets, so they may run in
+        the overlap gap) and, unless ``poison`` is False (the pipelined
+        round runs it after the commit), page corruption."""
+        fs = st.faults
+        if fs is None:
+            return
+        for uid in fs.cancels_at(st.rnd):
+            self._cancel_uids.add(uid)
+        for uid in fs.deadline_expiries_at(st.rnd):
+            st.forced_expired.add(uid)
+        if poison:
+            self._apply_poison_faults(st)
+
+    def _apply_poison_faults(self, st: _SchedState):
+        """This round's page corruptions: each target page (the fault's,
+        or a seeded pick among the mapped pages) is overwritten in place
+        across every pool leaf (``faults.poison_pages``)."""
+        fs = st.faults
+        if fs is None or st.mgr is None:
+            return
+        for f in fs.corruptions_at(st.rnd):
+            mapped = sorted({p for owned in st.mgr.owned for p in owned})
+            page = fs.corruption_target(f, st.rnd, mapped)
+            if page is None or not 0 < page < self.num_pages:
+                continue
+            poison_pages(st.pool, [page])
+
+    def _fault_mask(self, st: _SchedState, uids: List[Optional[int]]) -> np.ndarray:
+        """(slots,) bool over the live rows the targeted uids name (None
+        names every live row)."""
+        mask = np.zeros((self.slots,), bool)
+        for slot, req in st.live.items():
+            if any(u is None or u == req.uid for u in uids):
+                mask[slot] = True
+        return mask
+
+    def _arm_fault_masks(self, st: _SchedState) -> bool:
+        """Write this round's nan and (speculative steps) collapse masks into
+        the fixed device buffers, a queued copy from pinned memory, when a
+        fault targets a live row; returns whether it did (the caller zeroes
+        them after the step)."""
+        fs = st.faults
+        if fs is None:
+            return False
+        nan = self._fault_mask(st, fs.nan_uids(st.rnd))
+        collapse = (self._fault_mask(st, fs.collapse_uids(st.rnd)) if self.spec_k > 1
+                    else np.zeros_like(nan))
+        if not (nan.any() or collapse.any()):
+            return False
+        self._dev["mask_staging"].upload(np.stack([nan, collapse]), self._dev["masks"])
+        return True
+
+    # ------------------------------------------------------------- recovery
+    def _recover(self, st: _SchedState, exc: Exception):
+        """Step-restart recovery: requeue every held request (live or mid-
+        chunk, newest first to the queue's front) with its tokens since the
+        last fold folded into its prompt, charging it one retry (none left:
+        ``failed``), then a fresh manager and prefix index and the device
+        state zero-filled in place.  The wholesale rebuild is deliberate:
+        after an arbitrary exception the pool, the tables and the index
+        cannot be trusted to agree.  A queued request's swap handle
+        survives (it records page contents, not page numbers).  An
+        injected kernel-backend failure first degrades the engine onto the
+        plain lowering."""
+        st.recoveries += 1
+        self.recoveries += 1
+        entry = dict(round=st.rnd, t_s=time.perf_counter() - st.t0,
+                     exc=type(exc).__name__, requeued={}, next_token_s={})
+        st.recovery_log.append(entry)
+        if isinstance(exc, KernelBackendError):
+            self._degrade_to_sw()
+        entry["degraded"] = self.backend_degraded
+        held = {**st.live, **{s: cs.req for s, cs in st.prefilling.items()}}
+        st.live.clear()
+        st.prefilling.clear()
+        for slot in sorted(held, key=lambda s: st.admit_seq[s], reverse=True):
+            req = held[slot]
+            s = st.stats[req.uid]
+            if s["retries"] >= req.max_retries:
+                self._terminal(st, req, STATUS_FAILED,
+                               reason=f"retries exhausted after {type(exc).__name__}: {exc}")
+                continue
+            s["retries"] += 1
+            entry["requeued"][req.uid] = len(req.generated or [])
+            st.awaiting_next[req.uid] = entry
+            resume = dataclasses.replace(
+                req, prompt=list(req.prompt) + req.generated[req.folded:],
+                folded=len(req.generated))
+            st.resumed.add(id(resume))
+            st.queue.appendleft(resume)
+        self._init_mgr(st)
+        self._init_device(st)
+
+    def _degrade_to_sw(self):
+        """Kernel -> plain fallback, once: rebuild the model with
+        ``use_kernels=False`` (same device, dtypes, norm form and weights),
+        send verify to the plain version, rebuild the draft (a self or
+        registry draft follows the target's lowering, as the reference
+        re-resolves it; an explicit pair stays) and the speculative step,
+        and drop every captured graph, since a graph replays the kernel
+        launches it captured; the next steps capture on the plain
+        lowering.  The sampling keys do not depend on the model, so the
+        tokens stay where both lowerings compute the same logits."""
+        if self.backend_degraded:
+            return
+        from repro_torch.models.lm import Model
+
+        m = self.model
+        self.model = Model(m.cfg, device=m.device, dtype=m.dtype,
+                           param_dtype=m.param_dtype, use_kernels=False, wf=m.wf,
+                           remat=m.remat)
+        self.verify_backend = "torch"
+        if self.spec_k > 1:
+            self.draft_model, self.draft_params = spec_decode.resolve_draft(
+                self.model, self.params, self._draft_spec, seed=self._seed)
+            self._spec_step = spec_decode.build_spec_step(
+                self.model, self.draft_model, max_seq=self.max_seq, spec_k=self.spec_k,
+                verify_backend=self.verify_backend, sampler=self._sampler)
+        self._graphs.drop()
+        self.backend_degraded = True
+
+    def _abort(self, st: _SchedState, exc: BaseException):
+        """Unwind on an escaping exception: discard the pending round and
+        the queued swap copies without waiting on the device (it may be
+        the fault), fail everything held or queued, and leave
+        ``last_stats`` and an audit-clean ``last_pool_stats``."""
+        st.pending = None
+        st.pending_swaps.clear()
+        reason = f"aborted: {type(exc).__name__}: {exc}"
+        for slot in list(st.live):
+            self._terminal(st, st.live[slot], STATUS_FAILED, slot=slot, reason=reason)
+        for slot in list(st.prefilling):
+            self._terminal(st, st.prefilling[slot].req, STATUS_FAILED, slot=slot,
+                           reason=reason)
+        while st.queue:
+            self._terminal(st, st.queue.popleft(), STATUS_FAILED, reason=reason)
+        st.stats["stragglers"] = st.stragglers
+        st.stats["recovery_log"] = st.recovery_log
+        self._attach_observability(st)
+        if st.mgr is not None:
+            st.mgr.allocator.fault_hook = None   # the stats' sweep must not trip it
+            self.last_pool_stats = st.mgr.stats()
+
+    # ---------------------------------------------------------------- timing
     def _timed_dispatch(self, st: _SchedState) -> PendingRound:
         """Issue one decode step; the host time it took is the round's
-        ``dispatch_s``."""
+        ``dispatch_s``.  A ``kernel`` fault raises ``KernelBackendError``
+        here and a ``straggler`` fault stalls the dispatch, both keyed to
+        the dispatching round; the watchdog's clock starts before the
+        stall."""
+        fs = st.faults
+        sleep = 0.0
+        if fs is not None:
+            f = fs.kernel_at(st.rnd)
+            if f is not None:
+                raise KernelBackendError(
+                    f"injected kernel-backend failure at round {st.rnd}", fatal=f.fatal)
+            sleep = fs.straggler_sleep(st.rnd)
         t_start = time.perf_counter()
+        if sleep:
+            time.sleep(sleep)
         pending = (self._dispatch_spec(st) if self.spec_k > 1
                    else self._dispatch_step(st))
+        pending.t_start = t_start
+        pending.live_before = len(pending.live)
         st.last_dispatch_s = time.perf_counter() - t_start
         return pending
 
     def _timed_commit(self, st: _SchedState, pending: PendingRound):
         """Fetch and account one step; the host time (the wait included)
-        is the round's ``commit_s``."""
+        is the round's ``commit_s``.  The watchdog: a step whose
+        dispatch-to-commit wall exceeds ``straggler_factor`` times the
+        median of the last ``straggler_window`` (once 5 are known) is an
+        event in ``last_stats["stragglers"]``."""
         t_c = time.perf_counter()
         self._commit_step(st, pending)
-        st.last_commit_s = time.perf_counter() - t_c
+        t_end = time.perf_counter()
+        st.last_commit_s = t_end - t_c
+        dt = t_end - pending.t_start
+        window = st.durations[-self.straggler_window:]
+        if len(window) >= 5:
+            med = statistics.median(window)
+            if dt > self.straggler_factor * med:
+                st.stragglers.append({"step": st.step_no, "duration_s": dt,
+                                      "median_s": med,
+                                      "live_slots": pending.live_before})
+        st.durations.append(dt)
+        st.step_no += 1
 
     # --------------------------------------------------------------- steps
     def _run_step(self, st: _SchedState, attend: int, fn) -> PendingRound:
         """Run a step over the fixed buffers (a graph replay on the
-        pipelined CUDA engine), then queue the copy of its output into the
-        pinned host buffer and an event after it."""
+        pipelined CUDA engine), with this round's fault masks written
+        before it and zeroed after it, then queue the copy of its output
+        into the pinned host buffer and an event after it."""
         dev = self._dev
+        armed = self._arm_fault_masks(st)
         self._graphs.run((self._kind, attend), fn,
                          restore=(dev["tok"], dev["pos"], dev["remaining"]))
+        if armed:
+            dev["masks"].zero_()
         event = None
         if self.device.type == "cuda":
             dev["out_host"].copy_(dev["out"], non_blocking=True)
@@ -1009,7 +1366,7 @@ class ServeEngine:
         else:
             cache = st.cache
         fn = self._step_fn(cache, st.tok, st.pos, st.remaining, st.uids,
-                           self._dev["out"], attend)
+                           self._dev["out"], attend, nan_mask=self._dev["masks"][0])
         return self._run_step(st, attend, fn)
 
     def _dispatch_spec(self, st: _SchedState) -> PendingRound:
@@ -1020,11 +1377,13 @@ class ServeEngine:
         if st.mgr.dirty:
             self._upload_tables(st)
 
+        masks = self._dev["masks"]
+
         def fn():
             return self._spec_step(
                 self.params, self.draft_params, st.pool, st.draft_cache, st.bt_dev,
                 st.tok, st.pos, st.remaining, st.uids, st.spec_mask, attend,
-                self._dev["out"])
+                self._dev["out"], nan_mask=masks[0], collapse_mask=masks[1])
 
         return self._run_step(st, attend, fn)
 
@@ -1107,6 +1466,8 @@ class ServeEngine:
                 for slot, req in st.live.items():
                     if req.uid == uid and req.spec:
                         st.spec_mask[slot] = True
+                        s = st.stats[uid]
+                        s["spec_rearms"] = s.get("spec_rearms", 0) + 1
 
     def _record_tbt(self, st: _SchedState, uid: int, now: float, committed: int):
         """Time-between-token samples for ``committed`` tokens delivered at
@@ -1115,6 +1476,7 @@ class ServeEngine:
         once)."""
         if committed <= 0:
             return
+        self._note_next_token(st, uid)
         last = st.last_emit.get(uid)
         if last is not None:
             st.tbt.append(now - last)
@@ -1325,8 +1687,10 @@ class ServeEngine:
             # a blocked head is planned again only once either has moved
             # (planning also refreshes the matched entries' LRU stamps)
             a = st.mgr.allocator
+            # under a fault schedule the gate also depends on the round (the
+            # OOM hook), so the key must not outlive it
             key = (id(req), a.alloc_count, a.release_count, a.share_count,
-                   st.mgr.index.version)
+                   st.mgr.index.version, st.rnd if st.faults is not None else None)
             if st.gate_block == key:
                 break
             plan = st.mgr.plan_admit(req.prompt)
@@ -1519,6 +1883,14 @@ class ServeEngine:
                 self._terminal(st, req, STATUS_FAILED, slot=slot, reason="nan-logits")
                 continue
             req.generated.append(int(f))
+            self._note_next_token(st, req.uid)
+
+    def _note_next_token(self, st: _SchedState, uid: int):
+        """A requeued request's first token since its recovery: its time in
+        that recovery's ``last_stats["recovery_log"]`` entry."""
+        entry = st.awaiting_next.pop(uid, None)
+        if entry is not None:
+            entry["next_token_s"][uid] = time.perf_counter() - st.t0
 
     # ----------------------------------------------------------- preemption
     def _grow_or_preempt(self, st: _SchedState):

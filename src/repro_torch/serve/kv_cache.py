@@ -58,8 +58,11 @@ The ownership rules are hard errors, not best effort:
     fully matched, page-aligned prompt; decode growth and the suffix
     prefill always write private pages.
 
-``PagedStats`` leaves out the reference's ``audit_*`` fields (ROADMAP
-A10).
+Audit.  :meth:`PagedCacheManager.audit` sweeps the allocator, the block
+tables and the prefix index against each other (``serve.audit``), and
+every :meth:`PagedCacheManager.stats` carries the verdict in its
+``audit_*`` fields.  ``PageAllocator.fault_hook`` is where the engine's
+fault schedule denies or fails an allocation (``serve.faults``).
 """
 
 from __future__ import annotations
@@ -155,6 +158,11 @@ class PageAllocator:
         self._free: List[int] = list(range(num_pages - 1, 0, -1))
         self._refs: Dict[int, int] = {}
         self._logical = 0
+        # fault injection (None by default): called as fault_hook(n) before
+        # an allocation of n > 0 pages is granted; True denies it as if the
+        # pool were exhausted, and an exception raised inside propagates (a
+        # hard OOM).  The engine installs it per session from its schedule
+        self.fault_hook = None
         self.alloc_count = 0      # pages ever handed out
         self.free_count = 0       # pages ever returned to the free list
         self.share_count = 0      # references ever added by sharing
@@ -203,6 +211,8 @@ class PageAllocator:
         allocated)."""
         if n < 0:
             raise ValueError(f"alloc({n})")
+        if n > 0 and self.fault_hook is not None and self.fault_hook(n):
+            return None     # injected OOM: denied despite free pages
         if n > len(self._free):
             return None
         pages = [self._free.pop() for _ in range(n)]
@@ -243,6 +253,13 @@ class PageAllocator:
         self.free_count += freed
         self.release_count += len(pages)
         return freed
+
+    def audit(self) -> List[str]:
+        """The allocator's own invariants (``serve.audit``): the errors
+        found, [] when consistent."""
+        from repro_torch.serve.audit import audit_allocator
+
+        return audit_allocator(self)
 
 
 @dataclasses.dataclass
@@ -287,6 +304,12 @@ class PagedStats:
     swap_ins: int = 0
     swapped_out_bytes: int = 0
     swapped_in_bytes: int = 0
+    # the invariant audit (serve.audit), swept by stats(): leak freedom
+    # is a field to read, not something to rebuild from internals
+    audit_ok: bool = True
+    audit_orphan_pages: int = 0
+    audit_refcount_mismatches: int = 0
+    audit_errors: List[str] = dataclasses.field(default_factory=list)
 
 
 @dataclasses.dataclass
@@ -655,11 +678,22 @@ class PagedCacheManager:
         idx[:m] = self.tables[slot, :m]
         return idx
 
+    def audit(self):
+        """The cross-layer invariant sweep over allocator, block tables and
+        prefix index (``serve.audit.audit_manager``): an ``AuditReport``."""
+        from repro_torch.serve.audit import audit_manager
+
+        return audit_manager(self)
+
     def stats(self) -> PagedStats:
         a = self.allocator
         logical = sum(len(o) for o in self.owned)
         distinct = len({p for o in self.owned for p in o})
+        report = self.audit()
         return PagedStats(
+            audit_ok=report.ok, audit_orphan_pages=report.orphan_pages,
+            audit_refcount_mismatches=report.refcount_mismatches,
+            audit_errors=report.errors,
             num_pages=a.num_pages, page_size=self.page_size,
             used_pages=a.used, free_pages=a.free, peak_used_pages=a.peak_used,
             peak_tokens=a.peak_used * self.page_size, utilization=a.utilization(),
@@ -782,15 +816,16 @@ def gather_slot(pages: Dict[str, torch.Tensor], table_row: torch.Tensor
 # ---------------------------------------------------------------------------
 
 class TableStaging:
-    """A pinned host copy of the block tables for queued uploads into a
-    fixed device buffer.  The host copy is rewritten only after the
+    """A pinned host copy of the block tables (or another small host
+    array, of ``dtype``: the engine's fault masks) for queued uploads into
+    a fixed device buffer.  The host copy is rewritten only after the
     previous upload has run (an event fences it), since a queued copy
     reads pinned memory when it executes, not when it is issued.  On
     CPU the upload is a plain copy."""
 
-    def __init__(self, shape, device):
+    def __init__(self, shape, device, dtype: torch.dtype = torch.int32):
         cuda = torch.device(device).type == "cuda"
-        self.host = torch.empty(shape, dtype=torch.int32, pin_memory=cuda)
+        self.host = torch.empty(shape, dtype=dtype, pin_memory=cuda)
         self.event = torch.cuda.Event() if cuda else None
         self._queued = False
 

@@ -97,7 +97,8 @@ def build_spec_step(model, draft_model, *, max_seq: int, spec_k: int,
     """The propose + verify + accept step as a plain function:
 
       (params, draft_params, pool, draft_cache, block_tables, tok, pos,
-       remaining, uids, spec_mask, attend_len, out) -> window logits (B, T, V)
+       remaining, uids, spec_mask, attend_len, out, nan_mask=None,
+       collapse_mask=None) -> window logits (B, T, V)
 
     ``sampler`` (``serve.sampling.StepSampler``) draws the draft's row i
     and the target's window row i at pos + i + 1 with each slot's
@@ -119,13 +120,23 @@ def build_spec_step(model, draft_model, *, max_seq: int, spec_k: int,
     non-speculative requests ride the same batch; their window rows are
     overwritten before they are ever attended, like a rejected draft tail.
     ``bad`` flags rows whose window logits are not finite anywhere: the
-    engine fails those requests instead of committing garbage."""
-    from repro_torch.serve.step_graph import write_out
+    engine fails those requests instead of committing garbage.
+
+    The fault masks ((B,) bool fixed buffers the engine writes in rounds
+    a fault targets, see ``serve.faults``): ``nan_mask`` rows get their
+    verify logits poisoned to NaN before the guard; ``collapse_mask`` rows
+    get each draft proposal moved to ``(token + 1) % vocab`` (fed on to
+    the next draft step, as the reference's), so their windows reject at
+    the first draft row and commit one token, the target's own, without
+    changing any committed value."""
+    from repro_torch.serve.step_graph import poison_rows, write_out
 
     t_window = spec_k
+    vocab = model.cfg.vocab
 
     def spec_step(params, draft_params, pool, draft_cache, block_tables, tok,
-                  pos, remaining, uids, spec_mask, attend_len, out):
+                  pos, remaining, uids, spec_mask, attend_len, out, nan_mask=None,
+                  collapse_mask=None):
         # propose: T - 1 draft decode steps on the dense draft cache,
         # drawn with the keys the target uses at the same positions
         window = [tok]
@@ -141,6 +152,8 @@ def build_spec_step(model, draft_model, *, max_seq: int, spec_k: int,
                 dtok = torch.argmax(dlogits, dim=-1).to(torch.int32)
             else:
                 dtok = sampler.draw(noise[:, i], dlogits)
+            if collapse_mask is not None:
+                dtok = torch.where(collapse_mask, (dtok + 1) % vocab, dtok)
             window.append(dtok)
         win = torch.stack(window, dim=1)                          # (B, T)
 
@@ -149,6 +162,8 @@ def build_spec_step(model, draft_model, *, max_seq: int, spec_k: int,
         cache = dict(pool, block_tables=block_tables)
         logits, _ = model.decode_verify_step(params, cache, win, pos, attend_len,
                                              verify_backend)
+        if nan_mask is not None:
+            logits = poison_rows(logits, nan_mask)
         bad = ~torch.isfinite(logits).all(dim=-1).all(dim=-1)
 
         # accept: the target's token per position, longest matching prefix

@@ -38,6 +38,7 @@ and every replay adds that difference (``kernels.add_launches``).
 
 from __future__ import annotations
 
+import gc
 import time
 from typing import Callable, Dict, Hashable, Optional, Sequence
 
@@ -73,21 +74,35 @@ def write_out(out: torch.Tensor, targets: torch.Tensor, commit, done: torch.Tens
     out[t + 2].copy_(bad)
 
 
+def poison_rows(logits: torch.Tensor, nan_mask: torch.Tensor) -> torch.Tensor:
+    """``logits`` (B, ...) with the rows ``nan_mask`` (B,) names set to NaN
+    (a select, so the other rows keep their bits): the ``nan`` fault's
+    injection, riding the step's own non-finite guard."""
+    mask = nan_mask.reshape(nan_mask.shape + (1,) * (logits.dim() - 1))
+    return logits.masked_fill(mask, float("nan"))
+
+
 def decode_step_fn(model, params, cache: Dict[str, torch.Tensor], tok: torch.Tensor,
                    pos: torch.Tensor, remaining: torch.Tensor, out: torch.Tensor,
                    attend_len: int, max_seq: int, uids: Optional[torch.Tensor] = None,
-                   sampler: Optional[Callable] = None) -> Callable[[], torch.Tensor]:
+                   sampler: Optional[Callable] = None,
+                   nan_mask: Optional[torch.Tensor] = None) -> Callable[[], torch.Tensor]:
     """One decode step for every slot as a closure over fixed buffers:
     the K/V rows at ``pos`` (dense cache, or the pool through its
     ``block_tables``), then ``tok`` <- the next token, ``pos`` += 1,
     ``remaining`` -= 1 and ``out`` (new token, commit 1, done, bad), all
     in place.  The next token is the argmax, or with ``sampler``
     (``serve.sampling.StepSampler``: logits, positions, uids -> tokens)
-    each row's draw at position pos + 1 with its ``uids`` key.  The
-    closure returns the logits (B, V)."""
+    each row's draw at position pos + 1 with its ``uids`` key.
+    ``nan_mask`` ((B,) bool, a fixed buffer the engine writes in rounds a
+    ``nan`` fault targets) poisons its rows' logits to NaN before the
+    guard, as the reference's steps do: ``bad`` then flags them, and
+    every other row is untouched.  The closure returns the logits (B, V)."""
 
     def step() -> torch.Tensor:
         logits, _ = model.decode_step(params, cache, tok, pos, attend_len=attend_len)
+        if nan_mask is not None:
+            logits = poison_rows(logits, nan_mask)
         bad = ~torch.isfinite(logits).all(dim=-1)
         if sampler is None:
             tok.copy_(torch.argmax(logits, dim=-1))
@@ -110,7 +125,12 @@ class StepGraphs:
     Sharing the pool is safe because a step writes everything it keeps
     into buffers allocated outside the graphs; what a graph allocates is
     dead when its replay ends, bar its returned logits, which the entry
-    keeps alive (so no later capture takes their memory)."""
+    keeps alive (so no later capture takes their memory).
+
+    :meth:`drop` discards every graph (the engine's degrade to the plain
+    lowering: a graph replays the launches it captured, so a graph of the
+    kernel model would keep running the kernels); the next step of each
+    key captures again."""
 
     def __init__(self, device, enabled: bool):
         self.device = torch.device(device)
@@ -120,6 +140,8 @@ class StepGraphs:
         self.graphs: Dict[Hashable, tuple] = {}
         self.capture_s = 0.0
         self.replays = 0
+        self.captures = 0     # graphs ever captured
+        self.dropped = 0      # graphs ever dropped
 
     def run(self, key: Hashable, fn: Callable[[], torch.Tensor],
             restore: Sequence[torch.Tensor] = ()) -> torch.Tensor:
@@ -152,13 +174,36 @@ class StepGraphs:
             t.copy_(s)
         before = kernels.launch_counts()
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, pool=self.pool):
-            logits = fn()
+        # a graph that dies during a capture (a dropped engine's graphs in a
+        # reference cycle, freed by the collector) destroys its executable
+        # mid-capture, which invalidates the capture: the collector stays
+        # off until the capture ends (dead cycles wait for its next run)
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph, pool=self.pool):
+                logits = fn()
+        finally:
+            if collecting:
+                gc.enable()
         after = kernels.launch_counts()
         delta = {k: after[k] - before[k] for k in after if after[k] != before[k]}
         kernels.add_launches({k: -n for k, n in delta.items()})
         self.capture_s += time.perf_counter() - t0
+        self.captures += 1
         return graph, delta, logits
+
+    def drop(self):
+        """Discard every captured graph, with the logits and the launch
+        table each entry keeps, and start a fresh graph memory pool; the
+        device is synchronized first, so no replay in flight loses its
+        memory."""
+        if self.enabled and self.graphs:
+            torch.cuda.synchronize(self.device)
+        self.dropped += len(self.graphs)
+        self.graphs.clear()
+        if self.enabled:
+            self.pool = torch.cuda.graph_pool_handle()
 
     def launches(self) -> Dict[Hashable, Dict[str, int]]:
         """Each graph's launches a replay, by key."""

@@ -74,7 +74,8 @@ def main(argv: Optional[List[str]] = None) -> dict:
         raise AssertionError("not every request was served")
     print("all requests served.")
     return dict(generate_shape=tuple(out.shape), generate=out, results=results,
-                requests=len(reqs), served=len(results), tokens=n_tok)
+                requests=len(reqs), served=len(results), tokens=n_tok,
+                recoveries=engine.recoveries, backend_degraded=engine.backend_degraded)
 
 
 if __name__ == "__main__":

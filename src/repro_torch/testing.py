@@ -242,3 +242,45 @@ def pool_mismatches(pool: Mapping[str, torch.Tensor],
         if not np.array_equal(got, want):
             bad.append(name)
     return bad
+
+
+def reused_poisoned_case(rng: np.random.Generator, *, t: int = 1, g: int = 6,
+                         hkv: int = 2, d: int = 128, ps: int = 16,
+                         quantized: bool = False, dtype: torch.dtype = torch.float32,
+                         device: DeviceLike = "cpu"):
+    """A page reused after a ``page_corruption`` fault, as the engine leaves
+    it: one request's four-page table (pages 1-4) on a pool whose pages 3
+    and 4 were poisoned (``serve.faults.poison_pages``: NaN in float
+    leaves and in an int8 pool's scales, 0 in its int8 values) and then
+    freed and re-allocated to it; the request wrote its rows [0, pos + t)
+    (page 3 holds its position ``pos`` = 2 * ps + 5 mid-page, a verify
+    window's rows included), so page 3's rows past pos + t - 1 and all of
+    page 4 still hold the poison.  A correct attention never reads them.
+
+    Returns (q (1, Hkv, T*G, D), pool {"k_pages", "v_pages"[, scales]}
+    with the (P, ps, Hkv, D) per-layer shapes the kernels take,
+    block_tables (1, 4) int32, pos (1,) int32) on ``device``; q and float
+    pages in ``dtype``."""
+    from repro_torch.serve.faults import poison_pages
+    from repro_torch.serve.kv_cache import init_page_pool, quantize_kv_rows
+
+    dev = resolve_device(device)
+    n_pages, pos = 6, 2 * ps + 5
+    pool = init_page_pool(1, n_pages, ps, hkv, d, dtype, dev,
+                          kv_dtype="int8" if quantized else None)
+    poison_pages(pool, [3, 4])
+    bt = torch.tensor([[1, 2, 3, 4]], dtype=torch.int32, device=dev)
+    n = pos + t
+    for name in ("k", "v"):
+        rows = torch.from_numpy(rng.standard_normal((n, hkv, d)).astype(np.float32)).to(dev)
+        page = bt[0].long()[torch.arange(n, device=dev) // ps]
+        off = torch.arange(n, device=dev) % ps
+        if quantized:
+            q8, scale = quantize_kv_rows(rows)
+            pool[f"{name}_pages"][0, page, off] = q8
+            pool[f"{name}_scales"][0, page, off] = scale
+        else:
+            pool[f"{name}_pages"][0, page, off] = rows.to(dtype)
+    q = torch.from_numpy(rng.standard_normal((1, hkv, t * g, d)).astype(np.float32))
+    return (q.to(dev, dtype), {k: v[0] for k, v in pool.items()}, bt,
+            torch.tensor([pos], dtype=torch.int32, device=dev))

@@ -1547,13 +1547,16 @@ STEP_KINDS_ON_CARD = ("dense", "paged", "paged_int8", "spec", "spec_int8")
 STEP_ATTEND = 64
 
 
-def _step_state(kind: str, seed: int = 0, temperature: float = 0.0) -> dict:
+def _step_state(kind: str, seed: int = 0, temperature: float = 0.0, masks=None,
+                draft_layers: int = 1) -> dict:
     """A mid-session serving state on the card for one step kind, made
     from ``seed`` (two calls give equal states): the reduced qwen2 in fp32,
     a cache or pool of random rows (int8 pools quantized on the card) with
     each slot's pages in its own table row, tok / pos / remaining / uids,
     the output buffer, and the step's closure over all of them (sampled
-    at ``temperature`` > 0 with the engine's keys)."""
+    at ``temperature`` > 0 with the engine's keys).  ``masks``: the
+    engine's (2, slots) bool fault-mask buffer (nan, collapse) for the
+    step to read; ``draft_layers`` the spec kinds' self-draft depth."""
     from repro_torch.configs import reduced_config
     from repro_torch.models.lm import Model
     from repro_torch.serve import sampling, spec_decode, step_graph
@@ -1595,9 +1598,10 @@ def _step_state(kind: str, seed: int = 0, temperature: float = 0.0) -> dict:
     if spec_k == 1:
         st["fn"] = step_graph.decode_step_fn(model, params, cache, st["tok"], st["pos"],
                                              st["remaining"], st["out"], STEP_ATTEND,
-                                             max_seq, uids=st["uids"], sampler=sampler)
+                                             max_seq, uids=st["uids"], sampler=sampler,
+                                             nan_mask=None if masks is None else masks[0])
         return st
-    draft, dparams = spec_decode.make_self_draft(model, params, 1)
+    draft, dparams = spec_decode.make_self_draft(model, params, draft_layers)
     dcache = draft.init_cache(slots, max_seq)
     for leaf in dcache.values():
         leaf.copy_(torch.randn(leaf.shape, generator=gen, device="cuda"))
@@ -1606,9 +1610,10 @@ def _step_state(kind: str, seed: int = 0, temperature: float = 0.0) -> dict:
     step = spec_decode.build_spec_step(model, draft, max_seq=max_seq, spec_k=spec_k,
                                        sampler=sampler)
     pool = {k: v for k, v in cache.items() if k != "block_tables"}
+    mkw = {} if masks is None else dict(nan_mask=masks[0], collapse_mask=masks[1])
     st["fn"] = lambda: step(params, dparams, pool, dcache, cache["block_tables"],
                             st["tok"], st["pos"], st["remaining"], st["uids"], mask,
-                            STEP_ATTEND, st["out"])
+                            STEP_ATTEND, st["out"], **mkw)
     return st
 
 
@@ -1811,6 +1816,286 @@ def test_cuda_sampler_bits_equal_cpu():
     graph.replay()
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+
+
+
+# ---------------------------------------------------------------------------
+# faults on the card: the captured steps' masks, poison, the degrade, and
+# the rows a reused poisoned page still holds
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["paged", "spec"])
+def test_cuda_captured_nan_mask_fails_only_its_row(kind):
+    """A captured step reading the fault-mask buffer: with row 0 masked,
+    the replay flags row 0 alone as bad, row 1's outputs equal an
+    unmasked replay's bit for bit, and so does every cache row (the mask
+    poisons logits, after the writes); zeroed again, the next replay
+    flags nothing."""
+    requires_cuda()
+    from repro_torch.serve.step_graph import StepGraphs
+
+    masks = torch.zeros(2, 2, dtype=torch.bool, device="cuda")
+    plain, masked = _step_state(kind), _step_state(kind, masks=masks)
+    graphs = StepGraphs("cuda", enabled=True)
+    graphs.run(("plain", STEP_ATTEND), plain["fn"], restore=plain["restore"])
+    masks[0, 0] = True
+    graphs.run(("masked", STEP_ATTEND), masked["fn"], restore=masked["restore"])
+    masks.zero_()
+    torch.cuda.synchronize()
+    t = masked["out"].shape[0] - 3
+    assert masked["out"][t + 2].tolist() == [1, 0]
+    assert plain["out"][t + 2].tolist() == [0, 0]
+    assert torch.equal(masked["out"][:, 1], plain["out"][:, 1])
+    for name, leaf in masked["cache"].items():
+        assert torch.equal(leaf, plain["cache"][name]), name
+    graphs.run(("masked", STEP_ATTEND), masked["fn"])
+    torch.cuda.synchronize()
+    assert masked["out"][t + 2].tolist() == [0, 0]
+
+
+@pytest.mark.cuda
+def test_cuda_capture_runs_no_garbage_collection():
+    """A captured graph that dies inside another capture (a dropped
+    engine's graphs in a reference cycle, freed by the collector) destroys
+    its executable mid-capture and invalidates that capture: StepGraphs
+    holds the collector off until the capture ends.  With the collector
+    set to run at every allocation, collections run in the warm-up and
+    none starts while the stream captures."""
+    requires_cuda()
+    import gc
+
+    from repro_torch.serve.step_graph import StepGraphs
+
+    x = torch.ones(1024, device="cuda")
+    seen = []
+
+    def watch(phase, info):
+        if phase == "start":
+            seen.append(torch.cuda.is_current_stream_capturing())
+
+    thresholds = gc.get_threshold()
+    gc.callbacks.append(watch)
+    try:
+        gc.set_threshold(1)
+        graphs = StepGraphs("cuda", enabled=True)
+        out = graphs.run("k", lambda: [(x + 1) * 3 for _ in range(50)][-1])
+        torch.cuda.synchronize()
+    finally:
+        gc.callbacks.remove(watch)
+        gc.set_threshold(*thresholds)
+    assert torch.equal(out, torch.full_like(x, 6.0))
+    assert seen and not any(seen)
+
+
+@pytest.mark.cuda
+def test_cuda_captured_spec_collapse_commits_one_token():
+    """The spec step with a full-depth self-draft (the target itself, so
+    an unmasked window accepts every draft token), captured: a
+    collapse-masked speculating row commits one token, the target's own,
+    where the unmasked replay commits the window; the other row is
+    untouched."""
+    requires_cuda()
+    from repro_torch.configs import reduced_config
+    from repro_torch.serve.step_graph import StepGraphs
+
+    depth = reduced_config("qwen2-1.5b").n_layers
+    masks = torch.zeros(2, 2, dtype=torch.bool, device="cuda")
+    plain = _step_state("spec", draft_layers=depth)
+    collapsed = _step_state("spec", masks=masks, draft_layers=depth)
+    for st in (plain, collapsed):
+        # the draft's dense cache holds the target's paged rows (slot s's
+        # pages are 1 + s * nb .. in its table row), so it sees what the
+        # target sees
+        c = st["cache"]
+        nb = c["block_tables"].shape[1]
+        for name in ("k", "v"):
+            pages, dense = c[f"{name}_pages"], c[f"draft_{name}"]
+            for slot in range(dense.shape[1]):
+                rows = pages[:, 1 + slot * nb:1 + (slot + 1) * nb].flatten(1, 2)
+                dense[:, slot].copy_(rows[:, :dense.shape[2]])
+    graphs = StepGraphs("cuda", enabled=True)
+    graphs.run(("plain", STEP_ATTEND), plain["fn"], restore=plain["restore"])
+    masks[1, 0] = True
+    graphs.run(("collapse", STEP_ATTEND), collapsed["fn"], restore=collapsed["restore"])
+    masks.zero_()
+    torch.cuda.synchronize()
+    t = 4
+    assert plain["out"][t, 0].item() == t          # the draft is the target
+    assert collapsed["out"][t, 0].item() == 1
+    assert collapsed["out"][0, 0] == plain["out"][0, 0]
+    assert torch.equal(collapsed["out"][:, 1], plain["out"][:, 1])
+    assert collapsed["out"][t + 2].tolist() == [0, 0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["bf16", "int8"])
+def test_cuda_poison_pages_bytes_equal_cpu(kind):
+    """``poison_pages`` on a pool on the card writes the CPU version's
+    bytes: NaN in bf16 values and in int8 pools' f32 scales, 0 in int8
+    values."""
+    requires_cuda()
+    from repro_torch.serve.faults import poison_pages
+
+    rows = torch.randn(2, 2, 7, 4, 2, 128, generator=torch.Generator().manual_seed(1))
+    if kind == "int8":
+        cpu = {}
+        for i, name in enumerate("kv"):
+            cpu[f"{name}_pages"], cpu[f"{name}_scales"] = quantize_kv_rows(rows[i])
+    else:
+        cpu = {f"{n}_pages": rows[i].to(torch.bfloat16) for i, n in enumerate("kv")}
+    card = {n: t.cuda() for n, t in cpu.items()}
+    ptrs = {n: t.data_ptr() for n, t in card.items()}
+    poison_pages(cpu, [2, 5])
+    poison_pages(card, [2, 5])
+    torch.cuda.synchronize()
+    assert {n: t.data_ptr() for n, t in card.items()} == ptrs
+    for name, leaf in cpu.items():
+        ints = {1: torch.int8, 2: torch.int16, 4: torch.int32}[leaf.element_size()]
+        assert torch.equal(card[name].cpu().view(ints), leaf.view(ints)), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quantized", [False, True], ids=["float", "int8"])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("t", [1, 4, 16], ids=["decode", "verify", "verify-long"])
+def test_cuda_reused_poisoned_page_yields_finite_outputs(t, dtype, quantized):
+    """A page poisoned, freed and reused: its new owner wrote rows [0, pos
+    + t); the rest of it and the next page still hold NaN (int8: 0 values
+    under NaN scales).  ``paged_flash_decode`` (T 1), ``paged_flash_verify``
+    (T 4, the split kernel; T 16 = T*G 96, the long branch) and their int8
+    branches must never read them: finite outputs, bit for bit those with
+    the poison replaced by finite garbage, and the plain version's within
+    the kernel tolerance."""
+    requires_cuda()
+    from repro_torch.testing import reused_poisoned_case
+
+    q, pool, bt, pos = reused_poisoned_case(np.random.default_rng(3), t=t, quantized=quantized,
+                                            dtype=dtype, device="cuda")
+    assert any(torch.isnan(v).any() for v in pool.values() if v.is_floating_point())
+    clean = {k: torch.nan_to_num(v, nan=7.0) if v.is_floating_point() else v
+             for k, v in pool.items()}
+
+    def attend(p, plain=False):
+        scales = {k: p[k] for k in ("k_scales", "v_scales") if k in p}
+        if t == 1:
+            fn = paged_flash_decode_ref if plain else paged_flash_decode
+            return fn(q, p["k_pages"], p["v_pages"], bt, pos, **scales)
+        if plain:
+            return paged_verify_attention_ref(q, p["k_pages"], p["v_pages"], bt, pos, t,
+                                              **scales)
+        return paged_flash_verify(q, p["k_pages"], p["v_pages"], bt, pos, t_window=t,
+                                  **scales)
+
+    got = attend(pool)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    assert torch.equal(got, attend(clean))
+    _close(got, attend(pool, plain=True), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pipeline", [True, False], ids=["pipelined", "serial"])
+def test_cuda_kernel_wrapper_error_escapes_on_the_kernels(pipeline, monkeypatch):
+    """A real kernel failure is not an injected one: a RuntimeError from
+    the paged decode wrapper on the card escapes serve() with no recovery
+    and no degrade (every request failed as aborted, the pool drained
+    audit-clean), and with the wrapper repaired the next session gives
+    the fault-free tokens through the hand-written kernels."""
+    requires_cuda()
+    from repro_torch import kernels
+    from repro_torch.configs import reduced_config
+    from repro_torch.models import attention
+    from repro_torch.models.lm import Model
+    from repro_torch.serve.engine import STATUS_FAILED, Request, ServeEngine
+
+    cfg = reduced_config("qwen2-1.5b")
+    model = Model(cfg, dtype=torch.float32)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    rng = np.random.default_rng(3)
+    spec = [(i, rng.integers(0, cfg.vocab, int(rng.integers(3, 20))).tolist(), 8)
+            for i in range(4)]
+
+    def serve(eng):
+        kernels.reset_launches()
+        out = eng.serve([Request(u, list(p), n) for u, p, n in spec])
+        torch.cuda.synchronize()
+        return out, kernels.launch_counts()
+
+    kw = dict(max_seq=48, batch_slots=2, cache_layout="paged", page_size=8,
+              pipeline=pipeline)
+    want, _ = serve(ServeEngine(model, params, **kw))
+    eng = ServeEngine(model, params, **kw)
+    real, calls = attention.paged_flash_decode, []
+
+    def broken(*args, **kwargs):
+        calls.append(1)
+        if len(calls) == 3:
+            raise RuntimeError("paged_flash_decode: launch failed")
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(attention, "paged_flash_decode", broken)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        serve(eng)
+    assert eng.recoveries == 0 and not eng.backend_degraded
+    assert eng.model.use_kernels and eng.verify_backend != "torch"
+    assert {eng.last_stats[u]["status"] for u, _, _ in spec} == {STATUS_FAILED}
+    assert eng.last_pool_stats.audit_ok and eng.last_pool_stats.used_pages == 0
+    monkeypatch.setattr(attention, "paged_flash_decode", real)
+    got, counts = serve(eng)
+    assert got == want
+    assert counts["paged_flash_decode"] > 0, counts
+    assert eng.recoveries == 0 and not eng.backend_degraded
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pipeline", [True, False], ids=["pipelined", "serial"])
+def test_cuda_kernel_fault_drops_graphs_and_recaptures_plain(pipeline):
+    """A ``kernel`` fault mid-decode on the card, reduced qwen2 in fp32:
+    the engine recovers once and degrades (``use_kernels`` off, verify on
+    the plain version); the pipelined engine drops its graphs and
+    captures again, and no re-captured graph launches a hand-written
+    serving kernel; a session after it launches none; the tokens are the
+    fault-free kernel run's."""
+    requires_cuda()
+    from repro_torch import kernels
+    from repro_torch.configs import reduced_config
+    from repro_torch.models.lm import Model
+    from repro_torch.serve.engine import Request, ServeEngine
+    from repro_torch.serve.faults import Fault, FaultSchedule
+
+    cfg = reduced_config("qwen2-1.5b")
+    model = Model(cfg, dtype=torch.float32)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    rng = np.random.default_rng(3)
+    spec = [(i, rng.integers(0, cfg.vocab, int(rng.integers(3, 20))).tolist(), 8)
+            for i in range(4)]
+
+    def serve(eng, faults=None):
+        kernels.reset_launches()
+        out = eng.serve([Request(u, list(p), n) for u, p, n in spec], faults=faults)
+        torch.cuda.synchronize()
+        return out, kernels.launch_counts()
+
+    kw = dict(max_seq=48, batch_slots=2, cache_layout="paged", page_size=8,
+              pipeline=pipeline)
+    want, _ = serve(ServeEngine(model, params, **kw))
+    eng = ServeEngine(model, params, **kw)
+    assert serve(eng)[0] == want and not eng.backend_degraded
+    got, _ = serve(eng, FaultSchedule([Fault("kernel", step=4)]))
+    assert got == want
+    assert eng.backend_degraded and eng.recoveries == 1
+    assert not eng.model.use_kernels and eng.verify_backend == "torch"
+    g = eng.last_graph_stats
+    names = ("rmsnorm", "flash_attention_fwd", "flash_decode", "paged_flash_decode")
+    if pipeline:
+        assert g["dropped"] >= 1 and g["captured"] >= 1 and g["graphs"] >= 1
+        for d in g["launches_per_replay"].values():
+            assert not any(d.get(n, 0) for n in names), d
+    again, counts = serve(eng)
+    assert again == want
+    assert not any(counts[n] for n in names), counts
+    assert eng.last_pool_stats.audit_ok and eng.last_pool_stats.used_pages == 0
 
 
 # ---------------------------------------------------------------------------

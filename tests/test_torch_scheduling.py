@@ -214,9 +214,10 @@ def test_sla_summary_and_timeseries_schema():
     n = len(ts["round"])
     assert n > 0
     assert all(len(ts[k]) == n for k in ("t_s", "queue_depth", "live_slots",
-                                         "utilization", "free_pages"))
+                                         "utilization", "live_uids", "free_pages"))
     assert ts["t_s"] == sorted(ts["t_s"])
     assert max(ts["live_slots"]) == 2 and max(ts["utilization"]) == 1.0
+    assert {u for uids in ts["live_uids"] for u in uids} == {r["uid"] for r in spec}
     # dense: no pool column
     eng = port_engine(cache_layout="dense")
     eng.serve([Request(**r) for r in spec])
@@ -393,8 +394,9 @@ def test_statuses_partition_or_raise():
 
 # ---------------------------------------- per-request figures (test_paged_serving.py)
 def test_last_stats_populated():
-    """The per-request figures, the reference case less its ``stragglers``
-    key (the watchdog waits for ROADMAP A10)."""
+    """The per-request figures, and the watchdog's event list beside them
+    (its events depend on the host's timing, so only its presence is
+    checked here)."""
     spec = reqs(4, seed=9)
     eng = port_engine(cache_layout="paged", page_size=8)
     results = eng.serve([Request(**r) for r in spec])
@@ -414,6 +416,7 @@ def test_last_stats_populated():
     assert 0.0 < p.peak_utilization <= 1.0
     assert p.peak_tokens == p.peak_used_pages * p.page_size
     assert p.retracts == 0
+    assert isinstance(eng.last_stats["stragglers"], list)
     assert results == jax_serve(spec)[0]
 
 
@@ -439,8 +442,7 @@ def test_paged_and_spec_reject_the_seed_loop():
 @pytest.mark.parametrize("layout", ["dense", "paged", "shared", "int8"])
 def test_empty_session_stats_defined(layout):
     """serve([]): the percentiles and the sharing ratio come back defined
-    (None-filled, 1.0), never raise or NaN; the reference case less
-    ``audit_ok`` (the audit waits for ROADMAP A10)."""
+    (None-filled, 1.0), never raise or NaN, and the pool audits clean."""
     kw = dict(cache_layout="dense") if layout == "dense" else {}
     if layout == "shared":
         kw.update(prefix_sharing=True)
@@ -458,6 +460,7 @@ def test_empty_session_stats_defined(layout):
         p = eng.last_pool_stats
         assert p.sharing_ratio == 1.0 and np.isfinite(p.sharing_ratio)
         assert p.swap_outs == 0 and p.swap_ins == 0
+        assert p.audit_ok
 
 
 # ------------------------------------------------------------------- serve.sla
