@@ -231,6 +231,42 @@ its paths:
    read against without.  Every other phase's engines run without a
    fault schedule: each must end with no recovery, no degrade and (paged)
    an audit-clean pool (``fault-free engines`` line).
+4g. Open-loop serving (``openloop ...`` lines, after 4f; each number
+   beside the card's name and power limit): 16 requests from
+   ``serve.workload.make_workload`` (prompts of median 128, at most 512
+   tokens; median 32, at most 64 new) replayed through
+   ``serve.async_engine.serve_open_loop`` on 4 slots of 16-token pages.
+   (a) The round clock, a mean arrival every 8 rounds, on an ample pool:
+   every status ok, the pool audit-clean with no page in use, and each
+   request's streamed tokens against a closed ``serve()`` of the same
+   requests on the same engine (bf16: reported, with the prefill buckets
+   of a request that differs in both runs, C1); in fp32 on the ample
+   pool, the serving cell's 105-page pool and a 56-page pool that this
+   workload fills (it must preempt) the streams must equal the closed
+   serve.  (b) The
+   wall clock: R, the requests a second of a closed batch of the 16 on
+   the warmed engine, then Poisson arrivals at 0.25, 0.5, 1 and 2 R with
+   ``max_queue=8``: TTFT p50/p95/p99, TBT p50/p99/max, goodput, the
+   status census, a busy round's own wall at p50 with and without an
+   admission (which rounds admitted: the timeseries' live uids); the
+   statuses must partition and the pools
+   audit clean, and an fp32 run at 1 R must stream its closed serve's
+   tokens.  (c) Chaos: MMPP-2 arrivals at 2 R on the round clock (R's
+   round time), ``audit=True``, ``max_queue=8``, one schedule of a NaN,
+   a cancel, a hard OOM and a ``kernel`` fault, its rounds found by
+   probe runs: the cancel target ends cancelled, the pool clean and
+   drained, no serving kernel launches after the degrade (nor in the
+   graphs captured again), and in fp32 the survivors' tokens equal a
+   fault-free closed serve's (bf16 reported).  (d) Backpressure: the 16
+   submitted in one burst against ``max_queue=3`` with
+   ``backpressure_watermark=2``: the depth never passes 2 and every
+   request ends ok; without the watermark the burst sheds.  (e)
+   ``preempt_calibrate=True`` on the preempting pool: the measured swap
+   GB/s and decode GFLOP/s, the construction's seconds, the policy
+   ``preempt="auto"`` takes, whose tokens must equal an explicit run of
+   that policy.  (f) ``python -m repro_torch.launch.serve`` open-loop on
+   the round clock with ``--preempt auto --preempt-calibrate``, in a
+   subprocess: exit 0 and the SLA block printed.
 5. Training (``train ...`` lines): full-width, full-depth qwen2-1.5b with
    fp32 master weights and AdamW state, bf16 compute, remat per layer and
    the 8-chunk loss, at the reference's train_4k length (S 4096; batch 2,
@@ -282,6 +318,7 @@ Without CUDA, or without the repository's ``src/`` beside it, it fails.
 from __future__ import annotations
 
 import argparse
+import asyncio
 import concurrent.futures
 import contextlib
 import dataclasses
@@ -3225,6 +3262,438 @@ def run_faults(cfg, model, params, seed: int, smi: str, probes: dict) -> tuple:
 
 
 # ---------------------------------------------------------------------------
+# phase 4g: open-loop serving
+# ---------------------------------------------------------------------------
+OPENLOOP_N = 16
+OPENLOOP_ROUND_S = 1.0 / 8    # (a): the round clock, a mean arrival every 8 rounds
+OPENLOOP_RATES = (0.25, 0.5, 1.0, 2.0)   # (b): multiples of R, the closed batch's rate
+OPENLOOP_MAX_QUEUE = 8
+OPENLOOP_TIGHT_PAGES = 56     # (a)'s fp32 pool that this workload fills: it preempts
+OPENLOOP_WATERMARK = 2        # (d): submit() awaits at this depth ...
+OPENLOOP_BP_QUEUE = 3         # ... against this bound
+OPENLOOP_CLI_REQUESTS = 12
+DEGRADE_KERNELS = ("rmsnorm", "flash_attention_fwd", "flash_decode", "paged_flash_decode")
+
+
+def openloop_workload(seed: int, vocab: int, kind: str = "poisson"):
+    """Phase 4g's 16 requests from ``serve.workload.make_workload``: prompts
+    of median 128 (at most 512) tokens, median 32 (at most 64) new, at one
+    arrival a second; a run rescales the arrival times."""
+    from repro_torch.serve.workload import make_workload
+
+    return make_workload(kind, OPENLOOP_N, vocab=vocab, seed=seed + 29, rate=1.0,
+                         prompt_median=128, prompt_max=512, out_median=32, out_max=64)
+
+
+def retimed(timed, scale: float = 1.0):
+    """Fresh copies of ``timed`` (a session appends to each request's
+    ``generated``), arrival times multiplied by ``scale``."""
+    return [dataclasses.replace(t, arrival_s=t.arrival_s * scale,
+                                request=dataclasses.replace(t.request, generated=None))
+            for t in timed]
+
+
+def admission_round_walls(ts, walls: dict) -> tuple:
+    """The percentiles of the rounds' own walls (ms, ``walls`` by round) of
+    the busy rounds that admitted a request (a uid decoding at the round's
+    end that did not at the last round's) and of the other busy rounds
+    (some uid decoding at the round's end)."""
+    from repro_torch.serve import sla
+
+    live, rnd = ts["live_uids"], ts["round"]
+    adm, other = [], []
+    for i in range(1, len(live)):
+        if live[i] and rnd[i] in walls:
+            (adm if set(live[i]) - set(live[i - 1]) else other).append(walls[rnd[i]])
+    return sla.percentiles(adm), sla.percentiles(other)
+
+
+def prefill_buckets(groups, uid) -> list:
+    """The buckets of every prefill call of a session that held ``uid``."""
+    return [b for uids, b, _ in groups if uid in uids]
+
+
+class OpenLoopEngine:
+    """One paged engine of phase 4g (SLOTS slots, MAX_SEQ, 16-token pages);
+    each closed or open-loop session on it is timed, with its launch
+    counts, and must end with its statuses partitioning the requests and
+    its pool audit-clean with no page in use."""
+
+    def __init__(self, model, params, **kw):
+        from repro_torch.serve.engine import ServeEngine
+
+        self.eng = ServeEngine(model, params, max_seq=MAX_SEQ, batch_slots=SLOTS,
+                               cache_layout="paged", page_size=PAGE_SIZE, **kw)
+        # each round's own host wall, ms by round (the timeseries' stamps
+        # also span the idle waits between wall-clock arrivals)
+        self.round_ms = {}
+        dispatch = self.eng.dispatch_round
+
+        def timed_round(st):
+            t0 = time.perf_counter()
+            dispatch(st)
+            self.round_ms[st.rnd] = (time.perf_counter() - t0) * 1e3
+
+        self.eng.dispatch_round = timed_round
+
+    def _timed(self, label, timed, fn):
+        from repro_torch import kernels
+        from repro_torch.serve.engine import TERMINAL_STATUSES
+
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        self.round_ms = {}
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+        no_ragged_rmsnorm(label, counts)
+        st = self.eng.last_stats
+        sts = {t.request.uid: st[t.request.uid]["status"] for t in timed}
+        if any(s not in TERMINAL_STATUSES for s in sts.values()):
+            fail(f"{label}: a request has no terminal status: {sts}")
+        if any(sts[u] != "ok" for u in out) or len(out) != sum(s == "ok" for s in sts.values()):
+            fail(f"{label}: the OK tokens {sorted(out)} are not the OK statuses {sts}")
+        p = self.eng.last_pool_stats
+        if not p.audit_ok or p.used_pages:
+            fail(f"{label}: audit {p.audit_errors}, {p.used_pages} pages in use")
+        self.statuses = sts
+        return out, wall, counts
+
+    def closed(self, label, timed, uids=None):
+        """A closed ``serve()`` of the requests (those in ``uids``)."""
+        if uids is not None:
+            timed = [t for t in timed if t.request.uid in uids]
+        reqs = [dataclasses.replace(t.request, generated=None) for t in timed]
+        return self._timed(label, timed, lambda: self.eng.serve(reqs))
+
+    def open(self, label, timed, clock, round_time_s=1.0, scale=1.0, faults=None):
+        """``serve_open_loop`` of the requests at their arrival times times
+        ``scale``, on the ``clock``."""
+        from repro_torch.serve.async_engine import serve_open_loop
+
+        wl = retimed(timed, scale)
+        return self._timed(label, wl, lambda: asyncio.run(serve_open_loop(
+            self.eng, wl, faults=faults, clock=clock, round_time_s=round_time_s)))
+
+
+def live_across(live: dict, start: int, gap: int, skip=()) -> tuple:
+    """The first round from ``start`` with a uid (not in ``skip``) decoding
+    at it and ``gap`` rounds later, and that uid: (None, None) if none."""
+    for r in sorted(x for x in live if x >= start):
+        both = sorted(set(live[r]) & set(live.get(r + gap, ())) - set(skip))
+        if both:
+            return r, both[0]
+    return None, None
+
+
+def agree_on(a: dict, b: dict) -> float:
+    """``agreement`` over the uids both hold."""
+    common = [u for u in a if u in b]
+    return agreement({u: a[u] for u in common}, b) if common else 0.0
+
+
+def run_openloop(cfg, model, params, seed: int, smi: str, num_pages: int) -> tuple:
+    """Phase 4g (see the module docstring).  Returns the record, the bf16
+    runs' launch counts (summed) and the fp32 runs'."""
+    import os
+
+    from repro_torch.serve.async_engine import AsyncServeEngine
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.serve.faults import Fault
+    from repro_torch.serve.workload import describe
+
+    t_phase = time.perf_counter()
+    timed = openloop_workload(seed, cfg.vocab)
+    d = describe(timed)
+    print(f"openloop requests: {OPENLOOP_N} poisson, prompts "
+          f"{[len(t.request.prompt) for t in timed]} tokens, new "
+          f"{[t.request.max_new_tokens for t in timed]}; slots {SLOTS}, max_seq {MAX_SEQ}, "
+          f"{PAGE_SIZE}-token pages", flush=True)
+    rec, counts, counts32 = dict(workload=d), {}, {}
+
+    def into(c, *runs):
+        for run_counts in runs:
+            for k, v in run_counts.items():
+                c[k] = c.get(k, 0) + v
+
+    # (a) the round clock: streamed tokens against a closed serve of the same
+    # requests on the same engine (the closed serve first: it captures)
+    amp = OpenLoopEngine(model, params)
+    closed, _, c1 = amp.closed("openloop a bf16 closed", timed)
+    closed_groups = list(amp.eng.last_prefill_groups)
+    ok, o_wall, c2 = amp.open("openloop a bf16", timed, "round", OPENLOOP_ROUND_S)
+    open_groups = list(amp.eng.last_prefill_groups)
+    into(counts, c1, c2)
+    fault_free("openloop a bf16", amp.eng)
+    if set(amp.statuses.values()) != {"ok"}:
+        fail(f"openloop a bf16: statuses {amp.statuses}")
+    same = {u: ok.get(u) == closed[u] for u in sorted(closed)}
+    differ = {u: dict(closed=prefill_buckets(closed_groups, u),
+                      open=prefill_buckets(open_groups, u))
+              for u, s in same.items() if not s}
+    rnds = len(amp.eng.last_stats["timeseries"]["round"])
+    print(f"openloop a (bf16, round clock, a mean arrival every {1 / OPENLOOP_ROUND_S:g} rounds, "
+          f"ample pool): {rnds} rounds in {o_wall:.3f} s; statuses all ok; audit clean, 0 "
+          f"pages in use; requests with the closed serve's tokens {sum(same.values())} of "
+          f"{len(same)} (bf16, reported: open-loop admission forms other prefill groups, C1); "
+          f"prefill buckets of those that differ (closed, open): {differ}; [{smi}]", flush=True)
+    rec["a"] = dict(bf16=dict(same=same, differ=differ, rounds=rnds, wall_s=o_wall,
+                              preemptions=amp.eng.preemptions))
+    model32, params32 = fp32_model(cfg, params)
+    a32 = {}
+    engines32 = {"ample": OpenLoopEngine(model32, params32),
+                 f"{num_pages}-page": OpenLoopEngine(model32, params32, num_pages=num_pages),
+                 f"{OPENLOOP_TIGHT_PAGES}-page": OpenLoopEngine(
+                     model32, params32, num_pages=OPENLOOP_TIGHT_PAGES)}
+    closed32 = {}
+    for label, e in engines32.items():
+        want, _, c1 = e.closed(f"openloop a fp32 {label} closed", timed)
+        got, wall, c2 = e.open(f"openloop a fp32 {label}", timed, "round", OPENLOOP_ROUND_S)
+        into(counts32, c1, c2)
+        fault_free(f"openloop a fp32 {label}", e.eng)
+        if set(e.statuses.values()) != {"ok"} or got != want:
+            fail(f"openloop a fp32 {label}: statuses {e.statuses}; streamed tokens equal "
+                 f"the closed serve's {agree_on(got, want):.4f}")
+        closed32[label] = want
+        a32[label] = dict(preemptions=e.eng.preemptions, wall_s=wall,
+                          swap_outs=e.eng.last_pool_stats.swap_outs)
+    print(f"openloop a fp32 control (round clock): the ample, {num_pages}-page and "
+          f"{OPENLOOP_TIGHT_PAGES}-page pools stream the closed serve's tokens, every status "
+          f"ok, pools clean; preemptions in the open sessions "
+          f"{ {k: v['preemptions'] for k, v in a32.items()} }; [{smi}]", flush=True)
+    if a32[f"{OPENLOOP_TIGHT_PAGES}-page"]["preemptions"] < 1:
+        fail(f"openloop a fp32: the {OPENLOOP_TIGHT_PAGES}-page pool was sized to preempt "
+             f"and did not")
+    rec["a"]["fp32"] = a32
+
+    # (b) the wall clock: R from a closed batch on the warmed engine, then
+    # Poisson arrivals at multiples of R with max_queue 8
+    _, r_wall, c1 = amp.closed("openloop b closed batch", timed)
+    into(counts, c1)
+    closed_rounds = len(amp.eng.last_stats["timeseries"]["round"])
+    big_r = OPENLOOP_N / r_wall
+    round_s = r_wall / closed_rounds
+    print(f"openloop b: R = {big_r:.2f} requests/s ({OPENLOOP_N} requests in {r_wall:.3f} s "
+          f"closed, {closed_rounds} rounds, {round_s * 1e3:.3f} ms a round); [{smi}]",
+          flush=True)
+    lad = OpenLoopEngine(model, params, max_queue=OPENLOOP_MAX_QUEUE)
+    for half in (timed[:OPENLOOP_N // 2], timed[OPENLOOP_N // 2:]):
+        into(counts, lad.closed("openloop b warm-up", half)[2])
+    ladder = {}
+    for mult in OPENLOOP_RATES:
+        rate = mult * big_r
+        got, wall, c = lad.open(f"openloop b {mult:g}R", timed, "wall", scale=1.0 / rate)
+        into(counts, c)
+        fault_free(f"openloop b {mult:g}R", lad.eng)
+        st = lad.eng.last_stats
+        s = st["sla"]
+        adm_w, other_w = admission_round_walls(st["timeseries"], lad.round_ms)
+        ttft, tbt = s["ttft_ms"], s["tbt_ms"]
+        captured = lad.eng.last_graph_stats["captured"]
+        ladder[f"{mult:g}R"] = dict(rate=rate, ttft_ms=ttft, tbt_ms=tbt,
+                                    goodput_tok_s=s["goodput_tok_s"], statuses=s["statuses"],
+                                    wall_s=wall, admission_round_ms=adm_w,
+                                    other_round_ms=other_w, graphs_captured=captured)
+        print(f"openloop b {mult:g}R ({rate:.2f} req/s, wall clock, max_queue "
+              f"{OPENLOOP_MAX_QUEUE}): TTFT p50 {ttft['p50']:.2f} p95 {ttft['p95']:.2f} p99 "
+              f"{ttft['p99']:.2f} ms; TBT p50 {tbt['p50']:.2f} p99 {tbt['p99']:.2f} max "
+              f"{tbt['max']:.2f} ms (n {tbt['n']}); goodput {s['goodput_tok_s']:.1f} tok/s; "
+              f"statuses {s['statuses']}; a busy round's wall p50 with an admission "
+              f"{adm_w['p50'] or 0:.2f} ms (max {adm_w['max'] or 0:.2f}, n {adm_w['n']}), "
+              f"without {other_w['p50'] or 0:.2f} ms (max {other_w['max'] or 0:.2f}, n "
+              f"{other_w['n']}); graphs captured in the session {captured}; {wall:.3f} s; "
+              f"[{smi}]", flush=True)
+    got32, _, c = engines32["ample"].open("openloop b fp32 1R", timed, "wall", scale=1.0 / big_r)
+    into(counts32, c)
+    ok32 = {u: closed32["ample"][u] for u in got32}
+    print(f"openloop b fp32 control (1R, wall clock): statuses "
+          f"{engines32['ample'].eng.last_stats['sla']['statuses']}; OK tokens equal the "
+          f"closed serve's {agree_on(got32, ok32):.4f}; [{smi}]", flush=True)
+    if got32 != ok32:
+        fail("openloop b fp32: a wall-clock stream differs from the closed serve")
+    rec["b"] = dict(R=big_r, closed_wall_s=r_wall, round_ms=round_s * 1e3, ladder=ladder)
+
+    # (c) chaos: bursty arrivals at 2R on the round clock (R's round time),
+    # audit on, max_queue 8, a NaN, a cancel, a hard OOM and a kernel fault.
+    # The rounds come from probe runs: a fault-free one (NaN and cancel
+    # targets), then one under those two (the rounds that allocate, for the
+    # hard OOM, and those with live rows, for the kernel fault)
+    burst = openloop_workload(seed, cfg.vocab, "bursty")
+    chaos_kw = dict(clock="round", round_time_s=round_s, scale=1.0 / (2 * big_r))
+
+    def chaos_probe(label, faults):
+        sched = probe_schedule(faults, seed)
+        e = OpenLoopEngine(model, params, max_queue=OPENLOOP_MAX_QUEUE, audit=True)
+        into(counts, e.open(label, burst, faults=sched, **chaos_kw)[2])
+        ts = e.eng.last_stats["timeseries"]
+        return dict(zip(ts["round"], ts["live_uids"])), sched.alloc_rounds
+
+    live, _ = chaos_probe("openloop c fault-free probe", [])
+    first = min((r for r, u in live.items() if u), default=0)
+    nan_r, nan_uid = live_across(live, first + 2, 1)
+    cancel_r, cancel_uid = live_across(live, first + 4, 8, skip=(nan_uid,))
+    if nan_r is None or cancel_r is None:
+        fail(f"openloop c: no NaN or cancel target in the fault-free run: {live}")
+    faults = [Fault("nan", step=nan_r, uid=nan_uid, span=2),
+              Fault("cancel", step=cancel_r, uid=cancel_uid)]
+    live, allocs = chaos_probe("openloop c nan and cancel probe", faults)
+    oom_r = min((r for r in allocs if r >= cancel_r + 2), default=None)
+    kernel_r = min((r for r, u in live.items() if u and oom_r is not None and r >= oom_r + 4),
+                   default=None)
+    if oom_r is None or kernel_r is None:
+        fail(f"openloop c: no allocating round from {cancel_r + 2} ({sorted(allocs)}) or no "
+             f"live round 4 after it: {live}")
+    faults += [Fault("oom", step=oom_r, raise_exc=True), Fault("kernel", step=kernel_r)]
+    print(f"openloop c schedule (bursty, 2R, round clock, {round_s * 1e3:.3f} ms a round): "
+          f"nan uid {nan_uid} rounds {nan_r}-{nan_r + 1}, cancel uid {cancel_uid} round "
+          f"{cancel_r}, hard oom round {oom_r}, kernel fault round {kernel_r}", flush=True)
+    c_rec = {}
+    for label, m, p, c_acc in (("bf16", model, params, counts),
+                               ("fp32", model32, params32, counts32)):
+        sched = probe_schedule(faults, seed)
+        e = OpenLoopEngine(m, p, max_queue=OPENLOOP_MAX_QUEUE, audit=True)
+        got, wall, c = e.open(f"openloop c {label}", burst, faults=sched, **chaos_kw)
+        into(c_acc, c)
+        sts = e.statuses
+        at = sched.at_kernel
+        after = {n: c[n] - at[n] for n in DEGRADE_KERNELS} if at else None
+        g = e.eng.last_graph_stats
+        recaptured = {k: {n: v.get(n, 0) for n in DEGRADE_KERNELS}
+                      for k, v in g["launches_per_replay"].items()}
+        ref_eng = amp if label == "bf16" else engines32["ample"]
+        want, _, c2 = ref_eng.closed(f"openloop c {label} fault-free closed", burst,
+                                     uids=set(got))
+        into(c_acc, c2)
+        agree = agree_on(got, want)
+        census = e.eng.last_stats["sla"]["statuses"]
+        c_rec[label] = dict(statuses=sts, census=census, recoveries=e.eng.recoveries,
+                            degraded=e.eng.backend_degraded, after_degrade=after,
+                            survivors_equal_fault_free=agree, wall_s=wall)
+        print(f"openloop c {label}: statuses {census} (nan uid {nan_uid} {sts[nan_uid]}, "
+              f"cancel uid {cancel_uid} {sts[cancel_uid]}); recoveries {e.eng.recoveries}, "
+              f"degraded {e.eng.backend_degraded}; launches after the degrade {after}; "
+              f"re-captured graphs' launches {recaptured}; audit clean, 0 pages in use; "
+              f"survivors with the fault-free closed serve's tokens {agree:.4f} "
+              f"({'gated' if label == 'fp32' else 'reported, C1'}); {wall:.3f} s; [{smi}]",
+              flush=True)
+        if sts[cancel_uid] != "cancelled":
+            fail(f"openloop c {label}: the cancel target ended {sts[cancel_uid]}")
+        if not e.eng.backend_degraded or after is None or any(after.values()) or any(
+                any(v.values()) for v in recaptured.values()):
+            fail(f"openloop c {label}: the kernel fault did not degrade the engine off the "
+                 f"kernels: after {after}, re-captured {recaptured}")
+        if label == "fp32" and agree < 1.0:
+            fail("openloop c fp32: a survivor's tokens differ from the fault-free serve")
+        del e
+    rec["c"] = dict(schedule=[dataclasses.asdict(f) for f in faults], **c_rec)
+    del engines32, model32, params32
+    torch.cuda.empty_cache()
+
+    # (d) backpressure: the 16 requests submitted in one burst against
+    # max_queue 3, with and without the watermark 2
+    async def burst_submit(eng, watermark, seen):
+        async with AsyncServeEngine(eng, backpressure_watermark=watermark) as srv:
+            streams = []
+            for t in retimed(timed):
+                streams.append(await srv.submit(t.request))
+                seen["peak"] = max(seen["peak"], srv._depth())
+            for s in streams:
+                await s.drain()
+            return await srv.close()
+
+    d_rec = {}
+    for label, wm in (("watermark", OPENLOOP_WATERMARK), ("none", None)):
+        e = OpenLoopEngine(model, params, max_queue=OPENLOOP_BP_QUEUE)
+        seen = dict(peak=0)
+        _, wall, c = e._timed(f"openloop d {label}", timed,
+                              lambda: asyncio.run(burst_submit(e.eng, wm, seen)))
+        into(counts, c)
+        peak = seen["peak"]
+        depth = max(e.eng.last_stats["timeseries"]["queue_depth"])
+        census = e.eng.last_stats["sla"]["statuses"]
+        d_rec[label] = dict(statuses=census, peak_submit_depth=peak, peak_queue_depth=depth)
+        print(f"openloop d {label} (watermark {wm}, max_queue {OPENLOOP_BP_QUEUE}): statuses "
+              f"{census}; the depth at each submit peaked at {peak}, the engine's queue at "
+              f"{depth}; {wall:.3f} s; [{smi}]", flush=True)
+    if (d_rec["watermark"]["peak_submit_depth"] > OPENLOOP_WATERMARK
+            or d_rec["watermark"]["peak_queue_depth"] > OPENLOOP_WATERMARK
+            or d_rec["watermark"]["statuses"] != {"ok": OPENLOOP_N}):
+        fail(f"openloop d: the watermark did not hold the burst: {d_rec['watermark']}")
+    if "shed" not in d_rec["none"]["statuses"]:
+        fail(f"openloop d: without the watermark the burst shed nothing: {d_rec['none']}")
+    rec["d"] = d_rec
+
+    # (e) preempt_calibrate on the full-width paged engine, the 105-page pool
+    spec8 = make_requests(seed, cfg.vocab)
+    pool_kw = dict(cache_layout="paged", page_size=PAGE_SIZE, num_pages=num_pages)
+    t0 = time.perf_counter()
+    cal = ServeEngine(model, params, max_seq=MAX_SEQ, batch_slots=SLOTS, preempt="auto",
+                      preempt_calibrate=True, **pool_kw)
+    calib_s = time.perf_counter() - t0
+    cm = cal.cost_model
+    from repro_torch import kernels
+    from repro_torch.serve.engine import Request
+
+    kernels.reset_launches()
+    auto = cal.serve([Request(u, list(p), n) for u, p, n in spec8])
+    torch.cuda.synchronize()
+    into(counts, kernels.launch_counts())
+    fault_free("openloop e calibrated", cal)
+    if any(len(auto.get(u, [])) != n for u, _, n in spec8):
+        fail(f"openloop e: the calibrated run did not serve every request: {cal.last_stats}")
+    pool = cal._dev["pool"]
+    per_token = sum(t.numel() * t.element_size() for t in pool.values()) / (
+        pool["k_pages"].shape[1] * PAGE_SIZE)
+    swap_s, recompute_s = per_token / cm.swap_gbps, 2.0 * cal._n_params / cm.decode_flops_s
+    policy = "swap" if swap_s < recompute_s else "requeue"
+    explicit, x_eng, c, _, _ = serve(model, params, spec8, preempt=policy, **pool_kw)
+    into(counts, c)
+    e_rec = dict(swap_gb_s=cm.swap_gbps / 1e9, decode_gflop_s=cm.decode_flops_s / 1e9,
+                 calibrate_s=calib_s, bytes_per_token=per_token, swap_s_per_token=swap_s,
+                 recompute_s_per_token=recompute_s, policy=policy,
+                 preemptions=cal.preemptions, swap_outs=cal.last_pool_stats.swap_outs,
+                 explicit_swap_outs=x_eng.last_pool_stats.swap_outs)
+    print(f"openloop e: preempt_calibrate measured swap {e_rec['swap_gb_s']:.3f} GB/s and "
+          f"decode {e_rec['decode_gflop_s']:.3f} GFLOP/s (the eager single-slot step) in "
+          f"{calib_s:.3f} s of engine construction; {per_token:.0f} B a token: swap "
+          f"{swap_s * 1e6:.3f} us against recompute {recompute_s * 1e6:.3f} us a token, so "
+          f"preempt=auto takes {policy} on the {num_pages}-page pool ({cal.preemptions} "
+          f"preemptions, {e_rec['swap_outs']} swap-outs; explicit {policy}: "
+          f"{x_eng.preemptions}, {e_rec['explicit_swap_outs']}); tokens equal the explicit "
+          f"run's {auto == explicit}; [{smi}]", flush=True)
+    if cm.source != "measured" or auto != explicit:
+        fail(f"openloop e: the calibrated auto run ({cm.source}) served other tokens than "
+             f"preempt={policy}")
+    rec["e"] = e_rec
+    del cal, x_eng
+
+    # (f) the serve CLI on the card, open-loop on the round clock
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--arch", ARCH,
+           "--cache-layout", "paged", "--workload", "poisson", "--clock", "round",
+           "--requests", str(OPENLOOP_CLI_REQUESTS), "--preempt", "auto",
+           "--preempt-calibrate"]
+    t0 = time.perf_counter()
+    run = subprocess.run(cmd, capture_output=True, text=True, timeout=600, cwd=ROOT,
+                         env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    cli_s = time.perf_counter() - t0
+    lines = run.stdout.splitlines()
+    keep = [ln for ln in lines if ln.startswith((
+        "calibrated", "workload", "  ttft", "  tbt", "  goodput", "  statuses", "lifecycle",
+        "pool", "tiered")) or "tok/s (" in ln]
+    print(f"openloop f: {' '.join(cmd[1:])}: exit {run.returncode} in {cli_s:.1f} s; "
+          f"[{smi}]\n" + "\n".join(keep), flush=True)
+    if run.returncode != 0 or "SLA:" not in run.stdout:
+        fail(f"openloop f: the serve CLI exited {run.returncode} or printed no SLA block: "
+             f"{run.stderr[-2000:]}")
+    rec["f"] = dict(returncode=run.returncode, wall_s=cli_s, lines=keep)
+    rec["wall_s"] = time.perf_counter() - t_phase
+    print(f"openloop phase: {rec['wall_s']:.1f} s; [{smi}]", flush=True)
+    return rec, counts, counts32
+
+
+# ---------------------------------------------------------------------------
 # phase 3b: MoE serving through moe_gating
 # ---------------------------------------------------------------------------
 
@@ -4086,6 +4555,11 @@ def main():
     for name in serving_kernels + ("paged_flash_verify",):
         rows[name]["launches"] += faults_counts[name]
 
+    openloop_rec, openloop_counts, openloop_fp32 = run_openloop(cfg, model, params, args.seed,
+                                                                smi, num_pages)
+    for name in serving_kernels:
+        rows[name]["launches"] += openloop_counts[name]
+
     phases = where_time_goes(model, params, gen)
     phases.update(shared_profiles)
 
@@ -4111,10 +4585,11 @@ def main():
          "sampled bf16 runs": sampled_counts,
          "tiered bf16 runs": tiered_counts, "shared bf16 runs": shared_counts,
          "shared int8 run": shared_int8, "sched bf16 runs": sched_counts,
-         "faults bf16 runs": faults_counts,
+         "faults bf16 runs": faults_counts, "openloop bf16 runs": openloop_counts,
          "moe serve": moe_counts, "train": train_counts},
         {"C1 control fp32": c1["launches"], "shared fp32 control": shared_fp32,
          "sched fp32 runs": sched_fp32, "faults fp32 runs": faults_fp32,
+         "openloop fp32 runs": openloop_fp32,
          "sampled fp32 control": sampled_fp32,
          "tiered fp32 control": tiered_rec["fp32_control_launches"],
          "moe control fp32 no drops": moe_rec["preemption_controls"]["fp32 no drops"]["launches"]})
@@ -4137,6 +4612,7 @@ def main():
         warp_forms=warp_forms, spec=spec_rec, verify_t1_err=t1_err, moe=moe_rec,
         c1_control=c1, tiered=tiered_rec, int8_kernel_checks=int8_checks,
         shared=shared_rec, sampled=sampled_rec, sched=sched_rec, faults=faults_rec,
+        openloop=openloop_rec,
         fault_free_engines=FAULT_FREE["engines"], verify_long=long_checks,
         replay_probes=probes,
         pipeline=PIPELINE_PAIRS,

@@ -81,6 +81,9 @@ re-admission, restores them into fresh pages with no prefill;
 ``preempt="auto"`` takes the swap when moving a resident token's bytes
 (``cost_model.swap_gbps``) costs less than recomputing it (2 * parameters
 FLOPs over ``cost_model.decode_flops_s``), as the reference decides.
+The figures are the reference's defaults unless ``cost_model=`` is given
+or ``preempt_calibrate=True`` measures them on the engine's own device and
+model at construction (``serve.calibrate.calibrate``).
 
 Prefix sharing (``prefix_sharing=True``, paged layout, dense family)
 admits a prompt by resolving its longest cached page-granular prefix in a
@@ -175,8 +178,9 @@ index and the pool's quantization metadata every round
 (``serve.audit``); ``last_pool_stats`` always carries the sweep's
 verdict.
 
-Not ported yet: measured cost models (``preempt_calibrate``, A11),
-open-loop submission (A11) and cluster handoff (A12).
+Open-loop serving drives the same session primitives: requests join a
+live session through ``_submit_open`` and stream their tokens
+(``serve.async_engine``).  Not ported yet: cluster handoff (A12).
 """
 
 from __future__ import annotations
@@ -467,10 +471,6 @@ class ServeEngine:
                     f"only the un-cached suffix; family {model.cfg.family!r} "
                     "prefills with length-dependent expert capacity, so cached "
                     "K/V would not be exact: supported family: 'dense'")
-        if cost_model is None and preempt_calibrate:
-            raise NotImplementedError(
-                "measuring the swap bandwidth and decode rate on the card "
-                "is not ported yet (ROADMAP A11); pass cost_model=")
         model.uses_kernel(verify_backend, "verify_backend")   # validates
         self.model = model
         self.params = params
@@ -489,7 +489,14 @@ class ServeEngine:
         self.evict_policy = evict_policy
         self.min_cached_tokens = min_cached_tokens
         self.verify_backend = verify_backend
-        self.cost_model = cost_model or calibrate.DEFAULT_COST_MODEL
+        # the preempt="auto" figures: an explicit model wins, else the
+        # measured one (preempt_calibrate=True), else the defaults
+        if cost_model is not None:
+            self.cost_model = cost_model
+        elif preempt_calibrate:
+            self.cost_model = calibrate.calibrate(model, params, max_seq=max_seq)
+        else:
+            self.cost_model = calibrate.DEFAULT_COST_MODEL
         # preempt="auto": recompute costs ~2 * params FLOPs a token
         self._n_params = sum(t.numel() for t in leaves(params))
         self.spec_k = spec_k
@@ -698,8 +705,10 @@ class ServeEngine:
     # --------------------------------------------------- session primitives
     # serve() drives a session through three primitives: _open_session,
     # the rounds (_round, or dispatch_round / commit_round) and
-    # _finalize_session, on which open-loop submission (A11) and cluster
-    # handoff (A12) build
+    # _finalize_session.  The open-loop server (serve.async_engine) drives
+    # the same primitives with requests joining mid-session through
+    # _submit_open, so streamed tokens are the closed batch's; cluster
+    # handoff (A12) builds on them too
     def _open_session(self, requests: List[Request], faults=None) -> _SchedState:
         """Register a (possibly empty) request batch, shed it down to
         ``max_queue``, and bind a fresh manager (with the schedule's OOM
@@ -760,6 +769,23 @@ class ServeEngine:
                              "status": None, "priority": req.priority}
         if req.deadline_ms is not None or req.ttft_deadline_ms is not None:
             st.has_deadlines = True
+
+    def _submit_open(self, st: _SchedState, req: Request, now: float = 0.0):
+        """An open-loop arrival: register and enqueue mid-session.  On the
+        paged layout a request that could never fit ends ``failed``
+        (reason ``never-fits: ...``) instead of raising: the server keeps
+        serving everyone else.  The dense layout enqueues unchecked, as
+        the reference does (a prompt of ``max_seq`` tokens serves through
+        the clamped write of a coasting row; a longer one fails the
+        session at its prefill)."""
+        self._register(st, req, now=now)
+        if st.mgr is not None:
+            try:
+                self._check_fits(st, req)
+            except ValueError as exc:
+                self._terminal(st, req, STATUS_FAILED, reason=f"never-fits: {exc}")
+                return
+        st.queue.append(req)
 
     def _finalize_session(self, st: _SchedState) -> Dict[int, List[int]]:
         """Close a session: the finalize barrier (never end over an

@@ -1720,6 +1720,83 @@ def test_cuda_pipelined_engine_matches_serial(kw, temperature):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("pipeline", [True, False], ids=["pipelined", "serial"])
+def test_cuda_open_loop_round_clock_streams_equal_closed_serve(pipeline):
+    """Open-loop serving on the card, reduced qwen2 in fp32 on a preempting
+    paged pool: Poisson arrivals on the round clock stream the tokens a
+    closed ``serve()`` of the same requests returns, every status is OK,
+    the pool drains clean, and (pipelined) the session replayed captured
+    steps created by its first admissions."""
+    requires_cuda()
+    import asyncio
+    import dataclasses
+
+    from repro_torch.configs import reduced_config
+    from repro_torch.models.lm import Model
+    from repro_torch.serve.async_engine import serve_open_loop
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.serve.workload import make_workload
+
+    cfg = reduced_config("qwen2-1.5b")
+    model = Model(cfg, dtype=torch.float32)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    wl = make_workload("poisson", 10, vocab=cfg.vocab, seed=5, rate=1.0, prompt_median=8,
+                       prompt_max=24, out_median=6, out_max=12)
+    kw = dict(max_seq=48, batch_slots=3, cache_layout="paged", page_size=8, num_pages=7,
+              pipeline=pipeline)
+    eng = ServeEngine(model, params, **kw)
+    ok = asyncio.run(serve_open_loop(eng, wl, clock="round"))
+    torch.cuda.synchronize()
+    sts = {t.request.uid: eng.last_stats[t.request.uid]["status"] for t in wl}
+    assert set(sts.values()) == {"ok"}
+    p = eng.last_pool_stats
+    assert p.audit_ok and p.used_pages == 0
+    if pipeline:
+        g = eng.last_graph_stats
+        assert g["captured"] >= 1 and g["replays"] >= 1
+    closed = ServeEngine(model, params, **kw).serve(
+        [dataclasses.replace(t.request, generated=None) for t in wl])
+    assert ok == closed
+
+
+@pytest.mark.cuda
+def test_cuda_calibrate_times_on_the_device(monkeypatch):
+    """``calibrate`` on a CUDA model times with CUDA events on the card (no
+    host clock is read) and returns positive measured figures, which
+    ``preempt_calibrate=True`` installs."""
+    requires_cuda()
+    import time
+
+    from repro_torch.configs import reduced_config
+    from repro_torch.models.lm import Model
+    from repro_torch.serve import calibrate
+    from repro_torch.serve.engine import ServeEngine
+
+    cfg = reduced_config("qwen2-1.5b")
+    model = Model(cfg, dtype=torch.float32)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    events = []
+    real_event = torch.cuda.Event
+
+    def event(*a, **k):
+        events.append(k.get("enable_timing"))
+        return real_event(*a, **k)
+
+    def no_host_clock():
+        raise AssertionError("a CUDA model's calibration read the host's clock")
+
+    monkeypatch.setattr(torch.cuda, "Event", event)
+    monkeypatch.setattr(time, "perf_counter", no_host_clock)
+    cm = calibrate.calibrate(model, params, max_seq=48, repeats=2)
+    monkeypatch.undo()
+    assert cm.source == "measured" and cm.swap_gbps > 0 and cm.decode_flops_s > 0
+    assert events.count(True) == 8          # two repeats of two events, two figures
+    eng = ServeEngine(model, params, max_seq=48, batch_slots=2, cache_layout="paged",
+                      page_size=8, preempt="auto", preempt_calibrate=True)
+    assert eng.cost_model.source == "measured" and eng.cost_model.decode_flops_s > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pipeline", [True, False], ids=["pipelined", "serial"])
 def test_cuda_chunked_prefill_parks_rows_in_captured_steps(pipeline):
     """Chunked prefill on the card, reduced qwen2 in fp32: a 60-token
     prompt written in 16-token chunks (T * G = 64 rows a KV head: verify's
@@ -2129,7 +2206,8 @@ def test_port_imports_neither_jax_nor_repro():
                  "serve.calibrate", "serve.kv_cache", "serve.prefix_index",
                  "serve.engine", "serve.step_graph", "core.ir", "core.pr_transform",
                  "bench.pr_transform_bench", "bench.table4_overhead", "quickstart",
-                 "serve.sampling", "serve_lm", "serve.sla"):
+                 "serve.sampling", "serve_lm", "serve.sla", "serve.async_engine",
+                 "launch.serve"):
         assert f"repro_torch.{name}" in mods, name
 
 

@@ -365,8 +365,9 @@ def test_engine_ctor_validation():
         _port_serve(preempt="steal")
     with pytest.raises(ValueError, match="paged"):
         ServeEngine(m["tm"], m["tp"], max_seq=48, batch_slots=2, preempt="swap")
-    with pytest.raises(NotImplementedError, match="A11"):
-        _port_serve(preempt="auto", preempt_calibrate=True)
+    calibrated = ServeEngine(m["tm"], m["tp"], preempt="auto", preempt_calibrate=True,
+                             **ENGINE_KW)
+    assert calibrated.cost_model.source == "measured"
     with pytest.raises(ValueError, match="paged-layout"):
         m["tm"].init_cache(2, 48, kv_dtype="int8")
 
