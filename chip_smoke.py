@@ -278,6 +278,36 @@ its paths:
    memory, launches); then one profiled step.  It fails on a non-finite
    loss or unless every layer's backward went through
    ``flash_attention_bwd``.
+5b. Checkpoints (``ckpt ...`` lines, after 5 has freed its state):
+   qwen2-1.5b at full width cut to 2 layers (~0.56 B parameters; fp32
+   weights and AdamW, bf16 compute, S 4096, batch 2), in a temporary
+   folder that must have 2.5 states' bytes free and is removed at exit.
+   (a) U1 and U2 train 6 steps each from one seed; P is the same run
+   preempted after step 2 (a sync checkpoint at step 3), resumed by a new
+   Trainer to 6, which must start at step 3.  If U1 and U2 agree bit for
+   bit, P must equal U1 bit for bit; else P's largest difference per leaf
+   must stay within twice U2's and its losses within rtol 1e-5 (the case
+   is printed).  (b) ``AsyncCheckpointer.save``, one in-place training
+   step, ``wait()``: the restored state must equal a clone taken at save,
+   bit for bit.  (c) The checkpoint's bytes, the sync save's seconds, the
+   async save's stall, the writer's and the restore's seconds.  (d)
+   ``python -m repro_torch.launch.train --ckpt-dir`` twice on one folder
+   (the second resumes) and ``python -m repro_torch.train_lm --steps 20``,
+   each in a subprocess on the card: exit 0 and the resume printed.
+5c. MoE training (``moe train ...`` lines): full-width, full-depth
+   Granite-MoE-1B-A400M (24 layers, d_model 1024, 16/8 heads, 32 experts,
+   top-8, ~1.38 B parameters) with fp32 weights and AdamW, bf16 compute,
+   remat, the 8-chunk loss, S 4096 and batch 2, at the config's
+   ``moe_group_size`` 0 and capacity factor 1.25.  One gradient on one
+   batch through the kernel path (the router's top-k through
+   ``moe_gating``'s forward, ``MoEGating``'s backward) and the plain path
+   (autograd through ``moe_gating_ref``), tf32 off, held to the gates
+   below, and a faulted control (the gating gradient scaled by 1.25) that
+   must trip them; ``Trainer.run`` for 4 steps (loss, lr, grad_norm, ms,
+   tokens/s, peak memory, launches); the share of token-expert choices
+   dropped at capacity; one profiled step.  It fails on a non-finite loss
+   or unless every layer's router went through the kernel's forward twice
+   a step (forward and remat).
 6. MoE serving (``moe ...`` lines), before training and after the qwen2
    serving model is freed: full-width OLMoE-1B-7B (16 layers, d_model
    2048, 16/16 heads, 64 experts, top-8; random bf16 weights from the
@@ -323,9 +353,12 @@ import concurrent.futures
 import contextlib
 import dataclasses
 import json
+import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -431,6 +464,37 @@ GRAD_NORM_TOL = 4e-4          # global norms, relative
 GRAD_COS_MIN = 1 - 4e-4       # smallest per-leaf cosine similarity
 GRAD_LEAF_TOL = 0.09          # largest per-leaf |a - b| / |b|
 GRAD_FAULT_DK = 1.25          # the control's wrong dk scale
+# phase 5b: checkpoints of full-width qwen2-1.5b cut to 2 layers (~0.56 B
+# parameters): U1 and U2 train CKPT_STEPS steps uninterrupted from one
+# seed; P is the same run preempted after step CKPT_STOP_AFTER (a sync
+# checkpoint at step CKPT_STOP_AFTER + 1), then resumed by a new Trainer
+CKPT_LAYERS = 2
+CKPT_STEPS = 6
+CKPT_STOP_AFTER = 2
+CKPT_DISK_FACTOR = 2.5        # free disk the phase needs, in states' bytes
+# the reference's resume tolerance on the loss (tests/test_fault_tolerance.py)
+CKPT_LOSS_RTOL = 1e-5
+# the CLIs: launch.train on one folder to CKPT_CLI_STEPS[0], then resumed
+# to CKPT_CLI_STEPS[1]; train_lm's restart drill
+CKPT_CLI_STEPS = (8, 12)
+CKPT_CLI_EVERY = 4
+TRAIN_LM_STEPS = 20
+# phase 5c: MoE training at full width and depth, at the config's own
+# moe_group_size (0) and capacity factor (1.25)
+MOE_TRAIN_ARCH = "granite-moe-1b-a400m"
+# one gradient, kernel path vs plain path (autograd through moe_gating_ref),
+# bf16 compute through 24 layers: moe_gating's masks equal the plain
+# version's bit for bit, so what differs is rmsnorm's and flash's bf16
+# rounding, which moves router logits across a tie now and then: a pick
+# flips, and the expert buffers' places and drops behind it shift.  Each
+# gate is ~10x this phase's sound reading on an H100 (NVIDIA H100 80GB
+# HBM3, 700.00 W; PERF.md): loss 4.58e-5, global norm 2.65e-4
+# relative, and at layers.moe.router 1 - cosine 5.02e-4 and a norm
+# difference of 3.17e-2 relative.  The faulted control (the gating
+# gradient x GRAD_FAULT_GATE in every layer) read 1.92e-2, 1 - 1.13e-2 at
+# layers.attn.wq and 0.324 at the router: it trips three gates.
+MOE_GRAD_GATES = dict(loss=5e-4, norm=3e-3, cos=1 - 5e-3, leaf=0.3)
+GRAD_FAULT_GATE = 1.25        # the MoE control's wrong gating-gradient scale
 # rmsnorm's calls take the host longer to launch than the card to run:
 # their rows are timed with the calls queued behind a spin on the card,
 # long enough for a few hundred launches (cycles at a clock above the
@@ -4178,45 +4242,37 @@ def grad_readings(k_loss, k_grads, p_loss, p_grads) -> dict:
                 cosines=cos, leaf_rel_diffs=rel)
 
 
-def tripped_gates(r: dict) -> list:
+# phase 5's gradient gates, by reading
+DENSE_GRAD_GATES = dict(loss=GRAD_LOSS_TOL, norm=GRAD_NORM_TOL, cos=GRAD_COS_MIN,
+                        leaf=GRAD_LEAF_TOL)
+
+
+def tripped_gates(r: dict, gates: dict = DENSE_GRAD_GATES) -> list:
     """The gradient gates that reading ``r`` does not pass."""
-    gates = [("loss", r["loss_diff"] <= GRAD_LOSS_TOL),
-             ("global norm", r["grad_norm_rel_diff"] <= GRAD_NORM_TOL),
-             ("leaf cosine", r["min_cosine"] >= GRAD_COS_MIN),
-             ("leaf norm difference", r["max_leaf_rel_diff"] <= GRAD_LEAF_TOL)]
-    return [name for name, ok in gates if not ok]
+    checks = [("loss", r["loss_diff"] <= gates["loss"]),
+              ("global norm", r["grad_norm_rel_diff"] <= gates["norm"]),
+              ("leaf cosine", r["min_cosine"] >= gates["cos"]),
+              ("leaf norm difference", r["max_leaf_rel_diff"] <= gates["leaf"])]
+    return [name for name, ok in checks if not ok]
 
 
-def print_readings(label: str, r: dict):
-    print(f"train grad check {label} (tf32 off): loss kernel {r['kernel_loss']:.6f} "
-          f"plain {r['plain_loss']:.6f} diff {r['loss_diff']:.3e} (tol {GRAD_LOSS_TOL}); "
+def print_readings(label: str, r: dict, gates: dict = DENSE_GRAD_GATES,
+                   prefix: str = "train"):
+    print(f"{prefix} grad check {label} (tf32 off): loss kernel {r['kernel_loss']:.6f} "
+          f"plain {r['plain_loss']:.6f} diff {r['loss_diff']:.3e} (tol {gates['loss']}); "
           f"grad norm kernel {r['kernel_grad_norm']:.6f} plain "
           f"{r['plain_grad_norm']:.6f} rel diff {r['grad_norm_rel_diff']:.3e} "
-          f"(tol {GRAD_NORM_TOL}); min leaf cosine 1 - {1 - r['min_cosine']:.3e} at "
-          f"{r['min_cosine_leaf']} (min 1 - {1 - GRAD_COS_MIN:.1e}); max leaf norm "
+          f"(tol {gates['norm']}); min leaf cosine 1 - {1 - r['min_cosine']:.3e} at "
+          f"{r['min_cosine_leaf']} (min 1 - {1 - gates['cos']:.1e}); max leaf norm "
           f"difference {r['max_leaf_rel_diff']:.3e} at {r['max_leaf_rel_diff_leaf']} "
-          f"(tol {GRAD_LEAF_TOL}); gates tripped {tripped_gates(r)}", flush=True)
+          f"(tol {gates['leaf']}); gates tripped {tripped_gates(r, gates)}", flush=True)
 
 
-def compare_grads(model, plain, params, batch) -> dict:
-    """One gradient on one batch through the kernel path and through the
-    plain path, same weights, held to the gates; then the faulted control
-    (the kernel path with dk scaled by GRAD_FAULT_DK in every layer's
-    backward), which must trip a gate."""
+@contextlib.contextmanager
+def flash_dk_fault():
+    """The dense control's fault: dk scaled by GRAD_FAULT_DK in every
+    layer's flash backward."""
     from repro_torch.kernels.flash_attention.ops import FlashAttention
-    from repro_torch.train.step import make_grad_fn
-
-    def grads(m):
-        loss, g = make_grad_fn(m, vocab_chunks=VOCAB_CHUNKS)(params, batch)
-        return loss.item(), g
-
-    p_loss, p_grads = grads(plain)
-    sound = grad_readings(*grads(model), p_loss, p_grads)
-    print_readings("sound", sound)
-    if not (np.isfinite(sound["kernel_loss"]) and np.isfinite(p_loss)):
-        fail("non-finite loss in the gradient check")
-    if tripped_gates(sound):
-        fail(f"kernel-path gradients fail the gates {tripped_gates(sound)}")
 
     backward = FlashAttention.backward
 
@@ -4226,12 +4282,37 @@ def compare_grads(model, plain, params, batch) -> dict:
 
     FlashAttention.backward = staticmethod(faulted)
     try:
-        control = grad_readings(*grads(model), p_loss, p_grads)
+        yield
     finally:
         FlashAttention.backward = staticmethod(backward)
-    print_readings(f"control (dk x {GRAD_FAULT_DK})", control)
-    if not tripped_gates(control):
-        fail(f"the gradient gates pass a backward with dk x {GRAD_FAULT_DK}")
+
+
+def compare_grads(model, plain, params, batch, gates: dict = DENSE_GRAD_GATES,
+                  fault=(f"dk x {GRAD_FAULT_DK}", flash_dk_fault),
+                  prefix: str = "train") -> dict:
+    """One gradient on one batch through the kernel path and through the
+    plain path, same weights, held to the gates; then the faulted control
+    (the kernel path under ``fault``, a (label, context manager) pair),
+    which must trip a gate."""
+    from repro_torch.train.step import make_grad_fn
+
+    def grads(m):
+        loss, g = make_grad_fn(m, vocab_chunks=VOCAB_CHUNKS)(params, batch)
+        return loss.item(), g
+
+    p_loss, p_grads = grads(plain)
+    sound = grad_readings(*grads(model), p_loss, p_grads)
+    print_readings("sound", sound, gates, prefix)
+    if not (np.isfinite(sound["kernel_loss"]) and np.isfinite(p_loss)):
+        fail(f"{prefix}: non-finite loss in the gradient check")
+    if tripped_gates(sound, gates):
+        fail(f"{prefix}: kernel-path gradients fail the gates {tripped_gates(sound, gates)}")
+    label, faulted = fault
+    with faulted():
+        control = grad_readings(*grads(model), p_loss, p_grads)
+    print_readings(f"control ({label})", control, gates, prefix)
+    if not tripped_gates(control, gates):
+        fail(f"{prefix}: the gradient gates pass a backward with {label}")
     return dict(sound=sound, control=control)
 
 
@@ -4307,6 +4388,364 @@ def run_training(cfg, seed: int):
                 step_ms=[t * 1e3 for t in times],
                 tokens_s=[tokens / t for t in times], profile=profile,
                 counts=counts), counts
+
+
+# ---------------------------------------------------------------------------
+# phase 5b: checkpoints, exact resume, the async writer, the training CLIs
+# ---------------------------------------------------------------------------
+
+def state_leaves(state) -> dict:
+    """Every tensor of a TrainState by name: params, then AdamW's m and v."""
+    from repro_torch.optim.optimizer import named_leaves
+
+    out = {}
+    for part, tree in (("params", state.params), ("m", state.opt.m), ("v", state.opt.v)):
+        out.update({f"{part}.{k}": t for k, t in named_leaves(tree)})
+    return out
+
+
+def folder_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(path) for f in fs)
+
+
+@contextlib.contextmanager
+def timed_calls(module, name: str):
+    """While open, ``module.name`` is wrapped: each call's seconds (after a
+    device synchronize) land in the yielded list."""
+    fn, times = getattr(module, name), []
+
+    def wrapper(*args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        return out
+
+    setattr(module, name, wrapper)
+    try:
+        yield times
+    finally:
+        setattr(module, name, fn)
+
+
+def run_cli(label: str, cmd, smi: str, expect: str) -> dict:
+    """Run one CLI in a subprocess from the checkout; fail unless it exits
+    0 and prints ``expect``."""
+    t0 = time.perf_counter()
+    run = subprocess.run(cmd, capture_output=True, text=True, timeout=600, cwd=ROOT,
+                         env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    wall = time.perf_counter() - t0
+    keep = [ln for ln in run.stdout.splitlines() if ln.startswith(("loss", "resumed", "model"))]
+    print(f"ckpt d {label}: {' '.join(cmd[1:])}: exit {run.returncode} in {wall:.1f} s; "
+          f"[{smi}]\n  " + "\n  ".join(keep), flush=True)
+    if run.returncode != 0 or expect not in run.stdout:
+        fail(f"ckpt d {label}: exit {run.returncode}, {expect!r} printed: "
+             f"{expect in run.stdout}; {run.stderr[-2000:]}")
+    return dict(returncode=run.returncode, wall_s=wall, lines=keep)
+
+
+def run_ckpt(seed: int, smi: str) -> tuple:
+    """Phase 5b (``ckpt`` lines): exact resume, the async writer's
+    snapshot, the checkpoint's costs and the training CLIs' resume.
+    Returns the record and the launch counts of its in-process training."""
+    from repro_torch import kernels
+    from repro_torch.checkpoint.checkpoint import (
+        AsyncCheckpointer,
+        latest_step,
+        restore_checkpoint,
+    )
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticPipeline
+    from repro_torch.models.lm import Model
+    from repro_torch.optim.optimizer import AdamWConfig, leaves
+    from repro_torch.train import trainer as trainer_mod
+    from repro_torch.train.step import make_train_step
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_config(ARCH), n_layers=CKPT_LAYERS)
+    model = Model(cfg, device="cuda", dtype=torch.bfloat16, param_dtype=torch.float32)
+    data = SyntheticPipeline(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                                        global_batch=TRAIN_BATCH, seed=seed))
+    opt = AdamWConfig(lr=3e-4, warmup_steps=1, total_steps=CKPT_STEPS)
+
+    def gen():
+        return torch.Generator(device="cuda").manual_seed(seed)
+
+    def trainer(ckpt=None):
+        return Trainer(model, data, opt, TrainerConfig(
+            total_steps=CKPT_STEPS, checkpoint_every=CKPT_STEPS * 100, checkpoint_dir=ckpt,
+            vocab_chunks=VOCAB_CHUNKS))
+
+    n_params = sum(p.numel() for p in leaves(model.init(gen())))
+    state_bytes = 3 * 4 * n_params + 4          # fp32 weights, m and v; the int32 step
+    root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        free = shutil.disk_usage(root).free
+        print(f"ckpt model: {ARCH} layers={cfg.n_layers} (cut from 28) d_model={cfg.d_model} "
+              f"vocab={cfg.vocab} params={n_params}, fp32 master weights + AdamW "
+              f"({state_bytes} B), bf16 compute, remat, batch {TRAIN_BATCH} x seq {TRAIN_SEQ}; "
+              f"{free} B free on the checkpoints' disk; [{smi}]", flush=True)
+        if free < CKPT_DISK_FACTOR * state_bytes:
+            fail(f"ckpt: {free} B free where the phase needs {CKPT_DISK_FACTOR} x the "
+                 f"state's {state_bytes} B")
+        rec = dict(n_params=n_params, state_bytes=state_bytes, free_bytes=free)
+        kernels.reset_launches()
+
+        # (a) exact resume
+        u1, h_u1 = trainer().run(gen())
+        u2, h_u2 = trainer().run(gen())
+        l1, l2 = state_leaves(u1), state_leaves(u2)
+        bitwise = u1.opt.step == u2.opt.step and all(torch.equal(l1[k], l2[k]) for k in l1)
+        u2_diff = {k: (l2[k] - l1[k]).abs().max().item() for k in l1}
+        del u2, l2
+        dir_a = os.path.join(root, "a")
+        polls = [0]
+
+        def should_stop():
+            polls[0] += 1
+            return polls[0] == CKPT_STOP_AFTER + 1
+
+        # the Trainer's own sync save and restore, timed
+        with timed_calls(trainer_mod, "save_checkpoint") as save_s, \
+                timed_calls(trainer_mod, "restore_checkpoint") as resume_s:
+            _, h_p1 = trainer(dir_a).run(gen(), should_stop=should_stop)
+            committed = latest_step(dir_a)
+            p, h_p2 = trainer(dir_a).run(gen())
+        if h_p1[-1][0] != CKPT_STOP_AFTER or committed != CKPT_STOP_AFTER + 1:
+            fail(f"ckpt a: the preempted run stopped after step {h_p1[-1][0]} and "
+                 f"committed step {committed}")
+        if not h_p2 or h_p2[0][0] != CKPT_STOP_AFTER + 1:
+            fail(f"ckpt a: the new Trainer did not resume at step {CKPT_STOP_AFTER + 1}: "
+                 f"{[s for s, _ in h_p2]}")
+        lp = state_leaves(p)
+        p_diff = {k: (lp[k] - l1[k]).abs().max().item() for k in l1}
+        loss_u1 = [m["loss"] for _, m in h_u1]
+        loss_u2 = [m["loss"] for _, m in h_u2]
+        loss_p = [m["loss"] for _, m in h_p1 + h_p2]
+        if bitwise:
+            case = "U1 = U2 bit for bit, so P must equal U1 bit for bit"
+            ok = p.opt.step == u1.opt.step and all(torch.equal(lp[k], l1[k]) for k in l1)
+        else:
+            case = (f"U1 != U2 (nondeterministic sums), so P's largest difference per leaf "
+                    f"must stay within 2x U2's and its losses within rtol {CKPT_LOSS_RTOL}")
+            ok = (all(p_diff[k] <= 2 * u2_diff[k] for k in l1)
+                  and np.allclose(loss_p, loss_u1, rtol=CKPT_LOSS_RTOL, atol=0))
+        worst = max(p_diff, key=p_diff.get)
+        print(f"ckpt a: U1, U2 {CKPT_STEPS} steps each; P preempted after step "
+              f"{CKPT_STOP_AFTER} (committed step {committed}), resumed at step "
+              f"{h_p2[0][0]}; case: {case}; holds {ok}; losses U1 {loss_u1} U2 {loss_u2} "
+              f"P {loss_p}; largest |P - U1| {p_diff[worst]:.3e} at {worst} (U2 there "
+              f"{u2_diff[worst]:.3e}); step ms U1 "
+              f"{[round(m['step_time_s'] * 1e3, 1) for _, m in h_u1]}; [{smi}]", flush=True)
+        if not ok:
+            fail(f"ckpt a: the resumed run breaks its gate ({case})")
+        rec["a"] = dict(bitwise=bitwise, case=case, losses_u1=loss_u1, losses_u2=loss_u2,
+                        losses_p=loss_p, p_diff=p_diff, u2_diff=u2_diff,
+                        step_ms=[m["step_time_s"] * 1e3 for _, m in h_u1])
+        del u1, l1, lp
+        shutil.rmtree(dir_a)
+
+        # (b) the async writer: save, one in-place step, wait, restore
+        dir_b = os.path.join(root, "b")
+        clone = {k: t.clone() for k, t in state_leaves(p).items()}
+        clone_step = p.opt.step
+        ck = AsyncCheckpointer(dir_b, keep=1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ck.save(clone_step, p, metadata={"loss": loss_p[-1], "preempted": False})
+        stall = time.perf_counter() - t0
+        step_fn = make_train_step(model, opt, vocab_chunks=VOCAB_CHUNKS)
+        batch = {k: v.cuda() for k, v in data.batch_at(CKPT_STEPS).items()}
+        t0 = time.perf_counter()
+        p, _ = step_fn(p, batch)
+        torch.cuda.synchronize()
+        step_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ck.wait()
+        wait_s = time.perf_counter() - t0
+        writer_s = ck.last_write_s
+        ck.close()
+        moved = not all(torch.equal(t, clone[k]) for k, t in state_leaves(p).items())
+        t0 = time.perf_counter()
+        restored, r_step, _ = restore_checkpoint(dir_b, p)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        same = (restored.opt.step == clone_step and r_step == clone_step
+                and all(torch.equal(t, clone[k]) for k, t in state_leaves(restored).items()))
+        ckpt_bytes = folder_bytes(dir_b)
+        print(f"ckpt b: AsyncCheckpointer.save at step {clone_step}, one in-place step "
+              f"({step_s * 1e3:.1f} ms) that moved the live state: {moved}; restored = the "
+              f"clone taken at save, bit for bit: {same}; [{smi}]", flush=True)
+        if not (moved and same):
+            fail("ckpt b: the async writer committed something other than its snapshot")
+        del restored, clone
+        shutil.rmtree(dir_b)
+
+        # (c) what a checkpoint costs: (a)'s preemption save and resume in
+        # the Trainer, (b)'s async save and restore
+        step_ms = float(np.median(rec["a"]["step_ms"]))
+        print(f"ckpt c: checkpoint {ckpt_bytes} B; sync save {save_s[0]:.3f} s (the "
+              f"Trainer's at preemption); async save() stall {stall:.3f} s, writer "
+              f"{writer_s:.3f} s (wait() after one step {wait_s:.3f} s); restore "
+              f"{restore_s:.3f} s ({resume_s[0]:.3f} s in the Trainer's resume); a training "
+              f"step {step_ms:.1f} ms (median of U1's); [{smi}]", flush=True)
+        rec["c"] = dict(checkpoint_bytes=ckpt_bytes, sync_save_s=save_s[0],
+                        async_stall_s=stall, writer_s=writer_s, wait_after_step_s=wait_s,
+                        restore_s=restore_s, resume_restore_s=resume_s[0], step_ms=step_ms)
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        del p
+        torch.cuda.empty_cache()
+        steps = 2 * CKPT_STEPS + len(h_p1) + len(h_p2) + 1
+        if counts["flash_attention_bwd"] != cfg.n_layers * steps:
+            fail(f"ckpt: flash_attention_bwd launched {counts['flash_attention_bwd']} times "
+                 f"in {steps} steps of {cfg.n_layers} layers")
+        no_ragged_rmsnorm("checkpoint training", counts)
+
+        # (d) the CLIs, each in a process of its own
+        cli_dir = os.path.join(root, "cli")
+        base = [sys.executable, "-m", "repro_torch.launch.train", "--arch", ARCH,
+                "--ckpt-dir", cli_dir, "--ckpt-every", str(CKPT_CLI_EVERY)]
+        first, then = CKPT_CLI_STEPS
+        rec["d"] = dict(
+            train=run_cli("launch.train", base + ["--steps", str(first)], smi,
+                          f"over {first} steps"),
+            resume=run_cli("launch.train resumed", base + ["--steps", str(then)], smi,
+                           f"resumed at step {first}"),
+            train_lm=run_cli("train_lm", [sys.executable, "-m", "repro_torch.train_lm",
+                                          "--steps", str(TRAIN_LM_STEPS), "--ckpt",
+                                          os.path.join(root, "train_lm")], smi,
+                             f"resumed at step {TRAIN_LM_STEPS}"))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    rec["wall_s"] = time.perf_counter() - t_phase
+    print(f"ckpt phase: {rec['wall_s']:.1f} s; [{smi}]", flush=True)
+    return rec, counts
+
+
+# ---------------------------------------------------------------------------
+# phase 5c: MoE training through moe_gating's forward and backward
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def gating_fault():
+    """The MoE control's fault: the gating backward's logit gradient
+    scaled by GRAD_FAULT_GATE in every layer."""
+    from repro_torch.kernels.moe_gating.ops import MoEGating
+
+    backward = MoEGating.backward
+
+    def faulted(ctx, gw, gm):
+        dlogits, rest = backward(ctx, gw, gm)
+        return dlogits * GRAD_FAULT_GATE, rest
+
+    MoEGating.backward = staticmethod(faulted)
+    try:
+        yield
+    finally:
+        MoEGating.backward = staticmethod(backward)
+
+
+def run_moe_train(seed: int, smi: str) -> tuple:
+    """Phase 5c (``moe train`` lines): full-width Granite-MoE training,
+    the gradient check against the plain path and its faulted control,
+    TRAIN_STEPS Trainer steps, the capacity drops, one profiled step.
+    Returns the record and the launch counts of the Trainer run."""
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticPipeline
+    from repro_torch.models.lm import Model
+    from repro_torch.optim.optimizer import AdamWConfig, init_adamw, leaves
+    from repro_torch.train.step import TrainState, make_train_step
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config(MOE_TRAIN_ARCH)
+    kw = dict(device="cuda", dtype=torch.bfloat16, param_dtype=torch.float32)
+    model = Model(cfg, **kw)                           # remat on, as the reference
+    params = model.init(torch.Generator(device="cuda").manual_seed(seed))
+    n_params = sum(p.numel() for p in leaves(params))
+    group = cfg.moe_group_size or TRAIN_SEQ
+    cap = max(int(group * cfg.top_k * cfg.capacity_factor / cfg.n_experts), 1)
+    data = SyntheticPipeline(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                                        global_batch=TRAIN_BATCH, seed=seed))
+    print(f"moe train model: {MOE_TRAIN_ARCH} layers={cfg.n_layers} d_model={cfg.d_model} "
+          f"heads={cfg.n_heads}/{cfg.n_kv_heads} experts={cfg.n_experts} top_k={cfg.top_k} "
+          f"d_ff={cfg.d_ff} vocab={cfg.vocab} params={n_params} fp32 master weights + AdamW, "
+          f"bf16 compute, remat, batch {TRAIN_BATCH} x seq {TRAIN_SEQ}, {VOCAB_CHUNKS} vocab "
+          f"chunks, moe_group_size {cfg.moe_group_size} (groups of {group} tokens), capacity "
+          f"factor {cfg.capacity_factor} (C = {cap}); [{smi}]", flush=True)
+    batch = {k: v.cuda() for k, v in data.batch_at(0).items()}
+    grads = compare_grads(model, Model(cfg, use_kernels=False, **kw), params, batch,
+                          gates=MOE_GRAD_GATES,
+                          fault=(f"gating backward x {GRAD_FAULT_GATE}", gating_fault),
+                          prefix="moe train")
+
+    opt = AdamWConfig(lr=3e-4, warmup_steps=1, total_steps=TRAIN_STEPS)
+    trainer = Trainer(model, data, opt, TrainerConfig(total_steps=TRAIN_STEPS,
+                                                      vocab_chunks=VOCAB_CHUNKS))
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+
+    def log(step, m):
+        print(f"moe train step {step}: loss {m['loss']:.6f} lr {m['lr']:.3e} grad_norm "
+              f"{m['grad_norm']:.6f} {m['step_time_s'] * 1e3:.1f} ms "
+              f"{tokens / m['step_time_s']:.1f} tokens/s; [{smi}]", flush=True)
+
+    start = TrainState(params, init_adamw(params))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    kernels.reset_launches()
+    state, hist = trainer.run(start_state=start, on_metrics=log)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    per_step = {k: counts[k] // TRAIN_STEPS for k in
+                ("moe_gating", "flash_attention_fwd", "flash_attention_bwd", "rmsnorm")}
+    print(f"moe train: {len(hist)} steps, peak memory {peak / 2 ** 30:.2f} GiB "
+          f"({before / 2 ** 30:.2f} GiB allocated before the run); launches moe_gating "
+          f"{counts['moe_gating']} flash_attention_fwd {counts['flash_attention_fwd']} "
+          f"flash_attention_bwd {counts['flash_attention_bwd']} rmsnorm {counts['rmsnorm']} "
+          f"(a step: {per_step}); [{smi}]", flush=True)
+    losses = [m["loss"] for _, m in hist]
+    if len(hist) != TRAIN_STEPS or not np.isfinite(losses).all():
+        fail(f"moe train: losses {losses}")
+    want = dict(moe_gating=2 * cfg.n_layers, flash_attention_fwd=2 * cfg.n_layers,
+                flash_attention_bwd=cfg.n_layers)
+    for name, n in want.items():      # forward and remat per layer; one backward
+        if counts[name] != n * TRAIN_STEPS:
+            fail(f"moe train: {name} launched {counts[name]} times in {TRAIN_STEPS} "
+                 f"steps, not {n} a step")
+    if counts["rmsnorm"] == 0:
+        fail("moe train: rmsnorm never launched")
+    no_ragged_rmsnorm("moe training", counts)
+
+    # capacity drops on the trained weights, one forward of the next batch
+    batch = {k: v.cuda() for k, v in data.batch_at(TRAIN_STEPS).items()}
+    with moe_tap() as tap, torch.no_grad():
+        model.backbone(state.params, batch)
+    dropped = sum(d[2] for d in tap["dispatches"])
+    choices = cfg.n_layers * tokens * cfg.top_k
+    per_layer = [d[2] for d in tap["dispatches"]]
+    print(f"moe train drops: {dropped} of {choices} token-expert choices dropped at capacity "
+          f"factor {cfg.capacity_factor} ({dropped / choices:.4f}); per layer {per_layer}; "
+          f"[{smi}]", flush=True)
+    del tap
+
+    step_fn = make_train_step(model, opt, vocab_chunks=VOCAB_CHUNKS)
+    profile = profile_phase("moe_train_step", lambda: step_fn(state, batch), 1)
+    times = [m["step_time_s"] for _, m in hist]
+    rec = dict(grad_check=grads, history=hist, peak_bytes=peak, allocated_before_bytes=before,
+               n_params=n_params, step_ms=[t * 1e3 for t in times],
+               tokens_s=[tokens / t for t in times], counts=counts, dropped=dropped,
+               choices=choices, dropped_per_layer=per_layer, capacity=cap, profile=profile)
+    rec["wall_s"] = time.perf_counter() - t_phase
+    print(f"moe train phase: {rec['wall_s']:.1f} s; [{smi}]", flush=True)
+    return rec, counts
 
 
 def fig5_device_time(seed: int, iters: int = 5) -> dict:
@@ -4580,23 +5019,33 @@ def main():
     torch.cuda.empty_cache()      # the MoE weights make way for training's
     train_rec, train_counts = run_training(cfg, args.seed)
     phases["train_step"] = train_rec.pop("profile")
+    torch.cuda.empty_cache()      # phase 5's state makes way for the checkpoints'
+    ckpt_rec, ckpt_counts = run_ckpt(args.seed, smi)
+    torch.cuda.empty_cache()
+    moe_train_rec, moe_train_counts = run_moe_train(args.seed, smi)
+    phases["moe_train_step"] = moe_train_rec.pop("profile")
     flash_branch_launches(
         {"serve dense": dense_counts, "serve paged": paged_counts,
          "sampled bf16 runs": sampled_counts,
          "tiered bf16 runs": tiered_counts, "shared bf16 runs": shared_counts,
          "shared int8 run": shared_int8, "sched bf16 runs": sched_counts,
          "faults bf16 runs": faults_counts, "openloop bf16 runs": openloop_counts,
-         "moe serve": moe_counts, "train": train_counts},
+         "moe serve": moe_counts, "train": train_counts, "ckpt train": ckpt_counts,
+         "moe train": moe_train_counts},
         {"C1 control fp32": c1["launches"], "shared fp32 control": shared_fp32,
          "sched fp32 runs": sched_fp32, "faults fp32 runs": faults_fp32,
          "openloop fp32 runs": openloop_fp32,
          "sampled fp32 control": sampled_fp32,
          "tiered fp32 control": tiered_rec["fp32_control_launches"],
          "moe control fp32 no drops": moe_rec["preemption_controls"]["fp32 no drops"]["launches"]})
-    # training's launches belong to the training-shape rows
-    rows["rmsnorm (training)"]["launches"] = train_counts["rmsnorm"]
-    rows["flash_attention_bwd"]["launches"] += train_counts["flash_attention_bwd"]
-    rows["flash_attention_fwd (training)"]["launches"] = train_counts["flash_attention_fwd"]
+    # training's launches belong to the training-shape rows (phases 5, 5b
+    # and 5c), and MoE training's gating launches to moe_gating's
+    training = (train_counts, ckpt_counts, moe_train_counts)
+    rows["rmsnorm (training)"]["launches"] = sum(c["rmsnorm"] for c in training)
+    rows["flash_attention_bwd"]["launches"] += sum(c["flash_attention_bwd"] for c in training)
+    rows["flash_attention_fwd (training)"]["launches"] = sum(
+        c["flash_attention_fwd"] for c in training)
+    rows["moe_gating"]["launches"] += moe_train_counts["moe_gating"]
 
     print(f"fault-free engines: {FAULT_FREE['engines']} checked, none recovered or "
           f"degraded, every paged pool audit-clean", flush=True)
@@ -4606,6 +5055,7 @@ def main():
         result, device=smi, phases=phases, dense_tok_s=dense_tok / dense_wall,
         paged_tok_s=paged_tok / paged_wall, dense_counts=dense_counts,
         paged_counts=paged_counts, preemptions=preemptions, train=train_rec,
+        ckpt=ckpt_rec, moe_train=moe_train_rec,
         num_pages=num_pages, teacher_forced_max_err=err, logit_scale=scale,
         fig5=fig5_rows, fig5_counts=fig5_counts, fig5_device=fig5_device,
         pr_transform=pr_rec, table4=table4,

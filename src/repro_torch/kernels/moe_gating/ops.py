@@ -1,8 +1,13 @@
 """MoE gating wrapper: the CUDA kernel (``moe_gating.cu``) on a CUDA
 tensor, the plain version (``ref.py``) on a CPU tensor.  Counterpart of
-``repro.kernels.moe_gating.moe_gating.moe_gating``.  It has no backward:
-a router that needs a gradient through it is refused, never handed a
-silent zero gradient."""
+``repro.kernels.moe_gating.moe_gating.moe_gating``.
+
+Where the logits need a gradient (training), the call goes through
+:class:`MoEGating`, whose forward is that same kernel or plain version
+and whose backward is the gradient of the reference's ``gating_topk``:
+the mask is discrete, so the gradient flows only through the softmax
+over the selected experts.  Serving runs under ``no_grad`` and meets no
+``Function`` node."""
 
 from __future__ import annotations
 
@@ -16,12 +21,53 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ARGS = [build.P, build.P, build.P, build.I, build.I, build.I, build.I, build.P]
 
 
+def _gate(logits: torch.Tensor, top_k: int):
+    if logits.device.type == "cpu":
+        return moe_gating_ref(logits, top_k)
+    if logits.device.type != "cuda":
+        raise ValueError(f"moe_gating runs on CUDA or CPU tensors; got "
+                         f"{logits.device}")
+    t, e = logits.shape
+    x = logits.contiguous()
+    w = torch.empty((t, e), dtype=torch.float32, device=x.device)
+    m = torch.empty((t, e), dtype=torch.int32, device=x.device)
+    build.launch("repro_moe_gating", _ARGS, x.device, x.data_ptr(), w.data_ptr(),
+                 m.data_ptr(), t, e, top_k, _DTYPES[x.dtype])
+    moe_gating.launches += 1
+    return w, m
+
+
+class MoEGating(torch.autograd.Function):
+    """(weights, mask) of ``moe_gating`` with the weights differentiable
+    in the logits.  The forward saves the f32 weights w; the backward of
+    their gradient g is w * (g - sum_j w_j g_j) in f32, cast to the
+    logits' dtype, the same torch formula on either device: zero off the
+    selected experts (w is zero there), NaN across a row whose weights
+    are NaN.  The reference has no backward kernel for this function, so
+    neither does the port."""
+
+    @staticmethod
+    def forward(ctx, logits: torch.Tensor, top_k: int):
+        w, m = _gate(logits, top_k)
+        ctx.save_for_backward(w)
+        ctx.logits_dtype = logits.dtype
+        ctx.mark_non_differentiable(m)
+        return w, m
+
+    @staticmethod
+    def backward(ctx, gw, _gm):
+        (w,) = ctx.saved_tensors
+        gw = gw.float()
+        return (w * (gw - (w * gw).sum(dim=-1, keepdim=True))).to(ctx.logits_dtype), None
+
+
 def moe_gating(logits: torch.Tensor, top_k: int):
     """logits (t, E) f32/bf16, E <= 128 -> (weights (t, E) f32: softmax
-    over the top_k selected experts, zero elsewhere; mask (t, E) int32)."""
+    over the top_k selected experts, zero elsewhere; mask (t, E) int32).
+    Differentiable in the logits where they need a gradient."""
     if logits.dim() != 2:
         raise ValueError(f"moe_gating takes (tokens, experts); got {tuple(logits.shape)}")
-    t, e = logits.shape
+    e = logits.shape[1]
     if e > MAX_EXPERTS:
         raise ValueError(f"moe_gating holds at most {MAX_EXPERTS} experts "
                          f"in a warp's registers; got E={e}")
@@ -30,20 +76,8 @@ def moe_gating(logits: torch.Tensor, top_k: int):
     if logits.dtype not in _DTYPES:
         raise TypeError(f"moe_gating takes f32/bf16 logits; got {logits.dtype}")
     if torch.is_grad_enabled() and logits.requires_grad:
-        raise RuntimeError("moe_gating has no backward: the router logits need "
-                           "a gradient (MoE training is not ported, ROADMAP)")
-    if logits.device.type == "cpu":
-        return moe_gating_ref(logits, top_k)
-    if logits.device.type != "cuda":
-        raise ValueError(f"moe_gating runs on CUDA or CPU tensors; got "
-                         f"{logits.device}")
-    x = logits.contiguous()
-    w = torch.empty((t, e), dtype=torch.float32, device=x.device)
-    m = torch.empty((t, e), dtype=torch.int32, device=x.device)
-    build.launch("repro_moe_gating", _ARGS, x.device, x.data_ptr(), w.data_ptr(),
-                 m.data_ptr(), t, e, top_k, _DTYPES[x.dtype])
-    moe_gating.launches += 1
-    return w, m
+        return MoEGating.apply(logits, top_k)
+    return _gate(logits, top_k)
 
 
 moe_gating.launches = 0

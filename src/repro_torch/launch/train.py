@@ -1,13 +1,15 @@
 """Training launcher.  Counterpart of ``repro.launch.train``, with its flags.
 
 Like the reference it always takes the reduced config (its ``--reduced``
-flag cannot be turned off) and trains in fp32; the full-width run on the
-card is ``chip_smoke.py``'s training phase.  Runs on ``cuda`` unless
-``--device cpu``.  ``--ckpt-dir`` raises until checkpoints are ported
-(ROADMAP A13); the reference's ``--ckpt-every`` comes with them.
+flag cannot be turned off) and trains in fp32; the full-width runs on the
+card are ``chip_smoke.py``'s training phases.  Trains the dense family
+(qwen2-1.5b) and the MoE family (granite-moe-1b-a400m, olmoe-1b-7b).
+Runs on ``cuda`` unless ``--device cpu``.  With ``--ckpt-dir`` it commits
+a checkpoint every ``--ckpt-every`` steps and, run again on the same
+folder, resumes from the newest committed step.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-1.5b \\
-      --steps 50 --batch 8 --seq 128 [--device cpu]
+      --steps 50 --batch 8 --seq 128 [--ckpt-dir DIR] [--device cpu]
 """
 
 from __future__ import annotations
@@ -33,8 +35,8 @@ def main(argv=None):
     ap.add_argument("--seq", type=int, default=128)
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--accum", type=int, default=1)
-    ap.add_argument("--ckpt-dir", default=None,
-                    help="not ported yet: raises (ROADMAP A13)")
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--ckpt-every", type=int, default=20)
     ap.add_argument("--warp-backend", default="auto",
                     choices=["auto", "hw", "sw", "kernel"],
                     help="rmsnorm reduction lowering (auto: the CUDA kernel, "
@@ -60,7 +62,8 @@ def main(argv=None):
                       total_steps=args.steps)
     trainer = Trainer(model, data, opt, TrainerConfig(
         total_steps=args.steps, checkpoint_dir=args.ckpt_dir,
-        accum_steps=args.accum, vocab_chunks=4))
+        checkpoint_every=args.ckpt_every, accum_steps=args.accum,
+        vocab_chunks=4))
 
     def log(step, m):
         if step % 5 == 0 or step == args.steps - 1:
@@ -70,6 +73,12 @@ def main(argv=None):
 
     gen = torch.Generator(device=model.device).manual_seed(args.seed)
     state, history = trainer.run(gen, on_metrics=log)
+    if not history:
+        print(f"nothing to do: {args.ckpt_dir} holds a step at or past {args.steps}")
+        return history
+    if history[0][0] > 0:
+        print(f"resumed at step {history[0][0]} from the committed checkpoint "
+              f"in {args.ckpt_dir}")
     first, last = history[0][1]["loss"], history[-1][1]["loss"]
     n_params = sum(p.numel() for p in leaves(state.params))
     print(f"loss {first:.4f} -> {last:.4f} over {len(history)} steps "

@@ -1,14 +1,18 @@
 """Mixture-of-Experts layer: top-k gating through the ``moe_gating`` kernel
-and the reference's grouped capacity dispatch.
+and the reference's grouped capacity dispatch, for serving and training.
 
-Counterpart of ``repro.models.moe`` for serving.  Each group (one
-sequence, or ``cfg.moe_group_size`` tokens of one) gives every expert
+Counterpart of ``repro.models.moe``.  Each group (one sequence, or
+``cfg.moe_group_size`` tokens of one) gives every expert
 C = max(int(S * top_k * cf / E), 1) slots; a token's position in its
 expert's buffer is the running count of the group's earlier tokens that
 chose the expert, and tokens past C are dropped.  Dispatch and combine are
 the reference's dense one-hot products (B, S, E, C), so a non-finite
 hidden state poisons its own group's output (0 x NaN) and only that group,
-as in the reference.
+as in the reference.  Training dispatches at ``cfg.capacity_factor`` and
+differentiates the gating weights through ``MoEGating`` (the kernel's
+forward, the reference's softmax gradient); like the reference's training
+loss it adds no load-balancing term, and the reference's
+``aux_load_balance_loss``, which no path calls, is not ported.
 """
 
 from __future__ import annotations
@@ -28,8 +32,9 @@ def gating_topk(logits: torch.Tensor, top_k: int, use_kernel: bool = True):
     rounds of max-extract (lowest expert id wins ties), softmax over the
     selected experts.  The reference's ``gating_topk`` computes the same
     function in jnp; the port calls the kernel wrapper (its plain version
-    on CPU tensors), or the plain version on any device when
-    ``use_kernel`` is False."""
+    on CPU tensors; through ``MoEGating`` where the logits need a
+    gradient), or the plain version on any device when ``use_kernel`` is
+    False (autograd then differentiates the plain version itself)."""
     shape = logits.shape
     fn = moe_gating if use_kernel else moe_gating_ref
     w, m = fn(logits.reshape(-1, shape[-1]), top_k)

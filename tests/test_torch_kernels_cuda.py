@@ -1239,9 +1239,46 @@ def test_cuda_moe_gating_refuses_what_it_cannot_take():
     requires_cuda()
     with pytest.raises(ValueError, match="128"):
         moe_gating(torch.zeros(4, 129, device="cuda"), 2)
-    x = torch.zeros(4, 64, device="cuda", requires_grad=True)
-    with pytest.raises(RuntimeError, match="no backward"):
-        moe_gating(x, 8)
+    # a router that needs a gradient goes through MoEGating: the kernel's
+    # forward (one launch), a gradient zero off the selected experts
+    x = torch.randn(4, 64, device="cuda", requires_grad=True)
+    before = moe_gating.launches
+    w, m = moe_gating(x, 8)
+    assert moe_gating.launches == before + 1
+    assert type(w.grad_fn).__name__ == "MoEGatingBackward"
+    (w * torch.randn_like(w)).sum().backward()
+    assert x.grad.abs().sum() > 0 and (x.grad[m == 0] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("t,e,k", [(8192, 32, 8), (512, 64, 8)],
+                         ids=["granite-train", "olmoe-prefill"])
+def test_cuda_moe_gating_backward_matches_autograd_of_plain(t, e, k, dtype):
+    """MoEGating on the card (the kernel's forward, the torch backward)
+    against autograd through moe_gating_ref on the same logits on the
+    card, half the rows small integers tied many times over: masks equal,
+    weights within 1e-6, gradients within a few f32 ulps (f32 logits) or
+    one bf16 ulp (bf16 logits: each side rounds its f32 gradient once)."""
+    requires_cuda()
+    gen = torch.Generator(device="cuda").manual_seed(t + e)
+    x = torch.randn(t, e, device="cuda", generator=gen)
+    x[::2] = torch.round(x[::2] * 1.5)
+    x = x.to(dtype)
+    g = torch.randn(t, e, device="cuda", generator=gen)
+    a, b = x.clone().requires_grad_(), x.clone().requires_grad_()
+    before = moe_gating.launches
+    w, m = moe_gating(a, k)
+    (w * g).sum().backward()
+    assert moe_gating.launches == before + 1
+    pw, pm = moe_gating_ref(b, k)
+    (pw * g).sum().backward()
+    torch.cuda.synchronize()
+    assert torch.equal(m, pm)
+    torch.testing.assert_close(w, pw.detach(), atol=1e-6, rtol=0)
+    assert a.grad.dtype == dtype
+    tol = dict(atol=1e-6, rtol=0) if dtype == torch.float32 else dict(atol=1e-6, rtol=2 ** -7)
+    torch.testing.assert_close(a.grad.float(), b.grad.float(), **tol)
 
 
 @pytest.mark.cuda
@@ -2184,6 +2221,7 @@ def test_port_imports_neither_jax_nor_repro():
         "import sys, importlib, pkgutil\n"
         "sys.modules['jax'] = None\n"
         "sys.modules['repro'] = None\n"
+        "sys.modules['msgpack'] = None\n"
         "import repro_torch\n"
         "mods = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.')]\n"
         "for m in mods: importlib.import_module(m)\n"
@@ -2207,7 +2245,8 @@ def test_port_imports_neither_jax_nor_repro():
                  "serve.engine", "serve.step_graph", "core.ir", "core.pr_transform",
                  "bench.pr_transform_bench", "bench.table4_overhead", "quickstart",
                  "serve.sampling", "serve_lm", "serve.sla", "serve.async_engine",
-                 "launch.serve"):
+                 "launch.serve", "checkpoint.checkpoint", "checkpoint._manifest_codec",
+                 "train_lm"):
         assert f"repro_torch.{name}" in mods, name
 
 

@@ -194,11 +194,15 @@ def test_gating_wrapper_refuses_what_it_cannot_take():
         moe_gating(x.half(), 2)
     with pytest.raises(ValueError, match="CUDA or CPU"):
         moe_gating(torch.empty(4, 16, device="meta"), 2)
-    # no backward: a router that needs a gradient is refused, not zeroed
-    with pytest.raises(RuntimeError, match="no backward"):
-        moe_gating(x.requires_grad_(), 2)
+    # a router that needs a gradient goes through MoEGating and gets the
+    # reference's gradient (tests/test_torch_moe_train.py), never a zero
+    w, m = moe_gating(x.requires_grad_(), 2)
+    assert type(w.grad_fn).__name__ == "MoEGatingBackward" and not m.requires_grad
+    (w * torch.arange(16.0)).sum().backward()
+    assert x.grad.abs().sum() > 0 and (x.grad[m == 0] == 0).all()
     with torch.no_grad():
-        moe_gating(x, 2)
+        w, _ = moe_gating(x, 2)
+    assert w.grad_fn is None
 
 
 # ---------------------------------------------------------------------------
@@ -335,11 +339,24 @@ def test_forward_matches_reference_without_gradients():
 
 
 def test_trainer_refuses_the_moe_family():
-    from repro_torch.optim.optimizer import AdamWConfig
-    from repro_torch.train.trainer import Trainer
+    """The MoE family, refused before its gating had a backward, now
+    trains: two Trainer steps of reduced OLMoE move every leaf, the
+    router's included (the reference's losses: test_torch_moe_train.py)."""
+    from repro_torch.data.pipeline import DataConfig, SyntheticPipeline
+    from repro_torch.optim.optimizer import AdamWConfig, named_leaves
+    from repro_torch.train.step import TrainState, init_train_state
+    from repro_torch.train.trainer import Trainer, TrainerConfig
 
-    with pytest.raises(NotImplementedError, match="A14"):
-        Trainer(_models("olmoe-1b-7b")["tm"], None, AdamWConfig())
+    model = _models("olmoe-1b-7b")["tm"]
+    state = init_train_state(model, torch.Generator().manual_seed(0))
+    before = {k: v.clone() for k, v in named_leaves(state.params)}
+    data = SyntheticPipeline(DataConfig(vocab=512, seq_len=16, global_batch=2))
+    tr = Trainer(model, data, AdamWConfig(warmup_steps=1, total_steps=2),
+                 TrainerConfig(total_steps=2, vocab_chunks=2))
+    state, hist = tr.run(start_state=TrainState(state.params, state.opt))
+    assert len(hist) == 2 and all(np.isfinite(m["loss"]) for _, m in hist)
+    for k, v in named_leaves(state.params):
+        assert not torch.equal(v, before[k]), k
 
 
 # ---------------------------------------------------------------------------

@@ -26,6 +26,7 @@ from repro.optim import optimizer as jopt  # noqa: E402
 from repro.train import step as jstep  # noqa: E402
 from repro.train.trainer import Trainer as JaxTrainer  # noqa: E402
 from repro.train.trainer import TrainerConfig as JaxTrainerConfig  # noqa: E402
+from repro_torch.checkpoint.checkpoint import latest_step  # noqa: E402
 from repro_torch.configs import reduced_config  # noqa: E402
 from repro_torch.data.pipeline import DataConfig, SyntheticPipeline  # noqa: E402
 from repro_torch.kernels.flash_attention.ops import flash_mha  # noqa: E402
@@ -421,7 +422,7 @@ def test_pipeline_batch_at_is_pure():
                                      n_frontend_tokens=2))
 
 
-def test_trainer_loop_hooks():
+def test_trainer_loop_hooks(tmp_path):
     cfg = reduced_config(ARCH)
     model = Model(cfg, device="cpu", dtype=torch.float32)
     data = SyntheticPipeline(DataConfig(vocab=cfg.vocab, seq_len=8, global_batch=2))
@@ -433,8 +434,20 @@ def test_trainer_loop_hooks():
                      should_stop=lambda: len(seen) == 2)
     assert seen == [0, 1] and len(hist) == 2
     assert all(np.isfinite(x["loss"]) for _, x in hist)
-    with pytest.raises(NotImplementedError, match="A13"):
-        Trainer(model, data, opt, TrainerConfig(checkpoint_dir="ckpt"))
+    # the preemption hook commits a checkpoint where a folder is set, and
+    # init_or_restore picks it up
+    ckpt = str(tmp_path / "ckpt")
+    seen.clear()
+    tr = Trainer(model, data, opt, TrainerConfig(total_steps=4, vocab_chunks=2,
+                                                 checkpoint_every=100, checkpoint_dir=ckpt))
+    _, hist = tr.run(torch.Generator().manual_seed(0),
+                     on_metrics=lambda s, mt: seen.append(s),
+                     should_stop=lambda: len(seen) == 2)
+    assert latest_step(ckpt) == 2
+    state, step = tr.init_or_restore(torch.Generator().manual_seed(5))
+    assert step == 2 and state.opt.step == 2
+    _, again = tr.run(start_state=state, start_step=step)
+    assert [s for s, _ in again] == [2, 3]
     with pytest.raises(ValueError, match="generator or a start state"):
         tr.run()
     tr._durations = [1.0] * 5
@@ -443,11 +456,17 @@ def test_trainer_loop_hooks():
     assert [e["step"] for e in tr.straggler_events] == [7]
 
 
-def test_train_cli_on_cpu():
+def test_train_cli_on_cpu(tmp_path, capsys):
     from repro_torch.launch.train import main
 
     hist = main(["--arch", ARCH, "--steps", "2", "--batch", "2", "--seq", "16",
                  "--device", "cpu", "--warp-backend", "sw"])
     assert len(hist) == 2 and all(np.isfinite(x["loss"]) for _, x in hist)
-    with pytest.raises(NotImplementedError, match="A13"):
-        main(["--arch", ARCH, "--device", "cpu", "--ckpt-dir", "ckpt"])
+    # --ckpt-dir / --ckpt-every: a second run on the folder resumes
+    args = ["--arch", ARCH, "--batch", "2", "--seq", "16", "--device", "cpu",
+            "--ckpt-dir", str(tmp_path), "--ckpt-every", "2"]
+    assert [s for s, _ in main(args + ["--steps", "4"])] == [0, 1, 2, 3]
+    assert latest_step(str(tmp_path)) == 4
+    assert [s for s, _ in main(args + ["--steps", "6"])] == [4, 5]
+    assert "resumed at step 4" in capsys.readouterr().out
+    assert main(args + ["--steps", "6"]) == []
