@@ -328,11 +328,61 @@ its paths:
    paths' expert choices are compared, and the plain path is run again
    with the kernel path's routing replayed.  Last, one prefill and one
    decode step are profiled; each profile must hold ``moe_gating``'s
-   device time, which the ``time`` line prints.
+   device time, which the ``time`` line prints.  Before the profiles, the
+   MoE target speculates (``spec moe ...`` lines): the same 8 requests
+   with spec_k = 4 and a 4-of-16-layer self draft on the preempting pool
+   (the verify window through ``paged_flash_verify`` at G = 1, T*G = 4,
+   the target's and the draft's routers through ``moe_gating``): accept
+   rate, tok/s beside non-speculative paged serving, preemptions (it must
+   preempt) and the token agreement with the non-speculative run
+   (reported), then request 0's verify windows teacher-forced against its
+   decode steps, kernel and plain path, within the logit tolerance.  The
+   kernel check of this phase holds ``paged_flash_verify`` at OLMoE's G =
+   1 (B 4, Hkv 16, T 4, D 128; bf16 pages, and int8 pages printed)
+   against its plain version.
+4h. Layer options (``options ...`` lines, after 4d): qwen2-1.5b at full
+   width with ``pad_vocab_to=256`` (151936 -> 152064 columns), its
+   weights the serving weights with zero rows and columns appended: in
+   fp32 compute, greedy and sampled (T 0.7, seed 3) captured paged serving
+   of 4 requests must give the unpadded model's tokens; a tied model
+   (``tie_embeddings``: no ``lm_head``, ``embed.T`` as the head) runs a
+   prefill and 8 decode steps with finite logits; one captured decode
+   step of the padded bf16 head is profiled beside the unpadded one.
+4i. The fleet (``fleet ...`` lines): qwen2-1.5b at full width, paged, on
+   12 requests of ``serve.workload.make_tenant_workload`` (64-token
+   system prompts of 4 tenants): (a) 2 mixed replicas behind the
+   cache-aware router, (b) 3 replicas disaggregated (1 prefill, 2
+   decode) behind least-loaded, (c) (b) under per-worker fault schedules
+   with a decode worker killed in round 3.  In fp32 compute (a) and (b)
+   must serve one direct engine's tokens on every request, every request
+   of (b) must cross one handoff and restore its pages (``swap_ins`` >=
+   1), each fleet audit must be clean, and in (c) every request must end
+   in a terminal status and the survivors must serve the direct engine's
+   tokens.  In bf16 the agreement with a direct engine is reported (any
+   request that differs is named), with the handoff's swap-out and
+   restore ms, each replica's census and the fleet's SLA summary.  Then
+   ``python -m repro_torch.launch.serve --replicas 2 --router
+   cache-aware`` and ``--replicas 3 --disaggregate`` run in subprocesses
+   on the card and must exit 0 with a clean fleet audit.
+7. Qwen1.5-32B (``qwen32b ...`` lines, run right after phase 2, while
+   the card holds no other model; printed before the serving lines):
+   full width and depth (64 layers, d_model 5120, 40/40 heads, d_ff
+   27392, vocab 152064, bf16, ~35.2 B parameters).  First its kernel
+   shapes against their plain versions (the flash forward at Hq = Hkv =
+   40, dense decode at 40/40 heads, rmsnorm's ragged branch over
+   5120-wide rows: rows wider than 2048 take the block-per-row branch,
+   its own row of the kernel record), then the memory count (weight
+   bytes, cache bytes, the prefill's transient copy, free device memory
+   before the init): it fails with the count if they do not fit.  Then 4
+   requests (prompts of 128-512 tokens, 16 new) served greedily on the
+   dense cache, 4 slots, max_seq 576: TTFT, decode ms a step, tok/s,
+   peak memory and the kernels' launches; request 0's first 8 tokens
+   teacher-forced on the plain path within the logit tolerance.
 
 Every serving, MoE and training run must normalize through rmsnorm's
-one-warp-a-row branch: the run fails if one launched its block-per-row
-ragged branch.  The flash rows count the bf16 branch's launches only.  The fp32 controls
+one-warp-a-row branch (the 32B run excepted, whose 5120-wide rows take
+the ragged branch by design): the run fails if one launched its
+block-per-row ragged branch.  The flash rows count the bf16 branch's launches only.  The fp32 controls
 (C1, the tiered and the MoE ones) run the f32 branch: its launches are
 printed on a line of their own, and the run fails if a bf16 run launched
 an f32 flash kernel or an fp32 control a bf16 one.
@@ -352,6 +402,7 @@ import asyncio
 import concurrent.futures
 import contextlib
 import dataclasses
+import gc
 import json
 import os
 import re
@@ -1197,7 +1248,7 @@ def make_requests(seed: int, vocab: int):
             for i, n in enumerate(lens)]
 
 
-def serve(model, params, spec, warm: bool = False, **kw):
+def serve(model, params, spec, warm: bool = False, allow_ragged: bool = False, **kw):
     """Serve ``spec`` on a fresh engine (pipelined, the engine's default,
     unless ``pipeline=False``) and time it; ``warm`` first runs one
     untimed session of the same requests on the engine, which captures
@@ -1206,7 +1257,9 @@ def serve(model, params, spec, warm: bool = False, **kw):
     session's, replays included; ``eng.peak_bytes`` is the engine's peak
     device memory: the most allocated over its sessions (its device state,
     graph pool and the steps' transients) above what was allocated
-    before it was built."""
+    before it was built.  ``allow_ragged``: the model's rows are wider
+    than rmsnorm's warp branch takes (d_model > 2048), so its ragged
+    branch is the one expected."""
     from repro_torch import kernels
     from repro_torch.serve.engine import Request, ServeEngine
 
@@ -1228,7 +1281,8 @@ def serve(model, params, spec, warm: bool = False, **kw):
     counts = kernels.launch_counts()
     eng.base_bytes = base
     eng.peak_bytes = torch.cuda.max_memory_allocated() - base
-    no_ragged_rmsnorm("a serving run", counts)
+    if not allow_ragged:
+        no_ragged_rmsnorm("a serving run", counts)
     fault_free("a serving run", eng)
     for u, _, n in spec:
         s = eng.last_stats[u]
@@ -3896,11 +3950,14 @@ def check_moe_gating(cfg, gen: torch.Generator) -> dict:
     return rows, readings
 
 
-def check_moe_shapes(cfg, gen: torch.Generator) -> dict:
+def check_moe_shapes(cfg, gen: torch.Generator, rows: dict) -> dict:
     """The serving kernels at the shapes OLMoE gives them, which the kernel
     phase (qwen2's shapes) does not reach: the flash forward at G = 1 and
     an exact, odd prompt length; dense and paged decode at G = 1 (one
     query head per KV head: 16/16, d_head 128) at the serving positions;
+    the spec_k = 4 verify window at G = 1 (T*G = 4 rows a KV head) on
+    bf16 pages (its own row of the kernel record, ``paged_flash_verify
+    (G=1)``, whose launches are the MoE speculation's) and int8 pages;
     rmsnorm over one 512-token prompt's bf16 rows of d_model 2048.  Each
     against its plain version at KERNEL_TOL, timed; dense decode also
     beside SDPA on the same inputs (for scale) and its bound.  Returns the
@@ -3916,6 +3973,9 @@ def check_moe_shapes(cfg, gen: torch.Generator) -> dict:
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
     from repro_torch.kernels.rmsnorm.ops import rmsnorm
     from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+    from repro_torch.kernels.verify_attention.ops import paged_flash_verify
+    from repro_torch.kernels.verify_attention.ref import paged_verify_attention_ref
+    from repro_torch.serve.kv_cache import quantize_kv_rows
 
     hkv, dh = cfg.n_kv_heads, cfg.d_head
     g = cfg.n_heads // hkv
@@ -3966,6 +4026,34 @@ def check_moe_shapes(cfg, gen: torch.Generator) -> dict:
         print(f"kernel {name} (OLMoE): bound_ms={r['bound_ms']:.4f} ({r['bound_by']}) "
               f"library_ms={'none' if lib is None else f'{lib:.4f}'}", flush=True)
         sdpa_factor(f"{name} (OLMoE)", r["ms"], sdpa_ms)
+    # the MoE target's verify window: spec_k = 4 at G = 1, keys up to
+    # pos + T - 1; bytes and operations counted as the qwen2 row's
+    t_w = SPEC_K
+    qv = randn(SLOTS, hkv, t_w * g, dh)
+    keys = pos.long() + t_w
+    ver_bytes = ((2 * qv.numel() + 2 * int(keys.sum()) * hkv * dh) * 2
+                 + int(((keys - 1) // PAGE_SIZE + 1).sum()) * 4)
+    ver_flops = 4 * dh * hkv * g * sum(int(p) + t + 1 for p in pos.tolist()
+                                       for t in range(t_w))
+    record_kernel(rows, f"paged_flash_verify (G={g})",
+                  "src/repro_torch/kernels/verify_attention/verify_attention.cu",
+                  "src/repro/kernels/verify_attention/verify_attention.py:118",
+                  paged_flash_verify(qv, kp, vp, bt, pos, t_window=t_w),
+                  paged_verify_attention_ref(qv, kp, vp, bt, pos, t_w), KERNEL_TOL,
+                  queued_ms(lambda: paged_flash_verify(qv, kp, vp, bt, pos, t_window=t_w)),
+                  queued_ms(lambda: paged_verify_attention_ref(qv, kp, vp, bt, pos, t_w)),
+                  ver_bytes, ver_flops, BF16_FLOPS_S, None)
+    print(f"kernel paged_flash_verify (G={g}): library_ms none (no single PyTorch call "
+          f"reads paged K/V); B {SLOTS}, Hkv {hkv}, T {t_w}, D {dh}", flush=True)
+    out[f"paged_flash_verify G={g} T={t_w}"] = {
+        k: rows[f"paged_flash_verify (G={g})"][k]
+        for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")}
+    kq, ks = quantize_kv_rows(kp.float())
+    vq, vs = quantize_kv_rows(vp.float())
+    check(f"paged_flash_verify[int8] G={g} T={t_w}",
+          lambda *a: paged_flash_verify(*a, t_window=t_w, k_scales=ks, v_scales=vs),
+          lambda *a: paged_verify_attention_ref(*a, t_window=t_w, k_scales=ks, v_scales=vs),
+          qv, kq, vq, bt, pos, queued=True)
     x, w = randn(512, cfg.d_model), randn(cfg.d_model)
     check(f"rmsnorm 512 x {cfg.d_model}", lambda *a: rmsnorm(*a, cfg.norm_eps),
           lambda *a: rmsnorm_ref(*a, cfg.norm_eps), x, w, queued=True)
@@ -4050,18 +4138,20 @@ def preemption_control(label, model, params, spec, num_pages) -> dict:
                 launches=add_counts(d_counts, p_counts))
 
 
-def run_moe(seed: int, gen: torch.Generator):
-    """Full-width OLMoE-1B-7B serving on both layouts, the plain path
-    teacher-forced, one decode step's gating launches, and the profile of
-    one prefill and one decode step.  Returns the record and the launch
-    counts of the two serve runs."""
+def run_moe(seed: int, gen: torch.Generator, rows: dict, smi: str):
+    """Full-width OLMoE-1B-7B serving on both layouts, the MoE target
+    speculating (:func:`run_spec_moe`), the plain path teacher-forced, one
+    decode step's gating launches, and the profile of one prefill and one
+    decode step.  Returns the record (the speculation's under ``"spec"``,
+    its launch counts under ``"spec_counts"``) and the launch counts of
+    the two serve runs."""
     from repro_torch import kernels
     from repro_torch.configs import get_config
     from repro_torch.models.lm import Model
     from repro_torch.optim.optimizer import leaves
 
     cfg = get_config(MOE_ARCH)
-    shapes = check_moe_shapes(cfg, gen)
+    shapes = check_moe_shapes(cfg, gen, rows)
 
     model = Model(cfg, device="cuda", dtype=torch.bfloat16)
     params = model.init(torch.Generator(device="cuda").manual_seed(seed))
@@ -4105,6 +4195,7 @@ def run_moe(seed: int, gen: torch.Generator):
           f"token agreement with dense {agree_ample:.4f}", flush=True)
     if agree_ample < 1.0:
         fail("paged serving without preemption served other tokens than dense")
+    spec_rec, spec_counts = run_spec_moe(cfg, model, params, spec, num_pages, smi)
     for name in ("rmsnorm", "flash_attention_fwd", "moe_gating"):
         if d_counts[name] == 0 or p_counts[name] == 0:
             fail(f"{name} never launched while serving MoE")
@@ -4213,7 +4304,77 @@ def run_moe(seed: int, gen: torch.Generator):
                 teacher_forced_argmax_agreement=t_agree, routing_flips=flips,
                 replayed_routing_max_err=r_err, replayed_routing_argmax_agreement=r_agree,
                 gating_per_decode_step=per_step, phases=phases, replay_probe=probe,
-                pipeline=pair), counts
+                pipeline=pair, spec=spec_rec, spec_counts=spec_counts), counts
+
+
+SPEC_MOE_DRAFT = "self:4"     # 4 of OLMoE's 16 layers
+
+
+def run_spec_moe(cfg, model, params, spec, num_pages: int, smi: str) -> tuple:
+    """Phase 6's speculation (``spec moe`` lines): the MoE target with
+    spec_k = 4 and a 4-layer self draft on the preempting pool, beside
+    non-speculative paged serving on the same pool (both engines warm:
+    each serves the requests once untimed, capturing its graphs); then
+    request 0's verify windows teacher-forced against its decode steps on
+    the kernel and the plain path.  A window of T tokens dispatches at
+    capacity max(int(T k 8 / E), 1) = T here, as a decode step drops
+    nothing at 1, so the two compute the same routing but for bf16 ties.
+    Returns the record and the run's launch counts."""
+    from repro_torch.models.lm import Model
+
+    t0 = time.perf_counter()
+    paged_kw = dict(cache_layout="paged", page_size=PAGE_SIZE, num_pages=num_pages)
+    paged, _, _, p_wall, p_tok = serve(model, params, spec, warm=True, **paged_kw)
+    paged_tok_s = p_tok / p_wall
+    out, eng, counts, wall, n_tok = serve(model, params, spec, warm=True, spec_k=SPEC_K,
+                                          draft=SPEC_MOE_DRAFT, **paged_kw)
+    rec = spec_report(f"moe {SPEC_MOE_DRAFT}", spec, out, eng, counts, wall, n_tok)
+    if eng.preemptions < 1:
+        fail("the MoE spec run was sized to preempt and did not")
+    for name in ("paged_flash_verify", "moe_gating"):
+        if counts[name] == 0:
+            fail(f"{name} never launched while the MoE target speculated")
+    # the launches add up across replays (``kernels.add_launches``): each
+    # step (a replay, or a capture's eager warm-up) verifies once a target
+    # layer and gates once a target layer and once a draft layer a proposal;
+    # each prefill (the requests', and each requeued resume's) gates once a
+    # target and a draft layer
+    g = eng.last_graph_stats
+    steps = g["replays"] + g["captured"]
+    n_t, n_d = cfg.n_layers, eng.draft_model.cfg.n_layers
+    prefills = len(spec) + eng.preemptions
+    want = {"paged_flash_verify": steps * n_t,
+            "moe_gating": steps * (n_t + n_d * (SPEC_K - 1)) + prefills * (n_t + n_d)}
+    print(f"spec moe launches: {steps} steps ({g['replays']} replays, {g['captured']} "
+          f"captured), {prefills} prefills: paged_flash_verify {counts['paged_flash_verify']} "
+          f"(expected {want['paged_flash_verify']}), moe_gating {counts['moe_gating']} "
+          f"(expected {want['moe_gating']})", flush=True)
+    if any(counts[k] != v for k, v in want.items()):
+        fail("the MoE spec run's launches do not add up across its replays and prefills")
+    agree, per_req, preempted = layout_agreement(
+        "spec moe vs non-spec paged token agreement (reported)", paged, out, eng)
+    print(f"spec moe: {n_tok / wall:.1f} tok/s against non-spec paged {paged_tok_s:.1f} "
+          f"tok/s (both warm; ratio {n_tok / wall / paged_tok_s:.3f}); mean accept rate "
+          f"{rec['mean_accept_rate']:.3f}; preemptions {eng.preemptions}; "
+          f"paged_flash_verify launches {counts['paged_flash_verify']}, moe_gating "
+          f"launches {counts['moe_gating']}; [{smi}]", flush=True)
+    uid, prompt, _ = spec[0]
+    toks = out[uid]
+    n_win = (len(toks) - 1) // SPEC_K
+    plain = Model(cfg, device="cuda", dtype=torch.bfloat16, use_kernels=False)
+    c = {}
+    for label, m in (("kernel", model), ("plain", plain)):
+        dec = teacher_force(m, params, prompt, toks)[1:1 + n_win * SPEC_K]
+        v = verify_force(m, params, prompt, toks, n_win)
+        err, scale, t_agree = compare_logits(
+            f"spec moe uid {uid} verify windows ({label} path) vs decode steps", v, dec)
+        c[label] = dict(max_err=err, logit_scale=scale, argmax_agreement=t_agree,
+                        rows=n_win * SPEC_K)
+    rec.update(nonspec_tok_s=paged_tok_s, token_agreement=agree,
+               token_agreement_per_request=per_req, preempted=preempted, c=c,
+               draft=SPEC_MOE_DRAFT, phase_wall_s=time.perf_counter() - t0)
+    print(f"spec moe: phase wall {rec['phase_wall_s']:.1f} s", flush=True)
+    return rec, counts
 
 
 # ---------------------------------------------------------------------------
@@ -4429,20 +4590,22 @@ def timed_calls(module, name: str):
         setattr(module, name, fn)
 
 
-def run_cli(label: str, cmd, smi: str, expect: str) -> dict:
-    """Run one CLI in a subprocess from the checkout; fail unless it exits
-    0 and prints ``expect``."""
+def run_cli(label: str, cmd, smi: str, expect: str,
+            keep=("loss", "resumed", "model")) -> dict:
+    """Run one CLI in a subprocess from the checkout; print the lines of
+    its output that start with one of ``keep``; fail unless it exits 0
+    and prints ``expect``."""
     t0 = time.perf_counter()
     run = subprocess.run(cmd, capture_output=True, text=True, timeout=600, cwd=ROOT,
                          env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
     wall = time.perf_counter() - t0
-    keep = [ln for ln in run.stdout.splitlines() if ln.startswith(("loss", "resumed", "model"))]
-    print(f"ckpt d {label}: {' '.join(cmd[1:])}: exit {run.returncode} in {wall:.1f} s; "
-          f"[{smi}]\n  " + "\n  ".join(keep), flush=True)
+    kept = [ln for ln in run.stdout.splitlines() if ln.lstrip().startswith(keep)]
+    print(f"{label}: {' '.join(cmd[1:])}: exit {run.returncode} in {wall:.1f} s; "
+          f"[{smi}]\n  " + "\n  ".join(kept), flush=True)
     if run.returncode != 0 or expect not in run.stdout:
-        fail(f"ckpt d {label}: exit {run.returncode}, {expect!r} printed: "
+        fail(f"{label}: exit {run.returncode}, {expect!r} printed: "
              f"{expect in run.stdout}; {run.stderr[-2000:]}")
-    return dict(returncode=run.returncode, wall_s=wall, lines=keep)
+    return dict(returncode=run.returncode, wall_s=wall, lines=kept)
 
 
 def run_ckpt(seed: int, smi: str) -> tuple:
@@ -4611,11 +4774,11 @@ def run_ckpt(seed: int, smi: str) -> tuple:
                 "--ckpt-dir", cli_dir, "--ckpt-every", str(CKPT_CLI_EVERY)]
         first, then = CKPT_CLI_STEPS
         rec["d"] = dict(
-            train=run_cli("launch.train", base + ["--steps", str(first)], smi,
+            train=run_cli("ckpt d launch.train", base + ["--steps", str(first)], smi,
                           f"over {first} steps"),
-            resume=run_cli("launch.train resumed", base + ["--steps", str(then)], smi,
+            resume=run_cli("ckpt d launch.train resumed", base + ["--steps", str(then)], smi,
                            f"resumed at step {first}"),
-            train_lm=run_cli("train_lm", [sys.executable, "-m", "repro_torch.train_lm",
+            train_lm=run_cli("ckpt d train_lm", [sys.executable, "-m", "repro_torch.train_lm",
                                           "--steps", str(TRAIN_LM_STEPS), "--ckpt",
                                           os.path.join(root, "train_lm")], smi,
                              f"resumed at step {TRAIN_LM_STEPS}"))
@@ -4816,6 +4979,438 @@ def print_ptxas(report: dict, build) -> dict:
     return report
 
 
+# ---------------------------------------------------------------------------
+# phase 4h: the layer options (a padded head, tied embeddings)
+# ---------------------------------------------------------------------------
+
+OPTIONS_PAD = 256
+OPTIONS_REQS = 4
+OPTIONS_PROMPT = 256
+OPTIONS_NEW = 16
+OPTIONS_TIED_STEPS = 8
+
+
+def padded_params(params, pad: int):
+    """``params`` with ``pad`` zero rows appended to ``embed`` and zero
+    columns to ``lm_head``: the same function under ``pad_vocab_to``."""
+    e, h = params["embed"], params["lm_head"]
+    return dict(params, embed=torch.cat([e, e.new_zeros(pad, e.shape[1])]),
+                lm_head=torch.cat([h, h.new_zeros(h.shape[0], pad)], dim=1))
+
+
+def run_options(cfg, model, params, spec, gen, smi: str) -> tuple:
+    """Phase 4h (``options`` lines): the padded head against the unpadded
+    one in fp32 compute, greedy and sampled, captured paged serving (gated
+    on every token); the tied model's prefill and decode steps (finite
+    logits, the real vocabulary's width); one captured decode step of
+    each bf16 head profiled.  Returns the record and the launch counts."""
+    from repro_torch import kernels
+    from repro_torch.models.lm import Model
+
+    t0 = time.perf_counter()
+    pcfg = dataclasses.replace(cfg, pad_vocab_to=OPTIONS_PAD)
+    pad = pcfg.vocab_padded - cfg.vocab
+    print(f"options: pad_vocab_to={OPTIONS_PAD}: vocab {cfg.vocab} -> "
+          f"{pcfg.vocab_padded} ({pad} zero rows of embed, zero columns of lm_head)",
+          flush=True)
+    reqs = [(u, p[:OPTIONS_PROMPT], OPTIONS_NEW) for u, p, _ in spec[:OPTIONS_REQS]]
+    f_model, f_params = fp32_model(cfg, params)
+    fp_model = Model(pcfg, device="cuda", dtype=torch.float32)
+    fp_params = padded_params(f_params, pad)
+    paged = dict(cache_layout="paged", page_size=PAGE_SIZE)
+    rec, counts, greedy = {}, None, None
+    for label, kw in (("greedy", {}), ("sampled", dict(temperature=SAMPLE_T,
+                                                       seed=SAMPLE_SEED))):
+        base, _, c0, _, _ = serve(f_model, f_params, reqs, **paged, **kw)
+        got, eng, c1, wall, n_tok = serve(fp_model, fp_params, reqs, **paged, **kw)
+        replays = eng.last_graph_stats["replays"]
+        same = got == base
+        print(f"options {label} fp32: the padded head serves the unpadded model's tokens "
+              f"on {sum(got[u] == base[u] for u in base)} of {len(base)} requests; "
+              f"{n_tok} tokens in {wall:.3f} s; {replays} captured replays; [{smi}]",
+              flush=True)
+        if not same:
+            fail(f"options {label}: the padded head served other tokens than the "
+                 "unpadded model in fp32")
+        if replays == 0:
+            fail(f"options {label}: the padded head's paged serving replayed no "
+                 "captured step")
+        rec[label] = dict(same_tokens=same, replays=replays, tokens=n_tok, wall_s=wall)
+        counts = add_counts(c0, c1) if counts is None else add_counts(counts,
+                                                                      add_counts(c0, c1))
+        greedy = base if greedy is None else greedy
+    del f_model, f_params, fp_model, fp_params
+
+    # tied: no lm_head, embed.T is the head (the serving weights' embed)
+    t_model = Model(dataclasses.replace(cfg, tie_embeddings=True), device="cuda",
+                    dtype=torch.bfloat16)
+    t_params = {k: v for k, v in params.items() if k != "lm_head"}
+    uid, prompt, _ = reqs[0]
+    kernels.reset_launches()
+    tied = teacher_force(t_model, t_params, prompt, greedy[uid][:OPTIONS_TIED_STEPS + 1])
+    torch.cuda.synchronize()
+    t_counts = kernels.launch_counts()
+    finite = bool(torch.isfinite(tied).all())
+    print(f"options tied: prefill + {tied.shape[0] - 1} decode steps, logits "
+          f"{tuple(tied.shape)}, finite {finite}, |logit| max "
+          f"{tied.abs().max().item():.4e}", flush=True)
+    if not finite or tied.shape != (OPTIONS_TIED_STEPS + 1, cfg.vocab):
+        fail("the tied model's logits are not finite or not the vocabulary's width")
+    counts = add_counts(counts, t_counts)
+    rec["tied"] = dict(steps=tied.shape[0], finite=finite)
+    del t_model, t_params, tied
+
+    # one captured decode step of each bf16 head, profiled
+    pb_model = Model(pcfg, device="cuda", dtype=torch.bfloat16)
+    pb_params = padded_params(params, pad)
+    steps = {"unpadded": graph_phase("options_decode_step_graph", model, params, "dense",
+                                     gen),
+             "padded": graph_phase("options_decode_step_padded_graph", pb_model,
+                                   pb_params, "dense", gen)}
+    del pb_model, pb_params
+    print(f"options decode step (captured, bf16, {SLOTS} slots): padded head "
+          f"{steps['padded']['device_ms']:.4f} kernel ms against unpadded "
+          f"{steps['unpadded']['device_ms']:.4f}; [{smi}]", flush=True)
+    rec["decode_step"] = {k: dict(device_ms=v["device_ms"], wall_ms=v["wall_ms"])
+                          for k, v in steps.items()}
+    rec["wall_s"] = time.perf_counter() - t0
+    print(f"options: phase wall {rec['wall_s']:.1f} s", flush=True)
+    return rec, counts
+
+
+# ---------------------------------------------------------------------------
+# phase 4i: the fleet (engine workers, router, controller)
+# ---------------------------------------------------------------------------
+
+FLEET_N = 12
+FLEET_SYSTEM = 64
+FLEET_FAULTS_SEED = 13
+FLEET_KILL_ROUND = 3
+FLEET_CLI_REQUESTS = 8
+
+
+def fleet_requests(seed: int, vocab: int):
+    """(uid, prompt, max_new) of 12 tenant requests: 64-token system
+    prompts of 4 tenants under a Zipf popularity, private suffixes of
+    median 48 (at most 192) tokens, median 16 (at most 32) new tokens."""
+    from repro_torch.serve.workload import make_tenant_workload
+
+    timed, tenant_of = make_tenant_workload(
+        "poisson", FLEET_N, vocab=vocab, system_len=FLEET_SYSTEM, seed=seed,
+        suffix_median=48, suffix_max=192, out_median=16, out_max=32)
+    return [(t.request.uid, t.request.prompt, t.request.max_new_tokens)
+            for t in timed], tenant_of
+
+
+def fleet_run(model, params, spec, kill: bool = False, **kw):
+    """One fleet over ``spec`` (``serve.cluster.make_cluster``, SLOTS slots a
+    worker, 16-token pages): closed, or with worker 1 killed at round
+    FLEET_KILL_ROUND (``kill``).  Returns (tokens, controller, launch
+    counts, wall s)."""
+    from repro_torch import kernels
+    from repro_torch.serve.cluster import make_cluster
+    from repro_torch.serve.engine import Request
+
+    c = make_cluster(model, params, max_seq=MAX_SEQ, batch_slots=SLOTS,
+                     page_size=PAGE_SIZE, **kw)
+    reqs = [Request(u, list(p), n) for u, p, n in spec]
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    if kill:
+        for r in reqs:
+            c.submit(r)
+        for _ in range(FLEET_KILL_ROUND):
+            c.step()
+        c.fail_worker(1)
+        c.drain()
+        out = c.close()
+    else:
+        out = c.serve(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    no_ragged_rmsnorm("a fleet run", counts)
+    if not c.audit_report.ok:
+        fail(f"fleet audit failed: {c.audit_report.errors}")
+    return out, c, counts, wall
+
+
+def fleet_line(label: str, c, out, wall: float, smi: str):
+    from repro_torch.serve.sla import format_summary
+
+    r = c.last_stats["router"]
+    n_tok = sum(len(v) for v in out.values())
+    print(f"fleet {label}: {n_tok} tokens in {wall:.3f} s = {n_tok / wall:.1f} tok/s "
+          f"(graph captures included); router {r['policy']} decisions {r['decisions']} "
+          f"affinity_hits {r['affinity_hits']} handoffs {r['handoffs']} reroutes "
+          f"{r['reroutes']} rounds {r['rounds']}; [{smi}]", flush=True)
+    sla = c.last_stats["sla"]
+    for wid, census in sorted(sla["replicas"].items()):
+        pool = c.last_pool_stats.get(int(wid))
+        print(f"fleet {label} replica {wid} ({c.workers[int(wid)].role}): "
+              f"{census['requests']} requests {census['statuses']}; pool peak "
+              f"{pool.peak_used_pages}/{pool.num_pages} pages, {pool.swap_ins} swap-ins, "
+              f"{pool.swap_outs} swap-outs", flush=True)
+    print(f"fleet {label} fleet_summary:\n" + format_summary(sla), flush=True)
+    return dict(tokens=n_tok, wall_s=wall, tok_s=n_tok / wall, router=r,
+                replicas=sla["replicas"], statuses=sla["statuses"])
+
+
+def run_fleet_cli(label: str, args, smi: str) -> dict:
+    """``python -m repro_torch.launch.serve`` with the fleet flags in a
+    subprocess on the card; fails unless it exits 0 with a clean fleet
+    audit."""
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--arch", ARCH,
+           "--cache-layout", "paged", "--requests", str(FLEET_CLI_REQUESTS)] + args
+    return run_cli(f"fleet cli {label}", cmd, smi, "fleet audit: clean",
+                   keep=("cluster:", "router:", "replica", "fleet audit", "goodput"))
+
+
+def run_fleet(cfg, model, params, seed: int, smi: str) -> tuple:
+    """Phase 4i (``fleet`` lines).  fp32 (the gates): a direct engine, (a)
+    2 mixed replicas behind cache-aware, (b) 3 replicas disaggregated
+    behind least-loaded, (c) (b) under ``faults_seed`` with worker 1
+    killed.  bf16 (reported): the same direct engine, (a) and (b), the
+    handoff's swap-out and restore ms in (b).  Then the serving CLI's
+    fleet flags in two subprocesses.  Returns the record, the bf16 runs'
+    launch counts and the fp32 runs'."""
+    from repro_torch.serve import engine as engine_mod
+    from repro_torch.serve.cluster import worker as worker_mod
+    from repro_torch.serve.sla import merge_ledgers
+
+    t0 = time.perf_counter()
+    spec, tenant_of = fleet_requests(seed, cfg.vocab)
+    print(f"fleet requests: {len(spec)} of {[len(p) for _, p, _ in spec]} prompt tokens "
+          f"(tenants {[tenant_of[u] for u, _, _ in spec]}, {FLEET_SYSTEM}-token system "
+          f"prompts), {[n for _, _, n in spec]} new", flush=True)
+    paged = dict(cache_layout="paged", page_size=PAGE_SIZE)
+    a_kw = dict(replicas=2, router_policy="cache-aware")
+    b_kw = dict(replicas=3, disaggregate=True, router_policy="least-loaded")
+    rec = {"fp32": {}, "bf16": {}}
+
+    f_model, f_params = fp32_model(cfg, params)
+    direct, _, fp32_counts, _, _ = serve(f_model, f_params, spec, **paged)
+    for label, kw, kill in (("a", a_kw, False), ("b", b_kw, False),
+                            ("c", dict(b_kw, faults_seed=FLEET_FAULTS_SEED), True)):
+        out, c, counts, wall = fleet_run(f_model, f_params, spec, kill=kill, **kw)
+        fp32_counts = add_counts(fp32_counts, counts)
+        r = fleet_line(f"{label} fp32", c, out, wall, smi)
+        statuses = {u: c.fleet[u]["status"] for u, _, _ in spec}
+        same = {u: out[u] == direct[u] for u in out}
+        print(f"fleet {label} fp32: statuses {statuses}; tokens equal the direct "
+              f"engine's on {sum(same.values())} of {len(out)} ok requests", flush=True)
+        if not all(same.values()):
+            fail(f"fleet {label} fp32: requests {[u for u, v in same.items() if not v]} "
+                 "served other tokens than the direct engine")
+        if label in ("a", "b") and len(out) != len(spec):
+            fail(f"fleet {label} fp32: only {len(out)} of {len(spec)} requests ended ok")
+        if label == "b":
+            handoffs = {u: c.fleet[u]["handoffs"] for u, _, _ in spec}
+            ledgers = merge_ledgers([dict(w.ledger) for w in c.workers.values()])
+            swap_ins = {u: ledgers[u].get("swap_ins", 0) for u, _, _ in spec}
+            print(f"fleet b fp32: handoffs per request {handoffs}; swap_ins per request "
+                  f"{swap_ins}", flush=True)
+            if set(handoffs.values()) != {1} or min(swap_ins.values()) < 1:
+                fail("fleet b fp32: a request did not cross exactly one handoff with "
+                     "its pages restored")
+            r.update(handoffs=handoffs, swap_ins=swap_ins)
+        if label == "c":
+            if c.last_stats["router"]["reroutes"] < 1:
+                fail("fleet c: killing worker 1 re-routed nothing")
+            r["lost_worker"] = 1
+        r["statuses_by_uid"] = statuses
+        rec["fp32"][label] = r
+    del f_model, f_params
+
+    direct_b, _, bf16_counts, d_wall, d_tok = serve(model, params, spec, warm=True, **paged)
+    print(f"fleet direct bf16: {d_tok} tokens in {d_wall:.3f} s = {d_tok / d_wall:.1f} "
+          f"tok/s (warm engine); [{smi}]", flush=True)
+    for label, kw in (("a", a_kw), ("b", b_kw)):
+        with timed_calls(worker_mod.EngineWorker, "_detach") as out_s, \
+                timed_calls(engine_mod.ServeEngine, "_admit_swapped_row") as in_s:
+            out, c, counts, wall = fleet_run(model, params, spec, **kw)
+        bf16_counts = add_counts(bf16_counts, counts)
+        r = fleet_line(f"{label} bf16", c, out, wall, smi)
+        differ = [u for u in direct_b if out.get(u) != direct_b[u]]
+        r["agreement"] = agreement(direct_b, out)
+        r["differ"] = differ
+        print(f"fleet {label} bf16: token agreement with the direct engine "
+              f"{r['agreement']:.4f}; requests that differ {differ} (reported: a "
+              "prefill in another group or bucket may round otherwise in bf16, C1)",
+              flush=True)
+        if label == "b":
+            r["swap_out_ms"] = [1e3 * t for t in out_s]
+            r["restore_ms"] = [1e3 * t for t in in_s]
+            print(f"fleet b bf16 handoff: swap-out (commit + device->host pages) ms "
+                  f"p50 {np.median(r['swap_out_ms']):.3f} max {max(r['swap_out_ms']):.3f} "
+                  f"over {len(out_s)}; restore (host->device pages at admission) ms p50 "
+                  f"{np.median(r['restore_ms']):.3f} max {max(r['restore_ms']):.3f} over "
+                  f"{len(in_s)}; [{smi}]", flush=True)
+        rec["bf16"][label] = r
+    rec["bf16"]["direct_tok_s"] = d_tok / d_wall
+    rec["cli"] = {"a": run_fleet_cli("a", ["--replicas", "2", "--router", "cache-aware"],
+                                     smi),
+                  "b": run_fleet_cli("b", ["--replicas", "3", "--disaggregate"], smi)}
+    rec["wall_s"] = time.perf_counter() - t0
+    print(f"fleet: phase wall {rec['wall_s']:.1f} s", flush=True)
+    return rec, bf16_counts, fp32_counts
+
+
+# ---------------------------------------------------------------------------
+# phase 7: Qwen1.5-32B at full width and depth
+# ---------------------------------------------------------------------------
+
+QWEN32_ARCH = "qwen1.5-32b"
+QWEN32_NEW = 16
+QWEN32_FORCED = 8
+QWEN32_MARGIN = 2 * 2 ** 30     # activations, graph pool, allocator slack
+
+
+def check_32b_shapes(cfg, gen: torch.Generator, rows: dict) -> dict:
+    """The kernels at Qwen1.5-32B's shapes, which no earlier phase reaches:
+    the flash forward at Hq = Hkv = 40 over one 512-token prompt, dense
+    decode at 40/40 heads on the serving slots and positions, and rmsnorm
+    over 4 x 512 bf16 rows of 5120, its ragged branch (rows wider than
+    2048): a row of the kernel record of its own (``rmsnorm[ragged] (d
+    5120)``, its launches the 32B run's), beside ``F.rms_norm``."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.decode_attention.ops import flash_decode
+    from repro_torch.kernels.decode_attention.ref import flash_decode_ref
+    from repro_torch.kernels.flash_attention.ops import flash_attention_fwd
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.kernels.rmsnorm.ops import rmsnorm, takes_warp_branch
+    from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+
+    hkv, dh, d = cfg.n_kv_heads, cfg.d_head, cfg.d_model
+    g = cfg.n_heads // hkv
+    out = {}
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda").to(torch.bfloat16)
+
+    def check(name, fn, ref, *args, queued=False):
+        got, want = fn(*args), ref(*args)
+        torch.cuda.synchronize()
+        err = max_err(got, want)
+        ms, plain_ms = (cuda_ms(lambda: f(*args), iters=DECODE_ITERS if queued else 20,
+                                queued=queued) for f in (fn, ref))
+        print(f"kernel {name} (qwen32b): max_abs_err={err:.3e} tol={KERNEL_TOL} "
+              f"ms={ms:.4f} plain_ms={plain_ms:.4f}", flush=True)
+        if not agrees(got, want, KERNEL_TOL):
+            fail(f"{name} disagrees with its plain version at Qwen1.5-32B's shape")
+        out[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+
+    q, k, v = (randn(1, 512, hkv * g, dh) for _ in "qkv")
+    check(f"flash_attention_fwd Hq=Hkv={hkv} S 512", lambda *a: flash_attention_fwd(*a)[0],
+          lambda *a: flash_attention_ref(*a)[0], q, k, v)
+    qd, kv_view, vv_view, _, _, _, pos = decode_case(gen, hkv, g, dh)
+    check(f"flash_decode {hkv}/{hkv} heads", flash_decode, flash_decode_ref, qd, kv_view,
+          vv_view, pos, queued=True)
+    x, w = randn(SLOTS * 512, d), randn(d)
+    if takes_warp_branch(x, w):
+        fail(f"rows of {d} took rmsnorm's warp branch; the 32B run expects the ragged one")
+    name = f"rmsnorm[ragged] (d {d})"
+    # bytes: x read, y written, w read; operations: square, sum, scale,
+    # weight a value
+    record_kernel(rows, name, "src/repro_torch/kernels/rmsnorm/rmsnorm.cu",
+                  "src/repro/kernels/rmsnorm/rmsnorm.py:29",
+                  rmsnorm(x, w, cfg.norm_eps), rmsnorm_ref(x, w, cfg.norm_eps), KERNEL_TOL,
+                  queued_ms(lambda: rmsnorm(x, w, cfg.norm_eps)),
+                  queued_ms(lambda: rmsnorm_ref(x, w, cfg.norm_eps)),
+                  2 * (2 * x.numel() + d), 4 * x.numel(), BF16_FLOPS_S,
+                  queued_ms(lambda: F.rms_norm(x, (d,), w, cfg.norm_eps)))
+    out[name] = {k: rows[name][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                            "library_ms")}
+    return out
+
+
+def run_qwen32b(seed: int, gen: torch.Generator, rows: dict, smi: str) -> tuple:
+    """Phase 7 (``qwen32b`` lines): the kernels at the 32B shapes, the
+    memory count, greedy dense serving of 4 requests, request 0's first
+    tokens teacher-forced on the plain path.  Returns the record and the
+    serve run's launch counts."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.lm import Model
+
+    t0 = time.perf_counter()
+    cfg = get_config(QWEN32_ARCH)
+    shapes = check_32b_shapes(cfg, gen, rows)
+    d, f, L, V = cfg.d_model, cfg.d_ff, cfg.n_layers, cfg.vocab
+    hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    per_layer = (d * hq * dh + 2 * d * hkv * dh + hq * dh * d + (hq + 2 * hkv) * dh
+                 + 3 * d * f + 2 * d)
+    n_params = L * per_layer + 2 * V * d + d
+    weight_bytes = 2 * n_params
+    cache_bytes = 2 * L * SLOTS * MAX_SEQ * hkv * dh * 2
+    # the prefill returns its batch's dense K/V (at most max_seq rows) for
+    # the engine to copy into its cache
+    prefill_bytes = cache_bytes
+    # an earlier phase's engines may sit in reference cycles (their graphs
+    # hold device pools): collect them before counting what is free
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    need = weight_bytes + cache_bytes + prefill_bytes + QWEN32_MARGIN
+    print(f"qwen32b count: {n_params} parameters = {weight_bytes / 1e9:.2f} GB of bf16 "
+          f"weights; KV cache {cache_bytes / 1e9:.2f} GB ({2 * L * hkv * dh * 2 / 1e6:.2f} "
+          f"MB a token x {SLOTS} slots x {MAX_SEQ}); prefill copy {prefill_bytes / 1e9:.2f} "
+          f"GB; margin {QWEN32_MARGIN / 2 ** 30:.0f} GiB; need {need / 2 ** 30:.2f} GiB; "
+          f"free before the init {free / 2 ** 30:.2f} of {total / 2 ** 30:.2f} GiB "
+          f"(allocated {torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB); [{smi}]",
+          flush=True)
+    if need > free:
+        fail(f"Qwen1.5-32B does not fit: need {need / 2 ** 30:.2f} GiB, "
+             f"{free / 2 ** 30:.2f} GiB free")
+    model = Model(cfg, device="cuda", dtype=torch.bfloat16)
+    t_init = time.perf_counter()
+    params = model.init(torch.Generator(device="cuda").manual_seed(seed))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t_init
+    print(f"qwen32b model: layers={L} d_model={d} heads={hq}/{hkv} d_head={dh} d_ff={f} "
+          f"vocab={V} dtype=bf16; init {init_s:.1f} s (stacked leaves filled in place); "
+          f"allocated {torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB, peak "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB", flush=True)
+    rng = np.random.default_rng(seed + 32)
+    lens = [512] + rng.integers(128, 513, SLOTS - 1).tolist()
+    spec = [(i, rng.integers(0, V, n).tolist(), QWEN32_NEW) for i, n in enumerate(lens)]
+    out, eng, counts, wall, n_tok = serve(model, params, spec, warm=True, allow_ragged=True)
+    peak = eng.base_bytes + eng.peak_bytes
+    ttft = [eng.last_stats[u]["first_token_s"] - eng.last_stats[u]["enqueued_s"]
+            for u, _, _ in spec]
+    decode_ms = 1e3 * (wall - max(ttft)) / (QWEN32_NEW - 1)
+    bound_ms = 1e3 * weight_bytes / HBM_BYTES_S
+    print(f"qwen32b serve dense: {len(spec)} requests of {lens} prompt tokens, "
+          f"{QWEN32_NEW} new: {n_tok} tokens in {wall:.3f} s = {n_tok / wall:.2f} tok/s; "
+          f"TTFT ms {[round(1e3 * t, 1) for t in ttft]}; decode {decode_ms:.2f} ms a step "
+          f"(the weights' read alone {bound_ms:.2f} ms); peak memory {peak / 2 ** 30:.2f} "
+          f"GiB; launches flash_attention_fwd {counts['flash_attention_fwd']}, "
+          f"flash_decode {counts['flash_decode']}, rmsnorm[ragged] "
+          f"{counts['rmsnorm[ragged]']} (warp branch {counts['rmsnorm']}); [{smi}]",
+          flush=True)
+    for name in ("flash_attention_fwd", "flash_decode", "rmsnorm[ragged]"):
+        if counts[name] == 0:
+            fail(f"{name} never launched while serving Qwen1.5-32B")
+    uid, prompt, _ = spec[0]
+    k_logits = teacher_force(model, params, prompt, out[uid][:QWEN32_FORCED])
+    plain = Model(cfg, device="cuda", dtype=torch.bfloat16, use_kernels=False)
+    p_logits = teacher_force(plain, params, prompt, out[uid][:QWEN32_FORCED])
+    err, scale, agree = compare_logits(f"qwen32b uid {uid} plain vs kernel path",
+                                       p_logits, k_logits)
+    rec = dict(n_params=n_params, weight_bytes=weight_bytes, cache_bytes=cache_bytes,
+               free_before_init=free, total=total, init_s=init_s, tok_s=n_tok / wall,
+               wall_s=wall, ttft_s=ttft, decode_ms=decode_ms, weight_read_ms=bound_ms,
+               peak_bytes=peak, counts=counts, teacher_forced_max_err=err,
+               logit_scale=scale, teacher_forced_argmax_agreement=agree,
+               kernels_at_32b_shapes=shapes, phase_wall_s=time.perf_counter() - t0)
+    print(f"qwen32b: phase wall {rec['phase_wall_s']:.1f} s", flush=True)
+    del model, params, plain, eng, k_logits, p_logits
+    torch.cuda.empty_cache()
+    return rec, counts
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4866,6 +5461,10 @@ def main():
     for name in PR_KERNELS:
         rows[name]["launches"] += pr_rec["launches"][name]
     table4 = run_table4(ptxas)
+    # the 32B model first, while the card holds nothing else: its weights
+    # take 65.6 of the card's 79 GiB
+    qwen32b_rec, qwen32b_counts = run_qwen32b(args.seed, gen, rows, smi)
+    rows["rmsnorm[ragged] (d 5120)"]["launches"] = qwen32b_counts["rmsnorm[ragged]"]
 
     model = Model(cfg, device="cuda", dtype=torch.bfloat16)
     params = model.init(torch.Generator(device="cuda").manual_seed(args.seed))
@@ -4928,6 +5527,8 @@ def main():
         fail("a decode kernel never launched while serving")
     for name in serving_kernels:
         rows[name]["launches"] = dense_counts[name] + paged_counts[name]
+    for name in ("flash_attention_fwd", "flash_decode"):
+        rows[name]["launches"] += qwen32b_counts[name]
 
     # teacher-force the plain-version path on request 0's served tokens
     uid, prompt, _ = spec[0]
@@ -5007,14 +5608,24 @@ def main():
     for name in serving_kernels + ("paged_flash_verify",):
         rows[name]["launches"] += sampled_counts[name]
 
+    options_rec, options_counts = run_options(cfg, model, params, spec, gen, smi)
+    for name in serving_kernels:
+        rows[name]["launches"] += options_counts[name]
+    fleet_rec, fleet_counts, fleet_fp32 = run_fleet(cfg, model, params, args.seed, smi)
+    for name in serving_kernels:
+        rows[name]["launches"] += fleet_counts[name]
+
     # the serving weights, engine and logits make way for training's
     preemptions = eng.preemptions
-    del model, params, plain, m, eng, k_logits, p_logits, f_logits
+    del model, params, plain, m, eng, k_logits, p_logits, f_logits, draft1
     torch.cuda.empty_cache()
-    moe_rec, moe_counts = run_moe(args.seed, gen)
+    moe_rec, moe_counts = run_moe(args.seed, gen, rows, smi)
+    spec_moe_counts = moe_rec.pop("spec_counts")
     for name in ("rmsnorm", "flash_attention_fwd", "flash_decode", "paged_flash_decode",
                  "moe_gating"):
-        rows[name]["launches"] += moe_counts[name]
+        rows[name]["launches"] += moe_counts[name] + spec_moe_counts[name]
+    # the MoE target's verify windows are the G = 1 row's launches
+    rows["paged_flash_verify (G=1)"]["launches"] = spec_moe_counts["paged_flash_verify"]
     phases.update(moe_rec.pop("phases"))
     torch.cuda.empty_cache()      # the MoE weights make way for training's
     train_rec, train_counts = run_training(cfg, args.seed)
@@ -5030,11 +5641,13 @@ def main():
          "tiered bf16 runs": tiered_counts, "shared bf16 runs": shared_counts,
          "shared int8 run": shared_int8, "sched bf16 runs": sched_counts,
          "faults bf16 runs": faults_counts, "openloop bf16 runs": openloop_counts,
+         "fleet bf16 runs": fleet_counts, "spec moe": spec_moe_counts,
+         "qwen32b serve": qwen32b_counts,
          "moe serve": moe_counts, "train": train_counts, "ckpt train": ckpt_counts,
          "moe train": moe_train_counts},
         {"C1 control fp32": c1["launches"], "shared fp32 control": shared_fp32,
          "sched fp32 runs": sched_fp32, "faults fp32 runs": faults_fp32,
-         "openloop fp32 runs": openloop_fp32,
+         "openloop fp32 runs": openloop_fp32, "fleet fp32 runs": fleet_fp32,
          "sampled fp32 control": sampled_fp32,
          "tiered fp32 control": tiered_rec["fp32_control_launches"],
          "moe control fp32 no drops": moe_rec["preemption_controls"]["fp32 no drops"]["launches"]})
@@ -5062,7 +5675,7 @@ def main():
         warp_forms=warp_forms, spec=spec_rec, verify_t1_err=t1_err, moe=moe_rec,
         c1_control=c1, tiered=tiered_rec, int8_kernel_checks=int8_checks,
         shared=shared_rec, sampled=sampled_rec, sched=sched_rec, faults=faults_rec,
-        openloop=openloop_rec,
+        openloop=openloop_rec, options=options_rec, fleet=fleet_rec, qwen32b=qwen32b_rec,
         fault_free_engines=FAULT_FREE["engines"], verify_long=long_checks,
         replay_probes=probes,
         pipeline=PIPELINE_PAIRS,

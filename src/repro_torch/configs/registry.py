@@ -10,10 +10,13 @@ from typing import Dict
 
 from repro_torch.configs.granite_moe_1b_a400m import CONFIG as _granite
 from repro_torch.configs.olmoe_1b_7b import CONFIG as _olmoe
+from repro_torch.configs.qwen1_5_32b import CONFIG as _qwen32b
+from repro_torch.configs.qwen1_5_110b import CONFIG as _qwen110b
 from repro_torch.configs.qwen2_1_5b import CONFIG as _qwen2_15b
 from repro_torch.models.config import ModelConfig
 
-ARCHS: Dict[str, ModelConfig] = {c.name: c for c in (_olmoe, _granite, _qwen2_15b)}
+ARCHS: Dict[str, ModelConfig] = {
+    c.name: c for c in (_olmoe, _granite, _qwen110b, _qwen2_15b, _qwen32b)}
 
 
 def get_config(name: str) -> ModelConfig:

@@ -23,15 +23,28 @@ the measured figures are printed), ``--prefix-sharing`` /
 PyTorch lowering of prefill and verify attention (``jnp``, the
 reference's name, means the plain one).  Every run ends with the SLA
 block (TTFT / TBT p50/p95/p99, goodput, the status census), the
-lifecycle line and, on the paged layout, the pool's.  The fleet flags
-(``--replicas`` above 1, ``--router``, ``--disaggregate``) raise: the
-cluster is not ported yet (ROADMAP A12).
+lifecycle line and, on the paged layout, the pool's.
+
+Multi-replica serving (``serve.cluster``): ``--replicas N`` runs the
+batch through N engine workers behind a router (``--router
+round-robin|least-loaded|cache-aware``; cache-aware scores the
+content-addressed prompt-prefix overlap against load), and
+``--disaggregate`` splits roles: the first replica only prefills, the
+rest only decode, joined by a KV handoff on swap handles.  Both need
+``--cache-layout paged``.  Each worker has an engine of its own over the
+same model and weights.  The tokens are those of ``--replicas 1`` for
+any topology; the run ends with the per-request fleet table, the fleet
+SLA, each replica's census and pool, the router's decisions and the
+fleet audit.  With ``--inject-faults`` each worker runs its own schedule
+derived from the seed.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b \\
       --requests 6 --prompt-len 16 --max-new 12 [--device cpu]
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b \\
       --cache-layout paged --workload poisson --clock round --requests 12 \\
       --preempt auto --preempt-calibrate
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b \
+      --cache-layout paged --replicas 3 --disaggregate
 """
 
 from __future__ import annotations
@@ -47,16 +60,11 @@ import torch
 from repro_torch.configs.registry import reduced_config
 from repro_torch.models.lm import Model
 from repro_torch.serve.async_engine import serve_open_loop
+from repro_torch.serve.cluster import ROUTER_POLICIES, make_cluster
 from repro_torch.serve.engine import Request, ServeEngine
 from repro_torch.serve.faults import FaultSchedule
 from repro_torch.serve.sla import format_summary
 from repro_torch.serve.workload import WORKLOAD_KINDS, describe, make_workload
-
-# the reference's router policies: the flag parses them, the fleet (A12) is
-# not ported, so any but the default raises
-ROUTER_POLICIES = ("round-robin", "least-loaded", "cache-aware")
-DEFAULT_ROUTER = "cache-aware"
-
 
 def _backend(name: str) -> Optional[str]:
     """A lowering flag's value as a ``Model`` backend: auto = the model's
@@ -138,13 +146,18 @@ def build_parser() -> argparse.ArgumentParser:
                     help="measure the swap bandwidth and the decode rate at "
                          "construction and drive preempt=auto from them")
     ap.add_argument("--inject-faults", type=int, default=None, metavar="SEED",
-                    help="a seeded random fault schedule against the requests")
+                    help="a seeded random fault schedule against the requests; "
+                         "with --replicas each worker derives its own")
     ap.add_argument("--replicas", type=int, default=1,
-                    help="engine workers behind a router: not ported (A12)")
-    ap.add_argument("--router", default=DEFAULT_ROUTER, choices=list(ROUTER_POLICIES),
-                    help="replica placement: not ported (A12)")
+                    help="engine workers behind the router; the tokens stay "
+                         "those of --replicas 1 (needs --cache-layout paged)")
+    ap.add_argument("--router", default="cache-aware", choices=list(ROUTER_POLICIES),
+                    help="replica placement: rotation, the least queue + busy "
+                         "slots, or prefix affinity over content-addressed "
+                         "prompt hashes against load")
     ap.add_argument("--disaggregate", action="store_true",
-                    help="prefill and decode replicas: not ported (A12)")
+                    help="replica 0 only prefills, the rest only decode, joined "
+                         "by a KV handoff (needs --replicas >= 2)")
     return ap
 
 
@@ -231,20 +244,76 @@ def _report(args, cfg, engine, results, dt):
               f"{p.index_pages} pages left in the index")
 
 
+def _serve_cluster(args, model, params, cfg, engine_kw, timed, reqs) -> dict:
+    """The fleet path: N engine workers behind the router, closed batch or
+    the arrival process on the fleet's round clock; prints the fleet
+    table, the fleet SLA, each replica's census and pool, the router's
+    figures and the fleet audit, as the reference's CLI does."""
+    if args.inject_faults is not None:
+        print(f"injecting: per-worker schedules derived from seed {args.inject_faults}")
+    roles = (f"1 prefill + {args.replicas - 1} decode" if args.disaggregate
+             else f"{args.replicas} mixed")
+    print(f"cluster: {roles}, router={args.router}")
+    cluster = make_cluster(model, params, replicas=args.replicas,
+                           router_policy=args.router, disaggregate=args.disaggregate,
+                           faults_seed=args.inject_faults, **engine_kw)
+    t0 = time.perf_counter()
+    if timed is not None:
+        results = cluster.run_workload(timed)
+        cluster.close()
+    else:
+        results = cluster.serve(reqs)
+    dt = time.perf_counter() - t0
+    n_tok = sum(len(v) for v in results.values())
+    fleet = {u: e for u, e in cluster.fleet.items() if isinstance(u, int)}
+    print(f"{'req':>4s} {'status':>9s} {'tokens':>7s} {'replica':>8s} "
+          f"{'handoffs':>9s} {'reroutes':>9s} {'first_tok@':>11s}")
+    for uid in sorted(fleet):
+        e = fleet[uid]
+        first = f"round {e['first_token_round']}" if "first_token_round" in e else "—"
+        print(f"{uid:4d} {e['status']:>9s} {e['tokens']:7d} {str(e['worker']):>8s} "
+              f"{e['handoffs']:9d} {e['reroutes']:9d} {first:>11s}")
+    router = cluster.last_stats["router"]
+    print(f"\n{n_tok} tokens in {dt:.2f}s = {n_tok / dt:.1f} tok/s "
+          f"({args.replicas} replicas x {args.slots} slots, {router['rounds']} fleet "
+          f"rounds, {cfg.name}, {model.device})")
+    print(f"router: decisions={router['decisions']} "
+          f"affinity_hits={router['affinity_hits']} "
+          f"handoffs={router['handoffs']} reroutes={router['reroutes']}")
+    sla = cluster.last_stats["sla"]
+    print("fleet SLA:")
+    print(format_summary(sla))
+    for wid, census in sorted(sla["replicas"].items()):
+        statuses = " ".join(f"{k}={v}" for k, v in sorted(census["statuses"].items()))
+        pool = cluster.last_pool_stats.get(int(wid))
+        pool_s = (f", pool peak {pool.peak_used_pages}/{pool.num_pages} pages, "
+                  f"{pool.allocs} allocs" if pool is not None else "")
+        print(f"  replica {wid}: {census['requests']} requests "
+              f"({statuses or 'idle'}){pool_s}")
+    rep = cluster.audit_report
+    print(f"fleet audit: {'clean' if rep.ok else rep.errors}")
+    for uid in sorted(results):
+        print(f"req {uid}: {results[uid]}")
+    return dict(results=results, sla=sla, cluster=cluster)
+
+
 def main(argv: Optional[List[str]] = None) -> dict:
     ap = build_parser()
     args = ap.parse_args(argv)
-    if args.replicas > 1 or args.router != DEFAULT_ROUTER or args.disaggregate:
-        raise NotImplementedError(
-            "multi-replica serving (--replicas > 1, --router, --disaggregate) "
-            "is not ported yet (ROADMAP A12)")
+    cluster_mode = args.replicas > 1 or args.disaggregate
+    if cluster_mode and args.cache_layout != "paged":
+        ap.error("--replicas > 1 / --disaggregate move KV as pages; "
+                 "pass --cache-layout paged")
+    if args.disaggregate and args.replicas < 2:
+        ap.error("--disaggregate needs --replicas >= 2 (at least one prefill "
+                 "and one decode worker)")
 
     cfg = reduced_config(args.arch)
     model = Model(cfg, device=args.device, dtype=torch.float32,
                   attn_backend=_backend(args.attn_backend))
     params = model.init(torch.Generator(device=model.device).manual_seed(args.seed))
-    engine = ServeEngine(
-        model, params, max_seq=args.max_seq, batch_slots=args.slots,
+    engine_kw = dict(
+        max_seq=args.max_seq, batch_slots=args.slots,
         temperature=args.temperature, seed=args.seed, fused=not args.no_fused,
         attend_block=args.attend_block, prompt_block=args.prompt_block,
         cache_layout=args.cache_layout, page_size=args.page_size,
@@ -259,6 +328,10 @@ def main(argv: Optional[List[str]] = None) -> dict:
         free_page_watermark=args.free_page_watermark,
         prefill_budget=args.prefill_budget, audit=args.audit,
         pipeline=args.pipeline, preempt_calibrate=args.preempt_calibrate)
+    if cluster_mode:
+        timed, reqs = _requests(args, cfg)
+        return _serve_cluster(args, model, params, cfg, engine_kw, timed, reqs)
+    engine = ServeEngine(model, params, **engine_kw)
     if args.preempt_calibrate:
         cm = engine.cost_model
         print(f"calibrated cost model: swap {cm.swap_gbps / 1e9:.2f} GB/s, "

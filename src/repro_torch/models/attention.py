@@ -46,13 +46,18 @@ def _flash_ok(q, k, causal: bool, q_offset: int) -> bool:
 def gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   causal: bool = True, q_offset: int = 0,
                   kv_valid_len: Optional[torch.Tensor] = None,
+                  pv_bf16: bool = False,
                   use_kernel: bool = True) -> torch.Tensor:
     """q (B, Sq, Hq, D); k/v (B, Skv, Hkv, D), Hq % Hkv == 0 -> (B, Sq, Hq, D).
 
     Shapes the flash kernel can express go through it; the rest (one-token
     queries, offset or non-square causal windows) take a materialized
-    softmax, the reference's jnp path."""
-    if _flash_ok(q, k, causal, q_offset):
+    softmax, the reference's jnp path.  ``pv_bf16``: the materialized
+    path contracts P with V in bf16 (fp32 scores and softmax, P and V
+    cast to bf16), as the reference's jnp path does; the kernel ignores
+    it, so with ``use_kernel`` False a flash-shaped call takes the
+    materialized path instead of ``flash_attention_ref``."""
+    if _flash_ok(q, k, causal, q_offset) and (use_kernel or not pv_bf16):
         if use_kernel:
             return flash_mha(q, k, v, kv_valid_len, causal=causal)
         return flash_attention_ref(q, k, v, kv_valid_len, causal=causal)[0]
@@ -68,7 +73,10 @@ def gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         valid = ki[None, :] < kv_valid_len[:, None]                   # (B, Skv)
         s = torch.where(valid[:, None, None, None, :], s, NEG_INF)
     p = torch.softmax(s, dim=-1)
-    o = torch.einsum("bhgqk,bkhd->bqhgd", p, v.float())
+    if pv_bf16:
+        o = torch.einsum("bhgqk,bkhd->bqhgd", p.bfloat16(), v.bfloat16()).float()
+    else:
+        o = torch.einsum("bhgqk,bkhd->bqhgd", p, v.float())
     return o.reshape(b, sq, hq, d).to(q.dtype)
 
 
@@ -173,7 +181,7 @@ def gqa_block_kv(params, x: torch.Tensor, cfg, *, use_kernel: bool = True):
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device)
     q, k, v = gqa_qkv(params, x, cfg, positions)
-    o = gqa_attention(q, k, v, causal=True, use_kernel=use_kernel)
+    o = gqa_attention(q, k, v, causal=True, pv_bf16=cfg.pv_bf16, use_kernel=use_kernel)
     return o.reshape(b, s, -1) @ params["wo"].to(x.dtype), (k, v)
 
 

@@ -1,5 +1,9 @@
-"""Model configuration (the dense- and MoE-family fields of ``repro``'s
-``ModelConfig``; later families add theirs when they are ported)."""
+"""Model configuration: the fields of ``repro``'s ``ModelConfig`` that the
+ported families read (dense and MoE: the GQA shape, q/k/v biases, RoPE,
+the experts and their capacities) and the layer options they take (a
+padded vocabulary, tied embeddings, a bf16 P·V contraction on the plain
+attention path).  Later families add their fields when they are
+ported."""
 
 from __future__ import annotations
 
@@ -29,11 +33,31 @@ class ModelConfig:
     capacity_factor: float = 1.25
     infer_capacity_factor: float = 2.0   # prefill/decode capacity (no-drop
                                          # margin without training's budget)
+
+    # layer options
+    tie_embeddings: bool = False   # no lm_head: the head is embed.T
+    pv_bf16: bool = False          # the plain attention path contracts the
+                                   # softmax probabilities with V in bf16
+                                   # (scores, max and sum stay fp32); the
+                                   # kernel path ignores it
     moe_group_size: int = 0        # >0: dispatch in token groups of this
                                    # size (GShard grouping: the dispatch
                                    # tensor grows linearly, not
                                    # quadratically, in sequence length)
+    pad_vocab_to: int = 0          # >0: embed rows and head columns padded
+                                   # to a multiple of this; every logits
+                                   # site trims to ``vocab`` and the loss
+                                   # masks the padding
 
     def __post_init__(self):
         if self.d_head is None:
             object.__setattr__(self, "d_head", self.d_model // max(self.n_heads, 1))
+
+    @property
+    def vocab_padded(self) -> int:
+        """Rows of ``embed`` and columns of ``lm_head``: ``vocab`` rounded
+        up to a multiple of ``pad_vocab_to`` (``vocab`` when it is 0)."""
+        if self.pad_vocab_to <= 0:
+            return self.vocab
+        m = self.pad_vocab_to
+        return -(-self.vocab // m) * m

@@ -96,8 +96,9 @@ def _write_rows(cache, l: int, page: torch.Tensor, off: torch.Tensor,
 
 
 class Model:
-    """GQA decoder (q/k/v biases where the config has them, untied
-    ``lm_head``) with a SwiGLU MLP (``family == "dense"``) or a top-k MoE
+    """GQA decoder (q/k/v biases where the config has them, an
+    ``lm_head`` or, with ``cfg.tie_embeddings``, ``embed.T`` as the head)
+    with a SwiGLU MLP (``family == "dense"``) or a top-k MoE
     (``"moe"``: gating through the ``moe_gating`` kernel, the experts as
     the reference's one-hot dispatch) in each layer.
 
@@ -145,15 +146,23 @@ class Model:
     def init(self, gen: torch.Generator) -> Params:
         """Random weights in ``param_dtype`` with the reference's
         distributions, drawn from ``gen`` (which must live on
-        ``self.device``)."""
+        ``self.device``).  ``embed`` has ``cfg.vocab_padded`` rows and
+        ``lm_head`` as many columns; a tied model has no ``lm_head``.
+
+        Each stacked (L, ...) leaf is allocated once and filled layer by
+        layer, so no leaf exists twice at once (at Qwen1.5-32B a stacked
+        copy of ``w_gate`` alone is 17.9 GB in bf16); the draws are those
+        of building the L layers and stacking them, in the same order."""
         cfg, dev, dt = self.cfg, self.device, self.param_dtype
         d, f, L = cfg.d_model, cfg.d_ff, cfg.n_layers
         hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
         kw = dict(device=dev, dtype=dt)
 
         def stacked(d_in, d_out):
-            return torch.stack([dense_init(gen, d_in, d_out, **kw)
-                                for _ in range(L)])
+            out = torch.empty((L, d_in, d_out), **kw)
+            for l in range(L):
+                out[l] = dense_init(gen, d_in, d_out, **kw)
+            return out
 
         attn = {"wq": stacked(d, hq * dh), "wk": stacked(d, hkv * dh),
                 "wv": stacked(d, hkv * dh), "wo": stacked(hq * dh, d)}
@@ -162,23 +171,26 @@ class Model:
                         bk=torch.zeros(L, hkv * dh, **kw),
                         bv=torch.zeros(L, hkv * dh, **kw))
         if cfg.family == "moe":
-            per_layer = [init_moe_params(gen, cfg, **kw) for _ in range(L)]
-            ffn = {"moe": {k: torch.stack([p[k] for p in per_layer])
-                           for k in per_layer[0]}}
+            moe = None
+            for l in range(L):
+                layer = init_moe_params(gen, cfg, **kw)
+                if moe is None:
+                    moe = {k: torch.empty((L, *v.shape), **kw) for k, v in layer.items()}
+                for k, v in layer.items():
+                    moe[k][l] = v
+                del layer
+            ffn = {"moe": moe}
         else:
             ffn = {"mlp": {"w_gate": stacked(d, f), "w_up": stacked(d, f),
                            "w_down": stacked(f, d)}}
-        return {
-            "embed": embed_init(gen, cfg.vocab, d, **kw),
-            "ln_f": torch.ones(d, **kw),
-            "lm_head": dense_init(gen, d, cfg.vocab, **kw),
-            "layers": {
-                "ln1": torch.ones(L, d, **kw),
-                "ln2": torch.ones(L, d, **kw),
-                "attn": attn,
-                **ffn,
-            },
-        }
+        params = {"embed": embed_init(gen, cfg.vocab_padded, d, **kw),
+                  "ln_f": torch.ones(d, **kw)}
+        if not cfg.tie_embeddings:
+            params["lm_head"] = dense_init(gen, d, cfg.vocab_padded, **kw)
+        params["layers"] = {"ln1": torch.ones(L, d, **kw),
+                            "ln2": torch.ones(L, d, **kw),
+                            "attn": attn, **ffn}
+        return params
 
     # ----------------------------------------------------------------- cache
     def init_cache(self, batch_size: int, max_seq: int, *, layout: str = "dense",
@@ -219,9 +231,18 @@ class Model:
     def _embed(self, params, tokens: torch.Tensor) -> torch.Tensor:
         return params["embed"][tokens].to(self.dtype)
 
+    def head_weight(self, params) -> torch.Tensor:
+        """The (d, vocab_padded) head: ``embed.T`` when tied (the
+        reference's ``_head`` and train step), else ``lm_head``."""
+        return params["embed"].T if self.cfg.tie_embeddings else params["lm_head"]
+
     def _head(self, params, x: torch.Tensor) -> torch.Tensor:
+        """Final norm and head, float32 logits over ``vocab_padded``
+        columns: every caller trims to ``cfg.vocab`` before the logits
+        leave the model (the sampler, the captured steps' argmax and the
+        spec step's acceptance never see the padding)."""
         x = self._norm(x, params["ln_f"])
-        return (x @ params["lm_head"].to(x.dtype)).float()
+        return (x @ self.head_weight(params).to(x.dtype)).float()
 
     def _mlp_residual(self, p, x: torch.Tensor,
                       capacity_factor: float) -> torch.Tensor:

@@ -180,7 +180,16 @@ verdict.
 
 Open-loop serving drives the same session primitives: requests join a
 live session through ``_submit_open`` and stream their tokens
-(``serve.async_engine``).  Not ported yet: cluster handoff (A12).
+(``serve.async_engine``).  The fleet (``serve.cluster``) drives them
+too, one session per engine, and moves a live request between two
+engines' sessions with ``_migrate_out`` (its pages leave as a
+placement-free ``SwapHandle``) and ``_submit_resume`` (they restore
+without a prefill, or the folded prompt prefills again).  A session with
+``prefill_only`` set admits and prefills but never grows or decodes:
+the fleet's prefill role.  An engine holds one session at a time: its
+device state is one set of buffers that every captured step reads by
+address, so ``_open_session`` raises while a session is open, and
+``_finalize_session`` and ``_abort`` close it.
 """
 
 from __future__ import annotations
@@ -389,6 +398,7 @@ class _SchedState:
     stragglers: List[dict] = dataclasses.field(default_factory=list)
     durations: List[float] = dataclasses.field(default_factory=list)  # step walls, s
     step_no: int = 0            # steps committed (the watchdog's clock)
+    prefill_only: bool = False  # the fleet's prefill role: admit, never decode
 
 
 class ServeEngine:
@@ -571,6 +581,8 @@ class ServeEngine:
         self.preemptions = 0
         # graphs, captures, capture seconds and replays of the last serve()
         self.last_graph_stats: Dict[str, Any] = {}
+        # the open session, if any: the device state holds one at a time
+        self._session: Optional[_SchedState] = None
 
     def _chunked_capable(self) -> bool:
         """Chunked prefill needs the paged suffix prefill: the whole
@@ -707,13 +719,22 @@ class ServeEngine:
     # the rounds (_round, or dispatch_round / commit_round) and
     # _finalize_session.  The open-loop server (serve.async_engine) drives
     # the same primitives with requests joining mid-session through
-    # _submit_open, so streamed tokens are the closed batch's; cluster
-    # handoff (A12) builds on them too
+    # _submit_open, so streamed tokens are the closed batch's; the fleet's
+    # workers (serve.cluster) drive them too, and hand requests between
+    # engines with _migrate_out and _submit_resume
     def _open_session(self, requests: List[Request], faults=None) -> _SchedState:
         """Register a (possibly empty) request batch, shed it down to
         ``max_queue``, and bind a fresh manager (with the schedule's OOM
         hook) and the device state; returns the session state the rounds
-        advance."""
+        advance.  Raises while another session of this engine is open:
+        binding the device state zero-fills the buffers that session's
+        pool, tables and captured steps live in."""
+        if self._session is not None:
+            raise RuntimeError(
+                "this engine already has an open session: its device state "
+                "(pool, block tables, tok/pos, captured steps) holds one "
+                "session at a time; finalize or abort it first, or build "
+                "another ServeEngine over the same model and params")
         st = _SchedState(queue=deque(), t0=time.perf_counter())
         st.faults = faults if faults is not None else self.faults
         self.last_stats = st.stats
@@ -729,6 +750,7 @@ class ServeEngine:
         self._init_device(st)
         g = self._graphs
         st.graphs0 = (g.captures, g.capture_s, g.replays, g.dropped)
+        self._session = st
         return st
 
     def _init_mgr(self, st: _SchedState):
@@ -791,12 +813,16 @@ class ServeEngine:
         """Close a session: the finalize barrier (never end over an
         in-flight step or an unmaterialized swap copy), the check that
         the statuses partition the request set, the SLA summary, and the
-        graph and pool figures.  Returns the OK requests' tokens."""
-        self.commit_round(st)
-        missing = [uid for uid, s in st.stats.items()
-                   if s.get("status") not in TERMINAL_STATUSES]
-        if missing:
-            raise RuntimeError(f"requests left without a terminal status: {missing}")
+        graph and pool figures.  Returns the OK requests' tokens.  The
+        session closes whether or not the checks pass."""
+        try:
+            self.commit_round(st)
+            missing = [uid for uid, s in st.stats.items()
+                       if s.get("status") not in TERMINAL_STATUSES]
+            if missing:
+                raise RuntimeError(f"requests left without a terminal status: {missing}")
+        finally:
+            self._close_session(st)
         self._cancel_uids -= set(st.stats)
         st.stats["stragglers"] = st.stragglers
         st.stats["recovery_log"] = st.recovery_log
@@ -804,6 +830,72 @@ class ServeEngine:
         if st.mgr is not None:
             self.last_pool_stats = st.mgr.stats()
         return st.results
+
+    def _close_session(self, st: _SchedState):
+        if self._session is st:
+            self._session = None
+
+    # ------------------------------------------------- cross-replica handoff
+    # The fleet (serve.cluster) moves a live request between two sessions,
+    # on two engines, with these two primitives.  The tokens are those of
+    # an uninterrupted run for the reasons preemption keeps them: the
+    # sampling keys are (uid, position), a folded prompt recreates the
+    # exact cache, and a SwapHandle restores page contents anywhere.
+    def _migrate_out(self, st: _SchedState, uid: int):
+        """Detach live request ``uid`` for a handoff: commit the step in
+        flight (its tokens, or its release of the slot, land first), swap
+        the slot's pages out synchronously into a placement-free
+        ``SwapHandle`` (which releases the slot), and take the request out
+        of this session's ledger (the destination registers it again, so
+        it must not trip this session's status partition).  Returns
+        ``(resume, handle, carry)``: the folded resume copy (it shares the
+        growing ``generated`` list), the handle, and the ledger entry
+        whose counters the destination inherits."""
+        self.commit_round(st)
+        slot = next(s for s, r in st.live.items() if r.uid == uid)
+        req = st.live.pop(slot)
+        handle = st.mgr.swap_out(slot, st.pool, st.slot_pos[slot])
+        resume = dataclasses.replace(
+            req, prompt=list(req.prompt) + req.generated[req.folded:],
+            folded=len(req.generated))
+        carry = st.stats.pop(req.uid)
+        st.arrival.pop(req.uid, None)
+        st.last_emit.pop(req.uid, None)
+        st.spec_hist.pop(req.uid, None)
+        return resume, handle, carry
+
+    def _submit_resume(self, st: _SchedState, req: Request, *, handle=None,
+                       carry=None, now: float = 0.0):
+        """Accept a live request handed over from another session: register
+        it with ``carry``'s counters (one more ``handoffs``), mark it a
+        resume so admission keeps its ``generated`` prefix, and either
+        stage ``handle`` for a page restore (no prefill) or, with no
+        handle (the pages died with their replica), let the folded prompt
+        prefill again.  A resume that can never fit this pool ends
+        ``failed`` (``never-fits: resume needs ...``); the gate counts its
+        true remaining footprint, since ``_check_fits`` would charge the
+        folded tokens twice (in the prompt and in ``max_new_tokens``)."""
+        self._register(st, req, now=now)
+        s = st.stats[req.uid]
+        if carry is not None:
+            for k in ("preemptions", "retries", "swap_outs", "swap_ins",
+                      "handoffs", "cached_prefix_tokens"):
+                if k in carry:
+                    s[k] = carry[k]
+        s["handoffs"] = s.get("handoffs", 0) + 1
+        if st.mgr is not None:
+            longest = min(len(req.prompt) + max(req.max_new_tokens - req.folded, 1)
+                          + self.spec_k - 2, self.max_seq)
+            need = blocks_for(longest, self.page_size)
+            if need > st.mgr.allocator.usable:
+                self._terminal(st, req, STATUS_FAILED,
+                               reason=f"never-fits: resume needs {need} pages, "
+                                      f"pool has {st.mgr.allocator.usable}")
+                return
+        st.resumed.add(id(req))
+        if handle is not None:
+            st.swaps[req.uid] = handle
+        st.queue.append(req)
 
     def _graph_stats(self, st: _SchedState):
         """The session's graph figures into ``last_graph_stats``: the graphs
@@ -923,7 +1015,7 @@ class ServeEngine:
         if st.queue or st.live or st.prefilling:
             try:
                 self._admit_and_grow(st)
-                if st.live:
+                if st.live and not st.prefill_only:
                     self._timed_commit(st, self._timed_dispatch(st))
             except Exception as exc:
                 self._recover_or_raise(st, exc)
@@ -940,12 +1032,15 @@ class ServeEngine:
 
     def _admit_and_grow(self, st: _SchedState):
         """Admission (needs the freed slots), then growth and preemption
-        (need the advanced positions and the spec retraction)."""
+        (need the advanced positions and the spec retraction).  A
+        ``prefill_only`` session stops at admission: its worker migrates
+        the admitted slots out after the round, so growth would be wasted
+        work."""
         if self.prefix_sharing:
             self._admit_shared(st)
         else:
             self._admit(st)
-        if st.live and st.mgr is not None:
+        if st.live and st.mgr is not None and not st.prefill_only:
             self._grow_or_preempt(st)
 
     # ----------------------------------------------------- round pipeline
@@ -992,7 +1087,7 @@ class ServeEngine:
         if st.queue or st.live or st.prefilling:
             try:
                 self._admit_and_grow(st)
-                if st.live:
+                if st.live and not st.prefill_only:
                     st.pending = self._timed_dispatch(st)
             except Exception as exc:
                 self._recover_or_raise(st, exc)
@@ -1291,7 +1386,9 @@ class ServeEngine:
         """Unwind on an escaping exception: discard the pending round and
         the queued swap copies without waiting on the device (it may be
         the fault), fail everything held or queued, and leave
-        ``last_stats`` and an audit-clean ``last_pool_stats``."""
+        ``last_stats`` and an audit-clean ``last_pool_stats``.  The session
+        closes, so a failed session never blocks the next one."""
+        self._close_session(st)
         st.pending = None
         st.pending_swaps.clear()
         reason = f"aborted: {type(exc).__name__}: {exc}"

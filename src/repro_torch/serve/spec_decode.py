@@ -37,6 +37,11 @@ from typing import Tuple
 
 import torch
 
+# families whose prefill consumes tokens only: an architecture that needs
+# frontend embeddings (audio frames, vision patches) cannot draft for a
+# token-only target
+_DRAFT_FAMILIES = ("dense", "moe", "ssm", "hybrid")
+
 
 def make_self_draft(model, params, n_layers: int) -> Tuple[object, dict]:
     """The target's first ``n_layers`` layers as a draft: returns
@@ -83,6 +88,10 @@ def resolve_draft(model, params, draft, *, seed: int = 0):
     from repro_torch.models.lm import Model
 
     cfg = reduced_config(draft)
+    if cfg.family not in _DRAFT_FAMILIES:
+        raise ValueError(f"draft arch {draft!r} (family {cfg.family}) "
+                         "needs frontend embeddings and cannot draft for "
+                         "a token-only target")
     if cfg.vocab != model.cfg.vocab:
         # proposals must live in the target's vocabulary
         cfg = dataclasses.replace(cfg, vocab=model.cfg.vocab)

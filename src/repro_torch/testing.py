@@ -36,9 +36,13 @@ MOE_FFN = ("layers.moe.router", "layers.moe.w_gate", "layers.moe.w_up",
 
 def expected_leaves(cfg) -> tuple:
     """The leaves of a ``cfg`` model's pytree: the dense set, with
-    ``layers.moe.*`` in place of ``layers.mlp.*`` for the MoE family, and
-    the q/k/v biases only with ``cfg.qkv_bias``."""
+    ``layers.moe.*`` in place of ``layers.mlp.*`` for the MoE family, the
+    q/k/v biases only with ``cfg.qkv_bias``, and no ``lm_head`` with
+    ``cfg.tie_embeddings``.  Shapes are the tree's own (a padded vocabulary
+    gives ``embed`` and ``lm_head`` ``cfg.vocab_padded`` rows / columns)."""
     leaves = [p for p in DENSE_LEAVES if cfg.qkv_bias or p not in _BIASES]
+    if cfg.tie_embeddings:
+        leaves.remove("lm_head")
     if cfg.family == "moe":
         leaves = [p for p in leaves if not p.startswith("layers.mlp.")] + list(MOE_FFN)
     return tuple(sorted(leaves))

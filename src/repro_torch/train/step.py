@@ -96,7 +96,9 @@ def make_loss_fn(model, *, vocab_chunks: int = 8) -> Callable:
         targets = torch.cat([tokens[:, 1:], tokens[:, :1]], dim=1)
         mask = torch.ones(tokens.shape, dtype=torch.float32, device=x.device)
         mask[:, -1] = 0.0
-        return chunked_xent_loss(x, params["lm_head"], targets, mask,
+        # the head is embed.T when tied; a padded head's columns past
+        # cfg.vocab stay out of the logsumexp
+        return chunked_xent_loss(x, model.head_weight(params), targets, mask,
                                  vocab_chunks, real_vocab=cfg.vocab)
 
     return loss_fn

@@ -7,8 +7,8 @@ the wiring order (an explicit model wins, then ``preempt_calibrate``,
 then the defaults), and ``preempt="auto"`` steered by the figures, whose
 tokens and swap counts are held to the reference engine's on the same
 inputs.  The CLI runs in-process through ``main([...])`` on the CPU, at
-the reference CLI's reduced config, closed and open-loop; the fleet
-flags raise, naming ROADMAP A12."""
+the reference CLI's reduced config, closed and open-loop, and through the
+fleet (``--replicas``, ``--router``, ``--disaggregate``)."""
 
 import pytest
 
@@ -127,9 +127,29 @@ def test_cli_open_loop_round_clock(capsys):
 
 @pytest.mark.parametrize("flags", [["--replicas", "2"], ["--router", "round-robin"],
                                    ["--disaggregate"]])
-def test_cli_fleet_flags_raise_naming_a12(flags):
-    with pytest.raises(NotImplementedError, match="A12"):
-        serve_cli.main(CLI + ["--cache-layout", "paged"] + flags)
+def test_cli_fleet_flags_raise_naming_a12(flags, capsys):
+    """The fleet flags (ROADMAP A12, ported) serve the closed batch through
+    ``serve.cluster`` with the single engine's tokens; ``--disaggregate``
+    below two replicas is refused as the reference's CLI refuses it (an
+    argparse error), and with three (1 prefill + 2 decode) every request
+    crosses one handoff."""
+    base = CLI + ["--cache-layout", "paged", "--page-size", "8"]
+    want = serve_cli.main(base)["results"]
+    if flags == ["--disaggregate"]:
+        with pytest.raises(SystemExit):
+            serve_cli.main(base + flags)
+        flags = flags + ["--replicas", "3"]
+    out = serve_cli.main(base + flags)
+    text = capsys.readouterr().out
+    assert out["results"] == want
+    if "--router" in flags:          # one replica: the single engine's path
+        assert "cluster" not in out
+        return
+    c = out["cluster"]
+    assert c.audit_report.ok and "fleet audit: clean" in text
+    assert "cluster: " in text and "router: decisions=" in text
+    if "--disaggregate" in flags:
+        assert c.last_stats["router"]["handoffs"] == len(want)
 
 
 def test_cli_backend_flags_map_onto_the_port():

@@ -2213,6 +2213,64 @@ def test_cuda_kernel_fault_drops_graphs_and_recaptures_plain(pipeline):
 
 
 # ---------------------------------------------------------------------------
+# A14a, A12: the MoE target's verify window, the fleet
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+def test_cuda_verify_at_olmoe_shape_matches_plain(int8):
+    """The MoE target's speculative window: OLMoE's G = 1 (Hkv = Hq = 16),
+    T 4, D 128, on ``paged_verify_case``'s shuffled pages and garbage,
+    bf16 q over bf16 pages or int8 pages, against the plain version."""
+    requires_cuda()
+    args = _verify_args(4, 1, 128, torch.bfloat16, seed=9, hkv=16)
+    q, kp, vp, bt, pos = args
+    sc = {}
+    if int8:
+        kp, ks = quantize_kv_rows(kp.float())
+        vp, vs = quantize_kv_rows(vp.float())
+        sc = dict(k_scales=ks, v_scales=vs)
+    before = paged_flash_verify.launches + paged_flash_verify.launches_int8
+    got = paged_flash_verify(q, kp, vp, bt, pos, t_window=4, **sc)
+    torch.cuda.synchronize()
+    assert paged_flash_verify.launches + paged_flash_verify.launches_int8 == before + 1
+    assert torch.isfinite(got).all()
+    _close(got, paged_verify_attention_ref(q, kp, vp, bt, pos, 4, **sc), torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("disaggregate", [False, True], ids=["mixed", "disaggregated"])
+def test_cuda_fleet_matches_direct_engine(disaggregate):
+    """A fleet on the card (reduced qwen2 in fp32, pipelined workers
+    replaying captured steps): 2 mixed replicas behind the cache-aware
+    router, or 1 prefill + 1 decode replica joined by the SwapHandle
+    handoff, serve one direct engine's tokens; the fleet audits clean and
+    a handoff restores its pages."""
+    requires_cuda()
+    from repro_torch.configs import reduced_config
+    from repro_torch.models.lm import Model
+    from repro_torch.serve.cluster import make_cluster
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    model = Model(reduced_config("qwen2-1.5b"), dtype=torch.float32)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    rng = np.random.default_rng(4)
+    spec = [(i, rng.integers(0, 512, int(rng.integers(3, 20))).tolist(),
+             int(rng.integers(2, 9))) for i in range(6)]
+    kw = dict(max_seq=48, batch_slots=2, cache_layout="paged", page_size=8)
+    want = ServeEngine(model, params, **kw).serve([Request(u, list(p), n)
+                                                   for u, p, n in spec])
+    c = make_cluster(model, params, replicas=2, disaggregate=disaggregate, **kw)
+    got = c.serve([Request(u, list(p), n) for u, p, n in spec])
+    assert got == want
+    assert c.audit_report.ok
+    assert any(w.engine.last_graph_stats.get("replays", 0) for w in c.workers.values())
+    if disaggregate:
+        assert c.last_stats["router"]["handoffs"] == len(spec)
+        assert c.last_pool_stats[1].swap_ins == len(spec)
+
+
+# ---------------------------------------------------------------------------
 # no-fallback guards
 # ---------------------------------------------------------------------------
 
@@ -2246,7 +2304,9 @@ def test_port_imports_neither_jax_nor_repro():
                  "bench.pr_transform_bench", "bench.table4_overhead", "quickstart",
                  "serve.sampling", "serve_lm", "serve.sla", "serve.async_engine",
                  "launch.serve", "checkpoint.checkpoint", "checkpoint._manifest_codec",
-                 "train_lm"):
+                 "train_lm", "serve.cluster", "serve.cluster.worker",
+                 "serve.cluster.router", "serve.cluster.controller",
+                 "configs.qwen1_5_32b", "configs.qwen1_5_110b"):
         assert f"repro_torch.{name}" in mods, name
 
 

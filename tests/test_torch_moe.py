@@ -42,6 +42,19 @@ from repro_torch.testing import (  # noqa: E402
     params_from_numpy,
 )
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_intra_op_thread():
+    """The port's reduced models run many small torch ops; on a loaded CPU
+    (the suite's parallel workers) intra-op threads wait at every op's
+    barrier, so the module runs on one thread and restores the count
+    after (as ``test_torch_sampling.py`` does)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 ARCHS = ("olmoe-1b-7b", "granite-moe-1b-a400m")
 # fp32 on both sides; XLA and PyTorch order their sums differently, which
 # moves logits of magnitude ~1 by a few 1e-6 (test_torch_model.py)

@@ -33,6 +33,19 @@ from repro_torch.testing import expected_leaves, params_from_numpy, to_numpy  # 
 from repro_torch.train.step import TrainState, make_loss_fn, value_and_grad  # noqa: E402
 from repro_torch.train.trainer import Trainer, TrainerConfig  # noqa: E402
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_intra_op_thread():
+    """The port's reduced models run many small torch ops; on a loaded CPU
+    (the suite's parallel workers) intra-op threads wait at every op's
+    barrier, so the module runs on one thread and restores the count
+    after (as ``test_torch_sampling.py`` does)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 ARCHS = ("olmoe-1b-7b", "granite-moe-1b-a400m")
 # the gating gradient in f32: the same products w_i * (g_i - sum_j w_j g_j)
 # that jax's chain rule through softmax and the renormalization takes in

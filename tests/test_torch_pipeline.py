@@ -26,6 +26,19 @@ from repro_torch.serve.engine import Request, ServeEngine  # noqa: E402
 from repro_torch.serve.kv_cache import SwapHandle, swap_in_pages  # noqa: E402
 from repro_torch.testing import params_from_numpy  # noqa: E402
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_intra_op_thread():
+    """The port's reduced models run many small torch ops; on a loaded CPU
+    (the suite's parallel workers) intra-op threads wait at every op's
+    barrier, so the module runs on one thread and restores the count
+    after (as ``test_torch_sampling.py`` does)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 try:
     from hypothesis import given, settings
     from hypothesis import strategies as hyp_st

@@ -40,6 +40,19 @@ from repro_torch.serve.kv_cache import PagedCacheManager, scatter_prefill  # noq
 from repro_torch.serve.spec_decode import make_self_draft, resolve_draft  # noqa: E402
 from repro_torch.testing import params_from_numpy  # noqa: E402
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_intra_op_thread():
+    """The port's reduced models run many small torch ops; on a loaded CPU
+    (the suite's parallel workers) intra-op threads wait at every op's
+    barrier, so the module runs on one thread and restores the count
+    after (as ``test_torch_sampling.py`` does)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 ARCH = "qwen2-1.5b"
 _CACHE = {}
 

@@ -52,6 +52,19 @@ from repro_torch.train.step import (  # noqa: E402
 )
 from repro_torch.train.trainer import Trainer, TrainerConfig  # noqa: E402
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_intra_op_thread():
+    """The port's reduced models run many small torch ops; on a loaded CPU
+    (the suite's parallel workers) intra-op threads wait at every op's
+    barrier, so the module runs on one thread and restores the count
+    after (as ``test_torch_sampling.py`` does)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 ARCH = "qwen2-1.5b"
 # a kernel's plain version against the Pallas kernel: the same fp32
 # arithmetic with the sums taken in another order
