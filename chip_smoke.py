@@ -378,10 +378,27 @@ its paths:
    dense cache, 4 slots, max_seq 576: TTFT, decode ms a step, tok/s,
    peak memory and the kernels' launches; request 0's first 8 tokens
    teacher-forced on the plain path within the logit tolerance.
+7b. MiniCPM3-4B, MLA (``mla ...`` lines, right after phase 7): full
+   width and depth (62 layers, d_model 2560, 40 heads, q rank 768, kv
+   rank 256, q/k heads of 64 nope + 32 rope dims, v heads of 64, d_ff
+   6400, vocab 73448, bf16, ~4.26 B parameters).  First the flash
+   forward's (D, Dv) = (96, 64) instance at its prefill shape (B 4 x S 512
+   x 40 heads, v a strided view of the decompressed row, as the model
+   passes it) in bf16 (its row of the kernel record, beside SDPA or its
+   refusal) and in f32, against ``flash_attention_ref``, and rmsnorm at
+   the latent norms' widths 768 and 256 (warp branch) and d_model 2560
+   (ragged branch); then the memory count; then 4 requests (prompts of
+   512 and three of 128-512 tokens, 16 new) served greedily on the dense
+   latent cache: tok/s, TTFT, ms a decode step against the weights'
+   read, peak memory and the launches, which must include the Dv branch;
+   request 0's first 8 tokens teacher-forced on the plain path within the
+   logit tolerance; the paged layout must raise ``ValueError`` on the card.
+   MLA decode runs no hand-written kernel (the reference's is fp32
+   einsums in the latent space too).
 
 Every serving, MoE and training run must normalize through rmsnorm's
-one-warp-a-row branch (the 32B run excepted, whose 5120-wide rows take
-the ragged branch by design): the run fails if one launched its
+one-warp-a-row branch (the 32B and MLA runs excepted, whose 5120- and
+2560-wide rows take the ragged branch by design): the run fails if one launched its
 block-per-row ragged branch.  The flash rows count the bf16 branch's launches only.  The fp32 controls
 (C1, the tiered and the MoE ones) run the f32 branch: its launches are
 printed on a line of their own, and the run fails if a bf16 run launched
@@ -1304,8 +1321,9 @@ def add_counts(a: dict, b: dict) -> dict:
     return {n: a[n] + b[n] for n in a}
 
 
-F32_FLASH = ("flash_attention_fwd[f32]", "flash_attention_bwd[f32]")
-BF16_FLASH = ("flash_attention_fwd", "flash_attention_bwd")
+F32_FLASH = ("flash_attention_fwd[f32]", "flash_attention_bwd[f32]",
+             "flash_attention_fwd[dv,f32]")
+BF16_FLASH = ("flash_attention_fwd", "flash_attention_bwd", "flash_attention_fwd[dv]")
 
 
 def flash_branch_launches(bf16_runs: dict, fp32_runs: dict):
@@ -1439,7 +1457,7 @@ def step_state(model, params, kind: str, gen: torch.Generator, draft=None,
                                  kv_dtype="int8" if kind.endswith("int8") else None)
         nb = cache["block_tables"].shape[1]
         cache["block_tables"].copy_(torch.arange(1, SLOTS * nb + 1, **i32).reshape(SLOTS, nb))
-    for name in [n for n in cache if n in ("k", "v", "k_pages", "v_pages")]:
+    for name in [n for n in cache if n in ("k", "v", "k_pages", "v_pages", "latent", "rope")]:
         rows = torch.randn(cache[name].shape, generator=gen, device="cuda")
         if cache[name].dtype == torch.int8:
             q, scale = quantize_kv_rows(rows)
@@ -2424,12 +2442,13 @@ def profile_phase(name, fn, n: int) -> dict:
     long_ms = sum(kernel_us(e) for e in events if LONG_KERNELS[0] in e.key) / 1e3 / n
     rec = dict(wall_ms=wall_ms, device_ms=dev_ms, decode_kernels=decode, gating_ms=gating,
                verify_long_ms=long_ms,
+               kernels_a_call=sum(e.count for e in events if kernel_us(e) > 0) / n,
                top=[(e.key[:70], kernel_us(e) / 1e3 / n) for e in top if kernel_us(e) > 0])
     busy = f"{dev_ms / wall_ms:.3f}" if dev_ms > 0 else "not measured"
     print(f"time {name}: wall {wall_ms:.3f} ms, device kernels {dev_ms:.3f} ms, "
           f"device busy share {busy}; decode kernels "
           + ", ".join(f"{k} {ms:.3f}" for k, ms in decode.items())
-          + f"; {GATING_KERNEL} {gating:.4f}; top: "
+          + f"; {GATING_KERNEL} {gating:.4f}; {rec['kernels_a_call']:.0f} kernels a call; top: "
           + "; ".join(f"{k} {ms:.3f}" for k, ms in rec["top"]), flush=True)
     return rec
 
@@ -5411,6 +5430,228 @@ def run_qwen32b(seed: int, gen: torch.Generator, rows: dict, smi: str) -> tuple:
     return rec, counts
 
 
+# ---------------------------------------------------------------------------
+# phase 7b: MiniCPM3-4B (MLA) at full width and depth
+# ---------------------------------------------------------------------------
+
+MLA_ARCH = "minicpm3-4b"
+MLA_NEW = 16
+MLA_FORCED = 8
+MLA_MARGIN = 2 * 2 ** 30        # activations, graph pool, allocator slack
+# the f32 CUDA-core kernel against its plain version: sums of 96 products
+# and of up to 512 keys in another order (the card tests' f32 tolerance)
+F32_FLASH_TOL = dict(atol=2e-5, rtol=2e-5)
+MLA_FLASH_ROW = "flash_attention_fwd (MLA D 96 / Dv 64)"
+
+
+def mla_params(cfg) -> int:
+    """MiniCPM3's parameter count from its config (the port's leaves)."""
+    d, h, L, V = cfg.d_model, cfg.n_heads, cfg.n_layers, cfg.vocab
+    qr, kr = cfg.q_lora_rank, cfg.kv_lora_rank
+    nd, rd, vd = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    attn = (d * qr + qr + qr * h * (nd + rd) + d * (kr + rd) + kr + kr * h * (nd + vd)
+            + h * vd * d)
+    return L * (attn + 3 * d * cfg.d_ff + 2 * d) + 2 * V * d + d
+
+
+def check_mla_shapes(cfg, gen: torch.Generator, rows: dict) -> dict:
+    """The kernels at MiniCPM3's shapes: the flash forward's (96, 64)
+    instance at its prefill (4 x 512 tokens, 40 heads, causal; v a strided
+    view into the (.., nope + v) row, as ``mla_block_kv`` passes it) in
+    bf16 (row ``MLA_FLASH_ROW``) and f32, and rmsnorm's branches at the
+    latent norms' widths and d_model."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention.ops import flash_attention_fwd
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.kernels.rmsnorm.ops import rmsnorm, takes_warp_branch
+    from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+
+    h, nd, rd, vd = cfg.n_heads, cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    b, s, dq = SLOTS, 512, nd + rd
+    out = {}
+
+    def randn(*shape, dtype=torch.bfloat16):
+        return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+
+    q, k = randn(b, s, h, dq), randn(b, s, h, dq)
+    v = randn(b, s, h, nd + vd)[..., nd:]
+    (got, lse), (want, lse_ref) = flash_attention_fwd(q, k, v), flash_attention_ref(q, k, v)
+    torch.cuda.synchronize()
+    lse_err = (lse - lse_ref).abs().max().item()
+    if got.shape != (b, s, h, vd) or lse_err > 1e-3:
+        fail(f"the (96, 64) flash forward gave o {tuple(got.shape)}, lse off by {lse_err}")
+    qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
+    # 100 calls after 10: a 20-call window right after the 32B phase read
+    # up to 1.8x the time of a longer one
+    timing = dict(iters=100, warmup=10)
+    try:
+        sdpa_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True),
+                          **timing)
+    except RuntimeError as exc:
+        sdpa_ms = None
+        print(f"kernel {MLA_FLASH_ROW}: SDPA refused Dv != D: {str(exc).splitlines()[0]}",
+              flush=True)
+    pairs = b * h * s * (s + 1) // 2                   # live (query, key) pairs
+    # bytes: q, k and v's 64 elements a row read, o written, lse written;
+    # operations: 2 * D for Q.K^T and 2 * Dv for P.V a live pair
+    record_kernel(rows, MLA_FLASH_ROW,
+                  "src/repro_torch/kernels/flash_attention/flash_attention.cu",
+                  "src/repro/kernels/flash_attention/flash_attention.py:123", got, want,
+                  FLASH_FWD_TOL, cuda_ms(lambda: flash_attention_fwd(q, k, v), **timing),
+                  cuda_ms(lambda: flash_attention_ref(q, k, v)),
+                  2 * (2 * q.numel() + 2 * b * s * h * vd) + b * h * s * 4,
+                  (2 * dq + 2 * vd) * pairs, BF16_FLOPS_S, sdpa_ms,
+                  branch=FLASH_BRANCHES[q.dtype])
+    out[MLA_FLASH_ROW] = {key: rows[MLA_FLASH_ROW][key] for key in
+                          ("max_abs_err", "ms", "plain_ms", "bound_ms", "library_ms")}
+    flips = (got != want).double().mean().item()
+    print(f"kernel {MLA_FLASH_ROW}: {flips:.4%} of the bf16 outputs round to another "
+          f"value than the plain version's", flush=True)
+    q32, k32, v32 = q.float(), k.float(), randn(b, s, h, nd + vd, dtype=torch.float32)[..., nd:]
+    got32, want32 = flash_attention_fwd(q32, k32, v32)[0], flash_attention_ref(q32, k32, v32)[0]
+    torch.cuda.synchronize()
+    err32, ok32 = max_err(got32, want32), agrees(got32, want32, F32_FLASH_TOL)
+    ms32 = cuda_ms(lambda: flash_attention_fwd(q32, k32, v32), iters=5, warmup=1)
+    b_ms32, b_by32 = bound(2 * (q32.numel() * 4 + b * s * h * vd * 4) + b * h * s * 4,
+                           (2 * dq + 2 * vd) * pairs, F32_FLOPS_S)
+    print(f"kernel flash_attention_fwd (MLA D 96 / Dv 64, f32): max_abs_err={err32:.3e} "
+          f"tol={F32_FLASH_TOL} ok={ok32} ms={ms32:.4f} bound_ms={b_ms32:.4f} ({b_by32}) "
+          f"branch={FLASH_BRANCHES[torch.float32]}", flush=True)
+    if not ok32:
+        fail("the f32 (96, 64) flash forward disagrees with its plain version")
+    out["flash_attention_fwd (MLA, f32)"] = dict(max_abs_err=err32, ms=ms32, bound_ms=b_ms32)
+    del q, k, v, got, want, qt, kt, vt, q32, k32, v32, got32, want32
+    for width, branch in ((cfg.q_lora_rank, "warp"), (cfg.kv_lora_rank, "warp"),
+                          (cfg.d_model, "ragged")):
+        x, w = randn(b * s, width), randn(width)
+        took = "warp" if takes_warp_branch(x, w) else "ragged"
+        g, r = rmsnorm(x, w, cfg.norm_eps), rmsnorm_ref(x, w, cfg.norm_eps)
+        torch.cuda.synchronize()
+        err, ok = max_err(g, r), agrees(g, r, KERNEL_TOL)
+        ms = queued_ms(lambda: rmsnorm(x, w, cfg.norm_eps))
+        print(f"kernel rmsnorm (MLA d {width}): {took} branch, max_abs_err={err:.3e} "
+              f"tol={KERNEL_TOL} ok={ok} ms={ms:.4f} (card)", flush=True)
+        if took != branch or not ok:
+            fail(f"rmsnorm at d {width} took its {took} branch (expected {branch}) "
+                 f"or disagrees with its plain version")
+        out[f"rmsnorm (MLA d {width})"] = dict(branch=took, max_abs_err=err, ms=ms)
+    return out
+
+
+def run_mla(seed: int, gen: torch.Generator, rows: dict, smi: str) -> tuple:
+    """Phase 7b (``mla`` lines): the kernels at MiniCPM3's shapes, the
+    memory count, greedy dense serving of 4 requests, the profiles of a
+    prefill and a decode step (eager and replayed), request 0's first
+    tokens teacher-forced on the plain path, and the paged layout refused.
+    Returns the record and the serve run's launch counts."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.lm import Model
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.serve.step_graph import StepGraphs
+
+    t0 = time.perf_counter()
+    cfg = get_config(MLA_ARCH)
+    shapes = check_mla_shapes(cfg, gen, rows)
+    L, V, d = cfg.n_layers, cfg.vocab, cfg.d_model
+    n_params = mla_params(cfg)
+    weight_bytes = 2 * n_params
+    token_bytes = 2 * L * (cfg.kv_lora_rank + cfg.qk_rope_head_dim)   # latent + rope
+    cache_bytes = token_bytes * SLOTS * MAX_SEQ
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    # the prefill returns its batch's latent cache for the engine to copy
+    need = weight_bytes + 2 * cache_bytes + MLA_MARGIN
+    print(f"mla count: {n_params} parameters = {weight_bytes / 1e9:.2f} GB of bf16 "
+          f"weights; latent cache {token_bytes / 1e3:.1f} KB a token x {SLOTS} slots x "
+          f"{MAX_SEQ} = {cache_bytes / 1e9:.3f} GB (GQA at 40/40 heads of 64 would keep "
+          f"{2 * L * 2 * cfg.n_heads * 64 / 1e3:.1f} KB); need {need / 2 ** 30:.2f} GiB with "
+          f"the prefill copy and a {MLA_MARGIN / 2 ** 30:.0f} GiB margin; free before the "
+          f"init {free / 2 ** 30:.2f} of {total / 2 ** 30:.2f} GiB; [{smi}]", flush=True)
+    if need > free:
+        fail(f"MiniCPM3-4B does not fit: need {need / 2 ** 30:.2f} GiB, "
+             f"{free / 2 ** 30:.2f} GiB free")
+    model = Model(cfg, device="cuda", dtype=torch.bfloat16)
+    t_init = time.perf_counter()
+    params = model.init(torch.Generator(device="cuda").manual_seed(seed))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t_init
+    print(f"mla model: layers={L} d_model={d} heads={cfg.n_heads} q_rank={cfg.q_lora_rank} "
+          f"kv_rank={cfg.kv_lora_rank} qk={cfg.qk_nope_head_dim}+{cfg.qk_rope_head_dim} "
+          f"v={cfg.v_head_dim} d_ff={cfg.d_ff} vocab={V} dtype=bf16; init {init_s:.1f} s; "
+          f"allocated {torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB", flush=True)
+    rng = np.random.default_rng(seed + 3)
+    lens = [512] + rng.integers(128, 513, SLOTS - 1).tolist()
+    spec = [(i, rng.integers(0, V, n).tolist(), MLA_NEW) for i, n in enumerate(lens)]
+    out, eng, counts, wall, n_tok = serve(model, params, spec, warm=True, allow_ragged=True)
+    peak = eng.base_bytes + eng.peak_bytes
+    ttft = [eng.last_stats[u]["first_token_s"] - eng.last_stats[u]["enqueued_s"]
+            for u, _, _ in spec]
+    decode_ms = 1e3 * (wall - max(ttft)) / (MLA_NEW - 1)
+    read_ms = 1e3 * weight_bytes / HBM_BYTES_S
+    print(f"mla serve dense: {len(spec)} requests of {lens} prompt tokens, {MLA_NEW} new: "
+          f"{n_tok} tokens in {wall:.3f} s = {n_tok / wall:.2f} tok/s; TTFT ms "
+          f"{[round(1e3 * t, 1) for t in ttft]}; decode {decode_ms:.2f} ms a step (the "
+          f"weights' read alone {read_ms:.2f} ms); peak memory {peak / 2 ** 30:.2f} GiB; "
+          f"graphs {eng.warm_graph_stats['graphs']} captured in the warm session, "
+          f"{eng.last_graph_stats['replays']} replays; "
+          f"launches flash_attention_fwd[dv] {counts['flash_attention_fwd[dv]']}, rmsnorm "
+          f"{counts['rmsnorm']}, rmsnorm[ragged] {counts['rmsnorm[ragged]']}; [{smi}]",
+          flush=True)
+    for name in ("flash_attention_fwd[dv]", "rmsnorm", "rmsnorm[ragged]"):
+        if counts[name] == 0:
+            fail(f"{name} never launched while serving MiniCPM3-4B")
+    if eng.last_graph_stats["replays"] == 0:
+        fail("the MLA decode steps were not replayed as captured graphs")
+    stray = {n: counts[n] for n in ("flash_attention_fwd", "flash_attention_fwd[f32]",
+                                    "flash_attention_fwd[dv,f32]", "flash_decode",
+                                    "paged_flash_decode") if counts[n]}
+    if stray:
+        fail(f"the MLA run launched kernels off its path: {stray}")
+    # where the time goes: one 4 x 512 prefill eager, and the decode step
+    # as the engine replays it (one captured graph); few calls, since a
+    # step is ~4 300 kernels and the profiler's records of each cost host
+    # seconds
+    toks = torch.randint(0, V, (SLOTS, 512), generator=gen, device="cuda")
+    st = step_state(model, params, "dense", gen)
+    graphs = StepGraphs("cuda", enabled=True)
+    graphs.run(("dense", ATTEND), st["fn"], restore=st["restore"])
+
+    def replay():
+        st["reset"]()
+        graphs.run(("dense", ATTEND), st["fn"])
+
+    phases = {"mla_prefill_4x512": profile_phase("mla_prefill_4x512",
+                                                 lambda: model.prefill(params, toks, 512), 2),
+              "mla_decode_step_graph": profile_phase("mla_decode_step_graph", replay, 3)}
+    del st, graphs, toks
+    uid, prompt, _ = spec[0]
+    k_logits = teacher_force(model, params, prompt, out[uid][:MLA_FORCED])
+    plain = Model(cfg, device="cuda", dtype=torch.bfloat16, use_kernels=False)
+    p_logits = teacher_force(plain, params, prompt, out[uid][:MLA_FORCED])
+    err, scale, agree = compare_logits(f"mla uid {uid} plain vs kernel path",
+                                       p_logits, k_logits)
+    try:
+        ServeEngine(model, params, max_seq=MAX_SEQ, batch_slots=SLOTS, cache_layout="paged")
+    except ValueError as exc:
+        print(f"mla paged layout refused: {exc}", flush=True)
+    else:
+        fail("a paged MiniCPM3-4B engine was built; MLA's latent cache stays dense")
+    rec = dict(n_params=n_params, weight_bytes=weight_bytes, latent_bytes_a_token=token_bytes,
+               cache_bytes=cache_bytes, free_before_init=free, total=total, init_s=init_s,
+               tok_s=n_tok / wall, wall_s=wall, ttft_s=ttft, decode_ms=decode_ms,
+               weight_read_ms=read_ms, peak_bytes=peak, counts=counts,
+               teacher_forced_max_err=err, logit_scale=scale,
+               teacher_forced_argmax_agreement=agree, kernels_at_mla_shapes=shapes,
+               phases=phases, phase_wall_s=time.perf_counter() - t0)
+    print(f"mla: phase wall {rec['phase_wall_s']:.1f} s", flush=True)
+    del model, params, plain, eng, k_logits, p_logits
+    torch.cuda.empty_cache()
+    return rec, counts
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5465,6 +5706,9 @@ def main():
     # take 65.6 of the card's 79 GiB
     qwen32b_rec, qwen32b_counts = run_qwen32b(args.seed, gen, rows, smi)
     rows["rmsnorm[ragged] (d 5120)"]["launches"] = qwen32b_counts["rmsnorm[ragged]"]
+    mla_rec, mla_counts = run_mla(args.seed, gen, rows, smi)
+    rows[MLA_FLASH_ROW]["launches"] = mla_counts["flash_attention_fwd[dv]"]
+    rows["rmsnorm[ragged] (d 5120)"]["launches"] += mla_counts["rmsnorm[ragged]"]
 
     model = Model(cfg, device="cuda", dtype=torch.bfloat16)
     params = model.init(torch.Generator(device="cuda").manual_seed(args.seed))
@@ -5529,6 +5773,7 @@ def main():
         rows[name]["launches"] = dense_counts[name] + paged_counts[name]
     for name in ("flash_attention_fwd", "flash_decode"):
         rows[name]["launches"] += qwen32b_counts[name]
+    rows["rmsnorm"]["launches"] += mla_counts["rmsnorm"]
 
     # teacher-force the plain-version path on request 0's served tokens
     uid, prompt, _ = spec[0]
@@ -5602,6 +5847,7 @@ def main():
 
     phases = where_time_goes(model, params, gen)
     phases.update(shared_profiles)
+    phases.update(mla_rec.pop("phases"))
 
     sampled_rec, sampled_counts, sampled_fp32 = run_sampled(
         cfg, model, params, spec, num_pages, dense, phases, gen, draft1)
@@ -5642,7 +5888,7 @@ def main():
          "shared int8 run": shared_int8, "sched bf16 runs": sched_counts,
          "faults bf16 runs": faults_counts, "openloop bf16 runs": openloop_counts,
          "fleet bf16 runs": fleet_counts, "spec moe": spec_moe_counts,
-         "qwen32b serve": qwen32b_counts,
+         "qwen32b serve": qwen32b_counts, "mla serve": mla_counts,
          "moe serve": moe_counts, "train": train_counts, "ckpt train": ckpt_counts,
          "moe train": moe_train_counts},
         {"C1 control fp32": c1["launches"], "shared fp32 control": shared_fp32,
@@ -5676,6 +5922,7 @@ def main():
         c1_control=c1, tiered=tiered_rec, int8_kernel_checks=int8_checks,
         shared=shared_rec, sampled=sampled_rec, sched=sched_rec, faults=faults_rec,
         openloop=openloop_rec, options=options_rec, fleet=fleet_rec, qwen32b=qwen32b_rec,
+        mla=mla_rec,
         fault_free_engines=FAULT_FREE["engines"], verify_long=long_checks,
         replay_probes=probes,
         pipeline=PIPELINE_PAIRS,

@@ -9,6 +9,7 @@ import dataclasses
 from typing import Dict
 
 from repro_torch.configs.granite_moe_1b_a400m import CONFIG as _granite
+from repro_torch.configs.minicpm3_4b import CONFIG as _minicpm3
 from repro_torch.configs.olmoe_1b_7b import CONFIG as _olmoe
 from repro_torch.configs.qwen1_5_32b import CONFIG as _qwen32b
 from repro_torch.configs.qwen1_5_110b import CONFIG as _qwen110b
@@ -16,7 +17,8 @@ from repro_torch.configs.qwen2_1_5b import CONFIG as _qwen2_15b
 from repro_torch.models.config import ModelConfig
 
 ARCHS: Dict[str, ModelConfig] = {
-    c.name: c for c in (_olmoe, _granite, _qwen110b, _qwen2_15b, _qwen32b)}
+    c.name: c for c in (_olmoe, _granite, _qwen110b, _minicpm3, _qwen2_15b,
+                        _qwen32b)}
 
 
 def get_config(name: str) -> ModelConfig:
@@ -29,11 +31,15 @@ def reduced_config(name: str) -> ModelConfig:
     """Same structure, laptop-scale dims (the reference's
     ``reduced_config`` for the dense and MoE families): 4 layers, d_model
     256, 4 query heads keeping the full config's GQA group, vocab 512;
-    d_ff 512, or for MoE 128 per expert over 8 experts, top-k at most 4."""
+    d_ff 512, or for MoE 128 per expert over 8 experts, top-k at most 4;
+    MLA's ranks q 64, kv 32 and head dims nope 32, rope 16, v 32."""
     c = get_config(name)
     group = max(c.n_heads // max(c.n_kv_heads, 1), 1)
     changes = dict(n_layers=min(c.n_layers, 4), d_model=256, vocab=512,
                    d_ff=512, d_head=None, n_heads=4, n_kv_heads=max(4 // group, 1))
     if c.family == "moe":
         changes.update(d_ff=128, n_experts=8, top_k=min(c.top_k, 4))
+    if c.attn_type == "mla":
+        changes.update(q_lora_rank=64, kv_lora_rank=32, qk_nope_head_dim=32,
+                       qk_rope_head_dim=16, v_head_dim=32)
     return dataclasses.replace(c, **changes)

@@ -30,6 +30,12 @@
 // 32-key tile, the row max and sum are __shfl_xor_sync butterflies, and
 // for P @ V lane c owns output columns c, c+32, ...
 //
+// Both are templated on <D, DV>, the q/k head dim and the v head dim, and
+// built for (64, 64), (128, 128) and (96, 64): MLA's prefill (MiniCPM3:
+// q/k heads of 64 nope + 32 rope dims, v heads of 64) runs the last, the
+// Pallas kernel's dv = v.shape[-1].  Scores reduce over D, the output row
+// and P.V over DV; the scale is the caller's, D^-1/2 as the reference's.
+//
 // Both keep: kv tiles past the causal diagonal or past kv_len are neither
 // loaded nor computed, K/V rows past kv_len are never read (zero-filled in
 // shared memory), and the running max / sum / accumulator stay in
@@ -50,17 +56,18 @@ struct Strides {
   long long b, s, h;  // elements; the last (head-dim) stride is 1
 };
 
-template <int D>
+template <int D, int DV>
 __global__ void __launch_bounds__(kWarps * 32)
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, const int* __restrict__ kv_len,
                  float* __restrict__ o, float* __restrict__ lse, Strides qs_, Strides ks_,
                  Strides vs_, int sq, int skv, int hq, int hkv, int causal,
                  float scale) {
-  constexpr int C = D / 32;  // output columns per lane
+  static_assert(DV <= D, "V rows load in the K rows' loop");
+  constexpr int C = DV / 32;  // output columns per lane
   __shared__ float q_s[kBlockQ][D];
   __shared__ float k_s[kBlockK][D + 1];  // +1: lane j reads row j conflict-free
-  __shared__ float v_s[kBlockK][D];
+  __shared__ float v_s[kBlockK][DV];
 
   const int q0 = blockIdx.x * kBlockQ;
   const int b = blockIdx.y / hq;
@@ -100,7 +107,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
       const int j = i / D, c = i % D;
       const bool in = kv0 + j < len;
       k_s[j][c] = in ? kb[(kv0 + j) * ks_.s + c] : 0.f;
-      v_s[j][c] = in ? vb[(kv0 + j) * vs_.s + c] : 0.f;
+      if (c < DV) v_s[j][c] = in ? vb[(kv0 + j) * vs_.s + c] : 0.f;
     }
     __syncthreads();
 
@@ -136,7 +143,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const int qi = q0 + warp * kRowsPerWarp + i;
     if (qi >= sq) continue;
     const float safe = l[i] == 0.f ? 1.f : l[i];
-    float* orow = o + ((static_cast<long long>(b) * sq + qi) * hq + h) * D;
+    float* orow = o + ((static_cast<long long>(b) * sq + qi) * hq + h) * DV;
 #pragma unroll
     for (int c = 0; c < C; ++c) orow[lane + 32 * c] = acc[i][c] / safe;
     if (lane == 0) {
@@ -146,12 +153,12 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-template <int D>
+template <int D, int DV>
 void launch(const void* q, const void* k, const void* v, const int* kv_len, void* o,
             float* lse, Strides qs, Strides ks, Strides vs, int b, int sq, int skv,
             int hq, int hkv, int causal, float scale, cudaStream_t stream) {
   dim3 grid((sq + kBlockQ - 1) / kBlockQ, b * hq);
-  flash_fwd_kernel<D><<<grid, kWarps * 32, 0, stream>>>(
+  flash_fwd_kernel<D, DV><<<grid, kWarps * 32, 0, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), kv_len, static_cast<float*>(o), lse, qs, ks, vs, sq,
       skv, hq, hkv, causal, scale);
@@ -169,26 +176,29 @@ constexpr int kTcThreads = kTcWarps * 32;
 constexpr int kTcBlockQ = 16 * kTcWarps;  // 64 query rows, 16 a warp
 constexpr int kTcBlockK = 64;             // keys a staged K/V tile
 
-// Q tile, then a 2-stage ring of K and V tiles
-template <int D>
+// Q tile, then a 2-stage ring of K tiles (rows of D) and one of V tiles
+// (rows of DV)
+template <int D, int DV>
 constexpr size_t tc_smem_bytes() {
-  return sizeof(bf16) * tc::pitch<D>() * (kTcBlockQ + 4 * kTcBlockK);
+  return sizeof(bf16) *
+         (tc::pitch<D>() * (kTcBlockQ + 2 * kTcBlockK) + tc::pitch<DV>() * 2 * kTcBlockK);
 }
 
-template <int D>
+template <int D, int DV>
 __global__ void __launch_bounds__(kTcThreads)
 flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     const bf16* __restrict__ v, const int* __restrict__ kv_len,
                     bf16* __restrict__ o, float* __restrict__ lse, Strides qs_, Strides ks_,
                     Strides vs_, int sq, int skv, int hq, int hkv, int causal, float scale) {
   constexpr int P = tc::pitch<D>();
-  constexpr int KD = D / 16;         // k16 steps over the head dim
-  constexpr int ND = D / 8;          // n8 tiles of the output row
+  constexpr int PV = tc::pitch<DV>();
+  constexpr int KD = D / 16;         // k16 steps over the q/k head dim
+  constexpr int ND = DV / 8;         // n8 tiles of the output row
   constexpr int NK = kTcBlockK / 8;  // n8 tiles of a score tile
   extern __shared__ __align__(16) unsigned char tc_smem[];
   bf16* q_s = reinterpret_cast<bf16*>(tc_smem);  // [kTcBlockQ][P]
   bf16* k_s = q_s + kTcBlockQ * P;               // [2][kTcBlockK][P]
-  bf16* v_s = k_s + 2 * kTcBlockK * P;           // [2][kTcBlockK][P]
+  bf16* v_s = k_s + 2 * kTcBlockK * P;           // [2][kTcBlockK][PV]
 
   // under the causal mask the last query tiles see the most keys: they
   // launch first, so that the last wave is not the longest
@@ -213,7 +223,7 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   tc::load_tile<kTcBlockQ, D, kTcThreads>(q_s, q + b * qs_.b + h * qs_.h, qs_.s, q0, sq);
   if (n_tiles > 0) {
     tc::load_tile<kTcBlockK, D, kTcThreads>(k_s, kb, ks_.s, 0, len);
-    tc::load_tile<kTcBlockK, D, kTcThreads>(v_s, vb, vs_.s, 0, len);
+    tc::load_tile<kTcBlockK, DV, kTcThreads>(v_s, vb, vs_.s, 0, len);
   }
   tc::cp_async_commit();
 
@@ -226,13 +236,13 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     if (t + 1 < n_tiles) {  // the next tile streams in while this one computes
       const int st = (t + 1) & 1, kv1 = (t + 1) * kTcBlockK;
       tc::load_tile<kTcBlockK, D, kTcThreads>(k_s + st * kTcBlockK * P, kb, ks_.s, kv1, len);
-      tc::load_tile<kTcBlockK, D, kTcThreads>(v_s + st * kTcBlockK * P, vb, vs_.s, kv1, len);
+      tc::load_tile<kTcBlockK, DV, kTcThreads>(v_s + st * kTcBlockK * PV, vb, vs_.s, kv1, len);
     }
     tc::cp_async_commit();
     tc::cp_async_wait<1>();
     __syncthreads();
     const bf16* ks = k_s + (t & 1) * kTcBlockK * P;
-    const bf16* vs = v_s + (t & 1) * kTcBlockK * P;
+    const bf16* vs = v_s + (t & 1) * kTcBlockK * PV;
 
     // S = Q K^T (Q's fragments re-read from shared memory: held in
     // registers beside O they would spill at D = 128)
@@ -305,7 +315,7 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
       for (int dn = 0; dn < ND; dn += 2) {
         uint32_t bv[4];
-        tc::ldmatrix_x4_trans(bv, tc::b_col<P>(vs, kk * 16, dn * 8, lane));
+        tc::ldmatrix_x4_trans(bv, tc::b_col<PV>(vs, kk * 16, dn * 8, lane));
         tc::mma(acc[dn], ph, bv[0], bv[1]);
         tc::mma(acc[dn + 1], ph, bv[2], bv[3]);
         tc::mma(acc[dn], pl, bv[0], bv[1]);
@@ -322,7 +332,7 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int qi = q0 + r0 + g + 8 * i;
     if (qi >= sq) continue;
     const float safe = li == 0.f ? 1.f : li;
-    bf16* orow = o + ((static_cast<long long>(b) * sq + qi) * hq + h) * D;
+    bf16* orow = o + ((static_cast<long long>(b) * sq + qi) * hq + h) * DV;
 #pragma unroll
     for (int dt = 0; dt < ND; ++dt) {
       *reinterpret_cast<__nv_bfloat162*>(orow + dt * 8 + 2 * t4) =
@@ -335,50 +345,68 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-template <int D>
+template <int D, int DV>
 cudaError_t launch_tc(const void* q, const void* k, const void* v, const int* kv_len,
                       void* o, float* lse, Strides qs, Strides ks, Strides vs, int b, int sq,
                       int skv, int hq, int hkv, int causal, float scale,
                       cudaStream_t stream) {
-  constexpr size_t bytes = tc_smem_bytes<D>();  // above 48 KB: opt in
-  cudaError_t e = cudaFuncSetAttribute(flash_fwd_tc_kernel<D>,
+  constexpr size_t bytes = tc_smem_bytes<D, DV>();  // above 48 KB: opt in
+  cudaError_t e = cudaFuncSetAttribute(flash_fwd_tc_kernel<D, DV>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        static_cast<int>(bytes));
   if (e != cudaSuccess) return e;
   const dim3 grid((sq + kTcBlockQ - 1) / kTcBlockQ, b * hq);
-  flash_fwd_tc_kernel<D><<<grid, kTcThreads, bytes, stream>>>(
+  flash_fwd_tc_kernel<D, DV><<<grid, kTcThreads, bytes, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       kv_len, static_cast<bf16*>(o), lse, qs, ks, vs, sq, skv, hq, hkv, causal, scale);
   return cudaGetLastError();
 }
 
+// One (D, DV) instance: the bf16 tensor-core kernel or the f32 CUDA-core
+// one, by dtype.
+template <int D, int DV>
+cudaError_t dispatch(const void* q, const void* k, const void* v, const int* kv_len, void* o,
+                     float* lse, Strides qs, Strides ks, Strides vs, int b, int sq, int skv,
+                     int hq, int hkv, int causal, float scale, int dtype,
+                     cudaStream_t stream) {
+  if (dtype == repro::kBF16)
+    return launch_tc<D, DV>(q, k, v, kv_len, o, lse, qs, ks, vs, b, sq, skv, hq, hkv, causal,
+                            scale, stream);
+  launch<D, DV>(q, k, v, kv_len, o, lse, qs, ks, vs, b, sq, skv, hq, hkv, causal, scale,
+                stream);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
-// q (B, Sq, Hq, D), k/v (B, Skv, Hkv, D) with the given element strides
-// for the B, S and H axes (D contiguous); kv_len (B,) int32; o (B, Sq, Hq,
-// D) and lse (B, Hq, Sq) float32, both contiguous.  D is 64 or 128.  bf16
-// takes the tensor-core kernel: its q, k, v base pointers are 16-byte
-// aligned and the B, S and H strides multiples of 8 (the wrapper checks);
-// f32 takes the CUDA-core kernel.
+// q (B, Sq, Hq, D), k (B, Skv, Hkv, D), v (B, Skv, Hkv, DV) with the given
+// element strides for the B, S and H axes (the head dim contiguous);
+// kv_len (B,) int32; o (B, Sq, Hq, DV) and lse (B, Hq, Sq) float32, both
+// contiguous.  (D, DV) is (64, 64), (128, 128) or (96, 64); any other pair
+// returns cudaErrorInvalidValue and launches nothing.  bf16 takes the
+// tensor-core kernel: its q, k, v base pointers are 16-byte aligned and the
+// B, S and H strides multiples of 8 (the wrapper checks); f32 takes the
+// CUDA-core kernel.
 extern "C" int repro_flash_attention_fwd(
     const void* q, const void* k, const void* v, const void* kv_len, void* o, void* lse,
     long long q_sb, long long q_ss, long long q_sh, long long k_sb, long long k_ss,
     long long k_sh, long long v_sb, long long v_ss, long long v_sh, int b, int sq,
-    int skv, int hq, int hkv, int d, int causal, float scale, int dtype, void* stream) {
+    int skv, int hq, int hkv, int d, int dv, int causal, float scale, int dtype,
+    void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Strides qs{q_sb, q_ss, q_sh}, ks{k_sb, k_ss, k_sh}, vs{v_sb, v_ss, v_sh};
   const int* len = static_cast<const int*>(kv_len);
   float* l = static_cast<float*>(lse);
   if (b <= 0 || sq <= 0) return static_cast<int>(cudaGetLastError());
-  if (dtype == repro::kBF16) {
-    const cudaError_t e =
-        d == 128 ? launch_tc<128>(q, k, v, len, o, l, qs, ks, vs, b, sq, skv, hq, hkv, causal, scale, s)
-                 : launch_tc<64>(q, k, v, len, o, l, qs, ks, vs, b, sq, skv, hq, hkv, causal, scale, s);
-    return static_cast<int>(e);
-  }
-  if (d == 128)
-    launch<128>(q, k, v, len, o, l, qs, ks, vs, b, sq, skv, hq, hkv, causal, scale, s);
-  else
-    launch<64>(q, k, v, len, o, l, qs, ks, vs, b, sq, skv, hq, hkv, causal, scale, s);
-  return static_cast<int>(cudaGetLastError());
+  cudaError_t e = cudaErrorInvalidValue;
+  if (d == 64 && dv == 64)
+    e = dispatch<64, 64>(q, k, v, len, o, l, qs, ks, vs, b, sq, skv, hq, hkv, causal, scale,
+                         dtype, s);
+  else if (d == 128 && dv == 128)
+    e = dispatch<128, 128>(q, k, v, len, o, l, qs, ks, vs, b, sq, skv, hq, hkv, causal,
+                           scale, dtype, s);
+  else if (d == 96 && dv == 64)
+    e = dispatch<96, 64>(q, k, v, len, o, l, qs, ks, vs, b, sq, skv, hq, hkv, causal, scale,
+                         dtype, s);
+  return static_cast<int>(e);
 }

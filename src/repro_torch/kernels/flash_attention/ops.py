@@ -13,7 +13,14 @@ aligned bases and B/S/H strides in multiples of 8 elements, and raise
 otherwise), f32 the CUDA-core kernels.  The bf16 backward writes dk/dv
 per query head; the wrapper sums each KV head's group.  Each wrapper
 counts the branches apart: ``.launches`` the bf16 (tensor-core) kernels,
-``.launches_f32`` the f32 ones."""
+``.launches_f32`` the f32 ones.
+
+The forward is built for the (q/k head dim, v head dim) pairs in
+``HEAD_DIMS``: (64, 64), (128, 128) and MLA's (96, 64) (MiniCPM3's q/k
+heads of 64 nope + 32 rope dims over v heads of 64).  It counts the
+(96, 64) instance apart, in ``.launches_dv`` (bf16) and
+``.launches_dv_f32``.  The backward is built for D = Dv only and raises
+on a Dv != D call (ROADMAP A14b-train)."""
 
 from __future__ import annotations
 
@@ -28,8 +35,10 @@ from repro_torch.kernels.flash_attention.ref import (
 )
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (64, 128)
-_ARGS = ([build.P] * 6 + [build.I64] * 9 + [build.I] * 7
+# (D, Dv) instances of the forward kernels; the backward's are (D, D)
+HEAD_DIMS = ((64, 64), (128, 128), (96, 64))
+_BWD_HEAD_DIMS = (64, 128)
+_ARGS = ([build.P] * 6 + [build.I64] * 9 + [build.I] * 8
          + [build.F, build.I, build.P])
 _BWD_ARGS = ([build.P] * 10 + [build.I64] * 12 + [build.I] * 7
              + [build.F, build.I, build.P])
@@ -40,20 +49,19 @@ def _check_shapes(q, k, v, causal: bool):
     skv, hkv = k.shape[1], k.shape[2]
     if causal and sq != skv:
         raise ValueError(f"causal flash requires sq == skv, got {sq}/{skv}")
-    if hq % hkv or v.shape != k.shape or k.shape[0] != b or k.shape[3] != d:
+    if (hq % hkv or v.shape[:3] != k.shape[:3] or k.shape[0] != b
+            or k.shape[3] != d):
         raise ValueError(f"shapes q {tuple(q.shape)} k {tuple(k.shape)} "
                          f"v {tuple(v.shape)} do not form a GQA call")
 
 
-def _check_kernel_args(tensors, d: int):
-    """What the kernels take: f32/bf16 of one dtype, D in _HEAD_DIMS, a
-    contiguous head dim, one device.  Raises on anything else."""
+def _check_kernel_args(tensors):
+    """What the kernels take: f32/bf16 of one dtype, a contiguous head
+    dim, one device.  Raises on anything else."""
     dt, dev = tensors[0].dtype, tensors[0].device
     if dt not in _DTYPES or any(t.dtype != dt for t in tensors):
         raise TypeError(f"flash kernels take f32/bf16 inputs of one dtype; "
                         f"got {[t.dtype for t in tensors]}")
-    if d not in _HEAD_DIMS:
-        raise ValueError(f"flash kernels are built for head dims {_HEAD_DIMS}; got {d}")
     if any(t.stride(-1) != 1 or t.device != dev for t in tensors):
         raise ValueError("inputs must share a device and have a contiguous "
                          "head dim")
@@ -76,33 +84,41 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         kv_len: Optional[torch.Tensor] = None, *,
                         causal: bool = True
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """q (B, Sq, Hq, D); k/v (B, Skv, Hkv, D), Hq % Hkv == 0; kv_len (B,)
-    int32 (keys at positions >= kv_len[b] are masked).  Causal attention
-    must be square.  Returns (o (B, Sq, Hq, D), lse (B, Hq, Sq) f32)."""
+    """q (B, Sq, Hq, D); k (B, Skv, Hkv, D); v (B, Skv, Hkv, Dv), Hq % Hkv
+    == 0, (D, Dv) in ``HEAD_DIMS``; kv_len (B,) int32 (keys at positions
+    >= kv_len[b] are masked).  Causal attention must be square.  Returns
+    (o (B, Sq, Hq, Dv), lse (B, Hq, Sq) f32); the scale is D^-1/2."""
     _check_shapes(q, k, v, causal)
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, kv_len, causal=causal)
     b, sq, hq, d = q.shape
-    skv, hkv = k.shape[1], k.shape[2]
-    _check_kernel_args((q, k, v), d)
+    skv, hkv, dv = k.shape[1], k.shape[2], v.shape[3]
+    _check_kernel_args((q, k, v))
+    if (d, dv) not in HEAD_DIMS:
+        raise ValueError(f"the flash forward is built for (head dim, value head "
+                         f"dim) pairs {HEAD_DIMS}; got ({d}, {dv})")
     kv_len = _kv_len(kv_len, b, skv, q.device)
-    o = torch.empty(b, sq, hq, d, dtype=q.dtype, device=q.device)
+    o = torch.empty(b, sq, hq, dv, dtype=q.dtype, device=q.device)
     lse = torch.empty(b, hq, sq, dtype=torch.float32, device=q.device)
     build.launch("repro_flash_attention_fwd", _ARGS, q.device,
                  q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_len.data_ptr(),
                  o.data_ptr(), lse.data_ptr(),
                  *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-                 b, sq, skv, hq, hkv, d, int(causal), d ** -0.5,
+                 b, sq, skv, hq, hkv, d, dv, int(causal), d ** -0.5,
                  _DTYPES[q.dtype])
-    if q.dtype == torch.bfloat16:
-        flash_attention_fwd.launches += 1
+    bf16 = q.dtype == torch.bfloat16
+    if dv == d:
+        attr = "launches" if bf16 else "launches_f32"
     else:
-        flash_attention_fwd.launches_f32 += 1
+        attr = "launches_dv" if bf16 else "launches_dv_f32"
+    setattr(flash_attention_fwd, attr, getattr(flash_attention_fwd, attr) + 1)
     return o, lse
 
 
-flash_attention_fwd.launches = 0
+flash_attention_fwd.launches = 0          # bf16, D = Dv
 flash_attention_fwd.launches_f32 = 0
+flash_attention_fwd.launches_dv = 0       # bf16, (96, 64)
+flash_attention_fwd.launches_dv_f32 = 0
 
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -110,21 +126,31 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         kv_len: Optional[torch.Tensor] = None, *,
                         causal: bool = True
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """q, do (B, Sq, Hq, D); k/v (B, Skv, Hkv, D); lse, delta (B, Hq, Sq)
-    f32, delta = rowsum(dO * O); kv_len (B,) int32.  Returns (dq (B, Sq,
-    Hq, D), dk, dv (B, Skv, Hkv, D)) in f32, dk/dv summed over each KV
-    head's group of query heads."""
+    """q (B, Sq, Hq, D); k (B, Skv, Hkv, D); v (B, Skv, Hkv, Dv); do (B,
+    Sq, Hq, Dv); lse, delta (B, Hq, Sq) f32, delta = rowsum(dO * O); kv_len
+    (B,) int32.  Returns (dq (B, Sq, Hq, D), dk (B, Skv, Hkv, D), dv (B,
+    Skv, Hkv, Dv)) in f32, dk/dv summed over each KV head's group of query
+    heads.  The kernels take Dv = D only: a CUDA call with Dv != D (MLA
+    training) raises ``NotImplementedError``."""
     _check_shapes(q, k, v, causal)
     b, sq, hq, d = q.shape
     skv, hkv = k.shape[1], k.shape[2]
-    if do.shape != q.shape or lse.shape != (b, hq, sq) or delta.shape != lse.shape:
+    if (do.shape != (*q.shape[:3], v.shape[3]) or lse.shape != (b, hq, sq)
+            or delta.shape != lse.shape):
         raise ValueError(f"do {tuple(do.shape)}, lse {tuple(lse.shape)} and "
                          f"delta {tuple(delta.shape)} do not match q "
                          f"{tuple(q.shape)}")
     if q.device.type == "cpu":
         return flash_attention_bwd_ref(q, k, v, do, lse, delta, kv_len,
                                        causal=causal)
-    _check_kernel_args((q, k, v, do), d)
+    if v.shape[3] != d:
+        raise NotImplementedError(
+            f"the flash backward kernels take Dv = D; got D {d}, Dv {v.shape[3]}: "
+            "MLA training waits for their Dv != D branch (ROADMAP A14b-train)")
+    _check_kernel_args((q, k, v, do))
+    if d not in _BWD_HEAD_DIMS:
+        raise ValueError(f"the flash backward is built for head dims "
+                         f"{_BWD_HEAD_DIMS}; got {d}")
     if any(t.dtype != torch.float32 or not t.is_contiguous() or t.device != q.device
            for t in (lse, delta)):
         raise ValueError("lse and delta must be contiguous float32 on the "
@@ -183,6 +209,7 @@ class FlashAttention(torch.autograd.Function):
 def flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               kv_len: Optional[torch.Tensor] = None, *,
               causal: bool = True) -> torch.Tensor:
-    """q (B, Sq, Hq, D); k/v (B, Skv, Hkv, D) -> o (B, Sq, Hq, D),
-    differentiable in q, k, v (the reference's ``flash_mha``)."""
+    """q (B, Sq, Hq, D); k (B, Skv, Hkv, D); v (B, Skv, Hkv, Dv) -> o (B,
+    Sq, Hq, Dv), differentiable in q, k, v (the reference's ``flash_mha``;
+    on CUDA only where Dv = D)."""
     return FlashAttention.apply(q, k, v, kv_len, causal)

@@ -44,9 +44,10 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         kv_len: Optional[torch.Tensor] = None, *,
                         causal: bool = True
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """q (B, Sq, Hq, D); k/v (B, Skv, Hkv, D); kv_len (B,) int.
+    """q (B, Sq, Hq, D); k (B, Skv, Hkv, D); v (B, Skv, Hkv, Dv); kv_len
+    (B,) int.  Scores scale by D^-1/2.
 
-    Returns (o (B, Sq, Hq, D) in q.dtype, lse (B, Hq, Sq) float32).
+    Returns (o (B, Sq, Hq, Dv) in q.dtype, lse (B, Hq, Sq) float32).
     Query head h attends KV head h // (Hq // Hkv).  Rows whose every key
     is masked get o = 0 and lse = FULLY_MASKED_LSE.  Differentiable in
     q, k, v through autograd (the plain path's training gradient)."""
@@ -64,7 +65,7 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     safe = torch.where(l == 0.0, 1.0, l)
     o = torch.einsum("bhgqk,bkhd->bqhgd", p, vf) / safe.permute(0, 3, 1, 2, 4)
     lse = torch.where(l == 0.0, FULLY_MASKED_LSE, m + torch.log(safe))[..., 0]
-    return o.reshape(b, sq, hq, d).to(q.dtype), lse.reshape(b, hq, sq)
+    return o.reshape(b, sq, hq, v.shape[-1]).to(q.dtype), lse.reshape(b, hq, sq)
 
 
 def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -73,10 +74,12 @@ def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                             kv_len: Optional[torch.Tensor] = None, *,
                             causal: bool = True
                             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """q, do (B, Sq, Hq, D); k/v (B, Skv, Hkv, D); lse, delta (B, Hq, Sq)
-    float32 (delta = rowsum(dO * O)); kv_len (B,) int.
+    """q (B, Sq, Hq, D); k (B, Skv, Hkv, D); v (B, Skv, Hkv, Dv); do (B, Sq,
+    Hq, Dv); lse, delta (B, Hq, Sq) float32 (delta = rowsum(dO * O));
+    kv_len (B,) int.
 
-    Returns (dq (B, Sq, Hq, D), dk, dv (B, Skv, Hkv, D)), all float32:
+    Returns (dq (B, Sq, Hq, D), dk (B, Skv, Hkv, D), dv (B, Skv, Hkv,
+    Dv)), all float32:
     p = exp(s - lse) rebuilt under the forward's masks (p := 0 where
     masked), ds = p * (dO.v - delta) * scale, dq = ds @ k, dk = ds^T @ q
     and dv = p^T @ dO, the last two summed over the G query heads of each
@@ -88,7 +91,7 @@ def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     valid, in_len = _live(sq, skv, kv_len, causal, b, q.device)
     kf, vf = _kv_rows(k, v, in_len)
     qg = q.float().reshape(b, sq, hkv, g, d)
-    dog = do.float().reshape(b, sq, hkv, g, d)
+    dog = do.float().reshape(b, sq, hkv, g, v.shape[-1])
     row = (b, hkv, g, sq, 1)
     s = torch.einsum("bqhgd,bkhd->bhgqk", qg, kf) * scale
     p = torch.where(valid, torch.exp(s - lse.float().reshape(row)), 0.0)

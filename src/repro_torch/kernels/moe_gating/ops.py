@@ -39,26 +39,30 @@ def _gate(logits: torch.Tensor, top_k: int):
 
 class MoEGating(torch.autograd.Function):
     """(weights, mask) of ``moe_gating`` with the weights differentiable
-    in the logits.  The forward saves the f32 weights w; the backward of
-    their gradient g is w * (g - sum_j w_j g_j) in f32, cast to the
-    logits' dtype, the same torch formula on either device: zero off the
-    selected experts (w is zero there), NaN across a row whose weights
-    are NaN.  The reference has no backward kernel for this function, so
-    neither does the port."""
+    in the logits.  The forward saves the f32 weights w and the mask; the
+    backward of their gradient g is w * (g - sum_j w_j g_j) on the
+    selected experts and 0 elsewhere, in f32, cast to the logits' dtype,
+    the same torch formula on either device.  That is ``jax.grad`` of the
+    reference's ``gating_topk`` (whose ``where`` zeroes the unselected
+    lanes): a NaN row, which selects nothing, gets zeros; an all -inf row
+    selects one expert, whose weight is NaN, and gets NaN there alone.
+    The reference has no backward kernel for this function, so neither
+    does the port."""
 
     @staticmethod
     def forward(ctx, logits: torch.Tensor, top_k: int):
         w, m = _gate(logits, top_k)
-        ctx.save_for_backward(w)
+        ctx.save_for_backward(w, m)
         ctx.logits_dtype = logits.dtype
         ctx.mark_non_differentiable(m)
         return w, m
 
     @staticmethod
     def backward(ctx, gw, _gm):
-        (w,) = ctx.saved_tensors
+        w, m = ctx.saved_tensors
         gw = gw.float()
-        return (w * (gw - (w * gw).sum(dim=-1, keepdim=True))).to(ctx.logits_dtype), None
+        g = torch.where(m.bool(), w * (gw - (w * gw).sum(dim=-1, keepdim=True)), 0.0)
+        return g.to(ctx.logits_dtype), None
 
 
 def moe_gating(logits: torch.Tensor, top_k: int):

@@ -1,8 +1,10 @@
 """GQA attention: prefill (flash kernel), dense and paged decode, the
-paged k-token speculative verify, and the projections around them.
-Counterpart of ``repro.models.attention`` for the dense family, in the
-same layouts: activations (B, S, H, D), weights (d_in, d_out) applied as
-``x @ W``.
+paged k-token speculative verify, and the projections around them; and
+MLA (MiniCPM3 / DeepSeek-V2), whose prefill decompresses the latent into
+per-head K/V for the flash kernel's Dv != D branch and whose decode
+attends in the latent space.  Counterpart of ``repro.models.attention``
+for the dense family, in the same layouts: activations (B, S, H, D),
+weights (d_in, d_out) applied as ``x @ W``.
 
 Every attention call goes through a kernel wrapper (CUDA kernel on CUDA
 tensors, plain version on CPU tensors); ``use_kernel=False`` calls the
@@ -28,7 +30,13 @@ from repro_torch.kernels.flash_attention.ops import flash_mha
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 from repro_torch.kernels.verify_attention.ops import paged_flash_verify
 from repro_torch.kernels.verify_attention.ref import paged_verify_attention_ref
-from repro_torch.models.layers import apply_rope, rope_freqs
+from repro_torch.models.layers import (
+    DEFAULT_WF,
+    apply_rope,
+    dense_init,
+    rmsnorm,
+    rope_freqs,
+)
 
 NEG_INF = -1e30   # the reference's jnp-path mask (attention.py:24)
 
@@ -48,7 +56,8 @@ def gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   kv_valid_len: Optional[torch.Tensor] = None,
                   pv_bf16: bool = False,
                   use_kernel: bool = True) -> torch.Tensor:
-    """q (B, Sq, Hq, D); k/v (B, Skv, Hkv, D), Hq % Hkv == 0 -> (B, Sq, Hq, D).
+    """q (B, Sq, Hq, D); k (B, Skv, Hkv, D); v (B, Skv, Hkv, Dv), Hq % Hkv
+    == 0 -> (B, Sq, Hq, Dv) (MLA: the value head dim differs from D).
 
     Shapes the flash kernel can express go through it; the rest (one-token
     queries, offset or non-square causal windows) take a materialized
@@ -77,7 +86,7 @@ def gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         o = torch.einsum("bhgqk,bkhd->bqhgd", p.bfloat16(), v.bfloat16()).float()
     else:
         o = torch.einsum("bhgqk,bkhd->bqhgd", p, v.float())
-    return o.reshape(b, sq, hq, d).to(q.dtype)
+    return o.reshape(b, sq, hq, v.shape[-1]).to(q.dtype)
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
@@ -189,3 +198,125 @@ def gqa_block(params, x: torch.Tensor, cfg, *, use_kernel: bool = True) -> torch
     """The training block: causal self-attention over positions 0..S-1,
     no cache writes."""
     return gqa_block_kv(params, x, cfg, use_kernel=use_kernel)[0]
+
+
+# ---------------------------------------------------------------------------
+# MLA (MiniCPM3 / DeepSeek-V2): latent-compressed KV
+# ---------------------------------------------------------------------------
+
+MLA_NORM_EPS = 1e-6   # the reference's rmsnorm default, not cfg.norm_eps
+
+
+def init_mla_params(gen: torch.Generator, cfg, *, device, dtype) -> dict:
+    """One layer's MLA weights, the reference's ``init_mla_params``
+    distributions (its draws differ: the tests carry weights over)."""
+    d, h = cfg.d_model, cfg.n_heads
+    qr, kr = cfg.q_lora_rank, cfg.kv_lora_rank
+    nd, rd, vd = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    kw = dict(device=device, dtype=dtype)
+    return {
+        "q_down": dense_init(gen, d, qr, **kw),
+        "q_norm": torch.ones(qr, **kw),
+        "q_up": dense_init(gen, qr, h * (nd + rd), **kw),
+        "kv_down": dense_init(gen, d, kr + rd, **kw),
+        "kv_norm": torch.ones(kr, **kw),
+        "kv_up": dense_init(gen, kr, h * (nd + vd), **kw),
+        "wo": dense_init(gen, h * vd, d, **kw),
+    }
+
+
+def _mla_qkv(params, x: torch.Tensor, cfg, positions: torch.Tensor,
+             use_kernel: bool = True):
+    """(q_nope (B, S, H, nope), q_rope (B, S, H, rope), latent (B, S, kr),
+    k_rope (B, S, rope)) at ``positions``.  The two latent norms are the
+    reference's ``rmsnorm(x, w)``: eps 1e-6 and the default reduction
+    form whatever the model's ``wf``; ``use_kernel`` False takes their
+    plain version.  RoPE spans the rope dims alone, and k_rope is one head
+    shared by all."""
+    b, s, _ = x.shape
+    h = cfg.n_heads
+    nd, rd, kr = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.kv_lora_rank
+    dt = x.dtype
+    cq = rmsnorm(x @ params["q_down"].to(dt), params["q_norm"], MLA_NORM_EPS,
+                 use_kernel, DEFAULT_WF)
+    q = (cq @ params["q_up"].to(dt)).reshape(b, s, h, nd + rd)
+    q_nope, q_rope = q[..., :nd], q[..., nd:]
+    ckv = x @ params["kv_down"].to(dt)
+    latent = rmsnorm(ckv[..., :kr], params["kv_norm"], MLA_NORM_EPS, use_kernel,
+                     DEFAULT_WF)
+    cos, sin = rope_freqs(rd, cfg.rope_theta, positions)
+    q_rope = apply_rope(q_rope, cos, sin)
+    k_rope = apply_rope(ckv[:, :, None, kr:], cos, sin)[:, :, 0, :]
+    return q_nope, q_rope, latent, k_rope
+
+
+def mla_block_kv(params, x: torch.Tensor, cfg, *, use_kernel: bool = True,
+                 norm_kernel: bool = True):
+    """Causal MLA self-attention over positions 0..S-1, the latent
+    decompressed into per-head K/V (the naive form); also returns
+    (latent (B, S, kr), k_rope (B, S, rope)) for the prefill's cache.
+    q and k are (B, S, H, nope + rope), v (B, S, H, v_head_dim): the flash
+    kernel's Dv != D branch.  v is a strided view of the decompressed row
+    (nope + v dims a head), not a copy: at MiniCPM3's widths its base is
+    128 B into the row and its H stride 128 elements, which the bf16
+    kernel's 16-byte alignment check takes.  ``use_kernel`` picks the
+    attention lowering, ``norm_kernel`` the latent norms'."""
+    b, s, _ = x.shape
+    h = cfg.n_heads
+    nd, rd, vd = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    positions = torch.arange(s, device=x.device)
+    q_nope, q_rope, latent, k_rope = _mla_qkv(params, x, cfg, positions, norm_kernel)
+    kv = (latent @ params["kv_up"].to(x.dtype)).reshape(b, s, h, nd + vd)
+    k_nope, v = kv[..., :nd], kv[..., nd:]
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([k_nope, k_rope[:, :, None, :].expand(b, s, h, rd)], dim=-1)
+    o = gqa_attention(q, k, v, causal=True, pv_bf16=cfg.pv_bf16, use_kernel=use_kernel)
+    return o.reshape(b, s, -1) @ params["wo"].to(x.dtype), (latent, k_rope)
+
+
+def mla_block(params, x: torch.Tensor, cfg, *, use_kernel: bool = True,
+              norm_kernel: bool = True) -> torch.Tensor:
+    """The training block: :func:`mla_block_kv` without the cache rows."""
+    return mla_block_kv(params, x, cfg, use_kernel=use_kernel,
+                        norm_kernel=norm_kernel)[0]
+
+
+def mla_decode_block(params, x: torch.Tensor, cfg, lat_cache: torch.Tensor,
+                     rope_cache: torch.Tensor, pos: torch.Tensor, *,
+                     attend_len: Optional[int] = None,
+                     use_kernel: bool = True) -> torch.Tensor:
+    """Absorbed-matmul decode of one token a row, x (B, 1, d): attention
+    runs in the latent space, so the layer's cache holds only latent
+    (B, Smax, kr) and rope (B, Smax, rope) rows, written at ``pos`` in
+    place (a row past the cache clamps onto its last row, as the
+    reference's ``dynamic_update_slice``).  The read is sliced to
+    ``attend_len`` first, then masked to positions <= pos; scores, softmax
+    and the latent context are fp32, the output cast back to x.dtype.  No
+    kernel: the reference's decode is fp32 einsums too.  ``use_kernel``
+    picks the latent norms' lowering.  Returns (B, 1, d)."""
+    b = x.shape[0]
+    h = cfg.n_heads
+    nd, rd, vd = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    kr = cfg.kv_lora_rank
+    q_nope, q_rope, latent, k_rope = _mla_qkv(params, x, cfg, pos[:, None], use_kernel)
+    bidx = torch.arange(b, device=x.device)
+    row = torch.clamp(pos.long(), max=lat_cache.shape[1] - 1)
+    lat_cache[bidx, row] = latent[:, 0].to(lat_cache.dtype)
+    rope_cache[bidx, row] = k_rope[:, 0].to(rope_cache.dtype)
+    lat_read, rope_read = lat_cache, rope_cache
+    if attend_len is not None and attend_len < lat_cache.shape[1]:
+        lat_read, rope_read = lat_cache[:, :attend_len], rope_cache[:, :attend_len]
+    kv_up = params["kv_up"].reshape(kr, h, nd + vd)
+    w_uk, w_uv = kv_up[..., :nd], kv_up[..., nd:]
+    # absorb W_uk into the query: q' = q_nope @ W_uk^T, in latent space
+    q_lat = torch.einsum("bshn,rhn->bshr", q_nope, w_uk.to(x.dtype))
+    lat_f = lat_read.float()
+    s = (torch.einsum("bhr,bkr->bhk", q_lat[:, 0].float(), lat_f)
+         + torch.einsum("bhr,bkr->bhk", q_rope[:, 0].float(), rope_read.float()))
+    s = s * (nd + rd) ** -0.5
+    ki = torch.arange(lat_read.shape[1], device=x.device)
+    s = torch.where((ki[None, :] <= pos[:, None])[:, None, :], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    ctx = torch.einsum("bhk,bkr->bhr", p, lat_f)
+    o = torch.einsum("bhr,rhv->bhv", ctx, w_uv.float()).to(x.dtype)
+    return (o.reshape(b, -1) @ params["wo"].to(x.dtype))[:, None, :]

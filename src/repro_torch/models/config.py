@@ -1,9 +1,9 @@
 """Model configuration: the fields of ``repro``'s ``ModelConfig`` that the
 ported families read (dense and MoE: the GQA shape, q/k/v biases, RoPE,
-the experts and their capacities) and the layer options they take (a
-padded vocabulary, tied embeddings, a bf16 P·V contraction on the plain
-attention path).  Later families add their fields when they are
-ported."""
+the experts and their capacities; MLA's latent ranks and head dims) and
+the layer options they take (a padded vocabulary, tied embeddings, a bf16
+P·V contraction on the plain attention path).  Later families add their
+fields when they are ported."""
 
 from __future__ import annotations
 
@@ -23,9 +23,17 @@ class ModelConfig:
     vocab: int
     d_head: Optional[int] = None   # default d_model // n_heads
 
+    attn_type: str = "gqa"         # gqa | mla
     qkv_bias: bool = False
     rope_theta: float = 10000.0
     norm_eps: float = 1e-6
+    # MLA (MiniCPM3 / DeepSeek-V2 style): q and K/V through low-rank
+    # latents; q/k heads of nope + rope dims, v heads of v_head_dim
+    q_lora_rank: int = 768
+    kv_lora_rank: int = 256
+    qk_nope_head_dim: int = 64
+    qk_rope_head_dim: int = 32
+    v_head_dim: int = 64
 
     # MoE
     n_experts: int = 0

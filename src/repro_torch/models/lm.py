@@ -2,15 +2,18 @@
 caches.
 
 Counterpart of ``repro.models.lm.Model`` for the dense and the MoE GQA
-families, with the same functional interface and parameter pytree (a
-nested dict whose ``layers`` leaves are stacked (L, ...); the MoE family
-has ``layers.moe`` in place of ``layers.mlp``), so ``repro_torch.testing``
-can carry the reference's weights over leaf for leaf:
+families and the dense family's MLA attention (MiniCPM3), with the same
+functional interface and parameter pytree (a nested dict whose ``layers``
+leaves are stacked (L, ...); the MoE family has ``layers.moe`` in place
+of ``layers.mlp``, MLA its latent projections in ``layers.attn``), so
+``repro_torch.testing`` can carry the reference's weights over leaf for
+leaf:
 
   init(gen)                                  -> params
   backbone(params, batch)                    -> hidden (B, S, d)  [train]
   forward(params, batch)                     -> logits (B, S, V)  [train]
   init_cache(B, max_seq, layout=..., kv_dtype=...) -> dense or paged cache
+                                             (MLA: dense latent cache only)
   prefill(params, tokens, max_seq, last_pos) -> (last logits (B, V), dense cache)
   decode_step(params, cache, tok, pos, attend_len) -> (logits (B, V), cache)
   decode_verify_step(params, paged cache, window (B, T), pos, attend_len)
@@ -38,6 +41,10 @@ from repro_torch.models.attention import (
     gqa_block,
     gqa_block_kv,
     gqa_qkv,
+    init_mla_params,
+    mla_block,
+    mla_block_kv,
+    mla_decode_block,
     paged_decode_attention,
     paged_verify_attention,
 )
@@ -64,6 +71,7 @@ Params = Dict[str, Any]
 # 'kernel' the CUDA kernel (its plain version on CPU tensors), 'torch' the
 # plain version on any device, None whatever Model.use_kernels says
 BACKENDS = (None, "kernel", "torch")
+ATTN_TYPES = ("gqa", "mla")
 
 
 def _unstack(tree) -> list:
@@ -100,7 +108,10 @@ class Model:
     ``lm_head`` or, with ``cfg.tie_embeddings``, ``embed.T`` as the head)
     with a SwiGLU MLP (``family == "dense"``) or a top-k MoE
     (``"moe"``: gating through the ``moe_gating`` kernel, the experts as
-    the reference's one-hot dispatch) in each layer.
+    the reference's one-hot dispatch) in each layer.  A dense config with
+    ``attn_type == "mla"`` has MLA attention instead: prefill and training
+    through the flash kernel's Dv != D branch, decode in the latent space
+    over a dense latent cache (``supports_paged`` is False).
 
     ``device`` defaults to ``cuda`` and raises without it; ``dtype`` is the
     compute dtype of activations and the storage dtype of caches;
@@ -126,6 +137,13 @@ class Model:
         if cfg.family not in ("dense", "moe"):
             raise NotImplementedError(
                 f"family {cfg.family!r} is not ported yet (ROADMAP A14)")
+        if cfg.attn_type not in ATTN_TYPES:
+            raise ValueError(f"attn_type must be one of {ATTN_TYPES}; "
+                             f"got {cfg.attn_type!r}")
+        if cfg.attn_type == "mla" and cfg.family != "dense":
+            # the reference's MLA decode layer is dense (lm.py:533-545)
+            raise ValueError(f"MLA attention runs in the dense family; got "
+                             f"{cfg.family!r}")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.dtype = dtype
@@ -164,22 +182,30 @@ class Model:
                 out[l] = dense_init(gen, d_in, d_out, **kw)
             return out
 
-        attn = {"wq": stacked(d, hq * dh), "wk": stacked(d, hkv * dh),
-                "wv": stacked(d, hkv * dh), "wo": stacked(hq * dh, d)}
-        if cfg.qkv_bias:
+        def stacked_layers(init_layer):
+            """L layers of ``init_layer(gen, cfg, **kw)``'s dict, drawn in
+            layer order, each leaf stacked (L, ...) as it is drawn"""
+            out = None
+            for l in range(L):
+                layer = init_layer(gen, cfg, **kw)
+                if out is None:
+                    out = {k: torch.empty((L, *v.shape), **kw) for k, v in layer.items()}
+                for k, v in layer.items():
+                    out[k][l] = v
+                del layer
+            return out
+
+        if cfg.attn_type == "mla":
+            attn = stacked_layers(init_mla_params)
+        else:
+            attn = {"wq": stacked(d, hq * dh), "wk": stacked(d, hkv * dh),
+                    "wv": stacked(d, hkv * dh), "wo": stacked(hq * dh, d)}
+        if cfg.qkv_bias and cfg.attn_type != "mla":
             attn.update(bq=torch.zeros(L, hq * dh, **kw),
                         bk=torch.zeros(L, hkv * dh, **kw),
                         bv=torch.zeros(L, hkv * dh, **kw))
         if cfg.family == "moe":
-            moe = None
-            for l in range(L):
-                layer = init_moe_params(gen, cfg, **kw)
-                if moe is None:
-                    moe = {k: torch.empty((L, *v.shape), **kw) for k, v in layer.items()}
-                for k, v in layer.items():
-                    moe[k][l] = v
-                del layer
-            ffn = {"moe": moe}
+            ffn = {"moe": stacked_layers(init_moe_params)}
         else:
             ffn = {"mlp": {"w_gate": stacked(d, f), "w_up": stacked(d, f),
                            "w_down": stacked(f, d)}}
@@ -193,10 +219,21 @@ class Model:
         return params
 
     # ----------------------------------------------------------------- cache
+    # families whose cache is a stacked (L, B, S, Hkv, D) K/V pair, which the
+    # paged pool can host (the reference's list; vlm is ROADMAP A14d).  MLA
+    # caches latents and stays dense
+    PAGED_FAMILIES = ("dense", "moe", "vlm")
+
+    def supports_paged(self) -> bool:
+        return (self.cfg.family in self.PAGED_FAMILIES
+                and self.cfg.attn_type != "mla")
+
     def init_cache(self, batch_size: int, max_seq: int, *, layout: str = "dense",
                    page_size: int = 16, num_pages: Optional[int] = None,
                    kv_dtype: Optional[str] = None) -> Dict[str, torch.Tensor]:
-        """'dense': {"k"/"v": (L, B, max_seq, Hkv, D)}.  'paged': a shared
+        """'dense': {"k"/"v": (L, B, max_seq, Hkv, D)}, or for MLA
+        {"latent": (L, B, max_seq, kv_lora_rank), "rope": (L, B, max_seq,
+        qk_rope_head_dim)}.  'paged' (not MLA: ``ValueError``): a shared
         pool {"k_pages"/"v_pages": (L, num_pages, page_size, Hkv, D)} plus
         (B, ceil(max_seq / page_size)) block tables at the trash page.
 
@@ -209,6 +246,11 @@ class Model:
             raise ValueError("kv_dtype is a paged-layout axis; "
                              f"got layout={layout!r}")
         if layout == "paged":
+            if not self.supports_paged():
+                raise ValueError(
+                    f"paged cache layout supports families "
+                    f"{self.PAGED_FAMILIES} (non-MLA); got "
+                    f"{cfg.family}/{cfg.attn_type}")
             if num_pages is None:
                 num_pages = b * cdiv(max_seq, page_size) + 1
             cache = init_page_pool(L, num_pages, page_size, cfg.n_kv_heads,
@@ -220,9 +262,12 @@ class Model:
             return cache
         if layout != "dense":
             raise ValueError(f"unknown cache layout {layout!r}")
+        kw = dict(dtype=self.dtype, device=self.device)
+        if cfg.attn_type == "mla":
+            return {"latent": torch.zeros((L, b, max_seq, cfg.kv_lora_rank), **kw),
+                    "rope": torch.zeros((L, b, max_seq, cfg.qk_rope_head_dim), **kw)}
         shape = (L, b, max_seq, cfg.n_kv_heads, cfg.d_head)
-        return {"k": torch.zeros(shape, dtype=self.dtype, device=self.device),
-                "v": torch.zeros(shape, dtype=self.dtype, device=self.device)}
+        return {"k": torch.zeros(shape, **kw), "v": torch.zeros(shape, **kw)}
 
     # --------------------------------------------------------------- pieces
     def _norm(self, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -258,12 +303,25 @@ class Model:
         m = p["mlp"]
         return x + swiglu(g, m["w_gate"], m["w_up"], m["w_down"])
 
+    def _attn_block_kv(self, p, g: torch.Tensor):
+        """A layer's causal attention over positions 0..S-1 and the rows
+        its dense cache keeps, in ``init_cache``'s leaf order: (k, v), or
+        MLA's (latent, k_rope)."""
+        if self.cfg.attn_type == "mla":
+            return mla_block_kv(p, g, self.cfg, use_kernel=self.attn_kernel,
+                                norm_kernel=self.use_kernels)
+        return gqa_block_kv(p, g, self.cfg, use_kernel=self.attn_kernel)
+
     def _tf_block(self, p, x: torch.Tensor) -> torch.Tensor:
         """One training layer: causal attention over the whole sequence
         and the MLP, both pre-norm residual (the reference's
         ``_tf_block``)."""
         g = self._norm(x, p["ln1"])
-        x = x + gqa_block(p["attn"], g, self.cfg, use_kernel=self.attn_kernel)
+        if self.cfg.attn_type == "mla":
+            x = x + mla_block(p["attn"], g, self.cfg, use_kernel=self.attn_kernel,
+                              norm_kernel=self.use_kernels)
+        else:
+            x = x + gqa_block(p["attn"], g, self.cfg, use_kernel=self.attn_kernel)
         return self._mlp_residual(p, x, self.cfg.capacity_factor)
 
     # -------------------------------------------------------------- forward
@@ -291,8 +349,8 @@ class Model:
     def prefill(self, params, tokens: torch.Tensor, max_seq: int,
                 last_pos: Optional[torch.Tensor] = None):
         """tokens (B, S) -> (logits (B, V) at each row's last real token,
-        dense cache {"k"/"v": (L, B, max(max_seq, S), Hkv, D)} with
-        positions [0, S) filled and the rest zero).
+        dense cache {"k"/"v": (L, B, max(max_seq, S), Hkv, D)}, or MLA's
+        latent cache, with positions [0, S) filled and the rest zero).
 
         last_pos (B,): index of each row's last real token in a
         right-padded batch; the causal mask keeps it independent of the
@@ -303,22 +361,20 @@ class Model:
         tokens = tokens.to(self.device)
         b, s = tokens.shape
         x = self._embed(params, tokens)
-        shape = (cfg.n_layers, b, max(max_seq, s), cfg.n_kv_heads, cfg.d_head)
-        ck = torch.zeros(shape, dtype=self.dtype, device=self.device)
-        cv = torch.zeros(shape, dtype=self.dtype, device=self.device)
+        cache = self.init_cache(b, max(max_seq, s))
         for l, p in enumerate(_unstack(params["layers"])):
             g = self._norm(x, p["ln1"])
-            att, (k, v) = gqa_block_kv(p["attn"], g, cfg, use_kernel=self.attn_kernel)
+            att, rows = self._attn_block_kv(p["attn"], g)
             x = x + att
-            ck[l, :, :s] = k
-            cv[l, :, :s] = v
+            for leaf, r in zip(cache.values(), rows):
+                leaf[l, :, :s] = r
             x = self._mlp_residual(p, x, cfg.infer_capacity_factor)
         if last_pos is None:
             last = x[:, -1:]
         else:
             last = x[torch.arange(b, device=self.device),
                      last_pos.to(self.device).long()][:, None]
-        return self._head(params, last)[:, 0, :cfg.vocab], {"k": ck, "v": cv}
+        return self._head(params, last)[:, 0, :cfg.vocab], cache
 
     # ---------------------------------------------------------------- decode
     @torch.no_grad()
@@ -330,11 +386,26 @@ class Model:
 
         attend_len: bound on the valid cache prefix (max(pos) < attend_len)
         so attention reads only the live part of the cache.  A paged cache
-        (``k_pages`` leaf) writes through its block tables instead."""
+        (``k_pages`` leaf) writes through its block tables instead; MLA
+        writes its latent and rope rows and attends in the latent space."""
         x = self._embed(params, tokens[:, None])
         if "k_pages" in cache:
             return self._gqa_decode_paged(params, cache, x, pos, attend_len)
+        if self.cfg.attn_type == "mla":
+            return self._mla_decode(params, cache, x, pos, attend_len)
         return self._gqa_decode_unrolled(params, cache, x, pos, attend_len)
+
+    def _mla_decode(self, params, cache, x, pos, attend_len):
+        """The MLA step (the reference's unrolled ``mla_decode_block``
+        loop): each layer writes its cache rows in place; no host sync and
+        no data-dependent shape, so a CUDA graph captures it."""
+        lat, rope = cache["latent"], cache["rope"]
+        for l, p in enumerate(_unstack(params["layers"])):
+            g = self._norm(x, p["ln1"])
+            x = x + mla_decode_block(p["attn"], g, self.cfg, lat[l], rope[l], pos,
+                                     attend_len=attend_len, use_kernel=self.use_kernels)
+            x = self._mlp_residual(p, x, self.cfg.infer_capacity_factor)
+        return self._head(params, x)[:, 0, :self.cfg.vocab], cache
 
     def _gqa_decode_layers(self, params, x, positions,
                            write_attend: Callable) -> torch.Tensor:

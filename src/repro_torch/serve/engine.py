@@ -364,7 +364,7 @@ class _SchedState:
     next_seq: int = 0
     resumed: set = dataclasses.field(default_factory=set)
     slot_pos: List[int] = dataclasses.field(default_factory=list)
-    cache: Any = None          # dense layout: {"k", "v"}
+    cache: Any = None          # dense layout: {"k", "v"} (MLA: {"latent", "rope"})
     pool: Any = None           # paged layout: {"k_pages", "v_pages"}
     bt_dev: Any = None         # paged layout: uploaded block tables
     pos: Any = None
@@ -435,6 +435,11 @@ class ServeEngine:
                              "cache_layout='paged'")
         if spec_k > 1 and not fused:
             raise ValueError("speculative decoding requires fused=True")
+        if cache_layout == "paged" and not model.supports_paged():
+            raise ValueError(
+                "paged cache layout needs a plain stacked K/V cache "
+                f"(families {model.PAGED_FAMILIES}, non-MLA); "
+                f"got {model.cfg.family}/{model.cfg.attn_type}")
         if cache_layout == "paged" and not fused:
             raise ValueError("cache_layout='paged' requires fused=True "
                              "(the seed loop is the dense baseline)")

@@ -32,15 +32,23 @@ _BIASES = ("layers.attn.bq", "layers.attn.bk", "layers.attn.bv")
 # the MoE family's layer in place of the dense MLP
 MOE_FFN = ("layers.moe.router", "layers.moe.w_gate", "layers.moe.w_up",
            "layers.moe.w_down")
+# MLA's attention (latent q and K/V projections, their norms) in place of
+# wq/wk/wv/wo and the biases
+MLA_ATTN = ("layers.attn.q_down", "layers.attn.q_norm", "layers.attn.q_up",
+            "layers.attn.kv_down", "layers.attn.kv_norm", "layers.attn.kv_up",
+            "layers.attn.wo")
 
 
 def expected_leaves(cfg) -> tuple:
     """The leaves of a ``cfg`` model's pytree: the dense set, with
     ``layers.moe.*`` in place of ``layers.mlp.*`` for the MoE family, the
-    q/k/v biases only with ``cfg.qkv_bias``, and no ``lm_head`` with
+    q/k/v biases only with ``cfg.qkv_bias``, ``layers.attn`` of
+    ``MLA_ATTN`` with ``cfg.attn_type == "mla"``, and no ``lm_head`` with
     ``cfg.tie_embeddings``.  Shapes are the tree's own (a padded vocabulary
     gives ``embed`` and ``lm_head`` ``cfg.vocab_padded`` rows / columns)."""
     leaves = [p for p in DENSE_LEAVES if cfg.qkv_bias or p not in _BIASES]
+    if cfg.attn_type == "mla":
+        leaves = [p for p in leaves if not p.startswith("layers.attn.")] + list(MLA_ATTN)
     if cfg.tie_embeddings:
         leaves.remove("lm_head")
     if cfg.family == "moe":

@@ -149,6 +149,102 @@ def test_cuda_flash_matches_plain(b, s, hq, hkv, d, kv_len, causal, dtype):
     torch.testing.assert_close(lse, want_lse, atol=1e-3, rtol=1e-4)
 
 
+# MLA's (D, Dv) = (96, 64) instance: MiniCPM3's q/k heads of 64 nope + 32
+# rope dims over v heads of 64, v a strided view into the (.., nope + v)
+# row of the decompressed latent, as the model passes it
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("b,s,h,kv_len,causal", [
+    (2, 37, 4, [37, 20], True),       # ragged S, kv_len inside a tile
+    (2, 21, 4, [21, 6], False),
+    (1, 200, 40, None, True),         # MiniCPM3's 40 heads
+    (4, 512, 40, None, True),         # its serving prefill
+])
+def test_cuda_flash_dv_branch_matches_plain(b, s, h, kv_len, causal, dtype):
+    requires_cuda()
+    rng = np.random.default_rng(21)
+    q, k = (_cuda(_rand(rng, b, s, h, 96), dtype) for _ in "qk")
+    v = _cuda(_rand(rng, b, s, h, 128), dtype)[..., 64:]
+    lens = None if kv_len is None else torch.tensor(kv_len, dtype=torch.int32,
+                                                    device="cuda")
+    counter = "launches_dv" if dtype == torch.bfloat16 else "launches_dv_f32"
+    others = ("launches", "launches_f32")
+    before = [getattr(flash_attention_fwd, c) for c in (counter, *others)]
+    o, lse = flash_attention_fwd(q, k, v, lens, causal=causal)
+    torch.cuda.synchronize()
+    after = [getattr(flash_attention_fwd, c) for c in (counter, *others)]
+    assert after == [before[0] + 1, *before[1:]]
+    assert o.shape == (b, s, h, 64) and o.dtype == dtype
+    want_o, want_lse = flash_attention_ref(q, k, v, lens, causal=causal)
+    _close(o, want_o, dtype)
+    torch.testing.assert_close(lse, want_lse, atol=1e-3, rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_cuda_flash_refuses_unbuilt_head_dims_and_dv_backward(dtype):
+    """A (D, Dv) pair without an instance raises; the backward kernels take
+    Dv = D only, so MLA's backward raises on the card, through the
+    wrappers and through FlashAttention."""
+    requires_cuda()
+    rng = np.random.default_rng(22)
+    q, k = (_cuda(_rand(rng, 1, 16, 2, 48), dtype) for _ in "qk")
+    v = _cuda(_rand(rng, 1, 16, 2, 32), dtype)
+    with pytest.raises(ValueError, match="value head"):
+        flash_attention_fwd(q, k, v)
+    q, k = (_cuda(_rand(rng, 1, 16, 2, 96), dtype) for _ in "qk")
+    v, do = (_cuda(_rand(rng, 1, 16, 2, 64), dtype) for _ in "vo")
+    o, lse = flash_attention_fwd(q, k, v)
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    with pytest.raises(NotImplementedError, match="A14b-train"):
+        flash_attention_bwd(q, k, v, do, lse, delta)
+    ts = [t.clone().requires_grad_() for t in (q, k, v)]
+    with pytest.raises(NotImplementedError, match="A14b-train"):
+        flash_mha(*ts).backward(do)
+
+
+@pytest.mark.cuda
+def test_cuda_mla_serving_matches_cpu_plain_path():
+    """MLA serving on the card at MiniCPM3's head dims (nope 64, rope 32,
+    v 64; ranks and depth cut), fp32: prefill through the f32 (96, 64)
+    flash instance, decode's latent einsums and the latent norms through
+    rmsnorm, greedy engine tokens (captured steps) equal to the CPU's
+    plain versions on the same weights, and prefill logits within fp32
+    summation order."""
+    requires_cuda()
+    import dataclasses
+
+    from repro_torch import kernels
+    from repro_torch.configs import reduced_config
+    from repro_torch.models.lm import Model
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    cfg = dataclasses.replace(reduced_config("minicpm3-4b"), n_layers=2,
+                              qk_nope_head_dim=64, qk_rope_head_dim=32, v_head_dim=64)
+    base = Model(cfg, device="cpu", dtype=torch.float32).init(
+        torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(23)
+    spec = [(i, rng.integers(0, cfg.vocab, int(n)).tolist(), 6)
+            for i, n in enumerate(rng.integers(5, 40, 4))]
+    toks = torch.tensor([spec[0][1]])
+
+    def run(device, params):
+        model = Model(cfg, device=device, dtype=torch.float32)
+        logits, _ = model.prefill(params, toks, 64)
+        eng = ServeEngine(model, params, max_seq=64, batch_slots=2)
+        return logits.cpu(), eng.serve([Request(u, list(p), n) for u, p, n in spec])
+
+    kernels.reset_launches()
+    got_logits, got = run("cuda", _to_cuda(base))
+    counts = kernels.launch_counts()
+    want_logits, want = run("cpu", base)
+    assert got == want
+    torch.testing.assert_close(got_logits, want_logits, atol=1e-4, rtol=1e-4)
+    assert counts["flash_attention_fwd[dv,f32]"] > 0 and counts["rmsnorm"] > 0
+    assert counts["flash_attention_fwd"] == counts["flash_attention_fwd[f32]"] == 0
+    assert counts["flash_attention_fwd[dv]"] == 0
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(4, 1536), (2048, 1536), (3, 5, 256)])
 def test_cuda_rmsnorm_fp32_weight_under_bf16_rows(shape):
@@ -2306,7 +2402,7 @@ def test_port_imports_neither_jax_nor_repro():
                  "launch.serve", "checkpoint.checkpoint", "checkpoint._manifest_codec",
                  "train_lm", "serve.cluster", "serve.cluster.worker",
                  "serve.cluster.router", "serve.cluster.controller",
-                 "configs.qwen1_5_32b", "configs.qwen1_5_110b"):
+                 "configs.qwen1_5_32b", "configs.qwen1_5_110b", "configs.minicpm3_4b"):
         assert f"repro_torch.{name}" in mods, name
 
 

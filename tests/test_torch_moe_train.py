@@ -112,19 +112,24 @@ def test_gating_backward_matches_jax_vjp(name):
 
 
 def test_gating_backward_on_rows_without_finite_weights():
-    """A NaN row keeps NaN weights and gets a NaN gradient (the reference's
-    jnp.where hands its unselected lanes a zero instead; either way the
-    row poisons the loss); an all -inf row selects one expert, whose
-    weight 0 / 0 is NaN, and gets a NaN gradient too.  Finite rows beside
-    them are untouched."""
+    """Rows with no finite weight, beside finite rows, against ``jax.grad``
+    of the reference's ``gating_topk``, NaN positions included: a NaN row
+    selects nothing and gets an all-zero gradient (the reference's
+    ``where`` zeroes every unselected lane); an all -inf row selects lane
+    0, whose weight 0 / 0 is NaN, and gets NaN there and 0 elsewhere;
+    finite rows are unchanged."""
     x = np.random.default_rng(3).standard_normal((4, 8)).astype(np.float32)
     x[1, 3] = np.nan
     x[2] = -np.inf
+    want = np.asarray(jax.grad(lambda a: jax_moe.gating_topk(a, 2)[0].sum())(jnp.asarray(x)))
     t = torch.tensor(x, requires_grad=True)
     w, m = moe_gating(t, 2)
     w.sum().backward()
-    assert m[1].sum() == 0 and torch.isnan(w[1]).all() and torch.isnan(t.grad[1]).all()
-    assert m[2].tolist() == [1] + [0] * 7 and torch.isnan(t.grad[2]).all()
+    assert m[1].sum() == 0 and torch.isnan(w[1]).all()
+    assert m[2].tolist() == [1] + [0] * 7
+    np.testing.assert_allclose(t.grad.numpy(), want, **GATE_GRAD_TOL)   # NaNs where jax's
+    assert (t.grad[1] == 0).all()
+    assert torch.isnan(t.grad[2, 0]) and (t.grad[2, 1:] == 0).all()
     for r in (0, 3):
         assert torch.isfinite(t.grad[r]).all() and torch.isfinite(w[r]).all()
 
