@@ -292,8 +292,10 @@ its paths:
    bit for bit.  (c) The checkpoint's bytes, the sync save's seconds, the
    async save's stall, the writer's and the restore's seconds.  (d)
    ``python -m repro_torch.launch.train --ckpt-dir`` twice on one folder
-   (the second resumes) and ``python -m repro_torch.train_lm --steps 20``,
-   each in a subprocess on the card: exit 0 and the resume printed.
+   (2 steps and a checkpoint, then a resume for 1 more) and, beside them,
+   ``python -m repro_torch.train_lm --steps 1`` (a checkpoint, then its
+   restart drill), each in a subprocess on the card: exit 0 and the
+   resume printed.
 5c. MoE training (``moe train ...`` lines): full-width, full-depth
    Granite-MoE-1B-A400M (24 layers, d_model 1024, 16/8 heads, 32 experts,
    top-8, ~1.38 B parameters) with fp32 weights and AdamW, bf16 compute,
@@ -308,6 +310,26 @@ its paths:
    dropped at capacity; one profiled step.  It fails on a non-finite loss
    or unless every layer's router went through the kernel's forward twice
    a step (forward and remat).
+5d. MLA training (``mla train ...`` lines, after 5c, while the card holds
+   no other model): MiniCPM3-4B at full width (d_model 2560, 40 heads, q
+   rank 768, kv rank 256, q/k heads of 64 nope + 32 rope dims, v heads of
+   64, d_ff 6400, vocab 73448) cut to 16 of its 62 layers, fp32 weights
+   and AdamW, bf16 compute, remat, the 8-chunk loss, S 4096 and batch 2.
+   First the memory count (the state at 16 bytes a parameter, the gradient
+   check's two gradients and its plain backward's fp32 scores), which
+   must fit; then the flash forward's and backward's (96, 64) instances at
+   one training layer call (B 2 x S 4096 x 40 heads, causal, v a strided
+   view of the decompressed row) against their plain versions, bf16 (their
+   rows of the kernel record, beside SDPA's forward and backward or its
+   refusal) and f32; one gradient through the kernel path and the plain
+   path held to the gates below, with two faulted controls (dk scaled by
+   1.25 and dv scaled by 1.25 in the backward) that must each trip a
+   gate; ``Trainer.run`` for 4 steps (loss, lr, grad_norm, ms, tokens/s,
+   peak memory), whose launches must be, a step, 32 of the forward's
+   (96, 64) instance (forward and remat), 16 of the backward's, and no
+   other flash kernel; one profiled step; and ``python -m
+   repro_torch.launch.train --arch minicpm3-4b --steps 2 --batch 2 --seq
+   64`` in a subprocess on the card, which must exit 0.
 6. MoE serving (``moe ...`` lines), before training and after the qwen2
    serving model is freed: full-width OLMoE-1B-7B (16 layers, d_model
    2048, 16/16 heads, 64 experts, top-8; random bf16 weights from the
@@ -398,11 +420,12 @@ its paths:
 
 Every serving, MoE and training run must normalize through rmsnorm's
 one-warp-a-row branch (the 32B and MLA runs excepted, whose 5120- and
-2560-wide rows take the ragged branch by design): the run fails if one launched its
-block-per-row ragged branch.  The flash rows count the bf16 branch's launches only.  The fp32 controls
-(C1, the tiered and the MoE ones) run the f32 branch: its launches are
-printed on a line of their own, and the run fails if a bf16 run launched
-an f32 flash kernel or an fp32 control a bf16 one.
+2560-wide rows take the ragged branch by design): the run fails if one
+launched its block-per-row ragged branch.  The flash rows count the bf16
+branch's launches only.  The fp32 controls (C1, the tiered and the MoE
+ones) run the f32 branch: its launches are printed on a line of their
+own, and the run fails if a bf16 run launched an f32 flash kernel or an
+fp32 control a bf16 one.
 
 Details land in ``build/chip_smoke.json`` (git-ignored).  The
 second-to-last lines are the kernels' JSON record and the card's name and
@@ -542,11 +565,13 @@ CKPT_STOP_AFTER = 2
 CKPT_DISK_FACTOR = 2.5        # free disk the phase needs, in states' bytes
 # the reference's resume tolerance on the loss (tests/test_fault_tolerance.py)
 CKPT_LOSS_RTOL = 1e-5
-# the CLIs: launch.train on one folder to CKPT_CLI_STEPS[0], then resumed
-# to CKPT_CLI_STEPS[1]; train_lm's restart drill
-CKPT_CLI_STEPS = (8, 12)
-CKPT_CLI_EVERY = 4
-TRAIN_LM_STEPS = 20
+# the CLIs: launch.train on one folder to CKPT_CLI_STEPS[0] (a checkpoint
+# there), then resumed to CKPT_CLI_STEPS[1]; train_lm's restart drill
+# after TRAIN_LM_STEPS steps (a checkpoint each step).  The drill needs one
+# checkpoint and one restart, so no leg runs more steps than that
+CKPT_CLI_STEPS = (2, 3)
+CKPT_CLI_EVERY = 2
+TRAIN_LM_STEPS = 1
 # phase 5c: MoE training at full width and depth, at the config's own
 # moe_group_size (0) and capacity factor (1.25)
 MOE_TRAIN_ARCH = "granite-moe-1b-a400m"
@@ -1322,8 +1347,9 @@ def add_counts(a: dict, b: dict) -> dict:
 
 
 F32_FLASH = ("flash_attention_fwd[f32]", "flash_attention_bwd[f32]",
-             "flash_attention_fwd[dv,f32]")
-BF16_FLASH = ("flash_attention_fwd", "flash_attention_bwd", "flash_attention_fwd[dv]")
+             "flash_attention_fwd[dv,f32]", "flash_attention_bwd[dv,f32]")
+BF16_FLASH = ("flash_attention_fwd", "flash_attention_bwd", "flash_attention_fwd[dv]",
+              "flash_attention_bwd[dv]")
 
 
 def flash_branch_launches(bf16_runs: dict, fp32_runs: dict):
@@ -4449,16 +4475,17 @@ def print_readings(label: str, r: dict, gates: dict = DENSE_GRAD_GATES,
 
 
 @contextlib.contextmanager
-def flash_dk_fault():
-    """The dense control's fault: dk scaled by GRAD_FAULT_DK in every
-    layer's flash backward."""
+def flash_grad_fault(index: int, scale: float):
+    """A faulted control: the flash backward's gradient ``index`` (1 dk,
+    2 dv) scaled by ``scale`` in every layer."""
     from repro_torch.kernels.flash_attention.ops import FlashAttention
 
     backward = FlashAttention.backward
 
     def faulted(ctx, do):
-        dq, dk, *rest = backward(ctx, do)
-        return (dq, dk * GRAD_FAULT_DK, *rest)
+        grads = list(backward(ctx, do))
+        grads[index] = grads[index] * scale
+        return tuple(grads)
 
     FlashAttention.backward = staticmethod(faulted)
     try:
@@ -4467,13 +4494,17 @@ def flash_dk_fault():
         FlashAttention.backward = staticmethod(backward)
 
 
+# the dense control: dk scaled by GRAD_FAULT_DK
+DK_FAULT = (f"dk x {GRAD_FAULT_DK}", lambda: flash_grad_fault(1, GRAD_FAULT_DK))
+
+
 def compare_grads(model, plain, params, batch, gates: dict = DENSE_GRAD_GATES,
-                  fault=(f"dk x {GRAD_FAULT_DK}", flash_dk_fault),
+                  faults=(DK_FAULT,),
                   prefix: str = "train") -> dict:
     """One gradient on one batch through the kernel path and through the
-    plain path, same weights, held to the gates; then the faulted control
-    (the kernel path under ``fault``, a (label, context manager) pair),
-    which must trip a gate."""
+    plain path, same weights, held to the gates; then each faulted control
+    (the kernel path under one of ``faults``, (label, context manager)
+    pairs), which must trip a gate."""
     from repro_torch.train.step import make_grad_fn
 
     def grads(m):
@@ -4487,13 +4518,14 @@ def compare_grads(model, plain, params, batch, gates: dict = DENSE_GRAD_GATES,
         fail(f"{prefix}: non-finite loss in the gradient check")
     if tripped_gates(sound, gates):
         fail(f"{prefix}: kernel-path gradients fail the gates {tripped_gates(sound, gates)}")
-    label, faulted = fault
-    with faulted():
-        control = grad_readings(*grads(model), p_loss, p_grads)
-    print_readings(f"control ({label})", control, gates, prefix)
-    if not tripped_gates(control, gates):
-        fail(f"{prefix}: the gradient gates pass a backward with {label}")
-    return dict(sound=sound, control=control)
+    controls = {}
+    for label, faulted in faults:
+        with faulted():
+            controls[label] = grad_readings(*grads(model), p_loss, p_grads)
+        print_readings(f"control ({label})", controls[label], gates, prefix)
+        if not tripped_gates(controls[label], gates):
+            fail(f"{prefix}: the gradient gates pass a backward with {label}")
+    return dict(sound=sound, controls=controls)
 
 
 def run_training(cfg, seed: int):
@@ -4787,20 +4819,25 @@ def run_ckpt(seed: int, smi: str) -> tuple:
                  f"in {steps} steps of {cfg.n_layers} layers")
         no_ragged_rmsnorm("checkpoint training", counts)
 
-        # (d) the CLIs, each in a process of its own
+        # (d) the CLIs, each in a process of its own: train_lm beside the
+        # launch.train pair (a process's start, not its steps, is most of
+        # its wall: ~25 s for 2 steps of the reduced model)
         cli_dir = os.path.join(root, "cli")
         base = [sys.executable, "-m", "repro_torch.launch.train", "--arch", ARCH,
                 "--ckpt-dir", cli_dir, "--ckpt-every", str(CKPT_CLI_EVERY)]
         first, then = CKPT_CLI_STEPS
-        rec["d"] = dict(
-            train=run_cli("ckpt d launch.train", base + ["--steps", str(first)], smi,
-                          f"over {first} steps"),
-            resume=run_cli("ckpt d launch.train resumed", base + ["--steps", str(then)], smi,
-                           f"resumed at step {first}"),
-            train_lm=run_cli("ckpt d train_lm", [sys.executable, "-m", "repro_torch.train_lm",
-                                          "--steps", str(TRAIN_LM_STEPS), "--ckpt",
-                                          os.path.join(root, "train_lm")], smi,
-                             f"resumed at step {TRAIN_LM_STEPS}"))
+        with concurrent.futures.ThreadPoolExecutor(1) as beside:
+            train_lm = beside.submit(
+                run_cli, "ckpt d train_lm", [sys.executable, "-m", "repro_torch.train_lm",
+                                            "--steps", str(TRAIN_LM_STEPS), "--ckpt",
+                                            os.path.join(root, "train_lm")], smi,
+                f"resumed at step {TRAIN_LM_STEPS}")
+            rec["d"] = dict(
+                train=run_cli("ckpt d launch.train", base + ["--steps", str(first)], smi,
+                              f"over {first} steps"),
+                resume=run_cli("ckpt d launch.train resumed", base + ["--steps", str(then)],
+                               smi, f"resumed at step {first}"),
+                train_lm=train_lm.result())
     finally:
         shutil.rmtree(root, ignore_errors=True)
     rec["wall_s"] = time.perf_counter() - t_phase
@@ -4864,7 +4901,7 @@ def run_moe_train(seed: int, smi: str) -> tuple:
     batch = {k: v.cuda() for k, v in data.batch_at(0).items()}
     grads = compare_grads(model, Model(cfg, use_kernels=False, **kw), params, batch,
                           gates=MOE_GRAD_GATES,
-                          fault=(f"gating backward x {GRAD_FAULT_GATE}", gating_fault),
+                          faults=((f"gating backward x {GRAD_FAULT_GATE}", gating_fault),),
                           prefix="moe train")
 
     opt = AdamWConfig(lr=3e-4, warmup_steps=1, total_steps=TRAIN_STEPS)
@@ -5652,6 +5689,282 @@ def run_mla(seed: int, gen: torch.Generator, rows: dict, smi: str) -> tuple:
     return rec, counts
 
 
+# ---------------------------------------------------------------------------
+# phase 5d: MLA training through the flash backward's (96, 64) instance
+# ---------------------------------------------------------------------------
+
+# MiniCPM3-4B at full width cut to 16 of its 62 layers: at 16 bytes a
+# parameter (fp32 weights, gradients and both AdamW moments) the full
+# depth's 4.26 B parameters are a 68.2 GB state, and the gradient check's
+# plain backward needs ~21.5 GB of fp32 scores beside it; 16 layers are
+# 1.38 B parameters and 22.1 GB
+MLA_TRAIN_LAYERS = 16
+MLA_TRAIN_MARGIN = 4 * 2 ** 30  # remat's layer inputs, a vocab chunk, allocator slack
+# fp32 (B, H, S, S) score tensors the plain attention's backward holds at
+# once (scores, probabilities, their gradient and one temporary)
+MLA_PLAIN_SCORES = 4
+MLA_TRAIN_FWD_ROW = "flash_attention_fwd (MLA training)"       # row 2d
+MLA_BWD_ROW = "flash_attention_bwd (MLA D 96 / Dv 64)"         # row 3c
+# one gradient, kernel path vs plain path, bf16 compute through 16 MLA
+# layers: the paths round to bf16 at the same points and differ in the
+# order of fp32 sums, the latent norms' and the ragged d_model norms' bf16
+# rounding among them.  Each gate is ~10x this phase's sound reading on an
+# H100 (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md): loss 1.249e-4,
+# global norm 1.328e-4 relative, and at layers.attn.q_down 1 - cosine
+# 2.786e-4 and a norm difference of 2.361e-2 relative.  The faulted
+# controls read: dk x 1.25 a global norm 4.36e-3 off and 1 - cosine
+# 3.18e-3 at layers.attn.kv_down (it trips two gates); dv x 1.25 a global
+# norm 0.127 off, 1 - cosine 3.30e-2 at embed and 0.540 at
+# layers.attn.kv_norm (three).  The loss cannot see a backward fault
+MLA_GRAD_GATES = dict(loss=1.25e-3, norm=1.3e-3, cos=1 - 2.8e-3, leaf=0.24)
+GRAD_FAULT_DV = 1.25          # the second control's wrong dv scale
+DV_FAULT = (f"dv x {GRAD_FAULT_DV}", lambda: flash_grad_fault(2, GRAD_FAULT_DV))
+MLA_CLI_STEPS = 2
+
+
+def check_mla_train_kernels(cfg, gen: torch.Generator, rows: dict) -> dict:
+    """The flash forward's and backward's (96, 64) instances at one MLA
+    training layer call: B 2 x S 4096 x 40 heads, causal, q/k of 96, v a
+    strided view into the (.., nope + v) row as ``mla_block_kv`` passes
+    it.  bf16 fills rows 2d and 3c (SDPA's forward, and its backward as
+    forward + backward less forward, beside them); f32 is printed."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention.ops import (
+        flash_attention_bwd,
+        flash_attention_fwd,
+    )
+    from repro_torch.kernels.flash_attention.ref import (
+        flash_attention_bwd_ref,
+        flash_attention_ref,
+    )
+
+    h, nd, rd, vd = cfg.n_heads, cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    b, s, dq = TRAIN_BATCH, TRAIN_SEQ, nd + rd
+    pairs = b * h * s * (s + 1) // 2                  # live (query, key) pairs
+    out = {}
+
+    def randn(*shape, dtype=torch.bfloat16):
+        return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+
+    def case(dtype):
+        q, k, do = randn(b, s, h, dq, dtype=dtype), randn(b, s, h, dq, dtype=dtype), \
+            randn(b, s, h, vd, dtype=dtype)
+        return q, k, randn(b, s, h, nd + vd, dtype=dtype)[..., nd:], do
+
+    q, k, v, do = case(torch.bfloat16)
+    n_in = 2 * (2 * q.numel() + v.numel())               # q, k, v read in bf16
+    o, lse = flash_attention_fwd(q, k, v)
+    o_ref, lse_ref = flash_attention_ref(q, k, v)
+    torch.cuda.synchronize()
+    lse_err = (lse - lse_ref).abs().max().item()
+    if o.shape != (b, s, h, vd) or lse_err > 1e-3:
+        fail(f"the (96, 64) flash forward at training's shape gave o {tuple(o.shape)}, "
+             f"lse off by {lse_err}")
+    qt, kt, vt = (a.transpose(1, 2).detach().requires_grad_() for a in (q, k, v))
+    dot = do.transpose(1, 2)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+
+    def sdpa_fwd_bwd():
+        torch.autograd.grad(sdpa(), (qt, kt, vt), dot)
+
+    try:
+        sdpa_ms = cuda_ms(sdpa, iters=10, warmup=2)
+        sdpa_bwd_ms = cuda_ms(sdpa_fwd_bwd, iters=10, warmup=2) - sdpa_ms
+    except RuntimeError as exc:
+        sdpa_ms = sdpa_bwd_ms = None
+        print(f"kernel {MLA_BWD_ROW}: SDPA refused Dv != D at training's shape: "
+              f"{str(exc).splitlines()[0]}", flush=True)
+    # bytes: q, k, v read, o and lse written; operations: 2 * D for Q.K^T
+    # and 2 * Dv for P.V a live pair
+    record_kernel(rows, MLA_TRAIN_FWD_ROW,
+                  "src/repro_torch/kernels/flash_attention/flash_attention.cu",
+                  "src/repro/kernels/flash_attention/flash_attention.py:123", o, o_ref,
+                  FLASH_FWD_TOL, cuda_ms(lambda: flash_attention_fwd(q, k, v), iters=10),
+                  cuda_ms(lambda: flash_attention_ref(q, k, v), iters=3, warmup=1),
+                  n_in + 2 * o.numel() + b * h * s * 4, (2 * dq + 2 * vd) * pairs,
+                  BF16_FLOPS_S, sdpa_ms, branch=FLASH_BRANCHES[q.dtype])
+    del o_ref, lse_ref
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    bwd_args = (q, k, v, do, lse, delta)
+    got = flash_attention_bwd(*bwd_args)
+    want = flash_attention_bwd_ref(*bwd_args)
+    torch.cuda.synchronize()
+    if [t.shape[-1] for t in got] != [dq, dq, vd]:
+        fail(f"the (96, 64) backward's head dims {[t.shape[-1] for t in got]}")
+    got, want = (torch.cat([t.flatten() for t in x]) for x in (got, want))
+    # bytes: q, k, v, dO read in bf16, lse and delta in f32, dq, dk, dv
+    # written in f32; operations: s, dq, dk of 2 * D and dp, dv of 2 * Dv
+    # a live pair
+    bwd_bytes = n_in + 2 * do.numel() + 2 * b * h * s * 4 + 4 * (2 * q.numel() + o.numel())
+    bwd_flops = 2 * (3 * dq + 2 * vd) * pairs
+    record_kernel(rows, MLA_BWD_ROW,
+                  "src/repro_torch/kernels/flash_attention/flash_attention_bwd.cu",
+                  "src/repro/kernels/flash_attention/flash_attention.py:306", got, want,
+                  BWD_TOL, cuda_ms(lambda: flash_attention_bwd(*bwd_args), iters=20, warmup=2),
+                  cuda_ms(lambda: flash_attention_bwd_ref(*bwd_args), iters=3, warmup=1),
+                  bwd_bytes, bwd_flops, BF16_FLOPS_S, sdpa_bwd_ms,
+                  branch=FLASH_BRANCHES[q.dtype])
+    for name in (MLA_TRAIN_FWD_ROW, MLA_BWD_ROW):
+        out[name] = {key: rows[name][key] for key in
+                     ("max_abs_err", "ms", "plain_ms", "bound_ms", "library_ms")}
+    del q, k, v, do, o, lse, delta, bwd_args, got, want, qt, kt, vt, dot
+    torch.cuda.empty_cache()
+
+    # the f32 branch (CUDA cores) at the same shape
+    q, k, v, do = case(torch.float32)
+    o, lse = flash_attention_fwd(q, k, v)
+    delta = (do * o).sum(-1).transpose(1, 2).contiguous()
+    bwd_args = (q, k, v, do, lse, delta)
+    got = torch.cat([t.flatten() for t in flash_attention_bwd(*bwd_args)])
+    want = torch.cat([t.flatten() for t in flash_attention_bwd_ref(*bwd_args)])
+    torch.cuda.synchronize()
+    err32, ok32 = max_err(got, want), agrees(got, want, BWD_TOL)
+    ms32 = cuda_ms(lambda: flash_attention_bwd(*bwd_args), iters=3, warmup=1)
+    b_ms32, b_by32 = bound(4 * (2 * q.numel() + v.numel() + do.numel()) + 2 * b * h * s * 4
+                           + 4 * (2 * q.numel() + o.numel()), bwd_flops, F32_FLOPS_S)
+    print(f"kernel {MLA_BWD_ROW} (f32): max_abs_err={err32:.3e} tol={BWD_TOL} ok={ok32} "
+          f"ms={ms32:.4f} bound_ms={b_ms32:.4f} ({b_by32}) "
+          f"branch={FLASH_BRANCHES[torch.float32]}", flush=True)
+    if not ok32:
+        fail("the f32 (96, 64) flash backward disagrees with its plain version")
+    out[f"{MLA_BWD_ROW} (f32)"] = dict(max_abs_err=err32, ms=ms32, bound_ms=b_ms32)
+    del q, k, v, do, o, lse, delta, bwd_args, got, want
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_mla_train(seed: int, gen: torch.Generator, rows: dict, smi: str) -> tuple:
+    """Phase 5d (``mla train`` lines): the memory count, the kernels at
+    training's shape, MiniCPM3-4B training cut to MLA_TRAIN_LAYERS, the
+    gradient check against the plain path with its two faulted controls,
+    TRAIN_STEPS Trainer steps, one profiled step and the train CLI.
+    Returns the record and the launch counts of the Trainer run."""
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticPipeline
+    from repro_torch.models.lm import Model
+    from repro_torch.optim.optimizer import AdamWConfig, init_adamw, leaves
+    from repro_torch.train.step import TrainState, make_train_step
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    full = get_config(MLA_ARCH)
+    cfg = dataclasses.replace(full, n_layers=MLA_TRAIN_LAYERS)
+    n_params = mla_params(cfg)
+    per_layer = mla_params(dataclasses.replace(full, n_layers=1)) - mla_params(
+        dataclasses.replace(full, n_layers=0))
+    state_bytes = 16 * n_params                     # weights, grads, m, v in fp32
+    scores = MLA_PLAIN_SCORES * TRAIN_BATCH * cfg.n_heads * TRAIN_SEQ ** 2 * 4
+    # the gradient check holds the weights, the plain path's gradients and
+    # the kernel path's beside the plain backward's scores; the Trainer the
+    # whole state
+    need = max(12 * n_params + scores, state_bytes) + MLA_TRAIN_MARGIN
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    print(f"mla train count: {per_layer} parameters a layer, "
+          f"{mla_params(dataclasses.replace(full, n_layers=0))} in the embedding, head and "
+          f"final norm; full depth {full.n_layers} layers = {mla_params(full)} parameters = "
+          f"{16 * mla_params(full) / 1e9:.1f} GB of fp32 weights, grads and AdamW moments; cut "
+          f"to {cfg.n_layers} layers: {n_params} parameters, {state_bytes / 1e9:.1f} GB of "
+          f"state; the gradient check's plain backward {scores / 1e9:.1f} GB of fp32 scores "
+          f"(B {TRAIN_BATCH} x {cfg.n_heads} heads x S {TRAIN_SEQ}^2 x {MLA_PLAIN_SCORES}); "
+          f"need {need / 2 ** 30:.2f} GiB with a {MLA_TRAIN_MARGIN / 2 ** 30:.0f} GiB margin; "
+          f"free {free / 2 ** 30:.2f} of {total / 2 ** 30:.2f} GiB; [{smi}]", flush=True)
+    if need > free:
+        fail(f"mla train: {cfg.n_layers} layers of MiniCPM3-4B do not fit: need "
+             f"{need / 2 ** 30:.2f} GiB, {free / 2 ** 30:.2f} GiB free")
+    shapes = check_mla_train_kernels(cfg, gen, rows)
+
+    kw = dict(device="cuda", dtype=torch.bfloat16, param_dtype=torch.float32)
+    model = Model(cfg, **kw)                           # remat on, as the reference
+    params = model.init(torch.Generator(device="cuda").manual_seed(seed))
+    if sum(p.numel() for p in leaves(params)) != n_params:
+        fail(f"mla train: the model holds {sum(p.numel() for p in leaves(params))} "
+             f"parameters, the count {n_params}")
+    data = SyntheticPipeline(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                                        global_batch=TRAIN_BATCH, seed=seed))
+    print(f"mla train model: {MLA_ARCH} layers={cfg.n_layers} (cut from {full.n_layers}) "
+          f"d_model={cfg.d_model} heads={cfg.n_heads} q_rank={cfg.q_lora_rank} "
+          f"kv_rank={cfg.kv_lora_rank} qk={cfg.qk_nope_head_dim}+{cfg.qk_rope_head_dim} "
+          f"v={cfg.v_head_dim} d_ff={cfg.d_ff} vocab={cfg.vocab} params={n_params} fp32 "
+          f"master weights + AdamW, bf16 compute, remat, batch {TRAIN_BATCH} x seq "
+          f"{TRAIN_SEQ}, {VOCAB_CHUNKS} vocab chunks; [{smi}]", flush=True)
+    batch = {k: v.cuda() for k, v in data.batch_at(0).items()}
+    grads = compare_grads(model, Model(cfg, use_kernels=False, **kw), params, batch,
+                          gates=MLA_GRAD_GATES,
+                          faults=(DK_FAULT, DV_FAULT),
+                          prefix="mla train")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    opt = AdamWConfig(lr=3e-4, warmup_steps=1, total_steps=TRAIN_STEPS)
+    trainer = Trainer(model, data, opt, TrainerConfig(total_steps=TRAIN_STEPS,
+                                                      vocab_chunks=VOCAB_CHUNKS))
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+
+    def log(step, m):
+        print(f"mla train step {step}: loss {m['loss']:.6f} lr {m['lr']:.3e} grad_norm "
+              f"{m['grad_norm']:.6f} {m['step_time_s'] * 1e3:.1f} ms "
+              f"{tokens / m['step_time_s']:.1f} tokens/s; [{smi}]", flush=True)
+
+    start = TrainState(params, init_adamw(params))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    kernels.reset_launches()
+    state, hist = trainer.run(start_state=start, on_metrics=log)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    flash = ("flash_attention_fwd[dv]", "flash_attention_bwd[dv]", "flash_attention_fwd",
+             "flash_attention_bwd", "flash_attention_fwd[f32]", "flash_attention_bwd[f32]",
+             "flash_attention_fwd[dv,f32]", "flash_attention_bwd[dv,f32]")
+    per_step = {k: counts[k] / TRAIN_STEPS for k in
+                flash[:4] + ("rmsnorm", "rmsnorm[ragged]")}
+    print(f"mla train: {len(hist)} steps, peak memory {peak / 2 ** 30:.2f} GiB "
+          f"({before / 2 ** 30:.2f} GiB allocated before the run); launches a step "
+          f"{per_step}; [{smi}]", flush=True)
+    losses = [m["loss"] for _, m in hist]
+    if len(hist) != TRAIN_STEPS or not np.isfinite(losses).all():
+        fail(f"mla train: losses {losses}")
+    # forward and remat per layer; one backward; no other flash kernel
+    want = {name: 0 for name in flash}
+    want.update({"flash_attention_fwd[dv]": 2 * cfg.n_layers * TRAIN_STEPS,
+                 "flash_attention_bwd[dv]": cfg.n_layers * TRAIN_STEPS})
+    wrong = {name: counts[name] for name, n in want.items() if counts[name] != n}
+    if wrong:
+        fail(f"mla train: launches {wrong} in {TRAIN_STEPS} steps of {cfg.n_layers} "
+             f"layers, not {dict((k, want[k]) for k in wrong)}")
+    if counts["rmsnorm"] == 0:
+        fail("mla train: the latent norms never launched rmsnorm's warp branch")
+
+    step_fn = make_train_step(model, opt, vocab_chunks=VOCAB_CHUNKS)
+    batch = {k: v.cuda() for k, v in data.batch_at(TRAIN_STEPS).items()}
+    profile = profile_phase("mla_train_step", lambda: step_fn(state, batch), 1)
+    times = [m["step_time_s"] for _, m in hist]
+    del model, params, state, start, trainer, step_fn
+    gc.collect()
+    torch.cuda.empty_cache()
+    cli = run_cli("mla train cli", [sys.executable, "-m", "repro_torch.launch.train",
+                                    "--arch", MLA_ARCH, "--steps", str(MLA_CLI_STEPS),
+                                    "--batch", "2", "--seq", "64"], smi,
+                  f"over {MLA_CLI_STEPS} steps")
+    rec = dict(grad_check=grads, history=hist, peak_bytes=peak, allocated_before_bytes=before,
+               n_params=n_params, params_a_layer=per_layer, state_bytes=state_bytes,
+               plain_scores_bytes=scores, need_bytes=need, free_bytes=free,
+               step_ms=[t * 1e3 for t in times], tokens_s=[tokens / t for t in times],
+               counts=counts, kernels_at_training_shape=shapes, cli=cli, profile=profile)
+    rec["wall_s"] = time.perf_counter() - t_phase
+    print(f"mla train phase: {rec['wall_s']:.1f} s; [{smi}]", flush=True)
+    return rec, counts
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5881,6 +6194,12 @@ def main():
     torch.cuda.empty_cache()
     moe_train_rec, moe_train_counts = run_moe_train(args.seed, smi)
     phases["moe_train_step"] = moe_train_rec.pop("profile")
+    torch.cuda.empty_cache()      # the MoE state makes way for MLA training's
+    mla_train_rec, mla_train_counts = run_mla_train(args.seed, gen, rows, smi)
+    phases["mla_train_step"] = mla_train_rec.pop("profile")
+    rows[MLA_TRAIN_FWD_ROW]["launches"] = mla_train_counts["flash_attention_fwd[dv]"]
+    rows[MLA_BWD_ROW]["launches"] = mla_train_counts["flash_attention_bwd[dv]"]
+    rows["rmsnorm[ragged] (d 5120)"]["launches"] += mla_train_counts["rmsnorm[ragged]"]
     flash_branch_launches(
         {"serve dense": dense_counts, "serve paged": paged_counts,
          "sampled bf16 runs": sampled_counts,
@@ -5890,7 +6209,7 @@ def main():
          "fleet bf16 runs": fleet_counts, "spec moe": spec_moe_counts,
          "qwen32b serve": qwen32b_counts, "mla serve": mla_counts,
          "moe serve": moe_counts, "train": train_counts, "ckpt train": ckpt_counts,
-         "moe train": moe_train_counts},
+         "moe train": moe_train_counts, "mla train": mla_train_counts},
         {"C1 control fp32": c1["launches"], "shared fp32 control": shared_fp32,
          "sched fp32 runs": sched_fp32, "faults fp32 runs": faults_fp32,
          "openloop fp32 runs": openloop_fp32, "fleet fp32 runs": fleet_fp32,
@@ -5898,8 +6217,9 @@ def main():
          "tiered fp32 control": tiered_rec["fp32_control_launches"],
          "moe control fp32 no drops": moe_rec["preemption_controls"]["fp32 no drops"]["launches"]})
     # training's launches belong to the training-shape rows (phases 5, 5b
-    # and 5c), and MoE training's gating launches to moe_gating's
-    training = (train_counts, ckpt_counts, moe_train_counts)
+    # and 5c; 5d's flash launches to rows 2d and 3c), and MoE training's
+    # gating launches to moe_gating's
+    training = (train_counts, ckpt_counts, moe_train_counts, mla_train_counts)
     rows["rmsnorm (training)"]["launches"] = sum(c["rmsnorm"] for c in training)
     rows["flash_attention_bwd"]["launches"] += sum(c["flash_attention_bwd"] for c in training)
     rows["flash_attention_fwd (training)"]["launches"] = sum(
@@ -5914,7 +6234,7 @@ def main():
         result, device=smi, phases=phases, dense_tok_s=dense_tok / dense_wall,
         paged_tok_s=paged_tok / paged_wall, dense_counts=dense_counts,
         paged_counts=paged_counts, preemptions=preemptions, train=train_rec,
-        ckpt=ckpt_rec, moe_train=moe_train_rec,
+        ckpt=ckpt_rec, moe_train=moe_train_rec, mla_train=mla_train_rec,
         num_pages=num_pages, teacher_forced_max_err=err, logit_scale=scale,
         fig5=fig5_rows, fig5_counts=fig5_counts, fig5_device=fig5_device,
         pr_transform=pr_rec, table4=table4,

@@ -43,3 +43,16 @@ def reduced_config(name: str) -> ModelConfig:
         changes.update(q_lora_rank=64, kv_lora_rank=32, qk_nope_head_dim=32,
                        qk_rope_head_dim=16, v_head_dim=32)
     return dataclasses.replace(c, **changes)
+
+
+def with_kernel_head_dims(cfg: ModelConfig) -> ModelConfig:
+    """``cfg`` with an MLA config's head dims set back to its full
+    config's (MiniCPM3: q/k heads of 64 nope + 32 rope dims, v heads of
+    64): the flash kernels are built for that (96, 64) pair, not the
+    reduced config's (48, 32).  Any other config comes back unchanged."""
+    if cfg.attn_type != "mla":
+        return cfg
+    full = get_config(cfg.name)
+    return dataclasses.replace(cfg, qk_nope_head_dim=full.qk_nope_head_dim,
+                               qk_rope_head_dim=full.qk_rope_head_dim,
+                               v_head_dim=full.v_head_dim)

@@ -8,9 +8,9 @@ use.  Each wrapper counts its kernel launches in ``<wrapper>.launches``
 (the two paged attention wrappers count their int8 branch apart, in
 ``.launches_int8``, verify its long-window branch in ``.launches_long``
 and ``.launches_long_int8``, the two flash wrappers their f32 branch, in
-``.launches_f32``, the flash forward its (96, 64) head-dim instance, in
-``.launches_dv`` and ``.launches_dv_f32``, and rmsnorm its block-per-row ragged branch, in
-``.launches_ragged``); :func:`launch_counts` / :func:`reset_launches` read
+``.launches_f32``, both their (96, 64) head-dim instance, in
+``.launches_dv`` and ``.launches_dv_f32``, and rmsnorm its block-per-row
+ragged branch, in ``.launches_ragged``); :func:`launch_counts` / :func:`reset_launches` read
 and clear them all.  A replayed CUDA graph calls no wrapper: its replays
 add the launches its capture recorded through :func:`add_launches`
 (``serve/step_graph.py``).
@@ -63,6 +63,8 @@ COUNTERS: Dict[str, Tuple[object, str]] = {
     "flash_attention_bwd[f32]": (flash_attention_bwd, "launches_f32"),
     "flash_attention_fwd[dv]": (flash_attention_fwd, "launches_dv"),
     "flash_attention_fwd[dv,f32]": (flash_attention_fwd, "launches_dv_f32"),
+    "flash_attention_bwd[dv]": (flash_attention_bwd, "launches_dv"),
+    "flash_attention_bwd[dv,f32]": (flash_attention_bwd, "launches_dv_f32"),
     "rmsnorm[ragged]": (rmsnorm, "launches_ragged"),
 }
 

@@ -15,12 +15,12 @@ per query head; the wrapper sums each KV head's group.  Each wrapper
 counts the branches apart: ``.launches`` the bf16 (tensor-core) kernels,
 ``.launches_f32`` the f32 ones.
 
-The forward is built for the (q/k head dim, v head dim) pairs in
+Both are built for the (q/k head dim, v head dim) pairs in
 ``HEAD_DIMS``: (64, 64), (128, 128) and MLA's (96, 64) (MiniCPM3's q/k
-heads of 64 nope + 32 rope dims over v heads of 64).  It counts the
-(96, 64) instance apart, in ``.launches_dv`` (bf16) and
-``.launches_dv_f32``.  The backward is built for D = Dv only and raises
-on a Dv != D call (ROADMAP A14b-train)."""
+heads of 64 nope + 32 rope dims over v heads of 64), and raise
+``ValueError`` on any other pair.  Each counts the (96, 64) instance
+apart, in ``.launches_dv`` (bf16) and ``.launches_dv_f32``: MLA's
+prefill runs the forward's, its training both."""
 
 from __future__ import annotations
 
@@ -35,12 +35,11 @@ from repro_torch.kernels.flash_attention.ref import (
 )
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# (D, Dv) instances of the forward kernels; the backward's are (D, D)
+# (D, Dv) instances of the forward and the backward kernels
 HEAD_DIMS = ((64, 64), (128, 128), (96, 64))
-_BWD_HEAD_DIMS = (64, 128)
 _ARGS = ([build.P] * 6 + [build.I64] * 9 + [build.I] * 8
          + [build.F, build.I, build.P])
-_BWD_ARGS = ([build.P] * 10 + [build.I64] * 12 + [build.I] * 7
+_BWD_ARGS = ([build.P] * 10 + [build.I64] * 12 + [build.I] * 8
              + [build.F, build.I, build.P])
 
 
@@ -74,6 +73,22 @@ def _check_kernel_args(tensors):
                          "whose B, S and H strides are multiples of 8")
 
 
+def _check_head_dims(which: str, d: int, dv: int):
+    if (d, dv) not in HEAD_DIMS:
+        raise ValueError(f"the flash {which} is built for the (head dim, value "
+                         f"head dim) pairs {HEAD_DIMS}; got head dims ({d}, {dv})")
+
+
+def _count(fn, dtype, same_dims: bool):
+    """One launch on ``fn``'s counter of this dtype branch and instance."""
+    bf16 = dtype == torch.bfloat16
+    if same_dims:
+        attr = "launches" if bf16 else "launches_f32"
+    else:
+        attr = "launches_dv" if bf16 else "launches_dv_f32"
+    setattr(fn, attr, getattr(fn, attr) + 1)
+
+
 def _kv_len(kv_len: Optional[torch.Tensor], b: int, skv: int, device):
     if kv_len is None:
         return torch.full((b,), skv, dtype=torch.int32, device=device)
@@ -94,9 +109,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     b, sq, hq, d = q.shape
     skv, hkv, dv = k.shape[1], k.shape[2], v.shape[3]
     _check_kernel_args((q, k, v))
-    if (d, dv) not in HEAD_DIMS:
-        raise ValueError(f"the flash forward is built for (head dim, value head "
-                         f"dim) pairs {HEAD_DIMS}; got ({d}, {dv})")
+    _check_head_dims("forward", d, dv)
     kv_len = _kv_len(kv_len, b, skv, q.device)
     o = torch.empty(b, sq, hq, dv, dtype=q.dtype, device=q.device)
     lse = torch.empty(b, hq, sq, dtype=torch.float32, device=q.device)
@@ -106,12 +119,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                  b, sq, skv, hq, hkv, d, dv, int(causal), d ** -0.5,
                  _DTYPES[q.dtype])
-    bf16 = q.dtype == torch.bfloat16
-    if dv == d:
-        attr = "launches" if bf16 else "launches_f32"
-    else:
-        attr = "launches_dv" if bf16 else "launches_dv_f32"
-    setattr(flash_attention_fwd, attr, getattr(flash_attention_fwd, attr) + 1)
+    _count(flash_attention_fwd, q.dtype, dv == d)
     return o, lse
 
 
@@ -130,12 +138,11 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     Sq, Hq, Dv); lse, delta (B, Hq, Sq) f32, delta = rowsum(dO * O); kv_len
     (B,) int32.  Returns (dq (B, Sq, Hq, D), dk (B, Skv, Hkv, D), dv (B,
     Skv, Hkv, Dv)) in f32, dk/dv summed over each KV head's group of query
-    heads.  The kernels take Dv = D only: a CUDA call with Dv != D (MLA
-    training) raises ``NotImplementedError``."""
+    heads; (D, Dv) in ``HEAD_DIMS``.  The scale is D^-1/2."""
     _check_shapes(q, k, v, causal)
     b, sq, hq, d = q.shape
-    skv, hkv = k.shape[1], k.shape[2]
-    if (do.shape != (*q.shape[:3], v.shape[3]) or lse.shape != (b, hq, sq)
+    skv, hkv, dv = k.shape[1], k.shape[2], v.shape[3]
+    if (do.shape != (*q.shape[:3], dv) or lse.shape != (b, hq, sq)
             or delta.shape != lse.shape):
         raise ValueError(f"do {tuple(do.shape)}, lse {tuple(lse.shape)} and "
                          f"delta {tuple(delta.shape)} do not match q "
@@ -143,51 +150,49 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type == "cpu":
         return flash_attention_bwd_ref(q, k, v, do, lse, delta, kv_len,
                                        causal=causal)
-    if v.shape[3] != d:
-        raise NotImplementedError(
-            f"the flash backward kernels take Dv = D; got D {d}, Dv {v.shape[3]}: "
-            "MLA training waits for their Dv != D branch (ROADMAP A14b-train)")
     _check_kernel_args((q, k, v, do))
-    if d not in _BWD_HEAD_DIMS:
-        raise ValueError(f"the flash backward is built for head dims "
-                         f"{_BWD_HEAD_DIMS}; got {d}")
+    _check_head_dims("backward", d, dv)
     if any(t.dtype != torch.float32 or not t.is_contiguous() or t.device != q.device
            for t in (lse, delta)):
         raise ValueError("lse and delta must be contiguous float32 on the "
                          "device of q")
     kv_len = _kv_len(kv_len, b, skv, q.device)
     dq = torch.empty(b, sq, hq, d, dtype=torch.float32, device=q.device)
-    # the bf16 kernel writes dk/dv per query head (B, Skv, Hq, D)
+    # the bf16 kernel writes dk/dv per query head (B, Skv, Hq, D / Dv)
     h_out = hq if q.dtype == torch.bfloat16 else hkv
     dk = torch.empty(b, skv, h_out, d, dtype=torch.float32, device=q.device)
-    dv = torch.empty_like(dk)
+    dv_out = torch.empty(b, skv, h_out, dv, dtype=torch.float32, device=q.device)
     build.launch("repro_flash_attention_bwd", _BWD_ARGS, q.device,
                  q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
                  lse.data_ptr(), delta.data_ptr(), kv_len.data_ptr(),
-                 dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                 dq.data_ptr(), dk.data_ptr(), dv_out.data_ptr(),
                  *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-                 *do.stride()[:3], b, sq, skv, hq, hkv, d, int(causal),
+                 *do.stride()[:3], b, sq, skv, hq, hkv, d, dv, int(causal),
                  d ** -0.5, _DTYPES[q.dtype])
-    if q.dtype == torch.bfloat16:
-        flash_attention_bwd.launches += 1
-    else:
-        flash_attention_bwd.launches_f32 += 1
+    _count(flash_attention_bwd, q.dtype, dv == d)
     if h_out != hkv:    # the group sum, in a fixed order
         g = hq // hkv
         dk = dk.view(b, skv, hkv, g, d).sum(3)
-        dv = dv.view(b, skv, hkv, g, d).sum(3)
-    return dq, dk, dv
+        dv_out = dv_out.view(b, skv, hkv, g, dv).sum(3)
+    return dq, dk, dv_out
 
 
-flash_attention_bwd.launches = 0
+flash_attention_bwd.launches = 0          # bf16, D = Dv
 flash_attention_bwd.launches_f32 = 0
+flash_attention_bwd.launches_dv = 0       # bf16, (96, 64)
+flash_attention_bwd.launches_dv_f32 = 0
 
 
 class FlashAttention(torch.autograd.Function):
     """Differentiable flash attention (the reference's ``_flash``
     custom_vjp, ``ops.py:24-51``).  Forward: the forward kernel, saving
     q, k, v, o and lse.  Backward: delta = rowsum(dO * O) in plain torch,
-    then the backward kernel; dq/dk/dv cast to the inputs' dtypes."""
+    then the backward kernel; dq/dk/dv cast to the inputs' dtypes.
+
+    ``v`` is saved as it was given: MLA passes a strided view into the
+    decompressed (.., nope + v) row, whose base (128 B into the row at
+    MiniCPM3's widths) and H stride (128 elements) meet the bf16
+    kernels' alignment check in the backward as in the forward."""
 
     @staticmethod
     def forward(ctx, q, k, v, kv_len, causal):
@@ -210,6 +215,6 @@ def flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               kv_len: Optional[torch.Tensor] = None, *,
               causal: bool = True) -> torch.Tensor:
     """q (B, Sq, Hq, D); k (B, Skv, Hkv, D); v (B, Skv, Hkv, Dv) -> o (B,
-    Sq, Hq, Dv), differentiable in q, k, v (the reference's ``flash_mha``;
-    on CUDA only where Dv = D)."""
+    Sq, Hq, Dv), differentiable in q, k, v (the reference's ``flash_mha``),
+    (D, Dv) in ``HEAD_DIMS`` on CUDA."""
     return FlashAttention.apply(q, k, v, kv_len, causal)

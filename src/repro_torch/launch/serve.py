@@ -7,7 +7,9 @@ replaying an open-loop arrival process through the streaming server
 makes the replay deterministic in scheduler rounds, ``--clock wall``
 sleeps real seconds).  Like the reference it takes the reduced config
 and computes in fp32, from random weights drawn from ``--seed``.  Runs on
-``cuda`` unless ``--device cpu``.
+``cuda`` unless ``--device cpu``; on the card an MLA config keeps its
+full head dims (the flash forward's (96, 64) instance; the reduced
+config's (48, 32) has none).
 
 The engine's flags are the reference's: ``--no-fused`` (the seed loop),
 ``--cache-layout``, ``--page-size``, ``--num-pages``, ``--kv-dtype``,
@@ -57,7 +59,8 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from repro_torch.configs.registry import reduced_config
+from repro_torch.configs.registry import reduced_config, with_kernel_head_dims
+from repro_torch.device import resolve_device
 from repro_torch.models.lm import Model
 from repro_torch.serve.async_engine import serve_open_loop
 from repro_torch.serve.cluster import ROUTER_POLICIES, make_cluster
@@ -309,7 +312,10 @@ def main(argv: Optional[List[str]] = None) -> dict:
                  "and one decode worker)")
 
     cfg = reduced_config(args.arch)
-    model = Model(cfg, device=args.device, dtype=torch.float32,
+    device = resolve_device(args.device)
+    if device.type == "cuda":
+        cfg = with_kernel_head_dims(cfg)
+    model = Model(cfg, device=device, dtype=torch.float32,
                   attn_backend=_backend(args.attn_backend))
     params = model.init(torch.Generator(device=model.device).manual_seed(args.seed))
     engine_kw = dict(

@@ -3,8 +3,10 @@
 Like the reference it always takes the reduced config (its ``--reduced``
 flag cannot be turned off) and trains in fp32; the full-width runs on the
 card are ``chip_smoke.py``'s training phases.  Trains the dense family
-(qwen2-1.5b) and the MoE family (granite-moe-1b-a400m, olmoe-1b-7b).
-Runs on ``cuda`` unless ``--device cpu``.  With ``--ckpt-dir`` it commits
+(qwen2-1.5b, and minicpm3-4b's MLA attention) and the MoE family
+(granite-moe-1b-a400m, olmoe-1b-7b).  Runs on ``cuda`` unless ``--device
+cpu``; on the card an MLA config keeps its full head dims (the flash
+kernels' (96, 64) instance; the reduced config's (48, 32) has none).  With ``--ckpt-dir`` it commits
 a checkpoint every ``--ckpt-every`` steps and, run again on the same
 folder, resumes from the newest committed step.
 
@@ -18,8 +20,13 @@ import argparse
 
 import torch
 
-from repro_torch.configs.registry import get_config, reduced_config
+from repro_torch.configs.registry import (
+    get_config,
+    reduced_config,
+    with_kernel_head_dims,
+)
 from repro_torch.data.pipeline import DataConfig, SyntheticPipeline
+from repro_torch.device import resolve_device
 from repro_torch.models.layers import WarpFeatureConfig
 from repro_torch.models.lm import Model
 from repro_torch.optim.optimizer import AdamWConfig, leaves
@@ -51,9 +58,12 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     cfg = reduced_config(args.arch) if args.reduced else get_config(args.arch)
+    device = resolve_device(args.device)
+    if device.type == "cuda":
+        cfg = with_kernel_head_dims(cfg)
     wf = WarpFeatureConfig(
         reduction_backend=None if args.warp_backend == "auto" else args.warp_backend)
-    model = Model(cfg, device=args.device, dtype=torch.float32, wf=wf,
+    model = Model(cfg, device=device, dtype=torch.float32, wf=wf,
                   attn_backend=None if args.attn_backend == "auto"
                   else args.attn_backend)
     data = SyntheticPipeline(DataConfig(vocab=cfg.vocab, seq_len=args.seq,

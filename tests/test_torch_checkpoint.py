@@ -42,6 +42,11 @@ TINY_FT = dict(name="tiny-ft", family="dense", n_layers=1, d_model=32, n_heads=2
                n_kv_heads=1, d_ff=64, vocab=128)
 TINY = dict(name="tiny", family="dense", n_layers=2, d_model=64, n_heads=4,
             n_kv_heads=2, d_ff=128, vocab=256)
+# reduced MiniCPM3-4B cut to 2 layers (both packages' reduced_config):
+# an MLA train state, whose attention leaves are the latent projections
+MLA = dict(name="minicpm3-4b", family="dense", n_layers=2, d_model=256, n_heads=4,
+           n_kv_heads=4, d_ff=512, vocab=512, attn_type="mla", q_lora_rank=64,
+           kv_lora_rank=32, qk_nope_head_dim=32, qk_rope_head_dim=16, v_head_dim=32)
 SEQ, BATCH = 16, 2
 _CACHE = {}
 
@@ -156,11 +161,20 @@ def test_codec_on_real_manifests(tmp_path):
 # one layout: either package restores the other's checkpoints
 # ---------------------------------------------------------------------------
 
-def test_port_checkpoint_restores_in_reference(tmp_path):
-    jm, jstate, tstate = _states()
-    tckpt.save_checkpoint(str(tmp_path), 5, tstate, metadata={"loss": 1.0, "preempted": False})
+@pytest.mark.parametrize("spec", [TINY, MLA], ids=["dense", "mla"])
+def test_port_checkpoint_restores_in_reference(tmp_path, spec):
+    """The port's checkpoint of a mid-run state restores in the reference,
+    every leaf and the step equal, in JAX's flatten order; its manifest is
+    the reference's bytes for the same state."""
+    jm, jstate, tstate = _states(spec)
+    meta = {"loss": 1.0, "preempted": False}
+    tckpt.save_checkpoint(str(tmp_path / "port"), 5, tstate, metadata=meta)
+    jckpt.save_checkpoint(str(tmp_path / "ref"), 5, jstate, metadata=meta)
+    manifest = os.path.join("step_00000005", "manifest.msgpack")
+    assert ((tmp_path / "port" / manifest).read_bytes()
+            == (tmp_path / "ref" / manifest).read_bytes())
     like = jstep.init_train_state(jm, jax.random.PRNGKey(9))
-    got, step, meta = jckpt.restore_checkpoint(str(tmp_path), like)
+    got, step, meta = jckpt.restore_checkpoint(str(tmp_path / "port"), like)
     assert step == 5 and meta == {"loss": 1.0, "preempted": False}
     assert got.opt.step.dtype == jnp.int32 and int(got.opt.step) == 3
     want = jax.tree_util.tree_leaves(jstate)
@@ -170,10 +184,11 @@ def test_port_checkpoint_restores_in_reference(tmp_path):
         np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
 
 
-def test_reference_checkpoint_restores_in_port(tmp_path):
-    _, jstate, tstate = _states()
+@pytest.mark.parametrize("spec", [TINY, MLA], ids=["dense", "mla"])
+def test_reference_checkpoint_restores_in_port(tmp_path, spec):
+    _, jstate, tstate = _states(spec)
     jckpt.save_checkpoint(str(tmp_path), 5, jstate, metadata={"loss": 2.0})
-    like = init_train_state(_port_model(), torch.Generator().manual_seed(9))
+    like = init_train_state(_port_model(spec), torch.Generator().manual_seed(9))
     got, step, meta = tckpt.restore_checkpoint(str(tmp_path), like)
     assert step == 5 and meta == {"loss": 2.0}
     _assert_state_equal(got, tstate)

@@ -8,7 +8,9 @@ bf16 values: hi = bf16(x), lo = bf16(x - hi).  These tests pin that down:
 the split gives x back to 2^-16, a plain emulation of the kernels'
 products matches the reference's Pallas forward and backward (interpret
 mode) within the card tests' BWD_TOL, and the same emulation with hi alone
-is at least 10x further off, which is why the kernels carry lo."""
+is at least 10x further off, which is why the kernels carry lo.  The
+cases include MLA's (D, Dv) = (96, 64) instance, where dP and dv run over
+the value head dim."""
 
 import numpy as np
 import pytest
@@ -98,14 +100,19 @@ def emulate_bwd(q, k, v, do, lse, delta, lens, causal, lo=True):
     return dq.numpy(), dk.numpy(), dv.numpy()
 
 
-def _case(rng, b, hkv, g, s, d, kv_len):
-    """Head-flat bf16-valued q, k, v, dO (K/V repeated per query head, as
-    the reference's flash_mha does) and per-head valid lengths."""
+def _case(rng, b, hkv, g, s, d, dv, kv_len):
+    """Head-flat bf16-valued q, k (head dim d), v, dO (head dim dv; K/V
+    repeated per query head, as the reference's flash_mha does) and
+    per-head valid lengths."""
     hq = hkv * g
-    q, do = (_bf16(rng.standard_normal((b * hq, s, d)).astype(np.float32)) for _ in "qo")
-    k, v = (_bf16(rng.standard_normal((b * hkv, s, d)).astype(np.float32)) for _ in "kv")
-    k, v = (np.repeat(x.reshape(b, hkv, s, d), g, axis=1).reshape(b * hq, s, d)
-            for x in (k, v))
+
+    def rand(*shape):
+        return _bf16(rng.standard_normal(shape).astype(np.float32))
+
+    q, do = rand(b * hq, s, d), rand(b * hq, s, dv)
+    k, v = rand(b * hkv, s, d), rand(b * hkv, s, dv)
+    k, v = (np.repeat(x.reshape(b, hkv, s, x.shape[-1]), g, axis=1)
+            .reshape(b * hq, s, x.shape[-1]) for x in (k, v))
     lens = None if kv_len is None else np.repeat(np.asarray(kv_len, np.int32), hq)
     return q, k, v, do, lens
 
@@ -122,15 +129,19 @@ def _max_err(got, want) -> float:
                for a, w in zip(got, want))
 
 
-# (B, Hkv, G, S, D, kv_len, causal, Pallas block): G 1 (OLMoE) and 6
-# (qwen2), D 64 and 128, kv_len inside a block, a non-causal call
+# (B, Hkv, G, S, D, Dv, kv_len, causal, Pallas block): G 1 (OLMoE,
+# MiniCPM3) and 6 (qwen2), D 64 and 128, MLA's D 96 over Dv 64, kv_len
+# inside a block, a non-causal call
 CASES = [
-    (1, 1, 1, 256, 64, None, True, 128),
-    (1, 1, 6, 128, 128, None, True, 64),
-    (2, 1, 6, 128, 64, [128, 77], True, 64),
-    (2, 1, 1, 128, 128, [93, 128], False, 128),
+    (1, 1, 1, 256, 64, 64, None, True, 128),
+    (1, 1, 6, 128, 128, 128, None, True, 64),
+    (2, 1, 6, 128, 64, 64, [128, 77], True, 64),
+    (2, 1, 1, 128, 128, 128, [93, 128], False, 128),
+    (1, 2, 1, 128, 96, 64, None, True, 64),
+    (2, 1, 4, 128, 96, 64, [101, 128], False, 64),
 ]
-CASE_IDS = ["g1-d64-s256", "g6-d128", "g6-d64-kvlen", "g1-d128-noncausal-kvlen"]
+CASE_IDS = ["g1-d64-s256", "g6-d128", "g6-d64-kvlen", "g1-d128-noncausal-kvlen",
+            "g1-d96-dv64", "g4-d96-dv64-noncausal-kvlen"]
 
 
 @pytest.mark.parametrize("kind", ["p-in-unit", "signed-ds", "ties-and-zeros"])
@@ -164,13 +175,13 @@ def test_split_gives_x_back_to_2_pow_minus_16(kind):
         assert (hi[~ties] == 0).all() and (lo[~ties] == 0).all()
 
 
-@pytest.mark.parametrize("b,hkv,g,s,d,kv_len,causal,block", CASES, ids=CASE_IDS)
-def test_split_forward_matches_pallas(b, hkv, g, s, d, kv_len, causal, block):
+@pytest.mark.parametrize("b,hkv,g,s,d,dv,kv_len,causal,block", CASES, ids=CASE_IDS)
+def test_split_forward_matches_pallas(b, hkv, g, s, d, dv, kv_len, causal, block):
     """The forward kernel's products, P as hi + lo, against the Pallas
     forward on the same bf16-valued inputs (fp32 arithmetic): o and lse
     within BWD_TOL; with hi alone o is >= 10x further off."""
     rng = np.random.default_rng(s + g + d)
-    q, k, v, _, lens = _case(rng, b, hkv, g, s, d, kv_len)
+    q, k, v, _, lens = _case(rng, b, hkv, g, s, d, dv, kv_len)
     want_o, want_lse = _pallas_fwd(q, k, v, lens, causal, block)
     o, lse = emulate_fwd(q, k, v, lens, causal)
     np.testing.assert_allclose(o, want_o, **BWD_TOL)
@@ -180,14 +191,15 @@ def test_split_forward_matches_pallas(b, hkv, g, s, d, kv_len, causal, block):
     assert err_hi >= HI_ONLY_FACTOR * err, (err, err_hi)
 
 
-@pytest.mark.parametrize("b,hkv,g,s,d,kv_len,causal,block", CASES, ids=CASE_IDS)
-def test_split_backward_matches_pallas(b, hkv, g, s, d, kv_len, causal, block):
+@pytest.mark.parametrize("b,hkv,g,s,d,dv,kv_len,causal,block", CASES, ids=CASE_IDS)
+def test_split_backward_matches_pallas(b, hkv, g, s, d, dv, kv_len, causal, block):
     """The dq and dk/dv kernels' products, p and ds as hi + lo, against
     the Pallas backward (both of its kernels, interpret mode) on the same
     inputs, lse and delta: dq, dk, dv within BWD_TOL; with hi alone they
-    are >= 10x further off."""
+    are >= 10x further off.  At (96, 64) dv has the value head dim (the
+    Pallas backward's (block_k, dv) specs, flash_attention.py:400-416)."""
     rng = np.random.default_rng(s + g + d + 1)
-    q, k, v, do, lens = _case(rng, b, hkv, g, s, d, kv_len)
+    q, k, v, do, lens = _case(rng, b, hkv, g, s, d, dv, kv_len)
     o, lse = _pallas_fwd(q, k, v, lens, causal, block)
     delta = (do * o).sum(-1)
     want = [np.array(w) for w in jax_flash_bwd(
@@ -195,6 +207,7 @@ def test_split_backward_matches_pallas(b, hkv, g, s, d, kv_len, causal, block):
         None if lens is None else jnp.asarray(lens),
         causal=causal, block_q=block, block_k=block, interpret=True)]
     got = emulate_bwd(q, k, v, do, lse, delta, lens, causal)
+    assert [a.shape[-1] for a in got] == [w.shape[-1] for w in want] == [d, d, dv]
     for name, a, w in zip(("dq", "dk", "dv"), got, want):
         np.testing.assert_allclose(a, w, **BWD_TOL, err_msg=name)
     hi_only = emulate_bwd(q, k, v, do, lse, delta, lens, causal, lo=False)

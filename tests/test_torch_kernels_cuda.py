@@ -182,25 +182,177 @@ def test_cuda_flash_dv_branch_matches_plain(b, s, h, kv_len, causal, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", DTYPES)
-def test_cuda_flash_refuses_unbuilt_head_dims_and_dv_backward(dtype):
-    """A (D, Dv) pair without an instance raises; the backward kernels take
-    Dv = D only, so MLA's backward raises on the card, through the
-    wrappers and through FlashAttention."""
+def test_cuda_flash_refuses_unbuilt_head_dims(dtype):
+    """A (D, Dv) pair without an instance, such as (48, 32), raises
+    ``ValueError`` in the forward and in the backward, before any launch."""
     requires_cuda()
+    from repro_torch import kernels
+
     rng = np.random.default_rng(22)
     q, k = (_cuda(_rand(rng, 1, 16, 2, 48), dtype) for _ in "qk")
-    v = _cuda(_rand(rng, 1, 16, 2, 32), dtype)
+    v, do = (_cuda(_rand(rng, 1, 16, 2, 32), dtype) for _ in "vo")
+    lse, delta = (torch.zeros(1, 2, 16, device="cuda") for _ in "ld")
+    before = kernels.launch_counts()
     with pytest.raises(ValueError, match="value head"):
         flash_attention_fwd(q, k, v)
-    q, k = (_cuda(_rand(rng, 1, 16, 2, 96), dtype) for _ in "qk")
-    v, do = (_cuda(_rand(rng, 1, 16, 2, 64), dtype) for _ in "vo")
-    o, lse = flash_attention_fwd(q, k, v)
-    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
-    with pytest.raises(NotImplementedError, match="A14b-train"):
+    with pytest.raises(ValueError, match="value head"):
         flash_attention_bwd(q, k, v, do, lse, delta)
-    ts = [t.clone().requires_grad_() for t in (q, k, v)]
-    with pytest.raises(NotImplementedError, match="A14b-train"):
-        flash_mha(*ts).backward(do)
+    assert kernels.launch_counts() == before
+
+
+def _dv_bwd_case(rng, b, s, hq, hkv, kv_len, causal, dtype, strided):
+    """The backward's inputs at MLA's (96, 64): q/k heads of 96, v and dO
+    of 64; with ``strided`` v is a view into a (.., 64 + 64) row at column
+    64, as ``mla_block_kv`` passes it.  K/V rows past kv_len hold NaN."""
+    q, do = _cuda(_rand(rng, b, s, hq, 96), dtype), _cuda(_rand(rng, b, s, hq, 64), dtype)
+    k, v = _rand(rng, b, s, hkv, 96), _rand(rng, b, s, hkv, 128 if strided else 64)
+    lens = None
+    if kv_len is not None:
+        for i, n in enumerate(kv_len):
+            k[i, n:], v[i, n:] = np.nan, np.nan
+        lens = torch.tensor(kv_len, dtype=torch.int32, device="cuda")
+    k, v = _cuda(k, dtype), _cuda(v, dtype)
+    if strided:
+        v = v[..., 64:]
+    o, lse = flash_attention_fwd(q, k, v, lens, causal=causal)
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    return q, k, v, do, lse, delta, lens
+
+
+# MLA training's backward, the (96, 64) instance: G = 1 (MiniCPM3) and G >
+# 1 (the group sum over Dv columns), causal and not, kv_len inside a tile,
+# v strided as the model passes it or contiguous
+DV_BWD_CASES = [
+    (2, 37, 4, 4, [37, 20], True, True),
+    (2, 21, 4, 2, [21, 6], False, False),
+    (2, 45, 8, 2, [45, 9], False, True),
+    (2, 64, 6, 1, None, True, True),
+    (1, 200, 40, 40, None, True, True),
+    (2, 1024, 40, 40, [1024, 700], True, True),
+]
+DV_BWD_IDS = ["g1-ragged-len", "g2-noncausal-len", "g4-noncausal-len-strided",
+              "g6-whole-tiles", "minicpm3-heads", "minicpm3-s1024-len"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("b,s,hq,hkv,kv_len,causal,strided", DV_BWD_CASES, ids=DV_BWD_IDS)
+def test_cuda_flash_bwd_dv_branch_matches_plain(b, s, hq, hkv, kv_len, causal, strided,
+                                                dtype):
+    """The backward's (96, 64) instance against its plain version: dq of
+    96 columns, dk of 96 and dv of 64, each KV head's group summed; only
+    the dtype branch's ``[dv]`` counter moves."""
+    requires_cuda()
+    from repro_torch import kernels
+
+    rng = np.random.default_rng(31)
+    args = _dv_bwd_case(rng, b, s, hq, hkv, kv_len, causal, dtype, strided)
+    moved = "flash_attention_bwd[dv]" if dtype == torch.bfloat16 else \
+        "flash_attention_bwd[dv,f32]"
+    before = kernels.launch_counts()
+    got = flash_attention_bwd(*args, causal=causal)
+    torch.cuda.synchronize()
+    after = kernels.launch_counts()
+    assert {n: after[n] - before[n] for n in after if after[n] != before[n]} == {moved: 1}
+    want = flash_attention_bwd_ref(*args, causal=causal)
+    for name, g, w, width in zip(("dq", "dk", "dv"), got, want, (96, 96, 64)):
+        assert g.dtype == torch.float32 and g.shape[-1] == width, name
+        assert torch.isfinite(g).all(), name
+        torch.testing.assert_close(g, w, **BWD_TOL, msg=name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_cuda_flash_bwd_dv_branch_is_deterministic(dtype):
+    """No atomics at (96, 64) either: two calls give the same bits."""
+    requires_cuda()
+    rng = np.random.default_rng(32)
+    args = _dv_bwd_case(rng, 2, 1024, 8, 2, [1024, 700], True, dtype, True)
+    first = flash_attention_bwd(*args)
+    second = flash_attention_bwd(*args)
+    torch.cuda.synchronize()
+    for name, a, b_ in zip(("dq", "dk", "dv"), first, second):
+        assert torch.equal(a, b_), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("kv_len,causal", [(None, True), ([29, 12], False)])
+def test_cuda_flash_mha_grads_at_mla_dims_match_cpu_plain_path(kv_len, causal, dtype):
+    """``flash_mha``'s output and gradients at (96, 64) on the card (both
+    kernels' (96, 64) instances; v a strided view) against the same
+    Function on the CPU (both plain versions) on the same values."""
+    requires_cuda()
+    rng = np.random.default_rng(33)
+    q, k = _rand(rng, 2, 29, 4, 96), _rand(rng, 2, 29, 4, 96)
+    kv = _rand(rng, 2, 29, 4, 128)
+    g = _rand(rng, 2, 29, 4, 64)
+    lens = None if kv_len is None else np.asarray(kv_len, np.int32)
+
+    def grads(device):
+        leaves = [torch.tensor(a, device=device).to(dtype).requires_grad_()
+                  for a in (q, k, kv)]
+        ln = None if lens is None else torch.tensor(lens, device=device)
+        o = flash_mha(leaves[0], leaves[1], leaves[2][..., 64:], ln, causal=causal)
+        o.backward(torch.tensor(g, device=device).to(dtype))
+        return [o.detach().cpu()] + [t.grad.cpu() for t in leaves]
+
+    counter = "launches_dv" if dtype == torch.bfloat16 else "launches_dv_f32"
+    before = getattr(flash_attention_bwd, counter), getattr(flash_attention_fwd, counter)
+    got = grads("cuda")
+    assert (getattr(flash_attention_bwd, counter), getattr(flash_attention_fwd, counter)) \
+        == (before[0] + 1, before[1] + 1)
+    want = grads("cpu")
+    assert (got[3][..., :64] == 0).all()            # the nope half of kv gets no v gradient
+    tol = BWD_TOL if dtype == torch.float32 else CUDA_TOL[dtype]
+    for name, a, b_ in zip(("o", "dq", "dk", "dkv"), got, want):
+        torch.testing.assert_close(a.float(), b_.float(), **tol, msg=name)
+
+
+@pytest.mark.cuda
+def test_cuda_mla_train_steps_match_cpu_plain_path():
+    """MLA training as a whole at MiniCPM3's head dims (nope 64, rope 32, v
+    64; ranks and depth cut): three Trainer steps on the card, the latent
+    norms through rmsnorm and attention through both (96, 64) flash
+    instances (forward, remat recompute, backward), against the same
+    steps on the CPU's plain versions, fp32 from the same weights and
+    batches (tolerances of ``test_cuda_train_steps_match_cpu_plain_path``)."""
+    requires_cuda()
+    import dataclasses
+
+    from repro_torch import kernels
+    from repro_torch.configs import reduced_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticPipeline
+    from repro_torch.models.lm import Model
+    from repro_torch.optim.optimizer import AdamWConfig, init_adamw
+    from repro_torch.train.step import TrainState
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    cfg = dataclasses.replace(reduced_config("minicpm3-4b"), n_layers=2,
+                              qk_nope_head_dim=64, qk_rope_head_dim=32, v_head_dim=64)
+    data = SyntheticPipeline(DataConfig(vocab=cfg.vocab, seq_len=48, global_batch=2,
+                                        seed=4))
+    opt = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=3)
+    base = Model(cfg, device="cpu", dtype=torch.float32).init(
+        torch.Generator().manual_seed(0))
+
+    def run(device, params):       # the steps update params in place
+        model = Model(cfg, device=device, dtype=torch.float32)
+        tr = Trainer(model, data, opt, TrainerConfig(total_steps=3, vocab_chunks=4))
+        _, hist = tr.run(start_state=TrainState(params, init_adamw(params)))
+        return [m["loss"] for _, m in hist]
+
+    kernels.reset_launches()
+    got = run("cuda", _to_cuda(base))
+    counts = kernels.launch_counts()
+    want = run("cpu", base)
+    np.testing.assert_allclose(got, want, atol=1e-4, rtol=0)
+    assert counts["flash_attention_bwd[dv,f32]"] == 3 * cfg.n_layers
+    assert counts["flash_attention_fwd[dv,f32]"] == 2 * 3 * cfg.n_layers   # with remat
+    assert not any(counts[n] for n in ("flash_attention_fwd", "flash_attention_bwd",
+                                       "flash_attention_fwd[f32]", "flash_attention_bwd[f32]",
+                                       "flash_attention_fwd[dv]", "flash_attention_bwd[dv]"))
+    assert counts["rmsnorm"] > 0
 
 
 @pytest.mark.cuda
