@@ -33,7 +33,8 @@ its paths:
    kernels' profiled ms printed, beside SDPA on the dense view under the
    window's mask, for scale.  rmsnorm is timed
    at prefill's 4 x 512 rows and training's 8192 rows under an fp32 weight
-   (beside ``F.rms_norm``); matmul in f32 (3xTF32 on the tensor cores;
+   (beside ``F.rms_norm``; its wide branch in phases 5d, 7 and 7b);
+   matmul in f32 (3xTF32 on the tensor cores;
    its bound is the smaller of the f32 CUDA cores' and three TF32
    products', both printed) and in bf16 (beside ``torch.matmul``), at
    2048^3.  The decode rows (dense, paged and int8-paged at qwen2's G = 6,
@@ -321,13 +322,17 @@ its paths:
    one training layer call (B 2 x S 4096 x 40 heads, causal, v a strided
    view of the decompressed row) against their plain versions, bf16 (their
    rows of the kernel record, beside SDPA's forward and backward or its
-   refusal) and f32; one gradient through the kernel path and the plain
+   refusal) and f32, and rmsnorm's wide branch over 8192 x 2560 bf16 rows
+   under an fp32 weight (row ``rmsnorm[wide] (training, d 2560)``, beside
+   ``F.rms_norm`` and the ragged branch on the same rows one element in,
+   both branches held against the plain version); one gradient through the kernel path and the plain
    path held to the gates below, with two faulted controls (dk scaled by
    1.25 and dv scaled by 1.25 in the backward) that must each trip a
    gate; ``Trainer.run`` for 4 steps (loss, lr, grad_norm, ms, tokens/s,
    peak memory), whose launches must be, a step, 32 of the forward's
    (96, 64) instance (forward and remat), 16 of the backward's, and no
-   other flash kernel; one profiled step; and ``python -m
+   other flash kernel, with rmsnorm's warp and wide branches and not its
+   ragged one; one profiled step; and ``python -m
    repro_torch.launch.train --arch minicpm3-4b --steps 2 --batch 2 --seq
    64`` in a subprocess on the card, which must exit 0.
 6. MoE serving (``moe ...`` lines), before training and after the qwen2
@@ -391,15 +396,19 @@ its paths:
    full width and depth (64 layers, d_model 5120, 40/40 heads, d_ff
    27392, vocab 152064, bf16, ~35.2 B parameters).  First its kernel
    shapes against their plain versions (the flash forward at Hq = Hkv =
-   40, dense decode at 40/40 heads, rmsnorm's ragged branch over
-   5120-wide rows: rows wider than 2048 take the block-per-row branch,
-   its own row of the kernel record), then the memory count (weight
-   bytes, cache bytes, the prefill's transient copy, free device memory
+   40, dense decode at 40/40 heads, rmsnorm's wide branch (several warps
+   a row: rows wider than 2048) over 4 x 512 rows of 5120, its own row of
+   the kernel record, ``rmsnorm[wide] (d 5120)``, beside ``F.rms_norm``
+   and the ragged branch on the same rows one element in, and over 4
+   decode rows of 5120 beside the ragged branch on a view one element in,
+   which it must not be slower than; each branch held against the plain
+   version), then the memory count (weight bytes, cache bytes, the prefill's transient copy, free device memory
    before the init): it fails with the count if they do not fit.  Then 4
    requests (prompts of 128-512 tokens, 16 new) served greedily on the
    dense cache, 4 slots, max_seq 576: TTFT, decode ms a step, tok/s,
-   peak memory and the kernels' launches; request 0's first 8 tokens
-   teacher-forced on the plain path within the logit tolerance.
+   peak memory and the kernels' launches (``rmsnorm[wide]`` among them);
+   request 0's first 8 tokens teacher-forced on the plain path within the
+   logit tolerance.
 7b. MiniCPM3-4B, MLA (``mla ...`` lines, right after phase 7): full
    width and depth (62 layers, d_model 2560, 40 heads, q rank 768, kv
    rank 256, q/k heads of 64 nope + 32 rope dims, v heads of 64, d_ff
@@ -409,19 +418,22 @@ its paths:
    passes it) in bf16 (its row of the kernel record, beside SDPA or its
    refusal) and in f32, against ``flash_attention_ref``, and rmsnorm at
    the latent norms' widths 768 and 256 (warp branch) and d_model 2560
-   (ragged branch); then the memory count; then 4 requests (prompts of
+   (wide branch: row ``rmsnorm[wide] (d 2560)``, 4 x 512 rows beside
+   ``F.rms_norm`` and the ragged branch, and 4 decode rows beside the
+   ragged branch, as in phase 7); then the memory count; then 4 requests (prompts of
    512 and three of 128-512 tokens, 16 new) served greedily on the dense
    latent cache: tok/s, TTFT, ms a decode step against the weights'
-   read, peak memory and the launches, which must include the Dv branch;
+   read, peak memory and the launches, which must include the Dv branch
+   and rmsnorm's wide branch;
    request 0's first 8 tokens teacher-forced on the plain path within the
    logit tolerance; the paged layout must raise ``ValueError`` on the card.
    MLA decode runs no hand-written kernel (the reference's is fp32
    einsums in the latent space too).
 
 Every serving, MoE and training run must normalize through rmsnorm's
-one-warp-a-row branch (the 32B and MLA runs excepted, whose 5120- and
-2560-wide rows take the ragged branch by design): the run fails if one
-launched its block-per-row ragged branch.  The flash rows count the bf16
+one-warp-a-row branch or, for rows wider than 2048 (the 32B and MLA runs'
+5120 and 2560), its several-warps-a-row wide branch: the run fails if one
+launched the block-per-row ragged branch.  The flash rows count the bf16
 branch's launches only.  The fp32 controls (C1, the tiered and the MoE
 ones) run the f32 branch: its launches are printed on a line of their
 own, and the run fails if a bf16 run launched an f32 flash kernel or an
@@ -731,6 +743,61 @@ def record_kernel(rows, name, source, replaces, got, want, tol, t_kernel, t_plai
           f"library_ms={lib}{ran}", flush=True)
     if not ok:
         fail(f"{name} disagrees with its plain version beyond {tol}")
+
+
+RMSNORM_SOURCE = "src/repro_torch/kernels/rmsnorm/rmsnorm.cu"
+RMSNORM_REPLACES = "src/repro/kernels/rmsnorm/rmsnorm.py:29"
+
+
+def unaligned_copy(x: torch.Tensor) -> torch.Tensor:
+    """x's values in a buffer of their own, one element in: the same rows,
+    not 16-byte aligned, which rmsnorm's ragged branch takes."""
+    flat = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    return flat[1:].view(x.shape).copy_(x)
+
+
+def rmsnorm_wide_row(rows, name, x, w, eps) -> dict:
+    """A row of rmsnorm's wide branch (rows wider than 2048, which must
+    take it): kernel, plain version and ``F.rms_norm`` (one call, which
+    does not fuse a weight of another dtype than the rows) timed with the
+    calls queued, the card's time.  Bound: x and w read once, y written
+    once, 4 operations an element on the f32 CUDA cores.  Beside it the
+    ragged branch, which took these rows before the wide one, on the same
+    rows one element in (``unaligned_copy``), held against the plain
+    version too and timed alike.  Prints the seconds the row took."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.rmsnorm.ops import rmsnorm, rmsnorm_branch
+    from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+
+    t0 = time.perf_counter()
+    d = x.shape[-1]
+    xr = unaligned_copy(x)
+    for rows_in, branch in ((x, "wide"), (xr, "ragged")):
+        took = rmsnorm_branch(rows_in, w)
+        if took != branch:
+            fail(f"{name}: {tuple(x.shape)} rows took rmsnorm's {took} branch, not {branch}")
+    fns = (lambda: rmsnorm(x, w, eps), lambda: rmsnorm_ref(x, w, eps),
+           lambda: F.rms_norm(x, (d,), w, eps))
+    got, want = fns[0](), fns[1]()
+    kernel_ms, plain_ms, library_ms = (queued_ms(f) for f in fns)
+    record_kernel(rows, name, RMSNORM_SOURCE, RMSNORM_REPLACES, got, want, KERNEL_TOL,
+                  kernel_ms, plain_ms, 2 * x.numel() * x.element_size() + d * w.element_size(),
+                  4 * x.numel(), F32_FLOPS_S, library_ms)
+    got_r = rmsnorm(xr, w, eps)
+    torch.cuda.synchronize()
+    ragged_err = max_err(got_r, want)
+    ragged_ms = queued_ms(lambda: rmsnorm(xr, w, eps))
+    print(f"kernel {name}: {tuple(x.shape)} {x.dtype} rows, {w.dtype} weight, times "
+          f"queued (the card's); kernel / F.rms_norm {kernel_ms / library_ms:.3f}; ragged "
+          f"branch on the same rows one element in: max_abs_err={ragged_err:.3e} "
+          f"tol={KERNEL_TOL} ms={ragged_ms:.4f}, wide / ragged {kernel_ms / ragged_ms:.3f}; "
+          f"recorded in {time.perf_counter() - t0:.1f} s", flush=True)
+    if not agrees(got_r, want, KERNEL_TOL):
+        fail(f"{name}: rmsnorm's ragged branch disagrees with its plain version")
+    out = {k: rows[name][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                      "library_ms")}
+    return dict(out, ragged_max_abs_err=ragged_err, ragged_ms=ragged_ms)
 
 
 # ---------------------------------------------------------------------------
@@ -1290,7 +1357,7 @@ def make_requests(seed: int, vocab: int):
             for i, n in enumerate(lens)]
 
 
-def serve(model, params, spec, warm: bool = False, allow_ragged: bool = False, **kw):
+def serve(model, params, spec, warm: bool = False, **kw):
     """Serve ``spec`` on a fresh engine (pipelined, the engine's default,
     unless ``pipeline=False``) and time it; ``warm`` first runs one
     untimed session of the same requests on the engine, which captures
@@ -1299,9 +1366,7 @@ def serve(model, params, spec, warm: bool = False, allow_ragged: bool = False, *
     session's, replays included; ``eng.peak_bytes`` is the engine's peak
     device memory: the most allocated over its sessions (its device state,
     graph pool and the steps' transients) above what was allocated
-    before it was built.  ``allow_ragged``: the model's rows are wider
-    than rmsnorm's warp branch takes (d_model > 2048), so its ragged
-    branch is the one expected."""
+    before it was built."""
     from repro_torch import kernels
     from repro_torch.serve.engine import Request, ServeEngine
 
@@ -1323,8 +1388,7 @@ def serve(model, params, spec, warm: bool = False, allow_ragged: bool = False, *
     counts = kernels.launch_counts()
     eng.base_bytes = base
     eng.peak_bytes = torch.cuda.max_memory_allocated() - base
-    if not allow_ragged:
-        no_ragged_rmsnorm("a serving run", counts)
+    no_ragged_rmsnorm("a serving run", counts)
     fault_free("a serving run", eng)
     for u, _, n in spec:
         s = eng.last_stats[u]
@@ -1335,8 +1399,9 @@ def serve(model, params, spec, warm: bool = False, allow_ragged: bool = False, *
 
 
 def no_ragged_rmsnorm(label: str, counts: dict):
-    """Every serving, MoE and training run normalizes whole 16-byte rows:
-    rmsnorm's block-per-row ragged branch must not have launched."""
+    """Every serving, MoE and training run normalizes whole 16-byte rows
+    of at most 8192 (the warp or the wide branch): rmsnorm's block-per-row
+    ragged branch must not have launched."""
     if counts["rmsnorm[ragged]"]:
         fail(f"{label} launched rmsnorm's ragged branch "
              f"{counts['rmsnorm[ragged]']} times")
@@ -5005,8 +5070,9 @@ def print_ptxas(report: dict, build) -> dict:
     HMMA count of each kernel of matmul.cu, rmsnorm.cu,
     decode_attention.cu, verify_attention.cu and warp_ops.cu; fail unless
     every matmul kernel and verify's long-window tensor-core kernel (bf16
-    and int8 pages, D 64 and 128) run on the tensor cores and ptxas
-    reported both decode kernels."""
+    and int8 pages, D 64 and 128) run on the tensor cores, ptxas
+    reported both decode kernels, and no instance of rmsnorm's wide
+    kernel spills."""
     smem = build.LIB.fn("repro_matmul_smem_bytes", [build.I])
     decode_smem = build.LIB.fn("repro_decode_smem_bytes", [build.I] * 3)
     for name, r in sorted(report.items()):
@@ -5032,6 +5098,11 @@ def print_ptxas(report: dict, build) -> dict:
     for k in DECODE_KERNELS:
         if not any(k in n for n in report):
             fail(f"ptxas reported no {k}")
+    wide = [n for n in report if "rmsnorm_wide_kernel" in n]
+    spilled = {n: report[n].get("spills") for n in wide
+               if re.search(r"[1-9]\d* bytes spill", report[n].get("spills", ""))}
+    if not wide or spilled:
+        fail(f"rmsnorm's wide kernel: {len(wide)} instances reported, spilling: {spilled}")
     return report
 
 
@@ -5321,23 +5392,21 @@ QWEN32_ARCH = "qwen1.5-32b"
 QWEN32_NEW = 16
 QWEN32_FORCED = 8
 QWEN32_MARGIN = 2 * 2 ** 30     # activations, graph pool, allocator slack
+QWEN32_NORM_ROW = "rmsnorm[wide] (d 5120)"                    # row 1c
 
 
 def check_32b_shapes(cfg, gen: torch.Generator, rows: dict) -> dict:
     """The kernels at Qwen1.5-32B's shapes, which no earlier phase reaches:
     the flash forward at Hq = Hkv = 40 over one 512-token prompt, dense
     decode at 40/40 heads on the serving slots and positions, and rmsnorm
-    over 4 x 512 bf16 rows of 5120, its ragged branch (rows wider than
-    2048): a row of the kernel record of its own (``rmsnorm[ragged] (d
-    5120)``, its launches the 32B run's), beside ``F.rms_norm``."""
-    import torch.nn.functional as F
-
+    over 4 x 512 bf16 rows of 5120, its wide branch (rows wider than 2048):
+    a row of the kernel record of its own (``rmsnorm[wide] (d 5120)``, its
+    launches the 32B run's), beside ``F.rms_norm`` and the ragged branch;
+    and over 4 decode rows beside the ragged branch."""
     from repro_torch.kernels.decode_attention.ops import flash_decode
     from repro_torch.kernels.decode_attention.ref import flash_decode_ref
     from repro_torch.kernels.flash_attention.ops import flash_attention_fwd
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
-    from repro_torch.kernels.rmsnorm.ops import rmsnorm, takes_warp_branch
-    from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
 
     hkv, dh, d = cfg.n_kv_heads, cfg.d_head, cfg.d_model
     g = cfg.n_heads // hkv
@@ -5364,22 +5433,49 @@ def check_32b_shapes(cfg, gen: torch.Generator, rows: dict) -> dict:
     qd, kv_view, vv_view, _, _, _, pos = decode_case(gen, hkv, g, dh)
     check(f"flash_decode {hkv}/{hkv} heads", flash_decode, flash_decode_ref, qd, kv_view,
           vv_view, pos, queued=True)
-    x, w = randn(SLOTS * 512, d), randn(d)
-    if takes_warp_branch(x, w):
-        fail(f"rows of {d} took rmsnorm's warp branch; the 32B run expects the ragged one")
-    name = f"rmsnorm[ragged] (d {d})"
-    # bytes: x read, y written, w read; operations: square, sum, scale,
-    # weight a value
-    record_kernel(rows, name, "src/repro_torch/kernels/rmsnorm/rmsnorm.cu",
-                  "src/repro/kernels/rmsnorm/rmsnorm.py:29",
-                  rmsnorm(x, w, cfg.norm_eps), rmsnorm_ref(x, w, cfg.norm_eps), KERNEL_TOL,
-                  queued_ms(lambda: rmsnorm(x, w, cfg.norm_eps)),
-                  queued_ms(lambda: rmsnorm_ref(x, w, cfg.norm_eps)),
-                  2 * (2 * x.numel() + d), 4 * x.numel(), BF16_FLOPS_S,
-                  queued_ms(lambda: F.rms_norm(x, (d,), w, cfg.norm_eps)))
-    out[name] = {k: rows[name][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
-                                            "library_ms")}
+    out[QWEN32_NORM_ROW] = rmsnorm_wide_row(rows, QWEN32_NORM_ROW, randn(SLOTS * 512, d),
+                                            randn(d), cfg.norm_eps)
+    out["rmsnorm decode rows"] = rmsnorm_decode_rows(cfg, randn)
     return out
+
+
+def rmsnorm_decode_rows(cfg, randn) -> dict:
+    """rmsnorm over a decode step's SLOTS rows of d_model: the wide branch
+    beside the ragged one (on a view one element into the same storage,
+    not 16-byte aligned), each held against the plain version, and
+    ``F.rms_norm``, the calls queued.  A launch-paced call: the wide
+    branch fails if it is slower than the ragged one it replaced."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.rmsnorm.ops import rmsnorm, rmsnorm_branch
+    from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+
+    t0 = time.perf_counter()
+    d = cfg.d_model
+    flat, w = randn(SLOTS * d + 8), randn(d)
+    views = {"wide": flat[8:].view(SLOTS, d), "ragged": flat[1:1 + SLOTS * d].view(SLOTS, d)}
+    ms, err = {}, {}
+    for branch, x in views.items():
+        if rmsnorm_branch(x, w) != branch:
+            fail(f"{SLOTS} x {d} rows took rmsnorm's {rmsnorm_branch(x, w)} branch, not {branch}")
+        got, want = rmsnorm(x, w, cfg.norm_eps), rmsnorm_ref(x, w, cfg.norm_eps)
+        torch.cuda.synchronize()
+        err[branch] = max_err(got, want)
+        if not agrees(got, want, KERNEL_TOL):
+            fail(f"rmsnorm's {branch} branch disagrees with its plain version on {SLOTS} x "
+                 f"{d} rows: max_abs_err {err[branch]:.3e}")
+        ms[branch] = queued_ms(lambda: rmsnorm(x, w, cfg.norm_eps))
+    x = views["wide"]
+    ms["F.rms_norm"] = queued_ms(lambda: F.rms_norm(x, (d,), w, cfg.norm_eps))
+    print(f"kernel rmsnorm[wide] ({SLOTS} x {d} decode rows): max_abs_err={err['wide']:.3e} "
+          f"ms={ms['wide']:.4f}; ragged branch (a view one element into the same storage) "
+          f"max_abs_err={err['ragged']:.3e} ms={ms['ragged']:.4f}; tol={KERNEL_TOL}; "
+          f"F.rms_norm ms={ms['F.rms_norm']:.4f} (calls queued, the card's time); wide / "
+          f"ragged {ms['wide'] / ms['ragged']:.3f}; {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    if ms["wide"] > ms["ragged"]:
+        fail(f"rmsnorm's wide branch is slower than its ragged one on {SLOTS} x {d} rows")
+    return dict(ms=ms, max_abs_err=err)
 
 
 def run_qwen32b(seed: int, gen: torch.Generator, rows: dict, smi: str) -> tuple:
@@ -5432,7 +5528,7 @@ def run_qwen32b(seed: int, gen: torch.Generator, rows: dict, smi: str) -> tuple:
     rng = np.random.default_rng(seed + 32)
     lens = [512] + rng.integers(128, 513, SLOTS - 1).tolist()
     spec = [(i, rng.integers(0, V, n).tolist(), QWEN32_NEW) for i, n in enumerate(lens)]
-    out, eng, counts, wall, n_tok = serve(model, params, spec, warm=True, allow_ragged=True)
+    out, eng, counts, wall, n_tok = serve(model, params, spec, warm=True)
     peak = eng.base_bytes + eng.peak_bytes
     ttft = [eng.last_stats[u]["first_token_s"] - eng.last_stats[u]["enqueued_s"]
             for u, _, _ in spec]
@@ -5443,10 +5539,11 @@ def run_qwen32b(seed: int, gen: torch.Generator, rows: dict, smi: str) -> tuple:
           f"TTFT ms {[round(1e3 * t, 1) for t in ttft]}; decode {decode_ms:.2f} ms a step "
           f"(the weights' read alone {bound_ms:.2f} ms); peak memory {peak / 2 ** 30:.2f} "
           f"GiB; launches flash_attention_fwd {counts['flash_attention_fwd']}, "
-          f"flash_decode {counts['flash_decode']}, rmsnorm[ragged] "
-          f"{counts['rmsnorm[ragged]']} (warp branch {counts['rmsnorm']}); [{smi}]",
+          f"flash_decode {counts['flash_decode']}, rmsnorm[wide] "
+          f"{counts['rmsnorm[wide]']} (warp branch {counts['rmsnorm']}, ragged "
+          f"{counts['rmsnorm[ragged]']}); [{smi}]",
           flush=True)
-    for name in ("flash_attention_fwd", "flash_decode", "rmsnorm[ragged]"):
+    for name in ("flash_attention_fwd", "flash_decode", "rmsnorm[wide]"):
         if counts[name] == 0:
             fail(f"{name} never launched while serving Qwen1.5-32B")
     uid, prompt, _ = spec[0]
@@ -5479,6 +5576,7 @@ MLA_MARGIN = 2 * 2 ** 30        # activations, graph pool, allocator slack
 # and of up to 512 keys in another order (the card tests' f32 tolerance)
 F32_FLASH_TOL = dict(atol=2e-5, rtol=2e-5)
 MLA_FLASH_ROW = "flash_attention_fwd (MLA D 96 / Dv 64)"
+MLA_NORM_ROW = "rmsnorm[wide] (d 2560)"                       # row 1d
 
 
 def mla_params(cfg) -> int:
@@ -5496,12 +5594,12 @@ def check_mla_shapes(cfg, gen: torch.Generator, rows: dict) -> dict:
     instance at its prefill (4 x 512 tokens, 40 heads, causal; v a strided
     view into the (.., nope + v) row, as ``mla_block_kv`` passes it) in
     bf16 (row ``MLA_FLASH_ROW``) and f32, and rmsnorm's branches at the
-    latent norms' widths and d_model."""
+    latent norms' widths and at d_model, over prefill and decode rows."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention.ops import flash_attention_fwd
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
-    from repro_torch.kernels.rmsnorm.ops import rmsnorm, takes_warp_branch
+    from repro_torch.kernels.rmsnorm.ops import rmsnorm, rmsnorm_branch
     from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
 
     h, nd, rd, vd = cfg.n_heads, cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
@@ -5559,20 +5657,23 @@ def check_mla_shapes(cfg, gen: torch.Generator, rows: dict) -> dict:
         fail("the f32 (96, 64) flash forward disagrees with its plain version")
     out["flash_attention_fwd (MLA, f32)"] = dict(max_abs_err=err32, ms=ms32, bound_ms=b_ms32)
     del q, k, v, got, want, qt, kt, vt, q32, k32, v32, got32, want32
-    for width, branch in ((cfg.q_lora_rank, "warp"), (cfg.kv_lora_rank, "warp"),
-                          (cfg.d_model, "ragged")):
+    for width in (cfg.q_lora_rank, cfg.kv_lora_rank):
         x, w = randn(b * s, width), randn(width)
-        took = "warp" if takes_warp_branch(x, w) else "ragged"
+        took = rmsnorm_branch(x, w)
         g, r = rmsnorm(x, w, cfg.norm_eps), rmsnorm_ref(x, w, cfg.norm_eps)
         torch.cuda.synchronize()
         err, ok = max_err(g, r), agrees(g, r, KERNEL_TOL)
         ms = queued_ms(lambda: rmsnorm(x, w, cfg.norm_eps))
         print(f"kernel rmsnorm (MLA d {width}): {took} branch, max_abs_err={err:.3e} "
               f"tol={KERNEL_TOL} ok={ok} ms={ms:.4f} (card)", flush=True)
-        if took != branch or not ok:
-            fail(f"rmsnorm at d {width} took its {took} branch (expected {branch}) "
+        if took != "warp" or not ok:
+            fail(f"rmsnorm at d {width} took its {took} branch (expected warp) "
                  f"or disagrees with its plain version")
         out[f"rmsnorm (MLA d {width})"] = dict(branch=took, max_abs_err=err, ms=ms)
+    # d_model: the wide branch, a row of its own
+    out[MLA_NORM_ROW] = rmsnorm_wide_row(rows, MLA_NORM_ROW, randn(b * s, cfg.d_model),
+                                         randn(cfg.d_model), cfg.norm_eps)
+    out["rmsnorm decode rows"] = rmsnorm_decode_rows(cfg, randn)
     return out
 
 
@@ -5622,7 +5723,7 @@ def run_mla(seed: int, gen: torch.Generator, rows: dict, smi: str) -> tuple:
     rng = np.random.default_rng(seed + 3)
     lens = [512] + rng.integers(128, 513, SLOTS - 1).tolist()
     spec = [(i, rng.integers(0, V, n).tolist(), MLA_NEW) for i, n in enumerate(lens)]
-    out, eng, counts, wall, n_tok = serve(model, params, spec, warm=True, allow_ragged=True)
+    out, eng, counts, wall, n_tok = serve(model, params, spec, warm=True)
     peak = eng.base_bytes + eng.peak_bytes
     ttft = [eng.last_stats[u]["first_token_s"] - eng.last_stats[u]["enqueued_s"]
             for u, _, _ in spec]
@@ -5635,9 +5736,10 @@ def run_mla(seed: int, gen: torch.Generator, rows: dict, smi: str) -> tuple:
           f"graphs {eng.warm_graph_stats['graphs']} captured in the warm session, "
           f"{eng.last_graph_stats['replays']} replays; "
           f"launches flash_attention_fwd[dv] {counts['flash_attention_fwd[dv]']}, rmsnorm "
-          f"{counts['rmsnorm']}, rmsnorm[ragged] {counts['rmsnorm[ragged]']}; [{smi}]",
+          f"{counts['rmsnorm']}, rmsnorm[wide] {counts['rmsnorm[wide]']}, rmsnorm[ragged] "
+          f"{counts['rmsnorm[ragged]']}; [{smi}]",
           flush=True)
-    for name in ("flash_attention_fwd[dv]", "rmsnorm", "rmsnorm[ragged]"):
+    for name in ("flash_attention_fwd[dv]", "rmsnorm", "rmsnorm[wide]"):
         if counts[name] == 0:
             fail(f"{name} never launched while serving MiniCPM3-4B")
     if eng.last_graph_stats["replays"] == 0:
@@ -5705,9 +5807,10 @@ MLA_TRAIN_MARGIN = 4 * 2 ** 30  # remat's layer inputs, a vocab chunk, allocator
 MLA_PLAIN_SCORES = 4
 MLA_TRAIN_FWD_ROW = "flash_attention_fwd (MLA training)"       # row 2d
 MLA_BWD_ROW = "flash_attention_bwd (MLA D 96 / Dv 64)"         # row 3c
+MLA_TRAIN_NORM_ROW = "rmsnorm[wide] (training, d 2560)"         # row 1e
 # one gradient, kernel path vs plain path, bf16 compute through 16 MLA
 # layers: the paths round to bf16 at the same points and differ in the
-# order of fp32 sums, the latent norms' and the ragged d_model norms' bf16
+# order of fp32 sums, the latent norms' and the d_model norms' bf16
 # rounding among them.  Each gate is ~10x this phase's sound reading on an
 # H100 (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md): loss 1.249e-4,
 # global norm 1.328e-4 relative, and at layers.attn.q_down 1 - cosine
@@ -5727,7 +5830,9 @@ def check_mla_train_kernels(cfg, gen: torch.Generator, rows: dict) -> dict:
     training layer call: B 2 x S 4096 x 40 heads, causal, q/k of 96, v a
     strided view into the (.., nope + v) row as ``mla_block_kv`` passes
     it.  bf16 fills rows 2d and 3c (SDPA's forward, and its backward as
-    forward + backward less forward, beside them); f32 is printed."""
+    forward + backward less forward, beside them); f32 is printed.  Then
+    rmsnorm's wide branch over the batch's bf16 rows of d_model under an
+    fp32 weight (row 1e)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention.ops import (
@@ -5833,6 +5938,9 @@ def check_mla_train_kernels(cfg, gen: torch.Generator, rows: dict) -> dict:
     out[f"{MLA_BWD_ROW} (f32)"] = dict(max_abs_err=err32, ms=ms32, bound_ms=b_ms32)
     del q, k, v, do, o, lse, delta, bwd_args, got, want
     torch.cuda.empty_cache()
+    out[MLA_TRAIN_NORM_ROW] = rmsnorm_wide_row(
+        rows, MLA_TRAIN_NORM_ROW, randn(b * s, cfg.d_model),
+        randn(cfg.d_model, dtype=torch.float32), cfg.norm_eps)
     return out
 
 
@@ -5926,7 +6034,7 @@ def run_mla_train(seed: int, gen: torch.Generator, rows: dict, smi: str) -> tupl
              "flash_attention_bwd", "flash_attention_fwd[f32]", "flash_attention_bwd[f32]",
              "flash_attention_fwd[dv,f32]", "flash_attention_bwd[dv,f32]")
     per_step = {k: counts[k] / TRAIN_STEPS for k in
-                flash[:4] + ("rmsnorm", "rmsnorm[ragged]")}
+                flash[:4] + ("rmsnorm", "rmsnorm[wide]", "rmsnorm[ragged]")}
     print(f"mla train: {len(hist)} steps, peak memory {peak / 2 ** 30:.2f} GiB "
           f"({before / 2 ** 30:.2f} GiB allocated before the run); launches a step "
           f"{per_step}; [{smi}]", flush=True)
@@ -5943,6 +6051,9 @@ def run_mla_train(seed: int, gen: torch.Generator, rows: dict, smi: str) -> tupl
              f"layers, not {dict((k, want[k]) for k in wrong)}")
     if counts["rmsnorm"] == 0:
         fail("mla train: the latent norms never launched rmsnorm's warp branch")
+    if counts["rmsnorm[wide]"] == 0:
+        fail("mla train: the d_model norms never launched rmsnorm's wide branch")
+    no_ragged_rmsnorm("mla training", counts)
 
     step_fn = make_train_step(model, opt, vocab_chunks=VOCAB_CHUNKS)
     batch = {k: v.cuda() for k, v in data.batch_at(TRAIN_STEPS).items()}
@@ -6018,10 +6129,10 @@ def main():
     # the 32B model first, while the card holds nothing else: its weights
     # take 65.6 of the card's 79 GiB
     qwen32b_rec, qwen32b_counts = run_qwen32b(args.seed, gen, rows, smi)
-    rows["rmsnorm[ragged] (d 5120)"]["launches"] = qwen32b_counts["rmsnorm[ragged]"]
+    rows[QWEN32_NORM_ROW]["launches"] = qwen32b_counts["rmsnorm[wide]"]
     mla_rec, mla_counts = run_mla(args.seed, gen, rows, smi)
     rows[MLA_FLASH_ROW]["launches"] = mla_counts["flash_attention_fwd[dv]"]
-    rows["rmsnorm[ragged] (d 5120)"]["launches"] += mla_counts["rmsnorm[ragged]"]
+    rows[MLA_NORM_ROW]["launches"] = mla_counts["rmsnorm[wide]"]
 
     model = Model(cfg, device="cuda", dtype=torch.bfloat16)
     params = model.init(torch.Generator(device="cuda").manual_seed(args.seed))
@@ -6199,7 +6310,7 @@ def main():
     phases["mla_train_step"] = mla_train_rec.pop("profile")
     rows[MLA_TRAIN_FWD_ROW]["launches"] = mla_train_counts["flash_attention_fwd[dv]"]
     rows[MLA_BWD_ROW]["launches"] = mla_train_counts["flash_attention_bwd[dv]"]
-    rows["rmsnorm[ragged] (d 5120)"]["launches"] += mla_train_counts["rmsnorm[ragged]"]
+    rows[MLA_TRAIN_NORM_ROW]["launches"] = mla_train_counts["rmsnorm[wide]"]
     flash_branch_launches(
         {"serve dense": dense_counts, "serve paged": paged_counts,
          "sampled bf16 runs": sampled_counts,
@@ -6217,7 +6328,8 @@ def main():
          "tiered fp32 control": tiered_rec["fp32_control_launches"],
          "moe control fp32 no drops": moe_rec["preemption_controls"]["fp32 no drops"]["launches"]})
     # training's launches belong to the training-shape rows (phases 5, 5b
-    # and 5c; 5d's flash launches to rows 2d and 3c), and MoE training's
+    # and 5c; 5d's flash launches to rows 2d and 3c, its wide rmsnorm
+    # launches to row 1e), and MoE training's
     # gating launches to moe_gating's
     training = (train_counts, ckpt_counts, moe_train_counts, mla_train_counts)
     rows["rmsnorm (training)"]["launches"] = sum(c["rmsnorm"] for c in training)

@@ -10,7 +10,12 @@ For the package tree whose ``src/`` is SRC, one JSON line:
   below 0 when the sums come out smaller), beside cuBLAS in full f32 and
   an emulated plain TF32 product on the same inputs;
 - ``rmsnorm`` on bf16 rows: 4 x 1536 (decode), 2048 x 1536 (prefill),
-  8192 x 1536 under an fp32 weight (training) and 512 x 2048 (OLMoE);
+  8192 x 1536 under an fp32 weight (training) and 512 x 2048 (OLMoE),
+  which take the one-warp-a-row branch; Qwen1.5-32B's 4 x 5120 (decode)
+  and 2048 x 5120 (prefill), MiniCPM3-4B's 2048 x 2560 (prefill) and
+  8192 x 2560 under an fp32 weight (training), rows wider than 2048 (the
+  wide branch where SRC has one, else the ragged one); each beside
+  ``F.rms_norm`` on the same inputs (``..._library_device``, queued);
 - ``decode`` at the serving path's slots and positions (543/400/300/64,
   attend 576, shuffled 16-token pages, bf16): G = 1 dense and paged at
   OLMoE-1B-7B's 16 KV heads, G = 6 dense, paged and int8-paged at
@@ -89,7 +94,11 @@ MATMUL_SHAPES = {"f32_2048": (2048, torch.float32), "bf16_2048": (2048, torch.bf
 RMSNORM_SHAPES = {"4x1536": (4, 1536, torch.bfloat16),
                   "2048x1536": (2048, 1536, torch.bfloat16),
                   "8192x1536_f32w": (8192, 1536, torch.float32),
-                  "512x2048": (512, 2048, torch.bfloat16)}
+                  "512x2048": (512, 2048, torch.bfloat16),
+                  "4x5120": (4, 5120, torch.bfloat16),
+                  "2048x5120": (2048, 5120, torch.bfloat16),
+                  "2048x2560": (2048, 2560, torch.bfloat16),
+                  "8192x2560_f32w": (8192, 2560, torch.float32)}
 # decode: (Hkv, G) at D 128 over the serving path's slots and positions
 DECODE_SHAPES = {"g1": (16, 1), "g6": (2, 6)}
 DECODE_POS = (543, 400, 300, 64)
@@ -429,6 +438,8 @@ def time_kernels(iters: int, only=GROUPS) -> dict:
         out[f"rmsnorm_{name}"] = cuda_ms(lambda: rmsnorm(x, w, 1e-6), iters * 5)
         out[f"rmsnorm_{name}_device"] = cuda_ms(lambda: rmsnorm(x, w, 1e-6), iters * 5,
                                                 queued=True)
+        out[f"rmsnorm_{name}_library_device"] = cuda_ms(
+            lambda: torch.nn.functional.rms_norm(x, (d,), w, 1e-6), iters * 5, queued=True)
     for group, fn in (("decode", time_decode), ("verify", time_verify),
                       ("verify_long", time_verify_long), ("shfl", time_shfl),
                       ("gating", time_gating), ("step", time_verify_step),

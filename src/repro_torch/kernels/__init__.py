@@ -9,8 +9,9 @@ use.  Each wrapper counts its kernel launches in ``<wrapper>.launches``
 ``.launches_int8``, verify its long-window branch in ``.launches_long``
 and ``.launches_long_int8``, the two flash wrappers their f32 branch, in
 ``.launches_f32``, both their (96, 64) head-dim instance, in
-``.launches_dv`` and ``.launches_dv_f32``, and rmsnorm its block-per-row
-ragged branch, in ``.launches_ragged``); :func:`launch_counts` / :func:`reset_launches` read
+``.launches_dv`` and ``.launches_dv_f32``, and rmsnorm its several-warps-a-row
+wide branch, in ``.launches_wide``, and its block-per-row ragged branch, in
+``.launches_ragged``); :func:`launch_counts` / :func:`reset_launches` read
 and clear them all.  A replayed CUDA graph calls no wrapper: its replays
 add the launches its capture recorded through :func:`add_launches`
 (``serve/step_graph.py``).
@@ -65,6 +66,7 @@ COUNTERS: Dict[str, Tuple[object, str]] = {
     "flash_attention_fwd[dv,f32]": (flash_attention_fwd, "launches_dv_f32"),
     "flash_attention_bwd[dv]": (flash_attention_bwd, "launches_dv"),
     "flash_attention_bwd[dv,f32]": (flash_attention_bwd, "launches_dv_f32"),
+    "rmsnorm[wide]": (rmsnorm, "launches_wide"),
     "rmsnorm[ragged]": (rmsnorm, "launches_ragged"),
 }
 

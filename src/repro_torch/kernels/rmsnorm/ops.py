@@ -13,27 +13,35 @@ from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ARGS = [build.P, build.P, build.P, build.I, build.I, build.F, build.I, build.I,
          build.I, build.P]
-# the warp branch: rows of whole 16-byte vectors, at most 64 floats a lane
+# rmsnorm.cu's branch codes
+_BRANCHES = {"warp": 0, "ragged": 1, "wide": 2}
+# the warp and wide branches: rows of whole 16-byte vectors, x and w
+# 16-byte aligned; one warp a row up to MAX_WARP_WIDTH (64 floats a lane),
+# several warps a row up to MAX_WIDE_WIDTH
 _VEC_ELEMS = {torch.float32: 4, torch.bfloat16: 8}
 MAX_WARP_WIDTH = 2048
+MAX_WIDE_WIDTH = 8192
 
 
-def takes_warp_branch(x2: torch.Tensor, w: torch.Tensor) -> bool:
-    """Whether the kernel's one-warp-a-row branch takes these (n, d) rows:
-    d a multiple of the 16-byte vector and at most ``MAX_WARP_WIDTH``, x
-    and w 16-byte aligned.  Anything else takes the block-per-row ragged
-    branch."""
+def rmsnorm_branch(x2: torch.Tensor, w: torch.Tensor) -> str:
+    """The kernel's branch for these (n, d) f32 or bf16 rows: ``"warp"``
+    (one warp a row) or ``"wide"`` (several warps a row) where d is a
+    multiple of the 16-byte vector, at most ``MAX_WARP_WIDTH`` or
+    ``MAX_WIDE_WIDTH``, and x and w are 16-byte aligned; ``"ragged"`` (a
+    block a row, scalar loads) for anything else."""
     d = x2.shape[-1]
-    return (d % _VEC_ELEMS[x2.dtype] == 0 and d <= MAX_WARP_WIDTH
-            and x2.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0)
+    if (d % _VEC_ELEMS[x2.dtype] or d > MAX_WIDE_WIDTH
+            or x2.data_ptr() % 16 or w.data_ptr() % 16):
+        return "ragged"
+    return "warp" if d <= MAX_WARP_WIDTH else "wide"
 
 
 def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     """x (..., d), w (d,) -> (..., d) in x.dtype.  x and w are f32 or bf16,
     each on its own (fp32 master weights under bf16 rows); the weight is
-    multiplied in fp32.  On a CUDA tensor the kernel's warp branch runs
-    where :func:`takes_warp_branch` allows, else its ragged branch; each
-    counts its own launches."""
+    multiplied in fp32.  On a CUDA tensor the kernel runs the branch that
+    :func:`rmsnorm_branch` picks, and counts its launch there
+    (``.launches``, ``.launches_wide``, ``.launches_ragged``)."""
     if x.device.type == "cpu":
         return rmsnorm_ref(x, w, eps)
     d = x.shape[-1]
@@ -46,18 +54,21 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tensor
     x2 = x.reshape(-1, d).contiguous()
     w = w.contiguous()
     y = torch.empty_like(x2)
-    warp = takes_warp_branch(x2, w)
+    branch = rmsnorm_branch(x2, w)
     build.launch("repro_rmsnorm", _ARGS, x.device, x2.data_ptr(),
                  w.data_ptr(), y.data_ptr(), x2.shape[0], d, float(eps),
-                 _DTYPES[x.dtype], _DTYPES[w.dtype], int(not warp))
-    if warp:
+                 _DTYPES[x.dtype], _DTYPES[w.dtype], _BRANCHES[branch])
+    if branch == "warp":
         rmsnorm.launches += 1
+    elif branch == "wide":
+        rmsnorm.launches_wide += 1
     else:
         rmsnorm.launches_ragged += 1
     return y.reshape(x.shape)
 
 
 rmsnorm.launches = 0          # the warp branch
+rmsnorm.launches_wide = 0     # several warps a row
 rmsnorm.launches_ragged = 0   # the block-per-row branch
 
 

@@ -9,11 +9,11 @@
 //
 // Bound on the H100: bytes (one read and one write of the rows, ~4 flops
 // an element against the ~20 flop/byte the f32 CUDA cores need to be the
-// limit).  Two branches behind one entry point; the wrapper picks one and
-// counts them apart (rmsnorm.launches, rmsnorm.launches_ragged):
+// limit).  Three branches behind one entry point; the wrapper picks one and
+// counts them apart (rmsnorm.launches, .launches_wide, .launches_ragged):
 //
-// Warp branch (every serving and training path): one warp a row, 4 rows a
-// block.  Each lane reads its share of the row once, as 16-byte vectors
+// Warp branch (rows of at most 2048): one warp a row, 4 rows a block.
+// Each lane reads its share of the row once, as 16-byte vectors
 // (8 bf16 or 4 f32; vector i of lane l is the row's vector 32 i + l, so a
 // warp's loads are 512 contiguous bytes), and keeps it in registers as
 // floats: V vectors a lane, a template on the widths the configs use (6 at
@@ -26,12 +26,30 @@
 // the vector and at most 2048 wide (64 floats a lane), x and w 16-byte
 // aligned.
 //
+// Wide branch (the same vectors and alignment, 2048 < d <= 8192: Qwen1.5-
+// 32B's 5120, MiniCPM3-4B's 2560): WARPS warps a row, V vectors a thread
+// (vector i of thread t is the row's vector WARPS * 32 * i + t), the
+// smallest instance that holds the row (bf16 2560: 4 x 3; 5120: 8 x 3;
+// 8192: 8 x 4; f32 rows twice the vectors).  Persistent blocks: as many
+// as fit the SMs at once, each walking rows blockIdx.x, + gridDim.x, ...
+// with the loads of the next two rows in flight while it normalizes one.
+// A row is read once, as 16-byte vectors held raw in registers (4 a
+// vector, half of what bf16 widened to floats takes) and widened where
+// they are read; the fp32 sum is the butterfly, then one step across the
+// row's warps through shared memory behind a single __syncthreads; w is
+// re-read as 16-byte vectors from L1 in the scale loop, y written as
+// 16-byte vectors.  Against one block a row (PERF.md §6 times both), the
+// persistent blocks keep loads in flight while a row is reduced and
+// stored, which is what L2-warm prefill rows were waiting on.
+//
 // Ragged branch (any other width or alignment): one 256-thread block a
 // row; scalar loads in a strided loop, the warp sums then the 8 warps'
 // through shared memory, and a second pass over the row (an L1/L2 hit).
 //
-// Both keep the reference's rounding points: f32 x, an f32 mean, rsqrtf,
-// f32 w, one cast.
+// All keep the reference's rounding points: f32 x, an f32 mean, rsqrtf,
+// f32 w, one cast; only the order of the fp32 sum differs.
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace {
@@ -40,6 +58,8 @@ using bf16 = __nv_bfloat16;
 
 constexpr int kRowsPerBlock = 4;  // warp branch: one warp a row
 constexpr int kRaggedThreads = 256;
+// the wrapper's branch codes (ops.py's _BRANCHES)
+enum Branch : int { kWarp = 0, kRagged = 1, kWide = 2 };
 
 // N consecutive elements at p (aligned to their size, up to 16 bytes) as
 // floats, and back
@@ -70,6 +90,17 @@ __device__ __forceinline__ void load_floats(const bf16* p, float* f) {
     static_assert(N == 4, "bf16 vectors of 4 or 8k");
     const uint2 v = *reinterpret_cast<const uint2*>(p);
     unpack(v.x, f), unpack(v.y, f + 2);
+  }
+}
+
+// a 16-byte vector of T (8 bf16 or 4 f32) as floats
+template <typename T>
+__device__ __forceinline__ void vector_floats(const uint4& v, float* f) {
+  if constexpr (std::is_same_v<T, bf16>) {
+    unpack(v.x, f), unpack(v.y, f + 2), unpack(v.z, f + 4), unpack(v.w, f + 6);
+  } else {
+    f[0] = __uint_as_float(v.x), f[1] = __uint_as_float(v.y);
+    f[2] = __uint_as_float(v.z), f[3] = __uint_as_float(v.w);
   }
 }
 
@@ -140,6 +171,85 @@ rmsnorm_warp_kernel(const T* __restrict__ x, const W* __restrict__ w, T* __restr
   }
 }
 
+// wide branch: WARPS warps a row, V 16-byte vectors a thread at most
+// (threads past the row's last vector hold none); persistent, the loads
+// of the next two rows in flight while a row is normalized
+// (the 1 in the launch bounds: without it ptxas capped some instances at 64
+// registers and spilled 12 bytes)
+template <typename T, typename W, int WARPS, int V>
+__global__ void __launch_bounds__(WARPS * 32, 1)
+rmsnorm_wide_kernel(const T* __restrict__ x, const W* __restrict__ w, T* __restrict__ y,
+                    int n_rows, int d, float eps) {
+  constexpr int E = 16 / sizeof(T);    // elements a vector
+  constexpr int kStride = WARPS * 32;  // vectors between a thread's two
+  // two slots: a warp may write the next row's sum while a slower one
+  // still reads this row's (the __syncthreads between keeps it one ahead)
+  __shared__ float partial[2][WARPS];
+  const int lane = threadIdx.x % 32;
+  const int warp = threadIdx.x / 32;
+  const int t = threadIdx.x;
+  const int nv = d / E;
+  const int step = gridDim.x;
+  int row = blockIdx.x;
+
+  // rows row, row + step and row + 2 step, held raw (4 registers a
+  // vector, half of what bf16 widened to floats takes)
+  uint4 cur[V], ahead1[V], ahead2[V];
+#pragma unroll
+  for (int i = 0; i < V; ++i) {
+    const int j = kStride * i + t;
+    if (j < nv)
+      cur[i] = *reinterpret_cast<const uint4*>(x + static_cast<long long>(row) * d + j * E);
+    if (j < nv && row + step < n_rows)
+      ahead1[i] =
+          *reinterpret_cast<const uint4*>(x + static_cast<long long>(row + step) * d + j * E);
+  }
+  for (int k = 0; row < n_rows; ++k, row += step) {
+    const int next = row + 2 * step;
+    if (next < n_rows) {
+#pragma unroll
+      for (int i = 0; i < V; ++i) {
+        const int j = kStride * i + t;
+        if (j < nv)
+          ahead2[i] =
+              *reinterpret_cast<const uint4*>(x + static_cast<long long>(next) * d + j * E);
+      }
+    }
+    float ss = 0.f;
+#pragma unroll
+    for (int i = 0; i < V; ++i) {
+      if (kStride * i + t < nv) {
+        float f[E];
+        vector_floats<T>(cur[i], f);
+#pragma unroll
+        for (int e = 0; e < E; ++e) ss += f[e] * f[e];
+      }
+    }
+    ss = repro::warp_sum(ss);
+    if (lane == 0) partial[k & 1][warp] = ss;
+    __syncthreads();
+    float total = 0.f;
+#pragma unroll
+    for (int q = 0; q < WARPS; ++q) total += partial[k & 1][q];
+    const float inv = rsqrtf(total / static_cast<float>(d) + eps);
+    T* yr = y + static_cast<long long>(row) * d;
+#pragma unroll
+    for (int i = 0; i < V; ++i) {
+      const int j = kStride * i + t;
+      if (j < nv) {
+        float f[E], wv[E], o[E];
+        vector_floats<T>(cur[i], f);
+        load_floats<E>(w + j * E, wv);
+#pragma unroll
+        for (int e = 0; e < E; ++e) o[e] = f[e] * inv * wv[e];
+        store_floats<E>(yr + j * E, o);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < V; ++i) cur[i] = ahead1[i], ahead1[i] = ahead2[i];
+  }
+}
+
 // ragged branch: one block a row, any d and alignment
 template <typename T, typename W>
 __global__ void __launch_bounds__(kRaggedThreads)
@@ -180,19 +290,33 @@ cudaError_t launch_warp(const T* x, const W* w, T* y, int n_rows, int d, float e
   return cudaGetLastError();
 }
 
-// the smallest instantiated V that holds the row: 64 floats a lane at most
-template <typename T, typename W>
-cudaError_t launch_rows(const void* xp, const void* wp, void* yp, int n_rows, int d, float eps,
-                        int ragged, cudaStream_t s) {
-  const T* x = static_cast<const T*>(xp);
-  const W* w = static_cast<const W*>(wp);
-  T* y = static_cast<T*>(yp);
-  if (ragged) {
-    rmsnorm_ragged_kernel<T, W><<<n_rows, kRaggedThreads, 0, s>>>(x, w, y, d, eps);
-    return cudaGetLastError();
+// the wide branch's grid: as many blocks as fit the card's SMs at once
+// (at most one a row), found once an instance (one card model a process)
+template <typename T, typename W, int WARPS, int V>
+cudaError_t launch_wide(const T* x, const W* w, T* y, int n_rows, int d, float eps,
+                        cudaStream_t s) {
+  static int resident = 0;
+  if (resident == 0) {
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, rmsnorm_wide_kernel<T, W, WARPS, V>, WARPS * 32, 0);
+    if (e != cudaSuccess) return e;
+    resident = sms * per_sm;
   }
+  const int blocks = n_rows < resident ? n_rows : resident;
+  rmsnorm_wide_kernel<T, W, WARPS, V><<<blocks, WARPS * 32, 0, s>>>(x, w, y, n_rows, d, eps);
+  return cudaGetLastError();
+}
+
+// the warp branch: the smallest instantiated V that holds the row, 64
+// floats a lane at most
+template <typename T, typename W>
+cudaError_t launch_warp_rows(const T* x, const W* w, T* y, int n_rows, int d, float eps,
+                             cudaStream_t s) {
   constexpr int E = 16 / sizeof(T);
-  if (d % E != 0) return cudaErrorInvalidValue;
   const int v = (d / E + 31) / 32;
   if (v <= 1) return launch_warp<T, W, 1>(x, w, y, n_rows, d, eps, s);
   if (v <= 2) return launch_warp<T, W, 2>(x, w, y, n_rows, d, eps, s);
@@ -206,26 +330,64 @@ cudaError_t launch_rows(const void* xp, const void* wp, void* yp, int n_rows, in
   return cudaErrorInvalidValue;
 }
 
+// the wide branch: the smallest instance (warps x vectors a lane) that
+// holds the row's nv vectors, up to 1024 bf16 or 2048 f32 vectors (d 8192)
+template <typename T, typename W>
+cudaError_t launch_wide_rows(const T* x, const W* w, T* y, int n_rows, int d, float eps,
+                             cudaStream_t s) {
+  constexpr int E = 16 / sizeof(T);
+  const int nv = d / E;
+  if constexpr (E == 8) {  // bf16 rows
+    if (nv <= 4 * 32 * 3) return launch_wide<T, W, 4, 3>(x, w, y, n_rows, d, eps, s);
+    if (nv <= 4 * 32 * 4) return launch_wide<T, W, 4, 4>(x, w, y, n_rows, d, eps, s);
+    if (nv <= 8 * 32 * 3) return launch_wide<T, W, 8, 3>(x, w, y, n_rows, d, eps, s);
+    if (nv <= 8 * 32 * 4) return launch_wide<T, W, 8, 4>(x, w, y, n_rows, d, eps, s);
+  } else {  // f32 rows
+    if (nv <= 8 * 32 * 3) return launch_wide<T, W, 8, 3>(x, w, y, n_rows, d, eps, s);
+    if (nv <= 8 * 32 * 4) return launch_wide<T, W, 8, 4>(x, w, y, n_rows, d, eps, s);
+    if (nv <= 8 * 32 * 6) return launch_wide<T, W, 8, 6>(x, w, y, n_rows, d, eps, s);
+    if (nv <= 8 * 32 * 8) return launch_wide<T, W, 8, 8>(x, w, y, n_rows, d, eps, s);
+  }
+  return cudaErrorInvalidValue;
+}
+
+template <typename T, typename W>
+cudaError_t launch_rows(const void* xp, const void* wp, void* yp, int n_rows, int d, float eps,
+                        int branch, cudaStream_t s) {
+  const T* x = static_cast<const T*>(xp);
+  const W* w = static_cast<const W*>(wp);
+  T* y = static_cast<T*>(yp);
+  if (branch == kRagged) {
+    rmsnorm_ragged_kernel<T, W><<<n_rows, kRaggedThreads, 0, s>>>(x, w, y, d, eps);
+    return cudaGetLastError();
+  }
+  if (d % (16 / sizeof(T)) != 0) return cudaErrorInvalidValue;
+  if (branch == kWarp) return launch_warp_rows<T, W>(x, w, y, n_rows, d, eps, s);
+  if (branch == kWide) return launch_wide_rows<T, W>(x, w, y, n_rows, d, eps, s);
+  return cudaErrorInvalidValue;
+}
+
 template <typename T>
 cudaError_t launch_w(const void* x, const void* w, int w_dtype, void* y, int n_rows, int d,
-                     float eps, int ragged, cudaStream_t s) {
-  return w_dtype == repro::kBF16 ? launch_rows<T, bf16>(x, w, y, n_rows, d, eps, ragged, s)
-                                 : launch_rows<T, float>(x, w, y, n_rows, d, eps, ragged, s);
+                     float eps, int branch, cudaStream_t s) {
+  return w_dtype == repro::kBF16 ? launch_rows<T, bf16>(x, w, y, n_rows, d, eps, branch, s)
+                                 : launch_rows<T, float>(x, w, y, n_rows, d, eps, branch, s);
 }
 
 }  // namespace
 
 // x and y (n_rows, d) contiguous in dtype; w (d,) in w_dtype (f32 or bf16).
-// ragged 0 takes the warp branch: d a multiple of 16 bytes of x's dtype and
-// at most 2048, x and w 16-byte aligned (the wrapper checks; a width it
-// cannot hold returns cudaErrorInvalidValue); ragged 1 the block-per-row
-// branch, which takes anything.
+// branch 0 (kWarp) takes d a multiple of 16 bytes of x's dtype and at most
+// 2048, branch 2 (kWide) the same vectors up to 8192, both with x and w
+// 16-byte aligned (the wrapper checks; a width the branch cannot hold
+// returns cudaErrorInvalidValue); branch 1 (kRagged) the block-per-row
+// kernel, which takes anything.
 extern "C" int repro_rmsnorm(const void* x, const void* w, void* y, int n_rows, int d, float eps,
-                             int dtype, int w_dtype, int ragged, void* stream) {
+                             int dtype, int w_dtype, int branch, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n_rows <= 0) return static_cast<int>(cudaGetLastError());
   const cudaError_t e = dtype == repro::kBF16
-                            ? launch_w<bf16>(x, w, w_dtype, y, n_rows, d, eps, ragged, s)
-                            : launch_w<float>(x, w, w_dtype, y, n_rows, d, eps, ragged, s);
+                            ? launch_w<bf16>(x, w, w_dtype, y, n_rows, d, eps, branch, s)
+                            : launch_w<float>(x, w, w_dtype, y, n_rows, d, eps, branch, s);
   return static_cast<int>(e);
 }

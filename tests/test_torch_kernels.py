@@ -50,13 +50,63 @@ def _t(a):
 # plain versions vs the reference Pallas kernels (interpret mode)
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("shape", [(7, 256), (2, 5, 256), (3, 1536)])
+# rows wider than 2048 take the kernel's wide branch on the card; this
+# shape's rows are bf16 under an fp32 weight, as training normalizes them
+BF16_ROWS_SHAPE = (2, 5120)
+# bf16 on both sides: the same f32 value rounded once, unless the order of
+# the sum moves it across a rounding boundary, one bf16 ulp (2^-8 to 2^-7
+# of the value)
+BF16_ROWS_TOL = dict(atol=1e-6, rtol=2 ** -7)
+
+
+@pytest.mark.parametrize("shape", [(7, 256), (2, 5, 256), (3, 1536), (3, 2560),
+                                   BF16_ROWS_SHAPE])
 def test_rmsnorm_plain_matches_pallas(shape):
     rng = np.random.default_rng(0)
     x, w = _rand(rng, *shape), _rand(rng, shape[-1])
+    if shape == BF16_ROWS_SHAPE:
+        want = jax_rmsnorm(jnp.asarray(x, jnp.bfloat16), jnp.asarray(w), 1e-6,
+                           interpret=True)
+        got = rmsnorm(_t(x).to(torch.bfloat16), _t(w), 1e-6)
+        assert got.dtype == torch.bfloat16
+        np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32),
+                                   **BF16_ROWS_TOL)
+        return
     want = jax_rmsnorm(jnp.asarray(x), jnp.asarray(w), 1e-6, interpret=True)
     got = rmsnorm(_t(x), _t(w), 1e-6)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("d,dtype,offset,branch", [
+    (1536, torch.bfloat16, 0, "warp"),
+    (2048, torch.float32, 0, "warp"),
+    (264, torch.bfloat16, 0, "warp"),
+    (2056, torch.bfloat16, 0, "wide"),
+    (2560, torch.bfloat16, 0, "wide"),
+    (5120, torch.bfloat16, 0, "wide"),
+    (5120, torch.float32, 0, "wide"),
+    (8192, torch.float32, 0, "wide"),
+    (8200, torch.bfloat16, 0, "ragged"),     # wider than the wide branch
+    (70, torch.float32, 0, "ragged"),        # not whole 16-byte vectors
+    (2562, torch.float32, 0, "ragged"),
+    (5124, torch.bfloat16, 0, "ragged"),
+    (5120, torch.bfloat16, 1, "ragged"),     # x one element off 16 bytes
+    (1536, torch.float32, 1, "ragged"),
+    (5120, torch.bfloat16, 5120, "wide"),    # a whole row in: aligned
+])
+def test_rmsnorm_branch_choice(d, dtype, offset, branch):
+    """The wrapper's branch from the rows' width, dtype and alignment (the
+    same choice on any device; the CPU then runs the plain version)."""
+    from repro_torch.kernels.rmsnorm.ops import rmsnorm_branch
+
+    n = 3
+    flat = torch.zeros((n + 2) * d, dtype=dtype)
+    x = flat[offset:offset + n * d].view(n, d)
+    w = torch.zeros(d, dtype=torch.float32)
+    assert rmsnorm_branch(x, w) == branch
+    if branch != "ragged":   # the weight's alignment counts too
+        w_off = torch.zeros(d + 1, dtype=torch.float32)[1:]
+        assert rmsnorm_branch(x, w_off) == "ragged"
 
 
 def _jax_flash(q, k, v, kv_len, causal, block=16):

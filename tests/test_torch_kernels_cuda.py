@@ -415,12 +415,13 @@ def test_cuda_rmsnorm_fp32_weight_under_bf16_rows(shape):
 
 def _rmsnorm_branch(x, w):
     """rmsnorm(x, w) and the branch whose counter moved (exactly one, by 1)."""
-    before = rmsnorm.launches, rmsnorm.launches_ragged
+    counters = ("launches", "launches_wide", "launches_ragged")
+    before = [getattr(rmsnorm, c) for c in counters]
     got = rmsnorm(x, w, 1e-6)
     torch.cuda.synchronize()
-    moved = rmsnorm.launches - before[0], rmsnorm.launches_ragged - before[1]
-    assert moved in ((1, 0), (0, 1)), moved
-    return got, "warp" if moved[0] else "ragged"
+    moved = tuple(getattr(rmsnorm, c) - b for c, b in zip(counters, before))
+    assert sorted(moved) == [0, 0, 1], moved
+    return got, ("warp", "wide", "ragged")[moved.index(1)]
 
 
 @pytest.mark.cuda
@@ -432,10 +433,17 @@ def _rmsnorm_branch(x, w):
     ((5, 264), False, "warp"),        # lanes holding unequal numbers of vectors
     ((37, 70), False, "ragged"),      # not a whole number of 16-byte vectors
     ((64, 1538), False, "ragged"),
-    ((16, 4096), False, "ragged"),    # wider than the warp branch holds
+    ((16, 4096), False, "wide"),      # wider than one warp a row holds
+    ((4, 5120), False, "wide"),       # Qwen1.5-32B's decode rows
+    ((2048, 5120), False, "wide"),    # its 4 x 512 prefill
+    ((2048, 2560), False, "wide"),    # MiniCPM3-4B's prefill
+    ((8192, 2560), True, "wide"),     # its training rows under an fp32 weight
+    ((3, 8192), False, "wide"),       # the widest the branch holds
+    ((5, 2056), False, "wide"),       # threads holding unequal numbers of vectors
+    ((2, 8200), False, "ragged"),     # wider than the wide branch holds
 ])
 def test_cuda_rmsnorm_branches_match_plain(shape, w_f32, branch, dtype):
-    """Which branch each width takes, and both against the plain version."""
+    """Which branch each width takes, and each against the plain version."""
     requires_cuda()
     rng = np.random.default_rng(shape[-1])
     x = _cuda(_rand(rng, *shape), dtype)
@@ -447,18 +455,44 @@ def test_cuda_rmsnorm_branches_match_plain(shape, w_f32, branch, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", DTYPES)
-def test_cuda_rmsnorm_offset_views(dtype):
+@pytest.mark.parametrize("d,aligned", [(1536, "warp"), (5120, "wide")])
+def test_cuda_rmsnorm_offset_views(d, aligned, dtype):
     """A contiguous view whose base sits one element into its storage is
-    not 16-byte aligned (ragged branch); one whole row in, it is (warp)."""
+    not 16-byte aligned (ragged branch); one whole row in, it is (the
+    width's warp or wide branch)."""
     requires_cuda()
-    n, d = 300, 1536
+    n = 300
     flat = _cuda(_rand(np.random.default_rng(7), (n + 2) * d), dtype)
     w = _cuda(_rand(np.random.default_rng(8), d), dtype)
-    for offset, branch in ((1, "ragged"), (d, "warp")):
+    for offset, branch in ((1, "ragged"), (d, aligned)):
         x = flat[offset:offset + n * d].view(n, d)
         got, ran = _rmsnorm_branch(x, w)
         assert ran == branch
         _close(got, rmsnorm_ref(x, w, 1e-6), dtype)
+
+
+@pytest.mark.cuda
+def test_cuda_rmsnorm_wide_branch_counts_in_graph_replays():
+    """A captured call of the wide branch: each replay writes what the
+    eager call does and adds its launch to ``rmsnorm[wide]``."""
+    requires_cuda()
+    from repro_torch import kernels
+    from repro_torch.serve.step_graph import StepGraphs
+
+    rng = np.random.default_rng(5120)
+    x = _cuda(_rand(rng, 4, 5120), torch.bfloat16)
+    w = _cuda(_rand(rng, 5120), torch.bfloat16)
+    want = rmsnorm(x, w, 1e-6)
+    graphs = StepGraphs("cuda", enabled=True)
+    graphs.run("wide", lambda: rmsnorm(x, w, 1e-6))   # captured, then replayed once
+    kernels.reset_launches()
+    for _ in range(3):
+        got = graphs.run("wide", lambda: rmsnorm(x, w, 1e-6))
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    counts = kernels.launch_counts()
+    assert counts["rmsnorm[wide]"] == 3 and graphs.replays == 4
+    assert counts["rmsnorm"] == counts["rmsnorm[ragged]"] == 0
 
 
 # the backward's outputs are f32 on both sides, from the same inputs (bf16
