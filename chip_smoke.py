@@ -1412,9 +1412,10 @@ def add_counts(a: dict, b: dict) -> dict:
 
 
 F32_FLASH = ("flash_attention_fwd[f32]", "flash_attention_bwd[f32]",
-             "flash_attention_fwd[dv,f32]", "flash_attention_bwd[dv,f32]")
+             "flash_attention_fwd[dv,f32]", "flash_attention_bwd[dv,f32]",
+             "flash_attention_fwd[d80,f32]")
 BF16_FLASH = ("flash_attention_fwd", "flash_attention_bwd", "flash_attention_fwd[dv]",
-              "flash_attention_bwd[dv]")
+              "flash_attention_bwd[dv]", "flash_attention_fwd[d80]")
 
 
 def flash_branch_launches(bf16_runs: dict, fp32_runs: dict):
@@ -1548,7 +1549,8 @@ def step_state(model, params, kind: str, gen: torch.Generator, draft=None,
                                  kv_dtype="int8" if kind.endswith("int8") else None)
         nb = cache["block_tables"].shape[1]
         cache["block_tables"].copy_(torch.arange(1, SLOTS * nb + 1, **i32).reshape(SLOTS, nb))
-    for name in [n for n in cache if n in ("k", "v", "k_pages", "v_pages", "latent", "rope")]:
+    for name in [n for n in cache if n in ("k", "v", "k_pages", "v_pages", "latent", "rope",
+                                           "attn_k", "attn_v")]:
         rows = torch.randn(cache[name].shape, generator=gen, device="cuda")
         if cache[name].dtype == torch.int8:
             q, scale = quantize_kv_rows(rows)
@@ -2504,23 +2506,30 @@ def kernel_parts_ms(fn, names, n: int = 20) -> dict:
     return {k: sum(kernel_us(e) for e in events if k in e.key) / 1e3 / n for k in names}
 
 
-def profile_phase(name, fn, n: int) -> dict:
-    """Host wall time of ``n`` calls of ``fn`` after one warm-up call,
-    ended by a synchronize, then the summed device kernel time of ``n``
-    more under torch.profiler; prints the ``time`` line and returns both,
-    the busy share and the largest kernels."""
+def profile_phase(name, fn, n: int, device_only: bool = False, warm: bool = True) -> dict:
+    """Host wall time of ``n`` calls of ``fn`` after one warm-up call
+    (none with ``warm=False``: the caller has run ``fn`` already), ended
+    by a synchronize, then the summed device kernel time of ``n`` more
+    under torch.profiler; prints the ``time`` line and returns both, the
+    busy share and the largest kernels.  ``device_only`` records the
+    device's activity alone (a call of tens of thousands of launches,
+    whose host-side events would take the profiler minutes to sum)."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.bench.fig5_microbench import kernel_us
 
-    fn()
+    if warm:
+        fn()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(n):
         fn()
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / n
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CUDA]
+    if not device_only:
+        activities.insert(0, ProfilerActivity.CPU)
+    with profile(activities=activities) as prof:
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
@@ -5792,6 +5801,417 @@ def run_mla(seed: int, gen: torch.Generator, rows: dict, smi: str) -> tuple:
 
 
 # ---------------------------------------------------------------------------
+# phase 7c: RWKV6-7B and Zamba2-2.7B, the recurrent families
+# ---------------------------------------------------------------------------
+
+RECURRENT_ARCHS = ("rwkv6-7b", "zamba2-2.7b")
+RECURRENT_NEW = 32
+RECURRENT_PROMPT = 512       # request 0's prompt; the others 128-512 tokens
+RECURRENT_FORCED = 8
+# the profiled prefill's length: a 512-token prefill is ~68k (RWKV6) and
+# ~86k (Zamba2) launches, whose records take the profiler ~15 s to sum
+RECURRENT_PROFILE_TOKENS = 128
+# the scans' per-token products at a 512-token prefill (RWKV6: k v^T and
+# its bonus-weighted copy, 1.07 GB a layer; Mamba2: dt x B^T, 0.67 GB),
+# the graph pool and allocator slack
+RECURRENT_MARGIN = 4 * 2 ** 30
+# the fp32 control: full width, depth cut to 4 RWKV6 layers and 12 Zamba2
+# layers (two groups of the shared block and 6 Mamba2 layers); decode from
+# an empty state against forward within the reference test's tolerance
+# (tests/test_arch_smoke.py:90)
+RECURRENT_CONTROL_LAYERS = {"rwkv6-7b": 4, "zamba2-2.7b": 12}
+RECURRENT_CONTROL_SEQ = 16
+RECURRENT_CONTROL_TOL = dict(rtol=2e-3, atol=2e-3)
+D80_FLASH_ROW = "flash_attention_fwd (Zamba2 D 80)"              # row 2e
+D80_FLASH_F32_ROW = "flash_attention_fwd (Zamba2 D 80, f32)"
+D80_DECODE_ROW = "flash_decode (Zamba2 D 80)"                     # row 4c
+D80_DECODE_F32_ROW = "flash_decode (Zamba2 D 80, f32)"
+RWKV_NORM_ROW = "rmsnorm[wide] (RWKV6 d 4096)"                   # row 1f
+MAMBA_NORM_ROW = "rmsnorm[wide] (Mamba2 d_in 5120)"              # row 1g
+# each serving run's kernels: every other counter must stay at 0
+RECURRENT_KERNELS = {"rwkv6-7b": ("rmsnorm[wide]",),
+                     "zamba2-2.7b": ("rmsnorm[wide]", "flash_attention_fwd[d80]",
+                                     "flash_decode[d80]")}
+RECURRENT_CONTROL_KERNELS = {"rwkv6-7b": ("rmsnorm[wide]",),
+                             "zamba2-2.7b": ("rmsnorm[wide]", "flash_attention_fwd[d80,f32]",
+                                             "flash_decode[d80]")}
+
+
+def recurrent_params(cfg) -> int:
+    """RWKV6's or Zamba2's parameter count from its config (the port's
+    leaves)."""
+    d, L, V, f = cfg.d_model, cfg.n_layers, cfg.vocab, cfg.d_ff
+    head = V * d * (1 if cfg.tie_embeddings else 2) + d          # embed, lm_head, ln_f
+    if cfg.family == "ssm":
+        # mu 5d; wr wk wv wg wo cr; w0, bonus, ln_x; wA, wB; mu_c; ck, cv; ln1, ln2
+        lora = 64
+        return head + L * (5 * d + 6 * d * d + 3 * d + 2 * d * lora + 2 * d + 2 * d * f + 2 * d)
+    d_in, n, nh = cfg.ssm_expand * d, cfg.ssm_state, cfg.ssm_expand * d // cfg.ssm_head_dim
+    mamba = (d * (2 * d_in + 2 * n + nh) + (cfg.ssm_conv + 1) * (d_in + 2 * n) + 3 * nh
+             + d_in + d_in * d + d)
+    hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    shared = 2 * d + 2 * d * hq * dh + 2 * d * hkv * dh + 3 * d * f
+    return head + L * mamba + shared
+
+
+def check_recurrent_shapes(gen: torch.Generator, rows: dict) -> dict:
+    """The kernels at the recurrent models' shapes, which no earlier phase
+    reaches: the flash forward's (80, 80) instance at Zamba2's prefill
+    call (1 x 512 tokens, 32 / 32 heads, causal) and dense decode at D 80
+    (4 slots, Hkv 32, G 1, all 576 keys live), each in bf16 and f32 and a
+    row of the kernel record beside SDPA on the same inputs, every time
+    with the calls queued but the plain versions'; and rmsnorm's wide
+    branch over 512 rows of RWKV6's 4096 and of Mamba2's inner 5120
+    (rows ``RWKV_NORM_ROW`` and ``MAMBA_NORM_ROW``) beside F.rms_norm."""
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attention.ops import flash_decode
+    from repro_torch.kernels.decode_attention.ref import flash_decode_ref
+    from repro_torch.kernels.flash_attention.ops import flash_attention_fwd
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+    t0 = time.perf_counter()
+    z = get_config("zamba2-2.7b")
+    h, hkv, dh, s, b = z.n_heads, z.n_kv_heads, z.d_head, 512, SLOTS
+    out = {}
+
+    def randn(*shape, dtype=torch.bfloat16):
+        return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+
+    pairs = h * s * (s + 1) // 2                      # live (query, key) pairs
+    for dtype, name, tol, peak in ((torch.bfloat16, D80_FLASH_ROW, FLASH_FWD_TOL, BF16_FLOPS_S),
+                                   (torch.float32, D80_FLASH_F32_ROW, F32_FLASH_TOL,
+                                    F32_FLOPS_S)):
+        q, k, v = (randn(1, s, h, dh, dtype=dtype) for _ in "qkv")
+        qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
+        got, want = flash_attention_fwd(q, k, v)[0], flash_attention_ref(q, k, v)[0]
+        # bytes: q, k, v read and o written once, lse written; operations:
+        # 2 * D for Q.K^T and 2 * Dv for P.V a live pair
+        record_kernel(rows, name, "src/repro_torch/kernels/flash_attention/flash_attention.cu",
+                      "src/repro/kernels/flash_attention/flash_attention.py:123", got, want, tol,
+                      queued_ms(lambda: flash_attention_fwd(q, k, v)),
+                      cuda_ms(lambda: flash_attention_ref(q, k, v)),
+                      4 * q.numel() * q.element_size() + h * s * 4, 4 * dh * pairs, peak,
+                      queued_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                                      is_causal=True)),
+                      branch=FLASH_BRANCHES[dtype])
+        out[name] = {key: rows[name][key] for key in ("max_abs_err", "ms", "plain_ms",
+                                                      "bound_ms", "library_ms")}
+        if dtype == torch.bfloat16:
+            flips = (got != want).double().mean().item()
+            print(f"kernel {name}: {flips:.4%} of the bf16 outputs round to another value "
+                  f"than the plain version's", flush=True)
+            out[name]["flip_share"] = flips
+        del q, k, v, qt, kt, vt, got, want
+    pos = torch.full((b,), MAX_SEQ - 1, dtype=torch.int32, device="cuda")
+    for dtype, name, tol, peak in ((torch.bfloat16, D80_DECODE_ROW, KERNEL_TOL, BF16_FLOPS_S),
+                                   (torch.float32, D80_DECODE_F32_ROW, F32_FLASH_TOL,
+                                    F32_FLOPS_S)):
+        q = randn(b, hkv, h // hkv, dh, dtype=dtype)
+        k, v = randn(b, MAX_SEQ, hkv, dh, dtype=dtype), randn(b, MAX_SEQ, hkv, dh, dtype=dtype)
+        q4 = q.reshape(b, 1, h, dh).transpose(1, 2)
+        kt, vt = k.transpose(1, 2), v.transpose(1, 2)
+        got, want = flash_decode(q, k, v, pos), flash_decode_ref(q, k, v, pos)
+        record_kernel(rows, name, "src/repro_torch/kernels/decode_attention/decode_attention.cu",
+                      "src/repro/kernels/decode_attention/decode_attention.py:108", got, want,
+                      tol, queued_ms(lambda: flash_decode(q, k, v, pos)),
+                      queued_ms(lambda: flash_decode_ref(q, k, v, pos)),
+                      (2 * q.numel() + 2 * k.numel()) * q.element_size(),
+                      4 * dh * h * b * MAX_SEQ, peak,
+                      queued_ms(lambda: F.scaled_dot_product_attention(q4, kt, vt)))
+        out[name] = {key: rows[name][key] for key in ("max_abs_err", "ms", "plain_ms",
+                                                      "bound_ms", "library_ms")}
+        sdpa_factor(name, rows[name]["ms"], rows[name]["library_ms"])
+        del q, k, v, q4, kt, vt, got, want
+    out[RWKV_NORM_ROW] = rmsnorm_wide_row(rows, RWKV_NORM_ROW, randn(512, 4096), randn(4096),
+                                          1e-6)
+    out[MAMBA_NORM_ROW] = rmsnorm_wide_row(rows, MAMBA_NORM_ROW, randn(512, 5120),
+                                           randn(5120), 1e-6)
+    print(f"recurrent kernels: {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
+
+def recurrent_control(arch: str, seed: int, gen: torch.Generator) -> dict:
+    """The fp32 control at full width, depth cut (RECURRENT_CONTROL_LAYERS):
+    RECURRENT_CONTROL_SEQ teacher-forced decode steps of 2 rows from an
+    empty state against ``forward``'s logits within the reference test's
+    2e-3, through the f32 instances (Zamba2: the flash forward's (80, 80)
+    and dense decode's D 80)."""
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.models.lm import Model
+
+    cfg = dataclasses.replace(get_config(arch), n_layers=RECURRENT_CONTROL_LAYERS[arch])
+    model = Model(cfg, device="cuda", dtype=torch.float32)
+    params = model.init(torch.Generator(device="cuda").manual_seed(seed))
+    toks = torch.randint(0, cfg.vocab, (2, RECURRENT_CONTROL_SEQ), generator=gen,
+                         device="cuda")
+    kernels.reset_launches()
+    with torch.no_grad():
+        want = model.forward(params, {"tokens": toks})
+    cache = model.init_cache(2, 64)
+    steps = []
+    for t in range(RECURRENT_CONTROL_SEQ):
+        logits, cache = model.decode_step(params, cache, toks[:, t],
+                                          torch.full((2,), t, dtype=torch.int32, device="cuda"))
+        steps.append(logits)
+    got = torch.stack(steps, dim=1)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    err = (got - want).abs().max().item()
+    ok = torch.allclose(got, want, **RECURRENT_CONTROL_TOL)
+    print(f"recurrent {arch} fp32 control (full width, {cfg.n_layers} of "
+          f"{get_config(arch).n_layers} layers): {RECURRENT_CONTROL_SEQ} decode steps from an "
+          f"empty state vs forward, max |logit err| {err:.3e} (tol {RECURRENT_CONTROL_TOL}, "
+          f"logit scale {want.abs().max().item():.3e}) ok={ok}; launches "
+          f"{ {n: c for n, c in counts.items() if c} }", flush=True)
+    if not ok:
+        fail(f"{arch}'s fp32 decode from an empty state differs from forward by {err:.3e}")
+    want_kernels = RECURRENT_CONTROL_KERNELS[arch]
+    stray = {n: c for n, c in counts.items() if c and n not in want_kernels}
+    missing = [n for n in want_kernels if counts[n] == 0]
+    if stray or missing:
+        fail(f"{arch}'s fp32 control launched {stray} off its path or never launched "
+             f"{missing}")
+    del model, params, cache, want, got, steps
+    torch.cuda.empty_cache()
+    return dict(layers=cfg.n_layers, seq=RECURRENT_CONTROL_SEQ, max_err=err, counts=counts)
+
+
+def run_recurrent_model(arch: str, seed: int, gen: torch.Generator, smi: str) -> dict:
+    """One recurrent model at full width and depth, bf16: the memory
+    count, greedy dense serving of 4 requests (the decode steps captured),
+    the profiles of a prefill and a replayed decode step, request 0's
+    first tokens teacher-forced on the plain path, the paged layout
+    refused, then the fp32 control."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.lm import Model
+    from repro_torch.optim.optimizer import leaves
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.serve.step_graph import StepGraphs
+
+    t0 = time.perf_counter()
+    cfg = get_config(arch)
+    tag = arch.split("-")[0]
+    n_params = recurrent_params(cfg)
+    weight_bytes = 2 * n_params
+    meta_cache = Model(cfg, device="meta", dtype=torch.bfloat16).init_cache(SLOTS, MAX_SEQ)
+    cache_bytes = sum(t.numel() * t.element_size() for t in meta_cache.values())
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    need = weight_bytes + 2 * cache_bytes + RECURRENT_MARGIN
+    print(f"recurrent {arch} count: {n_params} parameters = {weight_bytes / 1e9:.2f} GB of "
+          f"bf16 weights; cache {cache_bytes / 1e6:.1f} MB for {SLOTS} slots x {MAX_SEQ} "
+          f"({ {n: tuple(t.shape) for n, t in meta_cache.items()} }); need "
+          f"{need / 2 ** 30:.2f} GiB with the prefill's copy and a "
+          f"{RECURRENT_MARGIN / 2 ** 30:.0f} GiB margin; free before the init "
+          f"{free / 2 ** 30:.2f} of {total / 2 ** 30:.2f} GiB; [{smi}]", flush=True)
+    if need > free:
+        fail(f"{arch} does not fit: need {need / 2 ** 30:.2f} GiB, {free / 2 ** 30:.2f} GiB free")
+    model = Model(cfg, device="cuda", dtype=torch.bfloat16)
+    t_init = time.perf_counter()
+    params = model.init(torch.Generator(device="cuda").manual_seed(seed))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t_init
+    counted = sum(p.numel() for p in leaves(params))
+    print(f"recurrent {arch} model: family={cfg.family} layers={cfg.n_layers} "
+          f"d_model={cfg.d_model} d_ff={cfg.d_ff} vocab={cfg.vocab} dtype=bf16, {counted} "
+          f"parameters; init {init_s:.1f} s; allocated "
+          f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB", flush=True)
+    if counted != n_params:
+        fail(f"{arch}: the init made {counted} parameters, the count says {n_params}")
+    rng = np.random.default_rng(seed + 35)
+    lens = [RECURRENT_PROMPT] + rng.integers(128, RECURRENT_PROMPT + 1, SLOTS - 1).tolist()
+    spec = [(i, rng.integers(0, cfg.vocab, n).tolist(), RECURRENT_NEW)
+            for i, n in enumerate(lens)]
+    out, eng, counts, wall, n_tok = serve(model, params, spec, warm=True)
+    peak = eng.base_bytes + eng.peak_bytes
+    ttft = [eng.last_stats[u]["first_token_s"] - eng.last_stats[u]["enqueued_s"]
+            for u, _, _ in spec]
+    decode_ms = 1e3 * (wall - max(ttft)) / (RECURRENT_NEW - 1)
+    read_ms = 1e3 * weight_bytes / HBM_BYTES_S
+    g, warm_graphs = eng.last_graph_stats, eng.warm_graph_stats["graphs"]
+    print(f"recurrent {arch} serve dense: {len(spec)} requests of {lens} prompt tokens, "
+          f"{RECURRENT_NEW} new: {n_tok} tokens in {wall:.3f} s = {n_tok / wall:.2f} tok/s; "
+          f"TTFT ms {[round(1e3 * t, 1) for t in ttft]}; decode {decode_ms:.2f} ms a step "
+          f"(the weights' read alone {read_ms:.2f} ms); peak memory {peak / 2 ** 30:.2f} GiB; "
+          f"graphs {warm_graphs} captured in the warm session, "
+          f"{g['replays']} replays; launches rmsnorm[wide] {counts['rmsnorm[wide]']}, "
+          f"flash_attention_fwd[d80] {counts['flash_attention_fwd[d80]']}, flash_decode[d80] "
+          f"{counts['flash_decode[d80]']}, rmsnorm[ragged] {counts['rmsnorm[ragged]']}; "
+          f"prefill groups {eng.last_prefill_groups}; [{smi}]", flush=True)
+    want_kernels = RECURRENT_KERNELS[arch]
+    for name in want_kernels:
+        if counts[name] == 0:
+            fail(f"{name} never launched while serving {arch}")
+    stray = {n: c for n, c in counts.items() if c and n not in want_kernels}
+    if stray:
+        fail(f"the {arch} run launched kernels off its path: {stray}")
+    if g["replays"] == 0:
+        fail(f"the {arch} decode steps were not replayed as captured graphs")
+    if any(len(uids) != 1 or [bucket] != n for uids, bucket, n in eng.last_prefill_groups):
+        fail(f"{arch} prefilled a request beside another or padded: "
+             f"{eng.last_prefill_groups}")
+    # where the time goes: the first RECURRENT_PROFILE_TOKENS of request
+    # 0's prompt prefilled alone (one scan a layer, a loop over the tokens
+    # on the host: the same launches a token at any length), and the
+    # decode step as the engine replays it (one captured graph)
+    toks = torch.tensor([spec[0][1][:RECURRENT_PROFILE_TOKENS]], device="cuda")
+    st = step_state(model, params, "dense", gen)
+    graphs = StepGraphs("cuda", enabled=True)
+    graphs.run(("dense", ATTEND), st["fn"], restore=st["restore"])
+
+    def replay():
+        st["reset"]()
+        graphs.run(("dense", ATTEND), st["fn"])
+
+    parts = {"serve": time.perf_counter() - t0}
+    t1 = time.perf_counter()
+    prefill = f"{tag}_prefill_1x{RECURRENT_PROFILE_TOKENS}"
+    # the served sessions prefilled longer prompts already: no warm-up call
+    phases = {prefill: profile_phase(prefill, lambda: model.prefill(params, toks, MAX_SEQ), 1,
+                                     device_only=True, warm=False),
+              f"{tag}_decode_step_graph": profile_phase(f"{tag}_decode_step_graph", replay, 3)}
+    del st, graphs, toks
+    parts["profiles"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    uid, prompt, _ = spec[0]
+    forced = recurrent_teacher_forced(arch, cfg, model, params, prompt,
+                                      out[uid][:RECURRENT_FORCED])
+    parts["teacher_forced"] = time.perf_counter() - t1
+    try:
+        ServeEngine(model, params, max_seq=MAX_SEQ, batch_slots=SLOTS, cache_layout="paged")
+    except ValueError as exc:
+        print(f"recurrent {arch} paged layout refused: {exc}", flush=True)
+    else:
+        fail(f"a paged {arch} engine was built; the recurrent states stay dense")
+    del model, params, eng
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    control = recurrent_control(arch, seed, gen)
+    parts["fp32_control"] = time.perf_counter() - t1
+    rec = dict(n_params=n_params, weight_bytes=weight_bytes, cache_bytes=cache_bytes,
+               free_before_init=free, total=total, init_s=init_s, tok_s=n_tok / wall,
+               wall_s=wall, ttft_s=ttft, decode_ms=decode_ms, weight_read_ms=read_ms,
+               peak_bytes=peak, graphs_warm=warm_graphs, replays=g["replays"],
+               counts=counts, teacher_forced=forced, phases=phases,
+               fp32_control=control, parts_s=parts, phase_wall_s=time.perf_counter() - t0)
+    print(f"recurrent {arch}: {rec['phase_wall_s']:.1f} s "
+          f"({ {k: round(v, 1) for k, v in parts.items()} })", flush=True)
+    return rec
+
+
+def recurrent_teacher_forced(arch, cfg, model, params, prompt, tokens) -> dict:
+    """Request 0's first tokens teacher-forced on the kernel path, the
+    plain path (``use_kernels=False``) and the plain path in fp32 on the
+    same weight values.  The kernel path must stay within the bf16 logit
+    tolerance of the plain path, LOGIT_TOL of each step's logit scale or,
+    where bf16 arithmetic itself is farther than that from fp32, the
+    plain bf16 path's own worst distance from the fp32 run: the scans
+    carry a rounding difference through every later token (their state
+    is fp32, their inputs and RWKV6's decay argument bf16), so two bf16
+    paths that round apart inside one norm drift apart with the prompt's
+    length.  A wrong kernel moves the logits wholesale, far past both."""
+    from repro_torch.models.lm import Model
+
+    secs = [time.perf_counter()]
+    k_logits = teacher_force(model, params, prompt, tokens)
+    secs.append(time.perf_counter())
+    p_logits = teacher_force(Model(cfg, device="cuda", dtype=torch.bfloat16,
+                                   use_kernels=False), params, prompt, tokens)
+    secs.append(time.perf_counter())
+    _, params32 = fp32_model(cfg, params)
+    f_logits = teacher_force(Model(cfg, device="cuda", dtype=torch.float32, use_kernels=False),
+                             params32, prompt, tokens)
+    del params32
+    torch.cuda.empty_cache()
+    secs.append(time.perf_counter())
+    secs = [round(b - a, 1) for a, b in zip(secs, secs[1:])]
+    if not all(torch.isfinite(t).all() for t in (k_logits, p_logits, f_logits)):
+        fail(f"non-finite logits in {arch}'s teacher-forced runs")
+
+    def ratios(got, want):
+        err = (got.float() - want.float()).abs().max(dim=-1).values
+        return (err / want.float().abs().max(dim=-1).values).tolist()
+
+    kp, pf, kf = ratios(k_logits, p_logits), ratios(p_logits, f_logits), ratios(k_logits,
+                                                                                f_logits)
+    tol = max(LOGIT_TOL, max(pf))
+    agree = (k_logits.argmax(-1) == p_logits.argmax(-1)).float().mean().item()
+    print(f"teacher-forced recurrent {arch} uid 0, {len(kp)} steps after a {len(prompt)}-token "
+          f"prompt, worst |logit err| / logit scale per step: kernel vs plain path (bf16) "
+          f"{[round(r, 4) for r in kp]}; plain bf16 vs plain fp32 {[round(r, 4) for r in pf]}; "
+          f"kernel bf16 vs plain fp32 {[round(r, 4) for r in kf]}; tolerance {tol:.4f} "
+          f"(LOGIT_TOL {LOGIT_TOL} or the plain bf16 path's worst distance from fp32); "
+          f"argmax agreement kernel vs plain {agree:.4f}; kernel, plain, fp32 runs {secs} s",
+          flush=True)
+    if max(kp) > tol:
+        fail(f"{arch}'s kernel path differs from the plain path by {max(kp):.4f} of the logit "
+             f"scale, past {tol:.4f}")
+    return dict(kernel_vs_plain=kp, plain_vs_fp32=pf, kernel_vs_fp32=kf, tolerance=tol,
+                argmax_agreement=agree, steps=len(kp), prompt=len(prompt))
+
+
+def run_recurrent(seed: int, gen: torch.Generator, rows: dict, smi: str) -> dict:
+    """Phase 7c (``recurrent`` lines): the kernels at the recurrent models'
+    shapes, then RWKV6-7B and Zamba2-2.7B each served, profiled, checked
+    against the plain path and in fp32.  Fills the new rows' launches from
+    the serving runs (bf16) and the fp32 controls (f32 rows)."""
+    t0 = time.perf_counter()
+    shapes = check_recurrent_shapes(gen, rows)
+    recs = {arch: run_recurrent_model(arch, seed, gen, smi) for arch in RECURRENT_ARCHS}
+    rwkv, zamba = recs["rwkv6-7b"], recs["zamba2-2.7b"]
+    rows[RWKV_NORM_ROW]["launches"] = rwkv["counts"]["rmsnorm[wide]"]
+    rows[MAMBA_NORM_ROW]["launches"] = zamba["counts"]["rmsnorm[wide]"]
+    rows[D80_FLASH_ROW]["launches"] = zamba["counts"]["flash_attention_fwd[d80]"]
+    rows[D80_DECODE_ROW]["launches"] = zamba["counts"]["flash_decode[d80]"]
+    control = zamba["fp32_control"]["counts"]
+    rows[D80_FLASH_F32_ROW]["launches"] = control["flash_attention_fwd[d80,f32]"]
+    rows[D80_DECODE_F32_ROW]["launches"] = control["flash_decode[d80]"]
+    wall = time.perf_counter() - t0
+    print(f"recurrent: phase wall {wall:.1f} s", flush=True)
+    return dict(models=recs, kernels_at_recurrent_shapes=shapes, phase_wall_s=wall)
+
+
+def run_recurrent_spec(model, params, spec, num_pages: int, smi: str) -> tuple:
+    """Phase 7c's speculation (``recurrent spec`` lines): the qwen2 target
+    on the preempting paged pool, spec_k SPEC_K, with each recurrent
+    architecture as its draft (reduced, fresh weights in the target's
+    vocabulary, as ``resolve_draft`` builds it).  Every request must
+    finish (``serve``); prints each request's accept rate.  Returns the
+    record and the runs' summed launch counts."""
+    t0 = time.perf_counter()
+    paged_kw = dict(cache_layout="paged", page_size=PAGE_SIZE, num_pages=num_pages)
+    rec, total = {}, None
+    for draft in RECURRENT_ARCHS:
+        out, eng, counts, wall, n_tok = serve(model, params, spec, spec_k=SPEC_K, draft=draft,
+                                              **paged_kw)
+        acc = [eng.last_stats[u]["accept_rate"] for u, _, _ in spec]
+        pool = eng.last_pool_stats
+        print(f"recurrent spec draft={draft} ({eng.draft_model.cfg.family}, "
+              f"{eng.draft_model.cfg.n_layers} layers, d_model {eng.draft_model.cfg.d_model}): "
+              f"{n_tok} tokens in {wall:.3f} s = {n_tok / wall:.1f} tok/s (cold: captures "
+              f"included); accept_rate per request {[round(a, 3) for a in acc]} mean "
+              f"{np.mean(acc):.3f}; preemptions {eng.preemptions}; launches "
+              f"{ {n: c for n, c in counts.items() if c} }; [{smi}]", flush=True)
+        if counts["paged_flash_verify"] == 0:
+            fail(f"paged_flash_verify never launched with the {draft} draft")
+        if pool.used_pages != 0:
+            fail(f"the spec run with the {draft} draft leaked {pool.used_pages} pages")
+        rec[draft] = dict(tok_s=n_tok / wall, accept_rate=acc,
+                          mean_accept_rate=float(np.mean(acc)), preemptions=eng.preemptions,
+                          counts=counts)
+        total = counts if total is None else add_counts(total, counts)
+        del eng
+    rec["phase_wall_s"] = time.perf_counter() - t0
+    print(f"recurrent spec: phase wall {rec['phase_wall_s']:.1f} s", flush=True)
+    return rec, total
+
+
+# ---------------------------------------------------------------------------
 # phase 5d: MLA training through the flash backward's (96, 64) instance
 # ---------------------------------------------------------------------------
 
@@ -6133,6 +6553,7 @@ def main():
     mla_rec, mla_counts = run_mla(args.seed, gen, rows, smi)
     rows[MLA_FLASH_ROW]["launches"] = mla_counts["flash_attention_fwd[dv]"]
     rows[MLA_NORM_ROW]["launches"] = mla_counts["rmsnorm[wide]"]
+    recurrent_rec = run_recurrent(args.seed, gen, rows, smi)
 
     model = Model(cfg, device="cuda", dtype=torch.bfloat16)
     params = model.init(torch.Generator(device="cuda").manual_seed(args.seed))
@@ -6234,6 +6655,10 @@ def main():
                                          paged_tok / paged_wall,
                                          probes["spec"]["bit_for_bit"])
     rows["paged_flash_verify"]["launches"] = verify_launches
+    recurrent_spec, recurrent_spec_counts = run_recurrent_spec(model, params, spec, num_pages,
+                                                               smi)
+    for name in serving_kernels + ("paged_flash_verify",):
+        rows[name]["launches"] += recurrent_spec_counts[name]
 
     tiered_rec, tiered_counts = run_tiered(cfg, model, params, spec, dense, paged,
                                            paged_tok / paged_wall, num_pages,
@@ -6272,6 +6697,8 @@ def main():
     phases = where_time_goes(model, params, gen)
     phases.update(shared_profiles)
     phases.update(mla_rec.pop("phases"))
+    for rec in recurrent_rec["models"].values():
+        phases.update(rec.pop("phases"))
 
     sampled_rec, sampled_counts, sampled_fp32 = run_sampled(
         cfg, model, params, spec, num_pages, dense, phases, gen, draft1)
@@ -6319,6 +6746,9 @@ def main():
          "faults bf16 runs": faults_counts, "openloop bf16 runs": openloop_counts,
          "fleet bf16 runs": fleet_counts, "spec moe": spec_moe_counts,
          "qwen32b serve": qwen32b_counts, "mla serve": mla_counts,
+         **{f"recurrent {arch} serve": rec["counts"]
+            for arch, rec in recurrent_rec["models"].items()},
+         "recurrent spec": recurrent_spec_counts,
          "moe serve": moe_counts, "train": train_counts, "ckpt train": ckpt_counts,
          "moe train": moe_train_counts, "mla train": mla_train_counts},
         {"C1 control fp32": c1["launches"], "shared fp32 control": shared_fp32,
@@ -6354,7 +6784,7 @@ def main():
         c1_control=c1, tiered=tiered_rec, int8_kernel_checks=int8_checks,
         shared=shared_rec, sampled=sampled_rec, sched=sched_rec, faults=faults_rec,
         openloop=openloop_rec, options=options_rec, fleet=fleet_rec, qwen32b=qwen32b_rec,
-        mla=mla_rec,
+        mla=mla_rec, recurrent=recurrent_rec, recurrent_spec=recurrent_spec,
         fault_free_engines=FAULT_FREE["engines"], verify_long=long_checks,
         replay_probes=probes,
         pipeline=PIPELINE_PAIRS,

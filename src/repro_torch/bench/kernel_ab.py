@@ -63,7 +63,8 @@ are also timed with the calls queued first behind a spin on the card
 (``..._device``): the card's time alone.
 
 ``--only`` times the named groups alone.  With ``--ptxas``, also ``nvcc
--Xptxas -v`` of SRC's ``matmul.cu``, ``rmsnorm.cu``,
+-Xptxas -v`` of SRC's ``matmul.cu``, ``rmsnorm.cu``, ``flash_attention.cu``
+(the forward),
 ``decode_attention.cu``, ``verify_attention.cu``, ``warp_ops.cu``,
 ``moe_gating.cu``, ``tile_reduce.cu`` and ``mse.cu``: registers, spills and static shared memory of each
 kernel, keyed by its source, and its HMMA (tensor-core) instruction count
@@ -121,11 +122,12 @@ VERIFY_KERNELS = ("verify_kernel", "decode_split_kernel", "decode_combine_kernel
 SPIN_S = 0.02
 SPIN_CYCLES_S = 2.0e9
 KERNELS = re.compile(r"(matmul_tc_kernel|matmul_kernel|rmsnorm_\w*kernel|decode_\w*kernel"
+                     r"|flash_fwd\w*kernel"
                      r"|verify_\w*kernel|shfl_\w*kernel|moe_gating_kernel|vote_kernel"
                      r"|tile_reduce_kernel|mse_kernel)")
 # the sources whose kernels --ptxas reports
 PTXAS_SOURCES = ("matmul/matmul.cu", "rmsnorm/rmsnorm.cu",
-                 "decode_attention/decode_attention.cu",
+                 "flash_attention/flash_attention.cu", "decode_attention/decode_attention.cu",
                  "verify_attention/verify_attention.cu", "warp_ops/warp_ops.cu",
                  "moe_gating/moe_gating.cu", "tile_reduce/tile_reduce.cu", "mse/mse.cu")
 

@@ -1,7 +1,7 @@
 """Architecture registry: full configs + reduced (smoke-test) variants.
 
-Only the families the port serves are registered; the rest arrive with
-their model code."""
+Only the families the port serves are registered (dense, MoE, MLA, RWKV6
+and the Mamba2 hybrid); the rest arrive with their model code."""
 
 from __future__ import annotations
 
@@ -14,11 +14,13 @@ from repro_torch.configs.olmoe_1b_7b import CONFIG as _olmoe
 from repro_torch.configs.qwen1_5_32b import CONFIG as _qwen32b
 from repro_torch.configs.qwen1_5_110b import CONFIG as _qwen110b
 from repro_torch.configs.qwen2_1_5b import CONFIG as _qwen2_15b
+from repro_torch.configs.rwkv6_7b import CONFIG as _rwkv6
+from repro_torch.configs.zamba2_2_7b import CONFIG as _zamba2
 from repro_torch.models.config import ModelConfig
 
 ARCHS: Dict[str, ModelConfig] = {
     c.name: c for c in (_olmoe, _granite, _qwen110b, _minicpm3, _qwen2_15b,
-                        _qwen32b)}
+                        _qwen32b, _rwkv6, _zamba2)}
 
 
 def get_config(name: str) -> ModelConfig:
@@ -28,20 +30,29 @@ def get_config(name: str) -> ModelConfig:
 
 
 def reduced_config(name: str) -> ModelConfig:
-    """Same structure, laptop-scale dims (the reference's
-    ``reduced_config`` for the dense and MoE families): 4 layers, d_model
-    256, 4 query heads keeping the full config's GQA group, vocab 512;
-    d_ff 512, or for MoE 128 per expert over 8 experts, top-k at most 4;
-    MLA's ranks q 64, kv 32 and head dims nope 32, rope 16, v 32."""
+    """Same structure, laptop-scale dims, as the reference's
+    ``reduced_config``: 4 layers (the hybrid two groups of its interleave),
+    d_model 256, vocab 512, d_ff 512, or for MoE 128 per expert over 8
+    experts, top-k at most 4; 4 query heads keeping the full config's GQA
+    group where the config has heads (RWKV6 has none: d_head 256); MLA's
+    ranks q 64, kv 32 and head dims nope 32, rope 16, v 32; RWKV6's head
+    size 32; Mamba2's state 16 and head dim 32."""
     c = get_config(name)
-    group = max(c.n_heads // max(c.n_kv_heads, 1), 1)
-    changes = dict(n_layers=min(c.n_layers, 4), d_model=256, vocab=512,
-                   d_ff=512, d_head=None, n_heads=4, n_kv_heads=max(4 // group, 1))
+    changes = dict(n_layers=min(c.n_layers, 4 if c.family != "hybrid"
+                                else 2 * c.hybrid_attn_every),
+                   d_model=256, vocab=512, d_ff=512, d_head=None)
+    if c.n_heads:
+        group = max(c.n_heads // max(c.n_kv_heads, 1), 1)
+        changes.update(n_heads=4, n_kv_heads=max(4 // group, 1))
     if c.family == "moe":
         changes.update(d_ff=128, n_experts=8, top_k=min(c.top_k, 4))
     if c.attn_type == "mla":
         changes.update(q_lora_rank=64, kv_lora_rank=32, qk_nope_head_dim=32,
                        qk_rope_head_dim=16, v_head_dim=32)
+    if c.family == "ssm":
+        changes["rwkv_head_size"] = 32
+    if c.family == "hybrid":
+        changes.update(ssm_state=16, ssm_head_dim=32)
     return dataclasses.replace(c, **changes)
 
 

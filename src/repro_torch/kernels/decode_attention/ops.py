@@ -10,7 +10,11 @@ Each call launches two kernels, the split kernel over a (B * Hkv,
 splits) grid and the combine pass; it counts as one launch.  The split
 count comes from the shapes alone (:func:`decode_splits`), never from
 ``pos`` (which lives on the card), and the keys a split takes from the
-row's own live length (:func:`split_keys`, mirrored in the kernel)."""
+row's own live length (:func:`split_keys`, mirrored in the kernel).
+
+The kernels are built for head dims 64 and 128; dense decode also for 80
+(``DENSE_HEAD_DIMS``: Zamba2's shared attention, a dense-cache family),
+counted apart in ``flash_decode.launches_d80``."""
 
 from __future__ import annotations
 
@@ -26,6 +30,7 @@ from repro_torch.kernels.decode_attention.ref import (
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (64, 128)
+DENSE_HEAD_DIMS = (64, 80, 128)
 _MAX_GROUP = 16
 # ... scale, dtype, work (the partials' scratch), splits, stream
 _TAIL = [build.F, build.I, build.P, build.I, build.P]
@@ -76,15 +81,16 @@ def check_scales(k_scales, v_scales, k_pages, name):
     return True
 
 
-def _check(q, k, v, pos, name, max_group=_MAX_GROUP, quantized=False):
+def _check(q, k, v, pos, name, max_group=_MAX_GROUP, quantized=False,
+           head_dims=_HEAD_DIMS):
     b, hkv, g, d = q.shape
     cache = torch.int8 if quantized else q.dtype
     if q.dtype not in _DTYPES or k.dtype != cache or v.dtype != cache:
         raise TypeError(f"{name} takes f32/bf16 q and a cache of q's dtype, or "
                         f"int8 pages with row scales; got {q.dtype}, "
                         f"{k.dtype}, {v.dtype}")
-    if d not in _HEAD_DIMS or g > max_group:
-        raise ValueError(f"{name} is built for head dims {_HEAD_DIMS} and "
+    if d not in head_dims or g > max_group:
+        raise ValueError(f"{name} is built for head dims {head_dims} and "
                          f"query rows <= {max_group}; got D={d}, rows={g}")
     if k.shape[2] != hkv or k.shape[3] != d or v.shape != k.shape:
         raise ValueError(f"{name}: q {tuple(q.shape)} does not match cache "
@@ -122,10 +128,11 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  pos: torch.Tensor) -> torch.Tensor:
     """q (B, Hkv, G, D); k/v (B, S, Hkv, D), any 16-byte batch/seq/head
     strides (a ``[:, :attend_len]`` view of the cache is read in place); pos (B,)
-    int32 with keys <= pos[b] live.  Returns (B, Hkv, G, D)."""
+    int32 with keys <= pos[b] live; D in ``DENSE_HEAD_DIMS``.  Returns (B,
+    Hkv, G, D)."""
     if q.device.type == "cpu":
         return flash_decode_ref(q, k, v, pos)
-    q, pos = _check(q, k, v, pos, "flash_decode")
+    q, pos = _check(q, k, v, pos, "flash_decode", head_dims=DENSE_HEAD_DIMS)
     _check_rows(k, v, "flash_decode")
     b, hkv, g, d = q.shape
     o = torch.empty_like(q)
@@ -136,7 +143,10 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  o.data_ptr(), *k.stride()[:3], *v.stride()[:3],
                  b, k.shape[1], hkv, g, d, d ** -0.5, _DTYPES[q.dtype],
                  work.data_ptr(), splits)
-    flash_decode.launches += 1
+    if d == 80:
+        flash_decode.launches_d80 += 1
+    else:
+        flash_decode.launches += 1
     return o
 
 
@@ -187,5 +197,6 @@ def paged_flash_decode(q: torch.Tensor, k_pages: torch.Tensor,
 
 
 flash_decode.launches = 0
+flash_decode.launches_d80 = 0     # D = 80
 paged_flash_decode.launches = 0
 paged_flash_decode.launches_int8 = 0

@@ -36,7 +36,11 @@
 // read.  Four warps share each tile, 8 keys each; a key's row is spread
 // over D / 8 lanes (8 columns a lane: 4 at 4 * sub and 4 at D / 2 + 4 *
 // sub), whose dot products with the GR query rows of the block (held in
-// registers) are summed by __shfl_xor_sync, the paper's HW reduce.  Each
+// registers) are summed by __shfl_xor_sync, the paper's HW reduce.  A
+// row's lane group is D / 8 rounded up to a power of two so that groups
+// tile a warp: at D = 80 (Zamba2's heads, dense decode only) a row takes
+// 16 lanes, 10 holding its columns and 6 idle (zero q, no reads, no
+// writes), two keys a warp at once.  Each
 // lane group keeps its own running (m, l, acc) for its GR query rows; the
 // groups of a warp merge by shuffles, the warps in shared memory in a
 // fixed order, and the block writes its partial (m, l, unnormalized acc)
@@ -100,6 +104,12 @@ struct Scales {
   const float* v;
   long long kp, ko, vp, vo;
 };
+
+// lanes a key row takes: its `used` = D / 8 column-holding lanes rounded up
+// to a power of two, so that row groups tile a warp
+__host__ __device__ constexpr int lanes_per_row(int used) {
+  return used <= 8 ? 8 : used <= 16 ? 16 : 32;
+}
 
 // keys per split of a window with n live keys: the least multiple of 32
 // that covers n in `splits` pieces (ops.split_keys)
@@ -166,7 +176,8 @@ decode_split_kernel(const T* __restrict__ q, const TC* __restrict__ k, const TC*
   using S = Smem<TC, D, GR>;
   constexpr bool kQuant = S::kQuant;
   static_assert(!kQuant || kPaged, "int8 caches are paged");
-  constexpr int LPR = D / kEpl;                 // lanes a key row
+  constexpr int USED = D / kEpl;                // lanes holding a row's columns
+  constexpr int LPR = lanes_per_row(USED);      // lanes a key row
   constexpr int KPW = 32 / LPR;                 // keys a warp reads at once
   constexpr int NK = kTileK / kWarps / KPW;     // keys a lane group takes a tile
   constexpr int VEC = 16 / sizeof(TC);          // elements a 16-byte copy
@@ -197,6 +208,7 @@ decode_split_kernel(const T* __restrict__ q, const TC* __restrict__ k, const TC*
   float* ml = part + static_cast<long long>(gridDim.x / n_gc) * splits * rows * D;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int grp = lane / LPR, sub = lane % LPR;
+  const bool on = LPR == USED || sub < USED;    // the lane holds columns
   // the query rows' loads first, in q's type: they do not wait for pos
   T qt[GR][kEpl];
 #pragma unroll
@@ -204,7 +216,7 @@ decode_split_kernel(const T* __restrict__ q, const TC* __restrict__ k, const TC*
     const long long qrow = static_cast<long long>(bh) * rows + g0 + g;
 #pragma unroll
     for (int e = 0; e < kEpl; ++e)
-      qt[g][e] = g < mine ? q[qrow * D + col<D>(sub, e)] : repro::from_f32<T>(0.f);
+      qt[g][e] = g < mine && on ? q[qrow * D + col<D>(sub, e)] : repro::from_f32<T>(0.f);
   }
   // the combine pass may launch now; it waits for this grid's partials
   asm volatile("griddepcontrol.launch_dependents;");
@@ -295,8 +307,8 @@ decode_split_kernel(const T* __restrict__ q, const TC* __restrict__ k, const TC*
 #pragma unroll
     for (int i = 0; i < NK; ++i) {
       const int j = warp * (kTileK / kWarps) + i * KPW + grp;
-      float kx[kEpl];
-      read_row<TC, D>(kt + j * D, sub, kx);
+      float kx[kEpl] = {};
+      if (on) read_row<TC, D>(kt + j * D, sub, kx);
       if constexpr (kQuant) {
 #pragma unroll
         for (int e = 0; e < kEpl; ++e) kx[e] *= kst[j];
@@ -335,8 +347,8 @@ decode_split_kernel(const T* __restrict__ q, const TC* __restrict__ k, const TC*
 #pragma unroll
     for (int i = 0; i < NK; ++i) {
       const int j = warp * (kTileK / kWarps) + i * KPW + grp;
-      float vx[kEpl];
-      read_row<TC, D>(vt + j * D, sub, vx);
+      float vx[kEpl] = {};
+      if (on) read_row<TC, D>(vt + j * D, sub, vx);
       if constexpr (kQuant) {
 #pragma unroll
         for (int e = 0; e < kEpl; ++e) vx[e] *= kst[kTileK + j];
@@ -373,7 +385,7 @@ decode_split_kernel(const T* __restrict__ q, const TC* __restrict__ k, const TC*
   float* red = reinterpret_cast<float*>(smem);  // acc [warp][g][D]
   float* red_ml = red + kWarps * GR * D;        // [warp][g][m, l]
   float* fac = red_ml + kWarps * GR * 2;        // [g][warp]: exp(m_w - max_w m_w)
-  if (grp == 0) {
+  if (grp == 0 && on) {
 #pragma unroll
     for (int g = 0; g < GR; ++g)
 #pragma unroll
@@ -513,6 +525,17 @@ cudaError_t by_rows(const Args& a, cudaStream_t s) {
   return launch<T, TC, D, 6, kPaged, kWindow>(a, s);
 }
 
+// the head dim's instance: 64 or 128, and 80 for dense decode alone
+// (Zamba2's shared attention: paged decode and verify are not built for it)
+template <typename T, typename TC, bool kPaged, bool kWindow>
+cudaError_t by_dim(const Args& a, int d, cudaStream_t s) {
+  if (d == 128) return by_rows<T, TC, 128, kPaged, kWindow>(a, s);
+  if constexpr (!kPaged && !kWindow) {
+    if (d == 80) return by_rows<T, TC, 80, kPaged, kWindow>(a, s);
+  }
+  return by_rows<T, TC, 64, kPaged, kWindow>(a, s);
+}
+
 // q's type from dtype; the cache's type is q's, or int8_t when kInt8;
 // kWindow: a verify window (else decode, rows = group)
 template <bool kPaged, bool kInt8, bool kWindow>
@@ -524,15 +547,10 @@ int dispatch(const Args& a, int d, int dtype, void* stream) {
   if (a.b <= 0 || a.hkv <= 0 || a.rows <= 0) return 0;
   if (a.rows > kMaxRows || a.group <= 0 || a.rows % a.group != 0 ||
       (!kWindow && a.rows != a.group) || a.splits <= 0 || a.splits > kMaxSplits ||
-      (d != 64 && d != 128))
+      (d != 64 && d != 128 && (d != 80 || kPaged || kWindow)))
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t e;
-  if (dtype == repro::kBF16)
-    e = d == 128 ? by_rows<BF, CB, 128, kPaged, kWindow>(a, s)
-                 : by_rows<BF, CB, 64, kPaged, kWindow>(a, s);
-  else
-    e = d == 128 ? by_rows<float, CF, 128, kPaged, kWindow>(a, s)
-                 : by_rows<float, CF, 64, kPaged, kWindow>(a, s);
+  const cudaError_t e = dtype == repro::kBF16 ? by_dim<BF, CB, kPaged, kWindow>(a, d, s)
+                                              : by_dim<float, CF, kPaged, kWindow>(a, d, s);
   return static_cast<int>(e);
 }
 

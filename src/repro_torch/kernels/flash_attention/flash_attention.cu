@@ -28,12 +28,18 @@
 // f32 (the fp32 controls and tests): the first port's CUDA-core kernel.
 // Each warp owns 4 query rows of a 16-row tile; lane j scores key j of a
 // 32-key tile, the row max and sum are __shfl_xor_sync butterflies, and
-// for P @ V lane c owns output columns c, c+32, ...
+// for P @ V lane c owns output columns c, c+32, ... below DV (at DV = 80
+// lanes 0-15 own three columns, the others two).
 //
 // Both are templated on <D, DV>, the q/k head dim and the v head dim, and
-// built for (64, 64), (128, 128) and (96, 64): MLA's prefill (MiniCPM3:
-// q/k heads of 64 nope + 32 rope dims, v heads of 64) runs the last, the
-// Pallas kernel's dv = v.shape[-1].  Scores reduce over D, the output row
+// built for (64, 64), (128, 128), (96, 64) and (80, 80): MLA's prefill
+// (MiniCPM3: q/k heads of 64 nope + 32 rope dims, v heads of 64) runs
+// (96, 64), the Pallas kernel's dv = v.shape[-1]; Zamba2's shared
+// attention block (2560 / 32 heads) runs (80, 80).  At D = 80 the
+// tensor-core kernel takes five k16 steps a score tile and ten n8 tiles an
+// output row, and stages rows of ten 16-byte chunks (640 a 64-row tile,
+// five a thread) at a pitch of 88 elements (176 bytes: the 8 rows of an
+// ldmatrix phase start 12 banks apart and cover all 32 banks).  Scores reduce over D, the output row
 // and P.V over DV; the scale is the caller's, D^-1/2 as the reference's.
 //
 // Both keep: kv tiles past the causal diagonal or past kv_len are neither
@@ -64,7 +70,9 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  Strides vs_, int sq, int skv, int hq, int hkv, int causal,
                  float scale) {
   static_assert(DV <= D, "V rows load in the K rows' loop");
-  constexpr int C = DV / 32;  // output columns per lane
+  constexpr int C = (DV + 31) / 32;  // output columns per lane, the last partial
+  // lane + 32 * c is a column of the row (folds to true where 32 | DV)
+  auto col_ok = [](int lane, int c) { return DV % 32 == 0 || lane + 32 * c < DV; };
   __shared__ float q_s[kBlockQ][D];
   __shared__ float k_s[kBlockK][D + 1];  // +1: lane j reads row j conflict-free
   __shared__ float v_s[kBlockK][DV];
@@ -132,7 +140,8 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
       for (int j = 0; j < kBlockK; ++j) {
         const float pj = __shfl_sync(0xffffffffu, p, j);
 #pragma unroll
-        for (int c = 0; c < C; ++c) acc[i][c] += pj * v_s[j][lane + 32 * c];
+        for (int c = 0; c < C; ++c)
+          if (col_ok(lane, c)) acc[i][c] += pj * v_s[j][lane + 32 * c];
       }
       m[i] = m_new;
     }
@@ -145,7 +154,8 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const float safe = l[i] == 0.f ? 1.f : l[i];
     float* orow = o + ((static_cast<long long>(b) * sq + qi) * hq + h) * DV;
 #pragma unroll
-    for (int c = 0; c < C; ++c) orow[lane + 32 * c] = acc[i][c] / safe;
+    for (int c = 0; c < C; ++c)
+      if (col_ok(lane, c)) orow[lane + 32 * c] = acc[i][c] / safe;
     if (lane == 0) {
       lse[(static_cast<long long>(b) * hq + h) * sq + qi] =
           l[i] == 0.f ? repro::kFullyMaskedLse : m[i] + logf(safe);
@@ -382,11 +392,11 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, const int* kv_
 // q (B, Sq, Hq, D), k (B, Skv, Hkv, D), v (B, Skv, Hkv, DV) with the given
 // element strides for the B, S and H axes (the head dim contiguous);
 // kv_len (B,) int32; o (B, Sq, Hq, DV) and lse (B, Hq, Sq) float32, both
-// contiguous.  (D, DV) is (64, 64), (128, 128) or (96, 64); any other pair
-// returns cudaErrorInvalidValue and launches nothing.  bf16 takes the
-// tensor-core kernel: its q, k, v base pointers are 16-byte aligned and the
-// B, S and H strides multiples of 8 (the wrapper checks); f32 takes the
-// CUDA-core kernel.
+// contiguous.  (D, DV) is (64, 64), (128, 128), (96, 64) or (80, 80); any
+// other pair returns cudaErrorInvalidValue and launches nothing.  bf16
+// takes the tensor-core kernel: its q, k, v base pointers are 16-byte
+// aligned and the B, S and H strides multiples of 8 (the wrapper checks);
+// f32 takes the CUDA-core kernel.
 extern "C" int repro_flash_attention_fwd(
     const void* q, const void* k, const void* v, const void* kv_len, void* o, void* lse,
     long long q_sb, long long q_ss, long long q_sh, long long k_sb, long long k_ss,
@@ -407,6 +417,9 @@ extern "C" int repro_flash_attention_fwd(
                            scale, dtype, s);
   else if (d == 96 && dv == 64)
     e = dispatch<96, 64>(q, k, v, len, o, l, qs, ks, vs, b, sq, skv, hq, hkv, causal, scale,
+                         dtype, s);
+  else if (d == 80 && dv == 80)
+    e = dispatch<80, 80>(q, k, v, len, o, l, qs, ks, vs, b, sq, skv, hq, hkv, causal, scale,
                          dtype, s);
   return static_cast<int>(e);
 }

@@ -1,6 +1,8 @@
 """Model configuration: the fields of ``repro``'s ``ModelConfig`` that the
 ported families read (dense and MoE: the GQA shape, q/k/v biases, RoPE,
-the experts and their capacities; MLA's latent ranks and head dims) and
+the experts and their capacities; MLA's latent ranks and head dims;
+RWKV6's head size, Mamba2's state, expansion, head dim and conv width,
+and the hybrid's interleave of one shared attention block) and
 the layer options they take (a padded vocabulary, tied embeddings, a bf16
 P·V contraction on the plain attention path).  Later families add their
 fields when they are ported."""
@@ -14,7 +16,7 @@ from typing import Optional
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                    # dense | moe (the families ported so far)
+    family: str                    # dense | moe | ssm | hybrid (ported so far)
     n_layers: int
     d_model: int
     n_heads: int
@@ -23,7 +25,7 @@ class ModelConfig:
     vocab: int
     d_head: Optional[int] = None   # default d_model // n_heads
 
-    attn_type: str = "gqa"         # gqa | mla
+    attn_type: str = "gqa"         # gqa | mla | none (the ssm family)
     qkv_bias: bool = False
     rope_theta: float = 10000.0
     norm_eps: float = 1e-6
@@ -41,6 +43,17 @@ class ModelConfig:
     capacity_factor: float = 1.25
     infer_capacity_factor: float = 2.0   # prefill/decode capacity (no-drop
                                          # margin without training's budget)
+
+    # SSM / recurrent: RWKV6 (family "ssm") and Mamba2 (the hybrid's layers)
+    rwkv_head_size: int = 64
+    ssm_state: int = 64
+    ssm_expand: int = 2
+    ssm_head_dim: int = 64
+    ssm_conv: int = 4
+
+    # hybrid (Zamba2): one shared attention block before every k Mamba2
+    # layers
+    hybrid_attn_every: int = 6
 
     # layer options
     tie_embeddings: bool = False   # no lm_head: the head is embed.T

@@ -1,19 +1,22 @@
-"""Dense- and MoE-family language model: init, prefill, decode step, KV
-caches.
+"""Language model of the dense, MoE, RWKV6 and Mamba2-hybrid families:
+init, prefill, decode step, caches.
 
 Counterpart of ``repro.models.lm.Model`` for the dense and the MoE GQA
-families and the dense family's MLA attention (MiniCPM3), with the same
-functional interface and parameter pytree (a nested dict whose ``layers``
-leaves are stacked (L, ...); the MoE family has ``layers.moe`` in place
-of ``layers.mlp``, MLA its latent projections in ``layers.attn``), so
-``repro_torch.testing`` can carry the reference's weights over leaf for
-leaf:
+families, the dense family's MLA attention (MiniCPM3), the ``ssm``
+family (RWKV6) and the ``hybrid`` family (Zamba2: Mamba2 layers with one
+shared attention block), with the same functional interface and
+parameter pytree (a nested dict whose ``layers`` leaves are stacked (L,
+...); the MoE family has ``layers.moe`` in place of ``layers.mlp``, MLA
+its latent projections in ``layers.attn``, RWKV6 ``layers.tm`` between
+``ln1`` and ``ln2``, the hybrid ``layers.mamba`` after ``layers.ln`` and
+a ``shared_attn`` block beside the layers), so ``repro_torch.testing``
+can carry the reference's weights over leaf for leaf:
 
   init(gen)                                  -> params
   backbone(params, batch)                    -> hidden (B, S, d)  [train]
   forward(params, batch)                     -> logits (B, S, V)  [train]
   init_cache(B, max_seq, layout=..., kv_dtype=...) -> dense or paged cache
-                                             (MLA: dense latent cache only)
+                                             (MLA, ssm, hybrid: dense only)
   prefill(params, tokens, max_seq, last_pos) -> (last logits (B, V), dense cache)
   decode_step(params, cache, tok, pos, attend_len) -> (logits (B, V), cache)
   decode_verify_step(params, paged cache, window (B, T), pos, attend_len)
@@ -22,8 +25,9 @@ leaf:
                  attend_len)                 -> (logits (B, V), cache)
 
 Where the reference jits with donated buffers, the port writes cache rows
-in place (``ck[l, bidx, pos] = k``): ``decode_step`` returns the very
-cache dict it was given, updated.  ``backbone`` and ``forward`` run with
+in place (``ck[l, bidx, pos] = k``, and the recurrent families' new
+states over the old ones): ``decode_step`` returns the very cache dict
+it was given, updated, so a captured CUDA graph replays it.  ``backbone`` and ``forward`` run with
 autograd (remat per layer, as the reference's ``jax.checkpoint`` of the
 scanned block); the serving entry points run without it.
 """
@@ -59,6 +63,13 @@ from repro_torch.models.layers import (
     swiglu,
 )
 from repro_torch.models.moe import init_moe_params, moe_block
+from repro_torch.models.recurrent import (
+    init_mamba2_params,
+    init_rwkv6_params,
+    mamba2_mix,
+    rwkv6_channel_mix,
+    rwkv6_time_mix,
+)
 from repro_torch.serve.kv_cache import (
     TRASH_PAGE,
     cdiv,
@@ -72,6 +83,10 @@ Params = Dict[str, Any]
 # plain version on any device, None whatever Model.use_kernels says
 BACKENDS = (None, "kernel", "torch")
 ATTN_TYPES = ("gqa", "mla")
+FAMILIES = ("dense", "moe", "ssm", "hybrid")
+# the recurrent families' cache leaves that hold state, not positions
+SSM_STATE = ("shift_tm", "wkv", "shift_cm")
+HYBRID_STATE = ("conv", "ssm")
 
 
 def _unstack(tree) -> list:
@@ -125,7 +140,16 @@ class Model:
     ``BACKENDS``) picks prefill and training attention alone, as the
     reference's ``attn_backend``.  ``wf`` picks the
     norm reductions' HW/SW form (``layers.WarpFeatureConfig``), as the
-    reference's ``Model(wf=...)`` does.  ``remat`` recomputes each layer
+    reference's ``Model(wf=...)`` does.
+
+    ``family == "ssm"`` is RWKV6: each layer a time mix and a channel mix
+    (``models.recurrent``) over a cache of states, no attention.
+    ``"hybrid"`` is Zamba2: n_layers / k groups of one shared attention
+    block (GQA and a SwiGLU MLP, the same weights in every group, a dense
+    K/V cache a group) then k Mamba2 layers (k =
+    ``cfg.hybrid_attn_every``).  Both prefill one request at a time at
+    its exact length in the engine and have no paged layout.
+    ``remat`` recomputes each layer
     in the backward pass (``torch.utils.checkpoint``), keeping only the
     layer inputs alive."""
 
@@ -134,10 +158,14 @@ class Model:
                  param_dtype: Optional[torch.dtype] = None,
                  use_kernels: bool = True, attn_backend: Optional[str] = None,
                  wf: WarpFeatureConfig = DEFAULT_WF, remat: bool = True):
-        if cfg.family not in ("dense", "moe"):
+        if cfg.family not in FAMILIES:
             raise NotImplementedError(
-                f"family {cfg.family!r} is not ported yet (ROADMAP A14)")
-        if cfg.attn_type not in ATTN_TYPES:
+                f"family {cfg.family!r} is not ported yet (ROADMAP A14d)")
+        if cfg.family == "ssm":
+            if cfg.attn_type != "none":
+                raise ValueError(f"the ssm family has no attention; got "
+                                 f"attn_type {cfg.attn_type!r}")
+        elif cfg.attn_type not in ATTN_TYPES:
             raise ValueError(f"attn_type must be one of {ATTN_TYPES}; "
                              f"got {cfg.attn_type!r}")
         if cfg.attn_type == "mla" and cfg.family != "dense":
@@ -170,7 +198,9 @@ class Model:
         Each stacked (L, ...) leaf is allocated once and filled layer by
         layer, so no leaf exists twice at once (at Qwen1.5-32B a stacked
         copy of ``w_gate`` alone is 17.9 GB in bf16); the draws are those
-        of building the L layers and stacking them, in the same order."""
+        of building the L layers and stacking them, in the same order.
+        The hybrid's ``shared_attn`` block is drawn once, after the
+        layers."""
         cfg, dev, dt = self.cfg, self.device, self.param_dtype
         d, f, L = cfg.d_model, cfg.d_ff, cfg.n_layers
         hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
@@ -195,6 +225,32 @@ class Model:
                 del layer
             return out
 
+        def head(layers):
+            params = {"embed": embed_init(gen, cfg.vocab_padded, d, **kw),
+                      "ln_f": torch.ones(d, **kw)}
+            if not cfg.tie_embeddings:
+                params["lm_head"] = dense_init(gen, d, cfg.vocab_padded, **kw)
+            params["layers"] = layers
+            return params
+
+        if cfg.family == "ssm":   # RWKV6: time and channel mix under "tm"
+            return head({"ln1": torch.ones(L, d, **kw),
+                         "tm": stacked_layers(init_rwkv6_params),
+                         "ln2": torch.ones(L, d, **kw)})
+        if cfg.family == "hybrid":   # Zamba2: Mamba2 layers, one shared block
+            params = head({"ln": torch.ones(L, d, **kw),
+                           "mamba": stacked_layers(init_mamba2_params)})
+            params["shared_attn"] = {
+                "ln1": torch.ones(d, **kw),
+                "attn": {"wq": dense_init(gen, d, hq * dh, **kw),
+                         "wk": dense_init(gen, d, hkv * dh, **kw),
+                         "wv": dense_init(gen, d, hkv * dh, **kw),
+                         "wo": dense_init(gen, hq * dh, d, **kw)},
+                "ln2": torch.ones(d, **kw),
+                "mlp": {"w_gate": dense_init(gen, d, f, **kw),
+                        "w_up": dense_init(gen, d, f, **kw),
+                        "w_down": dense_init(gen, f, d, **kw)}}
+            return params
         if cfg.attn_type == "mla":
             attn = stacked_layers(init_mla_params)
         else:
@@ -209,14 +265,8 @@ class Model:
         else:
             ffn = {"mlp": {"w_gate": stacked(d, f), "w_up": stacked(d, f),
                            "w_down": stacked(f, d)}}
-        params = {"embed": embed_init(gen, cfg.vocab_padded, d, **kw),
-                  "ln_f": torch.ones(d, **kw)}
-        if not cfg.tie_embeddings:
-            params["lm_head"] = dense_init(gen, d, cfg.vocab_padded, **kw)
-        params["layers"] = {"ln1": torch.ones(L, d, **kw),
-                            "ln2": torch.ones(L, d, **kw),
-                            "attn": attn, **ffn}
-        return params
+        return head({"ln1": torch.ones(L, d, **kw), "ln2": torch.ones(L, d, **kw),
+                     "attn": attn, **ffn})
 
     # ----------------------------------------------------------------- cache
     # families whose cache is a stacked (L, B, S, Hkv, D) K/V pair, which the
@@ -228,12 +278,24 @@ class Model:
         return (self.cfg.family in self.PAGED_FAMILIES
                 and self.cfg.attn_type != "mla")
 
+    def state_leaves(self, cache: Dict[str, torch.Tensor]) -> tuple:
+        """The leaves of a dense ``cache`` that a decode step advances in
+        place rather than rewrites (the recurrent families' states): a
+        step run twice from the same buffers would advance them twice, so
+        a captured step's warm-up puts them back (``StepGraphs.run``'s
+        ``restore``).  () for the positional caches."""
+        return tuple(cache[n] for n in SSM_STATE + HYBRID_STATE if n in cache)
+
     def init_cache(self, batch_size: int, max_seq: int, *, layout: str = "dense",
                    page_size: int = 16, num_pages: Optional[int] = None,
                    kv_dtype: Optional[str] = None) -> Dict[str, torch.Tensor]:
         """'dense': {"k"/"v": (L, B, max_seq, Hkv, D)}, or for MLA
         {"latent": (L, B, max_seq, kv_lora_rank), "rope": (L, B, max_seq,
-        qk_rope_head_dim)}.  'paged' (not MLA: ``ValueError``): a shared
+        qk_rope_head_dim)}; RWKV6's states {"shift_tm"/"shift_cm": (L, B,
+        d), "wkv": (L, B, H, hs, hs) fp32}; the hybrid's {"conv": (L, B,
+        K - 1, d_in + 2n), "ssm": (L, B, nh, hd, n) fp32, "attn_k"/"attn_v":
+        (n_groups, B, max_seq, Hkv, D)}.  'paged' (dense and MoE GQA only:
+        ``ValueError``): a shared
         pool {"k_pages"/"v_pages": (L, num_pages, page_size, Hkv, D)} plus
         (B, ceil(max_seq / page_size)) block tables at the trash page.
 
@@ -263,6 +325,22 @@ class Model:
         if layout != "dense":
             raise ValueError(f"unknown cache layout {layout!r}")
         kw = dict(dtype=self.dtype, device=self.device)
+        f32 = dict(dtype=torch.float32, device=self.device)
+        d = cfg.d_model
+        if cfg.family == "ssm":
+            hs = cfg.rwkv_head_size
+            return {"shift_tm": torch.zeros((L, b, d), **kw),
+                    "wkv": torch.zeros((L, b, d // hs, hs, hs), **f32),
+                    "shift_cm": torch.zeros((L, b, d), **kw)}
+        if cfg.family == "hybrid":
+            d_in = cfg.ssm_expand * d
+            kv = (cfg.n_layers // cfg.hybrid_attn_every, b, max_seq, cfg.n_kv_heads,
+                  cfg.d_head)
+            return {"conv": torch.zeros((L, b, cfg.ssm_conv - 1, d_in + 2 * cfg.ssm_state),
+                                        **kw),
+                    "ssm": torch.zeros((L, b, d_in // cfg.ssm_head_dim, cfg.ssm_head_dim,
+                                        cfg.ssm_state), **f32),
+                    "attn_k": torch.zeros(kv, **kw), "attn_v": torch.zeros(kv, **kw)}
         if cfg.attn_type == "mla":
             return {"latent": torch.zeros((L, b, max_seq, cfg.kv_lora_rank), **kw),
                     "rope": torch.zeros((L, b, max_seq, cfg.qk_rope_head_dim), **kw)}
@@ -324,20 +402,77 @@ class Model:
             x = x + gqa_block(p["attn"], g, self.cfg, use_kernel=self.attn_kernel)
         return self._mlp_residual(p, x, self.cfg.capacity_factor)
 
+    def _rwkv_block(self, p, x: torch.Tensor, state: Optional[dict] = None):
+        """One RWKV6 layer (the reference's ``_rwkv_block``): the time mix
+        and the channel mix, each pre-norm residual, continuing from
+        ``state`` (the layer's ``SSM_STATE`` leaves, None: zeros).
+        Returns (x, the new states by leaf name)."""
+        st_tm = None if state is None else (state["shift_tm"], state["wkv"])
+        att, (shift_tm, wkv) = rwkv6_time_mix(p["tm"], self._norm(x, p["ln1"]),
+                                              self.cfg, st_tm,
+                                              use_kernel=self.use_kernels)
+        x = x + att
+        st_cm = None if state is None else state["shift_cm"]
+        ffn, shift_cm = rwkv6_channel_mix(p["tm"], self._norm(x, p["ln2"]),
+                                          self.cfg, st_cm)
+        return x + ffn, {"shift_tm": shift_tm, "wkv": wkv, "shift_cm": shift_cm}
+
+    def _mamba_block(self, p, x: torch.Tensor, state: Optional[dict] = None):
+        """One Mamba2 layer, pre-norm residual, continuing from ``state``
+        (``HYBRID_STATE`` leaves, None: zeros).  Returns (x, new states)."""
+        st = None if state is None else (state["conv"], state["ssm"])
+        y, (conv, ssm) = mamba2_mix(p["mamba"], self._norm(x, p["ln"]), self.cfg, st,
+                                    use_kernel=self.use_kernels)
+        return x + y, {"conv": conv, "ssm": ssm}
+
+    def _shared_attn_kv(self, params, x: torch.Tensor):
+        """The hybrid's shared block over positions 0..S-1: causal GQA
+        attention and the SwiGLU MLP, each pre-norm residual.  Returns (x,
+        (k, v)) with the rows the group's cache keeps."""
+        sp = params["shared_attn"]
+        att, kv = gqa_block_kv(sp["attn"], self._norm(x, sp["ln1"]), self.cfg,
+                               use_kernel=self.attn_kernel)
+        x = x + att
+        m = sp["mlp"]
+        return x + swiglu(self._norm(x, sp["ln2"]), m["w_gate"], m["w_up"],
+                          m["w_down"]), kv
+
+    def _groups(self, params):
+        """The hybrid's groups: (group index, the k layers' params) with k
+        = ``cfg.hybrid_attn_every``, over n_layers // k groups."""
+        k = self.cfg.hybrid_attn_every
+        layers = _unstack(params["layers"])
+        return [(gi, layers[gi * k:(gi + 1) * k])
+                for gi in range(self.cfg.n_layers // k)]
+
     # -------------------------------------------------------------- forward
+    def _layer(self, fn, *args):
+        """``fn(*args)``, recomputed in the backward pass with ``remat``
+        (no randomness inside a layer: nothing to replay)."""
+        if self.remat:
+            return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
+        return fn(*args)
+
     def backbone(self, params, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
         """Hidden states (B, S, d) for batch["tokens"] (B, S), no final
         norm and no head, with autograd: the train step feeds them to a
         vocab-chunked loss.  With ``remat`` each layer is recomputed in
-        the backward pass (its attention kernel included)."""
+        the backward pass (its attention kernel included; the hybrid's
+        shared block is not, as in the reference's ``_hybrid_forward``)."""
         x = self._embed(params, batch["tokens"].to(self.device))
+        family = self.cfg.family
+        if family == "ssm":
+            for p in _unstack(params["layers"]):
+                x = self._layer(lambda p_, x_: self._rwkv_block(p_, x_)[0], p, x)
+            return x
+        if family == "hybrid":
+            for _, group in self._groups(params):
+                x = self._shared_attn_kv(params, x)[0]
+                for p in group:
+                    x = self._layer(lambda p_, x_: self._mamba_block(p_, x_)[0], p, x)
+            return x
         for p in _unstack(params["layers"]):
-            if self.remat:
-                # no randomness inside a layer: nothing to replay
-                x = checkpoint(self._tf_block, p, x, use_reentrant=False,
-                               preserve_rng_state=False)
-            else:
-                x = self._tf_block(p, x)
+            x = self._layer(self._tf_block, p, x)
         return x
 
     def forward(self, params, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
@@ -362,6 +497,9 @@ class Model:
         b, s = tokens.shape
         x = self._embed(params, tokens)
         cache = self.init_cache(b, max(max_seq, s))
+        if cfg.family in ("ssm", "hybrid"):
+            x = self._prefill_recurrent(params, x, cache)
+            return self._head(params, self._last(x, last_pos))[:, 0, :cfg.vocab], cache
         for l, p in enumerate(_unstack(params["layers"])):
             g = self._norm(x, p["ln1"])
             att, rows = self._attn_block_kv(p["attn"], g)
@@ -369,12 +507,39 @@ class Model:
             for leaf, r in zip(cache.values(), rows):
                 leaf[l, :, :s] = r
             x = self._mlp_residual(p, x, cfg.infer_capacity_factor)
+        return self._head(params, self._last(x, last_pos))[:, 0, :cfg.vocab], cache
+
+    def _last(self, x: torch.Tensor, last_pos: Optional[torch.Tensor]) -> torch.Tensor:
+        """(B, 1, d): each row's hidden at ``last_pos`` (None: the last)."""
         if last_pos is None:
-            last = x[:, -1:]
-        else:
-            last = x[torch.arange(b, device=self.device),
-                     last_pos.to(self.device).long()][:, None]
-        return self._head(params, last)[:, 0, :cfg.vocab], cache
+            return x[:, -1:]
+        rows = torch.arange(x.shape[0], device=self.device)
+        return x[rows, last_pos.to(self.device).long()][:, None]
+
+    def _prefill_recurrent(self, params, x: torch.Tensor, cache) -> torch.Tensor:
+        """The recurrent families' prefill layer loop: every layer runs
+        from a zero state and leaves its final state in the cache (the
+        state after the batch's last position, padding included: the
+        engine prefills these families one request at its exact length);
+        the hybrid's shared block writes each group's K/V rows [0, S).
+        Returns the hidden (B, S, d)."""
+        if self.cfg.family == "ssm":
+            for l, p in enumerate(_unstack(params["layers"])):
+                x, st = self._rwkv_block(p, x)
+                for name in SSM_STATE:
+                    cache[name][l] = st[name]
+            return x
+        s = x.shape[1]
+        k = self.cfg.hybrid_attn_every
+        for gi, group in self._groups(params):
+            x, (kk, vv) = self._shared_attn_kv(params, x)
+            cache["attn_k"][gi, :, :s] = kk
+            cache["attn_v"][gi, :, :s] = vv
+            for j, p in enumerate(group):
+                x, st = self._mamba_block(p, x)
+                for name in HYBRID_STATE:
+                    cache[name][gi * k + j] = st[name]
+        return x
 
     # ---------------------------------------------------------------- decode
     @torch.no_grad()
@@ -387,13 +552,61 @@ class Model:
         attend_len: bound on the valid cache prefix (max(pos) < attend_len)
         so attention reads only the live part of the cache.  A paged cache
         (``k_pages`` leaf) writes through its block tables instead; MLA
-        writes its latent and rope rows and attends in the latent space."""
+        writes its latent and rope rows and attends in the latent space.
+        The recurrent families write each layer's new state over the old
+        one (RWKV6 ignores ``pos``; the hybrid's shared attention writes
+        its K/V row at ``pos`` in each group's cache)."""
         x = self._embed(params, tokens[:, None])
         if "k_pages" in cache:
             return self._gqa_decode_paged(params, cache, x, pos, attend_len)
+        if self.cfg.family == "ssm":
+            return self._ssm_decode(params, cache, x)
+        if self.cfg.family == "hybrid":
+            return self._hybrid_decode(params, cache, x, pos, attend_len)
         if self.cfg.attn_type == "mla":
             return self._mla_decode(params, cache, x, pos, attend_len)
         return self._gqa_decode_unrolled(params, cache, x, pos, attend_len)
+
+    def _ssm_decode(self, params, cache, x):
+        """RWKV6's step (the reference's ``ssm`` branch): each layer's
+        states advance one token and are copied over the cache's in place,
+        so a CUDA graph captures the step."""
+        for l, p in enumerate(_unstack(params["layers"])):
+            x, st = self._rwkv_block(p, x, {name: cache[name][l] for name in SSM_STATE})
+            for name in SSM_STATE:
+                cache[name][l].copy_(st[name])
+        return self._head(params, x)[:, 0, :self.cfg.vocab], cache
+
+    def _hybrid_decode(self, params, cache, x, pos, attend_len):
+        """Zamba2's step (the reference's ``_hybrid_decode``): each group's
+        shared block writes its K/V row at ``pos`` in the group's dense
+        cache and attends the live prefix (``attend_len``), then its k
+        Mamba2 layers advance their states in place."""
+        cfg, sp = self.cfg, params["shared_attn"]
+        ck, cv = cache["attn_k"], cache["attn_v"]
+        b = x.shape[0]
+        bidx = torch.arange(b, device=self.device)
+        # a finished slot coasting may run past the cache: its write clamps
+        # onto the last row, which no live row reads
+        row = torch.clamp(pos.long(), max=ck.shape[2] - 1)
+        rope = rope_freqs(cfg.d_head, cfg.rope_theta, pos[:, None])
+        k = cfg.hybrid_attn_every
+        for gi, group in self._groups(params):
+            g = self._norm(x, sp["ln1"])
+            q, kk, vv = gqa_qkv(sp["attn"], g, cfg, pos[:, None], rope=rope)
+            ck[gi, bidx, row] = kk[:, 0]
+            cv[gi, bidx, row] = vv[:, 0]
+            o = decode_attention(q, ck[gi], cv[gi], pos, attend_len=attend_len,
+                                 use_kernel=self.use_kernels)
+            x = x + o.reshape(b, 1, -1) @ sp["attn"]["wo"].to(x.dtype)
+            m = sp["mlp"]
+            x = x + swiglu(self._norm(x, sp["ln2"]), m["w_gate"], m["w_up"], m["w_down"])
+            for j, p in enumerate(group):
+                l = gi * k + j
+                x, st = self._mamba_block(p, x, {name: cache[name][l] for name in HYBRID_STATE})
+                for name in HYBRID_STATE:
+                    cache[name][l].copy_(st[name])
+        return self._head(params, x)[:, 0, :cfg.vocab], cache
 
     def _mla_decode(self, params, cache, x, pos, attend_len):
         """The MLA step (the reference's unrolled ``mla_decode_block``

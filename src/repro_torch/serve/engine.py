@@ -644,8 +644,7 @@ class ServeEngine:
                              f"max_seq={self.max_seq}")
         gen = self._gen_buffers(b)
         logits, pcache = self.model.prefill(self.params, prompts, self.max_seq)
-        for name, leaf in gen["cache"].items():
-            leaf.copy_(pcache[name][:, :, :self.max_seq])
+        write_slots(gen["cache"], pcache, range(b))
         gen["uids"].copy_(torch.arange(b, dtype=torch.int32, device=self.device))
         gen["pos"].fill_(s)
         gen["tok"].copy_(sampling.sample_at(logits, gen["pos"], gen["uids"],
@@ -657,7 +656,8 @@ class ServeEngine:
             fn = self._step_fn(gen["cache"], gen["tok"], gen["pos"], gen["remaining"],
                                gen["uids"], gen["out"], attend)
             self._graphs.run(("generate", b, attend), fn,
-                             restore=(gen["tok"], gen["pos"], gen["remaining"]))
+                             restore=(gen["tok"], gen["pos"], gen["remaining"])
+                             + self.model.state_leaves(gen["cache"]))
             out.append(gen["tok"].clone())
         return torch.stack(out, dim=1)
 
@@ -1458,6 +1458,18 @@ class ServeEngine:
         st.step_no += 1
 
     # --------------------------------------------------------------- steps
+    def _advanced_states(self) -> tuple:
+        """The cache leaves a step advances in place (a recurrent target's
+        dense states, a recurrent draft's): a capture's warm-up puts them
+        back, beside tok / pos / remaining."""
+        dev = self._dev
+        states = ()
+        if dev["cache"] is not None:
+            states += self.model.state_leaves(dev["cache"])
+        if dev["draft_cache"] is not None:
+            states += self.draft_model.state_leaves(dev["draft_cache"])
+        return states
+
     def _run_step(self, st: _SchedState, attend: int, fn) -> PendingRound:
         """Run a step over the fixed buffers (a graph replay on the
         pipelined CUDA engine), with this round's fault masks written
@@ -1466,7 +1478,8 @@ class ServeEngine:
         dev = self._dev
         armed = self._arm_fault_masks(st)
         self._graphs.run((self._kind, attend), fn,
-                         restore=(dev["tok"], dev["pos"], dev["remaining"]))
+                         restore=(dev["tok"], dev["pos"], dev["remaining"])
+                         + self._advanced_states())
         if armed:
             dev["masks"].zero_()
         event = None

@@ -778,15 +778,27 @@ def copy_pages(pages: Dict[str, torch.Tensor], src_idx: Sequence[int],
     return pages
 
 
+# dense cache leaves with a sequence axis (axis 2: (L, B, S, ...)); every
+# other leaf is a recurrent state (RWKV6's shifts and wkv, Mamba2's conv
+# tail and SSD state) that a slot takes whole
+SEQ_LEAVES = ("k", "v", "latent", "rope", "attn_k", "attn_v")
+
+
 def write_slots(cache: Dict[str, torch.Tensor], pcache: Dict[str, torch.Tensor],
                 slots: Sequence[int]) -> Dict[str, torch.Tensor]:
-    """Copy a k-row prefilled dense cache (L, k, S, H, D) into positions
-    [0, S) of slots ``slots`` of the dense pool, in place."""
+    """Copy a k-row prefilled dense cache into slots ``slots`` of the dense
+    pool, in place, leaf by leaf: a ``SEQ_LEAVES`` leaf (L, k, S, ...)
+    into positions [0, min(S, the pool's)) (a prefill sized past the pool
+    holds zeros there), a state leaf (L, k, ...) whole."""
     idx = torch.as_tensor(list(slots), dtype=torch.long,
                           device=next(iter(cache.values())).device)
     for name, pool in cache.items():
         src = pcache[name]
-        pool[:, idx, :src.shape[2]] = src.to(pool.dtype)
+        if name in SEQ_LEAVES:
+            n = min(src.shape[2], pool.shape[2])
+            pool[:, idx, :n] = src[:, :, :n].to(pool.dtype)
+        else:
+            pool[:, idx] = src.to(pool.dtype)
     return cache
 
 

@@ -47,13 +47,17 @@ def make_self_draft(model, params, n_layers: int) -> Tuple[object, dict]:
     """The target's first ``n_layers`` layers as a draft: returns
     ``(draft_model, draft_params)``.  Embedding, ``ln_f`` and ``lm_head``
     are the target's tensors; the stacked layer leaves are ``[:n_layers]``
-    views (no copy)."""
+    views (no copy).  The hybrid family is refused, as the reference
+    refuses it: its layer groups share one attention block."""
     from repro_torch.models.lm import Model
 
     cfg = model.cfg
     if not 1 <= n_layers <= cfg.n_layers:
         raise ValueError(f"self-draft depth {n_layers} outside "
                          f"[1, {cfg.n_layers}]")
+    if cfg.family == "hybrid":
+        raise ValueError("self-draft cannot truncate the hybrid family "
+                         "(layer groups share one attention block)")
     draft_cfg = dataclasses.replace(cfg, n_layers=n_layers,
                                     name=f"{cfg.name}-draft{n_layers}")
     draft_model = Model(draft_cfg, device=model.device, dtype=model.dtype,

@@ -37,6 +37,18 @@ MOE_FFN = ("layers.moe.router", "layers.moe.w_gate", "layers.moe.w_up",
 MLA_ATTN = ("layers.attn.q_down", "layers.attn.q_norm", "layers.attn.q_up",
             "layers.attn.kv_down", "layers.attn.kv_norm", "layers.attn.kv_up",
             "layers.attn.wo")
+# the ssm family's (RWKV6) layer: the time and channel mix under "tm"
+SSM_LAYER = ("layers.ln1", "layers.ln2") + tuple(
+    f"layers.tm.{k}" for k in ("mu", "wr", "wk", "wv", "wg", "wo", "w0", "wA",
+                               "wB", "bonus", "ln_x", "mu_c", "ck", "cv", "cr"))
+# the hybrid family's (Zamba2) Mamba2 layer and its one shared block
+HYBRID_LAYER = ("layers.ln",) + tuple(
+    f"layers.mamba.{k}" for k in ("in_proj", "conv_w", "conv_b", "A_log", "D",
+                                  "dt_bias", "norm_w", "out_proj"))
+SHARED_ATTN = ("shared_attn.ln1", "shared_attn.ln2", "shared_attn.attn.wq",
+               "shared_attn.attn.wk", "shared_attn.attn.wv", "shared_attn.attn.wo",
+               "shared_attn.mlp.w_gate", "shared_attn.mlp.w_up",
+               "shared_attn.mlp.w_down")
 
 
 def expected_leaves(cfg) -> tuple:
@@ -44,8 +56,16 @@ def expected_leaves(cfg) -> tuple:
     ``layers.moe.*`` in place of ``layers.mlp.*`` for the MoE family, the
     q/k/v biases only with ``cfg.qkv_bias``, ``layers.attn`` of
     ``MLA_ATTN`` with ``cfg.attn_type == "mla"``, and no ``lm_head`` with
-    ``cfg.tie_embeddings``.  Shapes are the tree's own (a padded vocabulary
-    gives ``embed`` and ``lm_head`` ``cfg.vocab_padded`` rows / columns)."""
+    ``cfg.tie_embeddings``; the ssm family's layers are ``SSM_LAYER``, the
+    hybrid's ``HYBRID_LAYER`` beside ``SHARED_ATTN``.  Shapes are the
+    tree's own (a padded vocabulary gives ``embed`` and ``lm_head``
+    ``cfg.vocab_padded`` rows / columns)."""
+    if cfg.family in ("ssm", "hybrid"):
+        leaves = ["embed", "ln_f", "lm_head"]
+        leaves += SSM_LAYER if cfg.family == "ssm" else HYBRID_LAYER + SHARED_ATTN
+        if cfg.tie_embeddings:
+            leaves.remove("lm_head")
+        return tuple(sorted(leaves))
     leaves = [p for p in DENSE_LEAVES if cfg.qkv_bias or p not in _BIASES]
     if cfg.attn_type == "mla":
         leaves = [p for p in leaves if not p.startswith("layers.attn.")] + list(MLA_ATTN)

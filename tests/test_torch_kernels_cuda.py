@@ -2621,3 +2621,157 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         params_from_numpy({"embed": np.zeros(2)}, reduced_config("qwen2-1.5b"),
                           device="cuda")
     assert resolve_device("cpu").type == "cpu"
+
+
+# ---------------------------------------------------------------------------
+# A14c: head dim 80 (Zamba2's shared attention), RWKV6 and Zamba2 serving
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("b,s,hq,hkv,kv_len,causal", [
+    (1, 512, 32, 32, None, True),          # Zamba2's prefill call
+    (2, 77, 8, 2, [77, 30], True),         # ragged length, kv_len in a tile, G 4
+    (2, 64, 4, 4, [64, 0], False),         # non-causal, a fully masked row
+], ids=["zamba2-prefill", "g4-kv-len", "noncausal-empty-row"])
+def test_cuda_flash_fwd_d80_matches_plain(b, s, hq, hkv, kv_len, causal, dtype):
+    """The forward's (80, 80) instance, each dtype branch, against the
+    plain version on the same inputs; K/V rows past kv_len hold NaN, which
+    the kernel never reads.  Counted in ``launches_d80`` /
+    ``launches_d80_f32`` alone."""
+    requires_cuda()
+    from repro_torch import kernels
+
+    rng = np.random.default_rng(31)
+    q = _cuda(_rand(rng, b, s, hq, 80), dtype)
+    k, v = _rand(rng, b, s, hkv, 80), _rand(rng, b, s, hkv, 80)
+    lens = None
+    if kv_len is not None:
+        for i, n in enumerate(kv_len):
+            k[i, n:], v[i, n:] = np.nan, np.nan
+        lens = torch.tensor(kv_len, dtype=torch.int32, device="cuda")
+    k, v = _cuda(k, dtype), _cuda(v, dtype)
+    before = kernels.launch_counts()
+    o, lse = flash_attention_fwd(q, k, v, lens, causal=causal)
+    torch.cuda.synchronize()
+    after = kernels.launch_counts()
+    key = "flash_attention_fwd[d80]" if dtype == torch.bfloat16 else "flash_attention_fwd[d80,f32]"
+    assert {n: after[n] - before[n] for n in after if after[n] != before[n]} == {key: 1}
+    want_o, want_lse = flash_attention_ref(q.float(), torch.nan_to_num(k.float()),
+                                           torch.nan_to_num(v.float()), lens, causal=causal)
+    assert torch.isfinite(o).all()
+    _close(o.float(), want_o, dtype)
+    torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("b,hkv,g,s,pos", [
+    (4, 32, 1, 576, [575, 300, 128, 7]),   # Zamba2's decode, G 1
+    (3, 2, 4, 200, [0, 63, 199]),          # grouped, a split edge
+    (2, 4, 6, 100, [99, 40]),
+], ids=["zamba2-g1", "g4", "g6"])
+def test_cuda_flash_decode_d80_matches_plain(b, hkv, g, s, pos, dtype):
+    """Dense decode's D = 80 instance (16 lanes a key row, 6 idle) against
+    the plain version; keys past pos hold NaN, never read.  Counted in
+    ``flash_decode.launches_d80`` alone."""
+    requires_cuda()
+    from repro_torch import kernels
+
+    rng = np.random.default_rng(32)
+    q = _cuda(_rand(rng, b, hkv, g, 80), dtype)
+    k, v = _rand(rng, b, s, hkv, 80), _rand(rng, b, s, hkv, 80)
+    for i, p in enumerate(pos):
+        k[i, p + 1:], v[i, p + 1:] = np.nan, np.nan
+    k, v = _cuda(k, dtype), _cuda(v, dtype)
+    p = torch.tensor(pos, dtype=torch.int32, device="cuda")
+    before = kernels.launch_counts()
+    got = flash_decode(q, k, v, p)
+    torch.cuda.synchronize()
+    after = kernels.launch_counts()
+    assert {n: after[n] - before[n] for n in after if after[n] != before[n]} == {
+        "flash_decode[d80]": 1}
+    want = flash_decode_ref(q.float(), torch.nan_to_num(k.float()),
+                            torch.nan_to_num(v.float()), p)
+    assert torch.isfinite(got).all()
+    _close(got.float(), want, dtype)
+
+
+@pytest.mark.cuda
+def test_cuda_d80_unbuilt_sites_raise():
+    """Head dim 80 exists for the forward and dense decode only: the flash
+    backward (A14c-train), paged decode and the verify window raise
+    ``ValueError`` before any launch."""
+    requires_cuda()
+    from repro_torch import kernels
+
+    rng = np.random.default_rng(33)
+    q, k, v, do = (_cuda(_rand(rng, 1, 16, 2, 80), torch.float32) for _ in "qkvo")
+    lse, delta = (torch.zeros(1, 2, 16, device="cuda") for _ in "ld")
+    qd = _cuda(_rand(rng, 1, 2, 1, 80), torch.float32)
+    pages = _cuda(_rand(rng, 3, 8, 2, 80), torch.float32)
+    bt = torch.tensor([[1, 2]], dtype=torch.int32, device="cuda")
+    pos = torch.tensor([9], dtype=torch.int32, device="cuda")
+    before = kernels.launch_counts()
+    with pytest.raises(ValueError, match="head dims"):
+        flash_attention_bwd(q, k, v, do, lse, delta)
+    with pytest.raises(ValueError, match="head dims"):
+        paged_flash_decode(qd, pages, pages, bt, pos)
+    with pytest.raises(ValueError, match="head dims"):
+        paged_flash_verify(qd, pages, pages, bt, pos, t_window=1)
+    assert kernels.launch_counts() == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["rwkv6-7b", "zamba2-2.7b"])
+def test_cuda_recurrent_serving_matches_cpu_plain_path(arch):
+    """Reduced RWKV6 / Zamba2 served on the card in fp32 (the scans in
+    plain torch, the norms through rmsnorm, Zamba2's attention through
+    the flash forward and flash_decode, the decode steps captured as
+    graphs): greedy tokens equal to the CPU's plain versions on the same
+    weights, and prefill logits within fp32 summation order."""
+    requires_cuda()
+    from repro_torch import kernels
+    from repro_torch.configs import reduced_config
+    from repro_torch.models.lm import Model
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    cfg = reduced_config(arch)
+    base = Model(cfg, device="cpu", dtype=torch.float32).init(
+        torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(34)
+    spec = [(i, rng.integers(0, cfg.vocab, int(n)).tolist(), 6)
+            for i, n in enumerate(rng.integers(5, 40, 3))]
+    toks = torch.tensor([spec[0][1]])
+
+    def run(device, params):
+        model = Model(cfg, device=device, dtype=torch.float32)
+        logits, _ = model.prefill(params, toks, 64)
+        eng = ServeEngine(model, params, max_seq=64, batch_slots=2)
+        return logits.cpu(), eng.serve([Request(u, list(p), n) for u, p, n in spec]), eng
+
+    kernels.reset_launches()
+    got_logits, got, eng = run("cuda", _to_cuda(base))
+    counts = kernels.launch_counts()
+    want_logits, want, _ = run("cpu", base)
+    assert got == want
+    torch.testing.assert_close(got_logits, want_logits, atol=1e-4, rtol=1e-4)
+    assert counts["rmsnorm"] > 0 and counts["rmsnorm[ragged]"] == 0
+    assert eng.last_graph_stats.get("replays", 0) > 0
+    if arch == "zamba2-2.7b":
+        assert counts["flash_attention_fwd[f32]"] > 0 and counts["flash_decode"] > 0
+    else:
+        assert counts["flash_attention_fwd[f32]"] == counts["flash_decode"] == 0
+
+
+def test_recurrent_entry_points_raise_without_cuda(monkeypatch):
+    from repro_torch.configs import reduced_config
+    from repro_torch.models.lm import Model
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for arch in ("rwkv6-7b", "zamba2-2.7b"):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            Model(reduced_config(arch))
+    # a CPU tensor takes the plain version at head dim 80, a CUDA request raises
+    q = torch.zeros(1, 4, 2, 80)
+    assert flash_attention_fwd(q, q, q)[0].shape == (1, 4, 2, 80)
