@@ -314,7 +314,7 @@ its paths:
 5d. MLA training (``mla train ...`` lines, after 5c, while the card holds
    no other model): MiniCPM3-4B at full width (d_model 2560, 40 heads, q
    rank 768, kv rank 256, q/k heads of 64 nope + 32 rope dims, v heads of
-   64, d_ff 6400, vocab 73448) cut to 16 of its 62 layers, fp32 weights
+   64, d_ff 6400, vocab 73448) cut to 8 of its 62 layers, fp32 weights
    and AdamW, bf16 compute, remat, the 8-chunk loss, S 4096 and batch 2.
    First the memory count (the state at 16 bytes a parameter, the gradient
    check's two gradients and its plain backward's fp32 scores), which
@@ -329,12 +329,35 @@ its paths:
    path held to the gates below, with two faulted controls (dk scaled by
    1.25 and dv scaled by 1.25 in the backward) that must each trip a
    gate; ``Trainer.run`` for 4 steps (loss, lr, grad_norm, ms, tokens/s,
-   peak memory), whose launches must be, a step, 32 of the forward's
-   (96, 64) instance (forward and remat), 16 of the backward's, and no
-   other flash kernel, with rmsnorm's warp and wide branches and not its
-   ragged one; one profiled step; and ``python -m
-   repro_torch.launch.train --arch minicpm3-4b --steps 2 --batch 2 --seq
-   64`` in a subprocess on the card, which must exit 0.
+   peak memory), whose launches must be, a step, two a layer of the
+   forward's (96, 64) instance (forward and remat), one a layer of the
+   backward's, and no other flash kernel, with rmsnorm's warp and wide
+   branches and not its ragged one; one profiled step; and, after phase
+   5e, ``python -m repro_torch.launch.train --arch minicpm3-4b --steps 2
+   --batch 2 --seq 64`` in a subprocess on the card, which must exit 0,
+   beside phase 5e's two CLI legs.
+5e. RWKV6 and Zamba2 training (``recurrent train ...`` lines, after 5d):
+   first the flash backward's (80, 80) instance at rows 3 and 3c's shape
+   (B 2 x S 4096 x 32 / 32 heads, Zamba2's shared attention, causal)
+   against its plain version, bf16 (row ``flash_attention_bwd (Zamba2 D
+   80)`` of the kernel record, beside SDPA's forward and backward less its
+   forward) and f32, and the bf16 call at the training step's shape.
+   Then each model: the memory count (fp32 weights, gradients and AdamW
+   at 16 bytes a parameter: Zamba2-2.7B at its full 54 layers, RWKV6-7B
+   cut to 12 of 32), which must fit; one gradient through the kernel path
+   and the plain path in fp32 compute at full width, depth cut (RWKV6 4
+   layers, Zamba2 two groups), B 2 x S 64, held to phase 5's gates, with
+   faulted controls that must each trip a gate (Zamba2: dk and dv scaled
+   by 1.25 in the (80, 80) backward; RWKV6: rmsnorm's backward input
+   scaled by 1.25), and the same gradient in bf16 compute, printed;
+   ``Trainer.run`` for 2 steps at full width, bf16 compute, remat, B 2 x
+   S 64 (loss, ms, tokens/s, peak memory), whose launches must be one
+   (80, 80) forward and one backward a group a step for Zamba2 (the
+   shared block is not rematted) and no flash kernel for RWKV6, with
+   rmsnorm's wide branch and not its ragged one; one profiled step (the
+   device's records).  ``python -m repro_torch.launch.train --arch
+   rwkv6-7b`` and ``--arch zamba2-2.7b`` (``--steps 2 --batch 2 --seq
+   64``) run after it, beside phase 5d's CLI, and must exit 0.
 6. MoE serving (``moe ...`` lines), before training and after the qwen2
    serving model is freed: full-width OLMoE-1B-7B (16 layers, d_model
    2048, 16/16 heads, 64 experts, top-8; random bf16 weights from the
@@ -429,6 +452,15 @@ its paths:
    logit tolerance; the paged layout must raise ``ValueError`` on the card.
    MLA decode runs no hand-written kernel (the reference's is fp32
    einsums in the latent space too).
+7c. RWKV6-7B and Zamba2-2.7B serving (``recurrent ...`` lines, after
+   7b): the kernels at their shapes, both models served at full
+   width and depth, profiled, teacher-forced and refused on the paged
+   layout, fp32 controls, and qwen2 speculating with each as its draft.
+   The teacher-forced bf16 gate (kernel path within max(``LOGIT_TOL``, the
+   plain bf16 path's distance from an fp32 run)) has faulted controls:
+   RWKV6's rmsnorm wide-branch weight and Zamba2's D 80 attention output
+   scaled by 1.001, 1.003, 1.01, ... in turn until the gate trips, which
+   it must by 1.3; the smallest scale caught is printed.
 
 Every serving, MoE and training run must normalize through rmsnorm's
 one-warp-a-row branch or, for rows wider than 2048 (the 32B and MLA runs'
@@ -1413,9 +1445,9 @@ def add_counts(a: dict, b: dict) -> dict:
 
 F32_FLASH = ("flash_attention_fwd[f32]", "flash_attention_bwd[f32]",
              "flash_attention_fwd[dv,f32]", "flash_attention_bwd[dv,f32]",
-             "flash_attention_fwd[d80,f32]")
+             "flash_attention_fwd[d80,f32]", "flash_attention_bwd[d80,f32]")
 BF16_FLASH = ("flash_attention_fwd", "flash_attention_bwd", "flash_attention_fwd[dv]",
-              "flash_attention_bwd[dv]", "flash_attention_fwd[d80]")
+              "flash_attention_bwd[dv]", "flash_attention_fwd[d80]", "flash_attention_bwd[d80]")
 
 
 def flash_branch_launches(bf16_runs: dict, fp32_runs: dict):
@@ -2435,7 +2467,9 @@ def where_time_goes(model, params, gen):
                 dparams, dcache, tok, pos, attend_len=MAX_SEQ), 10),
             ("verify_step_T4", lambda: model.decode_verify_step(
                 params, pcache, win, pos, attend_len=MAX_SEQ), 10)):
-        phases[name] = profile_phase(name, fn, n)
+        # the device's records alone: the host-side events of ten eager
+        # steps took the profiler 4-25 s a row to sum, and no reading uses them
+        phases[name] = profile_phase(name, fn, n, device_only=True)
     # the whole spec step (three draft steps, verify, accept) eager, then
     # each step kind as the pipelined engine replays it: one captured graph
     spec_eager = step_state(model, params, "spec", gen, (draft, dparams))
@@ -2444,7 +2478,8 @@ def where_time_goes(model, params, gen):
         spec_eager["reset"]()
         spec_eager["fn"]()
 
-    phases["spec_step_T4_self14"] = profile_phase("spec_step_T4_self14", eager_spec, 10)
+    phases["spec_step_T4_self14"] = profile_phase("spec_step_T4_self14", eager_spec, 10,
+                                                  device_only=True)
     del spec_eager
     for name, kind in (("decode_step_graph", "dense"), ("paged_decode_step_graph", "paged"),
                        ("paged_decode_step_int8_graph", "paged_int8"),
@@ -5835,6 +5870,12 @@ RECURRENT_KERNELS = {"rwkv6-7b": ("rmsnorm[wide]",),
 RECURRENT_CONTROL_KERNELS = {"rwkv6-7b": ("rmsnorm[wide]",),
                              "zamba2-2.7b": ("rmsnorm[wide]", "flash_attention_fwd[d80,f32]",
                                              "flash_decode[d80]")}
+# C11: the faulted controls of the teacher-forced bf16 gate, a kernel
+# site's output (Zamba2: the shared block's attention at D 80, flash
+# forward and flash_decode) or weight (RWKV6: every rmsnorm[wide] row's
+# weight, the only kernel it runs) scaled by each factor in turn, smallest
+# first, until the gate trips; the largest must trip it
+C11_SCALES = (1.001, 1.003, 1.01, 1.03, 1.1, 1.3)
 
 
 def recurrent_params(cfg) -> int:
@@ -6151,8 +6192,61 @@ def recurrent_teacher_forced(arch, cfg, model, params, prompt, tokens) -> dict:
     if max(kp) > tol:
         fail(f"{arch}'s kernel path differs from the plain path by {max(kp):.4f} of the logit "
              f"scale, past {tol:.4f}")
+    controls = {}
+    for scale in C11_SCALES:
+        with c11_fault(arch, scale):
+            c_logits = teacher_force(model, params, prompt, tokens)
+        worst = max(ratios(c_logits, p_logits))
+        controls[scale] = dict(kernel_vs_plain=worst, tripped=worst > tol)
+        print(f"teacher-forced recurrent {arch} control ({C11_SITES[arch]} x {scale}): kernel "
+              f"vs plain path {worst:.4f} of the logit scale against the gate's {tol:.4f}: "
+              f"{'tripped' if worst > tol else 'passed'}", flush=True)
+        if worst > tol:
+            break
+    caught = [sc for sc, c in controls.items() if c["tripped"]]
+    if not caught:
+        fail(f"{arch}'s teacher-forced gate passes {C11_SITES[arch]} x {max(C11_SCALES)}")
     return dict(kernel_vs_plain=kp, plain_vs_fp32=pf, kernel_vs_fp32=kf, tolerance=tol,
-                argmax_agreement=agree, steps=len(kp), prompt=len(prompt))
+                argmax_agreement=agree, steps=len(kp), prompt=len(prompt),
+                controls=controls, smallest_caught=caught[0])
+
+
+C11_SITES = {"rwkv6-7b": "rmsnorm[wide]'s weight",
+             "zamba2-2.7b": "the D 80 attention kernels' output"}
+
+
+@contextlib.contextmanager
+def c11_fault(arch: str, scale: float):
+    """A faulted kernel site for phase 7c's bf16 gate: RWKV6's rmsnorm
+    wide-branch launches (rows over 2048) with the weight scaled by
+    ``scale``; Zamba2's attention at head dim 80 (the flash forward in
+    prefill, flash_decode in decode) with its output scaled."""
+    from repro_torch.kernels.rmsnorm.ops import RMSNorm
+    from repro_torch.models import attention
+
+    if arch == "rwkv6-7b":
+        module, names = RMSNorm, ("forward",)
+
+        def wrap(fn):
+            def faulted(ctx, x, w, eps):
+                return fn(ctx, x, w * scale if x.shape[-1] > 2048 else w, eps)
+            return staticmethod(faulted)
+    else:
+        module, names = attention, ("flash_mha", "flash_decode")
+
+        def wrap(fn):
+            def faulted(q, *args, **kw):
+                out = fn(q, *args, **kw)
+                return out * scale if q.shape[-1] == 80 else out
+            return faulted
+    saved = {n: getattr(module, n) for n in names}
+    for n, fn in saved.items():
+        setattr(module, n, wrap(fn))
+    try:
+        yield
+    finally:
+        for n, fn in saved.items():
+            setattr(module, n, staticmethod(fn) if module is RMSNorm else fn)
 
 
 def run_recurrent(seed: int, gen: torch.Generator, rows: dict, smi: str) -> dict:
@@ -6215,12 +6309,13 @@ def run_recurrent_spec(model, params, spec, num_pages: int, smi: str) -> tuple:
 # phase 5d: MLA training through the flash backward's (96, 64) instance
 # ---------------------------------------------------------------------------
 
-# MiniCPM3-4B at full width cut to 16 of its 62 layers: at 16 bytes a
+# MiniCPM3-4B at full width cut to 8 of its 62 layers: at 16 bytes a
 # parameter (fp32 weights, gradients and both AdamW moments) the full
 # depth's 4.26 B parameters are a 68.2 GB state, and the gradient check's
-# plain backward needs ~21.5 GB of fp32 scores beside it; 16 layers are
-# 1.38 B parameters and 22.1 GB
-MLA_TRAIN_LAYERS = 16
+# plain backward needs ~21.5 GB of fp32 scores beside it; 8 layers are
+# 0.88 B parameters and 14.0 GB (16 layers, 22.1 GB, until the smoke's
+# time went to phase 5e: 46.3 s of phase at 16 layers, 30.9 s at 8)
+MLA_TRAIN_LAYERS = 8
 MLA_TRAIN_MARGIN = 4 * 2 ** 30  # remat's layer inputs, a vocab chunk, allocator slack
 # fp32 (B, H, S, S) score tensors the plain attention's backward holds at
 # once (scores, probabilities, their gradient and one temporary)
@@ -6228,21 +6323,38 @@ MLA_PLAIN_SCORES = 4
 MLA_TRAIN_FWD_ROW = "flash_attention_fwd (MLA training)"       # row 2d
 MLA_BWD_ROW = "flash_attention_bwd (MLA D 96 / Dv 64)"         # row 3c
 MLA_TRAIN_NORM_ROW = "rmsnorm[wide] (training, d 2560)"         # row 1e
-# one gradient, kernel path vs plain path, bf16 compute through 16 MLA
+# one gradient, kernel path vs plain path, bf16 compute through the MLA
 # layers: the paths round to bf16 at the same points and differ in the
 # order of fp32 sums, the latent norms' and the d_model norms' bf16
-# rounding among them.  Each gate is ~10x this phase's sound reading on an
-# H100 (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md): loss 1.249e-4,
-# global norm 1.328e-4 relative, and at layers.attn.q_down 1 - cosine
-# 2.786e-4 and a norm difference of 2.361e-2 relative.  The faulted
+# rounding among them.  Each gate is ~10x this phase's sound reading at 16
+# layers on an H100 (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md): loss
+# 1.249e-4, global norm 1.328e-4 relative, and at layers.attn.q_down 1 -
+# cosine 2.786e-4 and a norm difference of 2.361e-2 relative.  The faulted
 # controls read: dk x 1.25 a global norm 4.36e-3 off and 1 - cosine
 # 3.18e-3 at layers.attn.kv_down (it trips two gates); dv x 1.25 a global
 # norm 0.127 off, 1 - cosine 3.30e-2 at embed and 0.540 at
-# layers.attn.kv_norm (three).  The loss cannot see a backward fault
+# layers.attn.kv_norm (three).  At 8 layers (same card) the sound check
+# read 9.5e-6, 7.1e-5, 1 - 1.23e-4 and 1.57e-2, dk x 1.25 4.06e-3 and 1 -
+# 3.10e-3 (two gates), dv x 1.25 three gates.  The loss cannot see a
+# backward fault
 MLA_GRAD_GATES = dict(loss=1.25e-3, norm=1.3e-3, cos=1 - 2.8e-3, leaf=0.24)
 GRAD_FAULT_DV = 1.25          # the second control's wrong dv scale
 DV_FAULT = (f"dv x {GRAD_FAULT_DV}", lambda: flash_grad_fault(2, GRAD_FAULT_DV))
 MLA_CLI_STEPS = 2
+# (label, command, what it must print): a CLI leg of run_clis
+MLA_TRAIN_CLI = ("mla train cli", [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+                                   MLA_ARCH, "--steps", str(MLA_CLI_STEPS), "--batch", "2",
+                                   "--seq", "64"], f"over {MLA_CLI_STEPS} steps")
+
+
+def run_clis(legs, smi: str) -> dict:
+    """CLI legs ((label, command, what it must print) each) in subprocesses
+    of their own, all at once (a process's start is most of a leg's
+    wall): their ``run_cli`` records by label."""
+    with concurrent.futures.ThreadPoolExecutor(len(legs)) as pool:
+        started = [(label, pool.submit(run_cli, label, cmd, smi, expect))
+                   for label, cmd, expect in legs]
+        return {label: f.result() for label, f in started}
 
 
 def check_mla_train_kernels(cfg, gen: torch.Generator, rows: dict) -> dict:
@@ -6368,7 +6480,8 @@ def run_mla_train(seed: int, gen: torch.Generator, rows: dict, smi: str) -> tupl
     """Phase 5d (``mla train`` lines): the memory count, the kernels at
     training's shape, MiniCPM3-4B training cut to MLA_TRAIN_LAYERS, the
     gradient check against the plain path with its two faulted controls,
-    TRAIN_STEPS Trainer steps, one profiled step and the train CLI.
+    TRAIN_STEPS Trainer steps and one profiled step (its CLI leg,
+    ``MLA_TRAIN_CLI``, runs after phase 5e beside that phase's).
     Returns the record and the launch counts of the Trainer run."""
     from repro_torch import kernels
     from repro_torch.configs import get_config
@@ -6482,18 +6595,354 @@ def run_mla_train(seed: int, gen: torch.Generator, rows: dict, smi: str) -> tupl
     del model, params, state, start, trainer, step_fn
     gc.collect()
     torch.cuda.empty_cache()
-    cli = run_cli("mla train cli", [sys.executable, "-m", "repro_torch.launch.train",
-                                    "--arch", MLA_ARCH, "--steps", str(MLA_CLI_STEPS),
-                                    "--batch", "2", "--seq", "64"], smi,
-                  f"over {MLA_CLI_STEPS} steps")
     rec = dict(grad_check=grads, history=hist, peak_bytes=peak, allocated_before_bytes=before,
                n_params=n_params, params_a_layer=per_layer, state_bytes=state_bytes,
                plain_scores_bytes=scores, need_bytes=need, free_bytes=free,
                step_ms=[t * 1e3 for t in times], tokens_s=[tokens / t for t in times],
-               counts=counts, kernels_at_training_shape=shapes, cli=cli, profile=profile)
+               counts=counts, kernels_at_training_shape=shapes, profile=profile)
     rec["wall_s"] = time.perf_counter() - t_phase
     print(f"mla train phase: {rec['wall_s']:.1f} s; [{smi}]", flush=True)
     return rec, counts
+
+
+# ---------------------------------------------------------------------------
+# phase 5e: RWKV6-7B and Zamba2-2.7B training, Zamba2's shared attention
+# through the flash backward's (80, 80) instance
+# ---------------------------------------------------------------------------
+
+# Zamba2-2.7B trains at full depth: its 2.42 B parameters are 38.7 GB of
+# fp32 weights, gradients and AdamW moments.  RWKV6-7B's 7.53 B would be
+# 120 GB, so it is cut to 12 of its 32 layers (3.17 B parameters, 50.7 GB
+# of state: the embedding and head alone are 8.6 GB, a layer 3.5 GB)
+RECURRENT_TRAIN_LAYERS = {"rwkv6-7b": 12, "zamba2-2.7b": 54}
+# the scans run as a host loop over time, forward, recomputed and backward:
+# at B 2 x S 128 a Zamba2 step ran 6.2-6.9 s (158 052 kernels) and its
+# profile took 44.7 s of the smoke; B 2 x S 64 halves both
+RECURRENT_TRAIN_SEQ = 64
+RECURRENT_TRAIN_STEPS = 2
+# remat's layer inputs, a layer's scan products (RWKV6: k v^T and its
+# bonus-weighted copy, 2 x 134 MB at S 64), a vocab chunk, allocator slack
+RECURRENT_TRAIN_MARGIN = 8 * 2 ** 30
+# the gated gradient check runs in fp32 compute (the f32 instances: flash
+# (80, 80)'s CUDA-core forward and backward, rmsnorm's f32 rows) at full
+# width, depth cut (Zamba2 two groups, RWKV6 4 layers), B 2 x S 64: the
+# scans carry a norm's bf16 rounding difference through every later token
+# (ROADMAP C11), so in bf16 the paths drift apart by more than the dense
+# gates allow while both are sound (on an H100: Zamba2 at this config a
+# loss 2.1e-3 apart and 1 - cosine 1.1e-3 at layers.mamba.A_log, against
+# 3e-5 and 4e-4; RWKV6 at 12 layers and S 128 a loss 1.7e-4 apart).  The
+# same check in bf16 compute is printed beside it, ungated
+RECURRENT_CHECK_LAYERS = {"rwkv6-7b": 4, "zamba2-2.7b": 12}
+RECURRENT_CHECK_SEQ = 64
+D80_BWD_ROW = "flash_attention_bwd (Zamba2 D 80)"               # row 3d
+GRAD_FAULT_NORM = 1.25        # RWKV6's control: rmsnorm's backward input scale
+RECURRENT_TRAIN_CLI_STEPS = 2
+
+
+@contextlib.contextmanager
+def norm_grad_fault(scale: float):
+    """RWKV6's faulted control (its one kernel is rmsnorm): the incoming
+    gradient of every ``RMSNorm`` backward scaled by ``scale``."""
+    from repro_torch.kernels.rmsnorm.ops import RMSNorm
+
+    backward = RMSNorm.backward
+
+    def faulted(ctx, g):
+        return backward(ctx, g * scale)
+
+    RMSNorm.backward = staticmethod(faulted)
+    try:
+        yield
+    finally:
+        RMSNorm.backward = staticmethod(backward)
+
+
+NORM_FAULT = (f"rmsnorm backward input x {GRAD_FAULT_NORM}",
+              lambda: norm_grad_fault(GRAD_FAULT_NORM))
+RECURRENT_TRAIN_FAULTS = {"rwkv6-7b": (NORM_FAULT,), "zamba2-2.7b": (DK_FAULT, DV_FAULT)}
+
+
+def recurrent_train_clis() -> list:
+    """The phase's CLI legs for ``run_clis``, run beside phase 5d's:
+    ``launch.train`` on each reduced recurrent config (on the card the
+    reduced Zamba2's heads of 64 run flash (64, 64))."""
+    return [(f"recurrent train cli {arch}",
+             [sys.executable, "-m", "repro_torch.launch.train", "--arch", arch, "--steps",
+              str(RECURRENT_TRAIN_CLI_STEPS), "--batch", "2", "--seq", "64"],
+             f"over {RECURRENT_TRAIN_CLI_STEPS} steps") for arch in RECURRENT_ARCHS]
+
+
+def check_recurrent_train_kernels(gen: torch.Generator, rows: dict) -> dict:
+    """The flash backward's (80, 80) instance at Zamba2's shared attention
+    on rows 3 and 3c's shape: B 2 x S 4096 x 32 / 32 heads, causal.  bf16
+    fills row 3d (SDPA's forward + backward less its forward beside it);
+    f32 is printed; then the bf16 call at the phase's training shape (B 2
+    x S RECURRENT_TRAIN_SEQ), timed and checked."""
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention.ops import (
+        flash_attention_bwd,
+        flash_attention_fwd,
+    )
+    from repro_torch.kernels.flash_attention.ref import flash_attention_bwd_ref
+
+    z = get_config("zamba2-2.7b")
+    h, dh, b = z.n_heads, z.d_head, TRAIN_BATCH
+    out = {}
+
+    def randn(*shape, dtype=torch.bfloat16):
+        return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+
+    def case(s, dtype):
+        q, k, v, do = (randn(b, s, h, dh, dtype=dtype) for _ in "qkvo")
+        o, lse = flash_attention_fwd(q, k, v)
+        delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+        return q, k, v, do, lse, delta
+
+    def cost(s, esize):
+        # bytes: q, k, v, dO read, lse and delta in f32, dq, dk, dv written
+        # in f32; operations: s, dq, dk of 2 * D and dp, dv of 2 * Dv a
+        # live (query, key) pair: 2 * (3 * 80 + 2 * 80) = 800
+        pairs = b * h * s * (s + 1) // 2
+        n = b * s * h * dh
+        return 4 * n * esize + 2 * b * h * s * 4 + 3 * n * 4, 2 * (3 * dh + 2 * dh) * pairs
+
+    s = TRAIN_SEQ
+    args = case(s, torch.bfloat16)
+    q, k, v, do = args[:4]
+    qt, kt, vt = (a.transpose(1, 2).detach().requires_grad_() for a in (q, k, v))
+    dot = do.transpose(1, 2)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+
+    def sdpa_fwd_bwd():
+        torch.autograd.grad(sdpa(), (qt, kt, vt), dot)
+
+    sdpa_bwd_ms = cuda_ms(sdpa_fwd_bwd, iters=10, warmup=2) - cuda_ms(sdpa, iters=10, warmup=2)
+    got = torch.cat([t.flatten() for t in flash_attention_bwd(*args)])
+    want = torch.cat([t.flatten() for t in flash_attention_bwd_ref(*args)])
+    n_bytes, flops = cost(s, 2)
+    record_kernel(rows, D80_BWD_ROW,
+                  "src/repro_torch/kernels/flash_attention/flash_attention_bwd.cu",
+                  "src/repro/kernels/flash_attention/flash_attention.py:306", got, want,
+                  BWD_TOL, cuda_ms(lambda: flash_attention_bwd(*args), iters=20, warmup=2),
+                  cuda_ms(lambda: flash_attention_bwd_ref(*args), iters=3, warmup=1),
+                  n_bytes, flops, BF16_FLOPS_S, sdpa_bwd_ms, branch=FLASH_BRANCHES[q.dtype])
+    sdpa_factor(D80_BWD_ROW, rows[D80_BWD_ROW]["ms"], sdpa_bwd_ms)
+    out[D80_BWD_ROW] = {key: rows[D80_BWD_ROW][key] for key in
+                        ("max_abs_err", "ms", "plain_ms", "bound_ms", "library_ms")}
+    del args, q, k, v, do, qt, kt, vt, dot, got, want
+    torch.cuda.empty_cache()
+
+    # the f32 branch (CUDA cores) at the same shape
+    args = case(s, torch.float32)
+    got = torch.cat([t.flatten() for t in flash_attention_bwd(*args)])
+    want = torch.cat([t.flatten() for t in flash_attention_bwd_ref(*args)])
+    torch.cuda.synchronize()
+    err32, ok32 = max_err(got, want), agrees(got, want, BWD_TOL)
+    ms32 = cuda_ms(lambda: flash_attention_bwd(*args), iters=3, warmup=1)
+    n_bytes, flops = cost(s, 4)
+    b_ms32, b_by32 = bound(n_bytes, flops, F32_FLOPS_S)
+    print(f"kernel {D80_BWD_ROW} (f32): max_abs_err={err32:.3e} tol={BWD_TOL} ok={ok32} "
+          f"ms={ms32:.4f} bound_ms={b_ms32:.4f} ({b_by32}) "
+          f"branch={FLASH_BRANCHES[torch.float32]}", flush=True)
+    if not ok32:
+        fail("the f32 (80, 80) flash backward disagrees with its plain version")
+    out[f"{D80_BWD_ROW} (f32)"] = dict(max_abs_err=err32, ms=ms32, bound_ms=b_ms32)
+    del args, got, want
+    torch.cuda.empty_cache()
+
+    # the call the training step makes, a group of Zamba2 at B 2 x S 64
+    s = RECURRENT_TRAIN_SEQ
+    args = case(s, torch.bfloat16)
+    got = torch.cat([t.flatten() for t in flash_attention_bwd(*args)])
+    want = torch.cat([t.flatten() for t in flash_attention_bwd_ref(*args)])
+    err, ok = max_err(got, want), agrees(got, want, BWD_TOL)
+    ms = queued_ms(lambda: flash_attention_bwd(*args))
+    n_bytes, flops = cost(s, 2)
+    b_ms, b_by = bound(n_bytes, flops, BF16_FLOPS_S)
+    print(f"kernel {D80_BWD_ROW} at the training step's B {b} x S {s}: max_abs_err={err:.3e} "
+          f"ok={ok} ms={ms:.4f} (calls queued) bound_ms={b_ms:.4f} ({b_by})", flush=True)
+    if not ok:
+        fail(f"the (80, 80) flash backward disagrees with its plain version at S {s}")
+    out[f"{D80_BWD_ROW} (S {s})"] = dict(max_abs_err=err, ms=ms, bound_ms=b_ms)
+    return out
+
+
+def recurrent_train_model(arch: str, seed: int, smi: str) -> dict:
+    """One recurrent model's training: the memory count, the gradient
+    check (fp32 at full width and cut depth, gated, with the arch's
+    faulted controls; the same in bf16 compute, printed), then
+    RECURRENT_TRAIN_STEPS Trainer steps at full width (bf16 compute, fp32
+    master weights and AdamW, remat) and one profiled step."""
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticPipeline
+    from repro_torch.models.lm import Model
+    from repro_torch.optim.optimizer import AdamWConfig, init_adamw, leaves
+    from repro_torch.train.step import TrainState, make_grad_fn, make_train_step
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    t0 = time.perf_counter()
+    tag = arch.split("-")[0]
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, n_layers=RECURRENT_TRAIN_LAYERS[arch])
+    n_params = recurrent_params(cfg)
+    head = recurrent_params(dataclasses.replace(full, n_layers=0))
+    per_layer = recurrent_params(dataclasses.replace(full, n_layers=1)) - head
+    state_bytes = 16 * n_params                     # weights, grads, m, v in fp32
+    need = state_bytes + RECURRENT_TRAIN_MARGIN
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    print(f"recurrent train {arch} count: {per_layer} parameters a layer, {head} in the "
+          f"embedding, head and final norm{' and the shared block' if cfg.family == 'hybrid' else ''}; "
+          f"full depth {full.n_layers} layers = {recurrent_params(full)} parameters = "
+          f"{16 * recurrent_params(full) / 1e9:.1f} GB of fp32 weights, grads and AdamW "
+          f"moments; {'full depth' if cfg.n_layers == full.n_layers else f'cut to {cfg.n_layers} layers'}: "
+          f"{n_params} parameters, {state_bytes / 1e9:.1f} GB of state; need "
+          f"{need / 2 ** 30:.2f} GiB with a {RECURRENT_TRAIN_MARGIN / 2 ** 30:.0f} GiB margin; "
+          f"free {free / 2 ** 30:.2f} of {total / 2 ** 30:.2f} GiB; [{smi}]", flush=True)
+    if need > free:
+        fail(f"recurrent train: {cfg.n_layers} layers of {arch} do not fit: need "
+             f"{need / 2 ** 30:.2f} GiB, {free / 2 ** 30:.2f} GiB free")
+    parts = {}
+
+    # the gated check: fp32 at full width, depth cut
+    t1 = time.perf_counter()
+    ccfg = dataclasses.replace(full, n_layers=RECURRENT_CHECK_LAYERS[arch])
+    kw32 = dict(device="cuda", dtype=torch.float32)
+    model32 = Model(ccfg, **kw32)
+    params32 = model32.init(torch.Generator(device="cuda").manual_seed(seed))
+    check_data = SyntheticPipeline(DataConfig(vocab=cfg.vocab, seq_len=RECURRENT_CHECK_SEQ,
+                                              global_batch=TRAIN_BATCH, seed=seed))
+    batch = {k: v.cuda() for k, v in check_data.batch_at(0).items()}
+    print(f"recurrent train {arch} grad check: fp32 compute, {ccfg.n_layers} of "
+          f"{full.n_layers} layers at full width, batch {TRAIN_BATCH} x seq "
+          f"{RECURRENT_CHECK_SEQ}, the dense gates, controls "
+          f"{[label for label, _ in RECURRENT_TRAIN_FAULTS[arch]]}", flush=True)
+    kernels.reset_launches()
+    grads32 = compare_grads(model32, Model(ccfg, use_kernels=False, **kw32), params32, batch,
+                            faults=RECURRENT_TRAIN_FAULTS[arch],
+                            prefix=f"recurrent train {arch} fp32")
+    torch.cuda.synchronize()
+    check_counts = kernels.launch_counts()
+    # the same check in bf16 compute on the same fp32 weights and batch,
+    # printed beside it
+    kw = dict(device="cuda", dtype=torch.bfloat16, param_dtype=torch.float32)
+    k_loss, k_grads = make_grad_fn(Model(ccfg, **kw), vocab_chunks=VOCAB_CHUNKS)(params32,
+                                                                                batch)
+    p_loss, p_grads = make_grad_fn(Model(ccfg, use_kernels=False, **kw),
+                                   vocab_chunks=VOCAB_CHUNKS)(params32, batch)
+    bf16 = grad_readings(k_loss.item(), k_grads, p_loss.item(), p_grads)
+    print_readings("bf16 compute, same weights and batch (printed, not gated)", bf16,
+                   prefix=f"recurrent train {arch}")
+    if not all(torch.isfinite(g).all() for g in leaves(k_grads)):
+        fail(f"recurrent train {arch}: non-finite bf16 gradients on the kernel path")
+    del model32, params32, k_grads, p_grads
+    gc.collect()
+    torch.cuda.empty_cache()
+    parts["grad_check"] = time.perf_counter() - t1
+
+    # the training config: the Trainer at full width
+    t1 = time.perf_counter()
+    model = Model(cfg, **kw)                           # remat on, as the reference
+    params = model.init(torch.Generator(device="cuda").manual_seed(seed))
+    if sum(p.numel() for p in leaves(params)) != n_params:
+        fail(f"recurrent train {arch}: the model holds "
+             f"{sum(p.numel() for p in leaves(params))} parameters, the count {n_params}")
+    data = SyntheticPipeline(DataConfig(vocab=cfg.vocab, seq_len=RECURRENT_TRAIN_SEQ,
+                                        global_batch=TRAIN_BATCH, seed=seed))
+    print(f"recurrent train {arch} model: family={cfg.family} layers={cfg.n_layers} "
+          f"({'full depth' if cfg.n_layers == full.n_layers else f'cut from {full.n_layers}'}) "
+          f"d_model={cfg.d_model} d_ff={cfg.d_ff} vocab={cfg.vocab} params={n_params} fp32 "
+          f"master weights + AdamW, bf16 compute, remat, batch {TRAIN_BATCH} x seq "
+          f"{RECURRENT_TRAIN_SEQ}, {VOCAB_CHUNKS} vocab chunks; [{smi}]", flush=True)
+    opt = AdamWConfig(lr=3e-4, warmup_steps=1, total_steps=RECURRENT_TRAIN_STEPS)
+    trainer = Trainer(model, data, opt, TrainerConfig(total_steps=RECURRENT_TRAIN_STEPS,
+                                                      vocab_chunks=VOCAB_CHUNKS))
+    tokens = TRAIN_BATCH * RECURRENT_TRAIN_SEQ
+
+    def log(step, m):
+        print(f"recurrent train {arch} step {step}: loss {m['loss']:.6f} lr {m['lr']:.3e} "
+              f"grad_norm {m['grad_norm']:.6f} {m['step_time_s'] * 1e3:.1f} ms "
+              f"{tokens / m['step_time_s']:.1f} tokens/s; [{smi}]", flush=True)
+
+    start = TrainState(params, init_adamw(params))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    kernels.reset_launches()
+    state, hist = trainer.run(start_state=start, on_metrics=log)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    flash = {n: c for n, c in counts.items() if n.startswith("flash") and c}
+    print(f"recurrent train {arch}: {len(hist)} steps, peak memory {peak / 2 ** 30:.2f} GiB "
+          f"({before / 2 ** 30:.2f} GiB allocated before the run); launches rmsnorm[wide] "
+          f"{counts['rmsnorm[wide]']} rmsnorm {counts['rmsnorm']} rmsnorm[ragged] "
+          f"{counts['rmsnorm[ragged]']}, flash {flash}; [{smi}]", flush=True)
+    losses = [m["loss"] for _, m in hist]
+    if len(hist) != RECURRENT_TRAIN_STEPS or not np.isfinite(losses).all():
+        fail(f"recurrent train {arch}: losses {losses}")
+    want = {}
+    if cfg.family == "hybrid":
+        # one forward and one backward a group a step: the shared block is
+        # not rematted, as in the reference's _hybrid_forward
+        groups = cfg.n_layers // cfg.hybrid_attn_every
+        want = {"flash_attention_fwd[d80]": groups * RECURRENT_TRAIN_STEPS,
+                "flash_attention_bwd[d80]": groups * RECURRENT_TRAIN_STEPS}
+    if flash != want:
+        fail(f"recurrent train {arch}: flash launches {flash} in {RECURRENT_TRAIN_STEPS} "
+             f"steps, not {want}")
+    if counts["rmsnorm[wide]"] == 0:
+        fail(f"recurrent train {arch}: rmsnorm's wide branch never launched")
+    no_ragged_rmsnorm(f"recurrent training {arch}", counts)
+    parts["trainer"] = time.perf_counter() - t1
+
+    t1 = time.perf_counter()
+    step_fn = make_train_step(model, opt, vocab_chunks=VOCAB_CHUNKS)
+    batch = {k: v.cuda() for k, v in data.batch_at(RECURRENT_TRAIN_STEPS).items()}
+    # tens of thousands of launches a step: the device's records alone
+    profile = profile_phase(f"{tag}_train_step", lambda: step_fn(state, batch), 1,
+                            device_only=True, warm=False)
+    parts["profile"] = time.perf_counter() - t1
+    times = [m["step_time_s"] for _, m in hist]
+    del model, params, state, start, trainer, step_fn
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec = dict(n_params=n_params, params_a_layer=per_layer, head_params=head,
+               state_bytes=state_bytes, need_bytes=need, free_bytes=free,
+               grad_check_fp32=grads32, check_counts=check_counts, grad_check_bf16=bf16,
+               history=hist, peak_bytes=peak, allocated_before_bytes=before,
+               step_ms=[t * 1e3 for t in times], tokens_s=[tokens / t for t in times],
+               counts=counts, profile=profile, parts_s=parts,
+               wall_s=time.perf_counter() - t0)
+    print(f"recurrent train {arch}: {rec['wall_s']:.1f} s "
+          f"({ {k: round(v, 1) for k, v in parts.items()} })", flush=True)
+    return rec
+
+
+def run_recurrent_train(seed: int, gen: torch.Generator, rows: dict, smi: str) -> dict:
+    """Phase 5e (``recurrent train`` lines): row 3d, the flash backward's
+    (80, 80) instance at rows 3 and 3c's shape, then RWKV6-7B (depth cut)
+    and Zamba2-2.7B (full) trained at full width.  Fills row 3d's
+    launches from the Zamba2 Trainer run.  The phase's CLI legs
+    (``recurrent_train_clis``) run after it, beside phase 5d's."""
+    t0 = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    shapes = check_recurrent_train_kernels(gen, rows)
+    recs = {arch: recurrent_train_model(arch, seed, smi) for arch in RECURRENT_ARCHS}
+    rows[D80_BWD_ROW]["launches"] = recs["zamba2-2.7b"]["counts"]["flash_attention_bwd[d80]"]
+    f32 = recs["zamba2-2.7b"]["check_counts"]
+    if not (f32["flash_attention_bwd[d80,f32]"] and f32["flash_attention_fwd[d80,f32]"]):
+        fail(f"the Zamba2 fp32 gradient check never ran the (80, 80) f32 instances: {f32}")
+    wall = time.perf_counter() - t0
+    print(f"recurrent train phase: {wall:.1f} s; [{smi}]", flush=True)
+    return dict(models=recs, kernels_at_training_shape=shapes, phase_wall_s=wall)
 
 
 def main():
@@ -6738,6 +7187,13 @@ def main():
     rows[MLA_TRAIN_FWD_ROW]["launches"] = mla_train_counts["flash_attention_fwd[dv]"]
     rows[MLA_BWD_ROW]["launches"] = mla_train_counts["flash_attention_bwd[dv]"]
     rows[MLA_TRAIN_NORM_ROW]["launches"] = mla_train_counts["rmsnorm[wide]"]
+    torch.cuda.empty_cache()      # MLA's state makes way for the recurrent models'
+    recurrent_train_rec = run_recurrent_train(args.seed, gen, rows, smi)
+    clis = run_clis([MLA_TRAIN_CLI] + recurrent_train_clis(), smi)
+    mla_train_rec["cli"] = clis.pop(MLA_TRAIN_CLI[0])
+    recurrent_train_rec["cli"] = clis
+    for arch, rec in recurrent_train_rec["models"].items():
+        phases[f"{arch.split('-')[0]}_train_step"] = rec.pop("profile")
     flash_branch_launches(
         {"serve dense": dense_counts, "serve paged": paged_counts,
          "sampled bf16 runs": sampled_counts,
@@ -6750,7 +7206,9 @@ def main():
             for arch, rec in recurrent_rec["models"].items()},
          "recurrent spec": recurrent_spec_counts,
          "moe serve": moe_counts, "train": train_counts, "ckpt train": ckpt_counts,
-         "moe train": moe_train_counts, "mla train": mla_train_counts},
+         "moe train": moe_train_counts, "mla train": mla_train_counts,
+         **{f"recurrent train {arch}": rec["counts"]
+            for arch, rec in recurrent_train_rec["models"].items()}},
         {"C1 control fp32": c1["launches"], "shared fp32 control": shared_fp32,
          "sched fp32 runs": sched_fp32, "faults fp32 runs": faults_fp32,
          "openloop fp32 runs": openloop_fp32, "fleet fp32 runs": fleet_fp32,
@@ -6785,6 +7243,7 @@ def main():
         shared=shared_rec, sampled=sampled_rec, sched=sched_rec, faults=faults_rec,
         openloop=openloop_rec, options=options_rec, fleet=fleet_rec, qwen32b=qwen32b_rec,
         mla=mla_rec, recurrent=recurrent_rec, recurrent_spec=recurrent_spec,
+        recurrent_train=recurrent_train_rec,
         fault_free_engines=FAULT_FREE["engines"], verify_long=long_checks,
         replay_probes=probes,
         pipeline=PIPELINE_PAIRS,

@@ -9,9 +9,9 @@ use.  Each wrapper counts its kernel launches in ``<wrapper>.launches``
 ``.launches_int8``, verify its long-window branch in ``.launches_long``
 and ``.launches_long_int8``, the two flash wrappers their f32 branch, in
 ``.launches_f32``, both their (96, 64) head-dim instance, in
-``.launches_dv`` and ``.launches_dv_f32``, the flash forward and dense
-decode their head-dim-80 instance, in ``.launches_d80`` (and the
-forward's ``.launches_d80_f32``), and rmsnorm its several-warps-a-row
+``.launches_dv`` and ``.launches_dv_f32``, the two flash wrappers and
+dense decode their head-dim-80 instance, in ``.launches_d80`` (and the
+flash wrappers' ``.launches_d80_f32``), and rmsnorm its several-warps-a-row
 wide branch, in ``.launches_wide``, and its block-per-row ragged branch, in
 ``.launches_ragged``); :func:`launch_counts` / :func:`reset_launches` read
 and clear them all.  A replayed CUDA graph calls no wrapper: its replays
@@ -70,6 +70,8 @@ COUNTERS: Dict[str, Tuple[object, str]] = {
     "flash_attention_bwd[dv,f32]": (flash_attention_bwd, "launches_dv_f32"),
     "flash_attention_fwd[d80]": (flash_attention_fwd, "launches_d80"),
     "flash_attention_fwd[d80,f32]": (flash_attention_fwd, "launches_d80_f32"),
+    "flash_attention_bwd[d80]": (flash_attention_bwd, "launches_d80"),
+    "flash_attention_bwd[d80,f32]": (flash_attention_bwd, "launches_d80_f32"),
     "flash_decode[d80]": (flash_decode, "launches_d80"),
     "rmsnorm[wide]": (rmsnorm, "launches_wide"),
     "rmsnorm[ragged]": (rmsnorm, "launches_ragged"),

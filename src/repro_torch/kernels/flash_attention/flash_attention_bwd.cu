@@ -18,11 +18,17 @@
 // so 2 * (3 * D + 2 * DV) * S^2/2 flops per head against ~8 * S * D bytes.
 //
 // All four kernels are templated on <D, DV>, the q/k head dim and the v
-// head dim, and built for (64, 64), (128, 128) and (96, 64): MLA's training
-// (MiniCPM3: q/k heads of 64 nope + 32 rope dims, v heads of 64) runs the
-// last, the Pallas backward's dv = v.shape[-1].  S and dq, dk reduce or run
-// over D; dP = dO.V^T reduces over DV and dv has DV columns.  The scale is
-// the caller's, D^-1/2 as the reference's.
+// head dim, and built for (64, 64), (128, 128), (96, 64) and (80, 80):
+// MLA's training (MiniCPM3: q/k heads of 64 nope + 32 rope dims, v heads of
+// 64) runs (96, 64), the Pallas backward's dv = v.shape[-1]; Zamba2's
+// shared attention block (2560 / 32 heads) runs (80, 80).  S and dq, dk
+// reduce or run over D; dP = dO.V^T reduces over DV and dv has DV columns.
+// The scale is the caller's, D^-1/2 as the reference's.  At D = 80 the
+// tensor-core kernels take five k16 steps a product and ten n8 tiles a
+// gradient row at a pitch of 88 elements (as the forward), and the dk/dv
+// kernel's 32-row query tiles (320 16-byte chunks over 128 threads) load
+// in two whole passes and a guarded third; the f32 kernels' lanes own
+// ceil(80 / 32) = 3 columns, lanes 16-31 two (the third guarded).
 //
 // bf16 (the main path: training): tensor cores, m16n8k16 bf16 mma.sync
 // with fp32 sums, fragments through ldmatrix from shared tiles padded by
@@ -103,6 +109,15 @@ __device__ __forceinline__ void load_rows(float* dst, int pitch, const float* sr
   }
 }
 
+// lane + 32 * c is one of a row's W columns: lanes own columns lane, lane
+// + 32, ..., ceil(W / 32) of them, the last partial where 32 does not
+// divide W (at W = 80 lanes 0-15 own three, the others two); folds to true
+// where it does
+template <int W>
+__device__ __forceinline__ bool col_ok(int lane, int c) {
+  return W % 32 == 0 || lane + 32 * c < W;
+}
+
 template <int W>
 __device__ __forceinline__ float dot(const float* a, const float* b) {
   float s = 0.f;
@@ -119,7 +134,7 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     const int* __restrict__ kv_len, float* __restrict__ dq,
                     Strides qs_, Strides ks_, Strides vs_, Strides dos_, int sq, int skv,
                     int hq, int hkv, int causal, float scale) {
-  constexpr int C = D / 32;
+  constexpr int C = (D + 31) / 32;  // dq columns per lane, the last partial at D 80
   extern __shared__ float smem[];
   float* q_s = smem;                        // [kBlockRows][D]
   float* do_s = q_s + kBlockRows * D;       // [kBlockRows][DV]
@@ -176,7 +191,8 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
       for (int j = 0; j < kTile; ++j) {
         const float dsj = __shfl_sync(repro::kFullMask, ds, j);
 #pragma unroll
-        for (int c = 0; c < C; ++c) acc[i][c] += dsj * k_s[j * (D + 1) + lane + 32 * c];
+        for (int c = 0; c < C; ++c)
+          if (col_ok<D>(lane, c)) acc[i][c] += dsj * k_s[j * (D + 1) + lane + 32 * c];
       }
     }
   }
@@ -187,7 +203,8 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
     if (qi >= sq) continue;
     float* row = dq + ((static_cast<long long>(b) * sq + qi) * hq + h) * D;
 #pragma unroll
-    for (int c = 0; c < C; ++c) row[lane + 32 * c] = acc[i][c];
+    for (int c = 0; c < C; ++c)
+      if (col_ok<D>(lane, c)) row[lane + 32 * c] = acc[i][c];
   }
 }
 
@@ -200,7 +217,7 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      float* __restrict__ dv, Strides qs_, Strides ks_, Strides vs_,
                      Strides dos_, int sq, int skv, int hq, int hkv, int causal,
                      float scale) {
-  constexpr int C = D / 32, CV = DV / 32;
+  constexpr int C = (D + 31) / 32, CV = (DV + 31) / 32;  // the last partial at D 80
   extern __shared__ float smem[];
   float* k_s = smem;                        // [kBlockRows][D]
   float* v_s = k_s + kBlockRows * D;        // [kBlockRows][DV]
@@ -266,8 +283,10 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
           const float dsl = __shfl_sync(repro::kFullMask, ds, l);
 #pragma unroll
           for (int c = 0; c < (C > CV ? C : CV); ++c) {
-            if (c < CV) acc_v[i][c] += pl * do_s[l * (DV + 1) + lane + 32 * c];
-            if (c < C) acc_k[i][c] += dsl * q_s[l * (D + 1) + lane + 32 * c];
+            if (c < CV && col_ok<DV>(lane, c))
+              acc_v[i][c] += pl * do_s[l * (DV + 1) + lane + 32 * c];
+            if (c < C && col_ok<D>(lane, c))
+              acc_k[i][c] += dsl * q_s[l * (D + 1) + lane + 32 * c];
           }
         }
       }
@@ -281,8 +300,8 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const long long row = (static_cast<long long>(b) * skv + kj) * hkv + hk;
 #pragma unroll
     for (int c = 0; c < (C > CV ? C : CV); ++c) {
-      if (c < C) dk[row * D + lane + 32 * c] = acc_k[i][c];
-      if (c < CV) dv[row * DV + lane + 32 * c] = acc_v[i][c];
+      if (c < C && col_ok<D>(lane, c)) dk[row * D + lane + 32 * c] = acc_k[i][c];
+      if (c < CV && col_ok<DV>(lane, c)) dv[row * DV + lane + 32 * c] = acc_v[i][c];
     }
   }
 }
@@ -711,7 +730,7 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, const void* do
 // Sq, Hq, DV) with the given element strides for the B, S and H axes (the
 // head dim contiguous), one dtype; lse and delta (B, Hq, Sq) float32
 // contiguous; kv_len (B,) int32.  dq (B, Sq, Hq, D) float32 contiguous.
-// (D, DV) = (d, d_v) is (64, 64), (128, 128) or (96, 64); any other pair
+// (D, DV) = (d, d_v) is (64, 64), (128, 128), (96, 64) or (80, 80); any other pair
 // returns cudaErrorInvalidValue and launches nothing.  Causal calls are
 // square.
 // bf16 takes the tensor-core kernels: q, k, v, dout base pointers 16-byte
@@ -747,6 +766,9 @@ extern "C" int repro_flash_attention_bwd(
                            skv, hq, hkv, causal, scale, dtype, s);
   else if (d == 96 && d_v == 64)
     e = dispatch<96, 64>(q, k, v, dout, l, dl, len, dq_, dk_, dv_, qs, ks, vs, dos, b, sq, skv,
+                         hq, hkv, causal, scale, dtype, s);
+  else if (d == 80 && d_v == 80)
+    e = dispatch<80, 80>(q, k, v, dout, l, dl, len, dq_, dk_, dv_, qs, ks, vs, dos, b, sq, skv,
                          hq, hkv, causal, scale, dtype, s);
   return static_cast<int>(e);
 }

@@ -16,14 +16,13 @@ counts the branches apart: ``.launches`` the bf16 (tensor-core) kernels,
 ``.launches_f32`` the f32 ones.
 
 Both are built for the (q/k head dim, v head dim) pairs in
-``HEAD_DIMS``: (64, 64), (128, 128) and MLA's (96, 64) (MiniCPM3's q/k
-heads of 64 nope + 32 rope dims over v heads of 64), and raise
-``ValueError`` on any other pair; the forward also for (80, 80)
-(``FWD_HEAD_DIMS``: Zamba2's shared attention block, 2560 / 32 heads).
-Each counts the (96, 64) instance apart, in ``.launches_dv`` (bf16) and
-``.launches_dv_f32``: MLA's prefill runs the forward's, its training
-both; the forward counts its (80, 80) instance in ``.launches_d80`` and
-``.launches_d80_f32``."""
+``HEAD_DIMS``: (64, 64), (128, 128), MLA's (96, 64) (MiniCPM3's q/k
+heads of 64 nope + 32 rope dims over v heads of 64) and (80, 80)
+(Zamba2's shared attention block, 2560 / 32 heads), and raise
+``ValueError`` on any other pair.  Each counts the (96, 64) instance
+apart, in ``.launches_dv`` (bf16) and ``.launches_dv_f32``, and the (80,
+80) instance in ``.launches_d80`` and ``.launches_d80_f32``: MLA's and
+Zamba2's prefill run the forward's, their training both."""
 
 from __future__ import annotations
 
@@ -38,11 +37,8 @@ from repro_torch.kernels.flash_attention.ref import (
 )
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# (D, Dv) instances of the forward and the backward kernels; the forward
-# also has Zamba2's (80, 80) (its backward comes with that family's
-# training)
-HEAD_DIMS = ((64, 64), (128, 128), (96, 64))
-FWD_HEAD_DIMS = HEAD_DIMS + ((80, 80),)
+# (D, Dv) instances of the forward and the backward kernels
+HEAD_DIMS = ((64, 64), (128, 128), (96, 64), (80, 80))
 _ARGS = ([build.P] * 6 + [build.I64] * 9 + [build.I] * 8
          + [build.F, build.I, build.P])
 _BWD_ARGS = ([build.P] * 10 + [build.I64] * 12 + [build.I] * 8
@@ -80,10 +76,9 @@ def _check_kernel_args(tensors):
 
 
 def _check_head_dims(which: str, d: int, dv: int):
-    pairs = FWD_HEAD_DIMS if which == "forward" else HEAD_DIMS
-    if (d, dv) not in pairs:
+    if (d, dv) not in HEAD_DIMS:
         raise ValueError(f"the flash {which} is built for the (head dim, value "
-                         f"head dim) pairs {pairs}; got head dims ({d}, {dv})")
+                         f"head dim) pairs {HEAD_DIMS}; got head dims ({d}, {dv})")
 
 
 def _count(fn, dtype, d: int, dv: int):
@@ -107,7 +102,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         causal: bool = True
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """q (B, Sq, Hq, D); k (B, Skv, Hkv, D); v (B, Skv, Hkv, Dv), Hq % Hkv
-    == 0, (D, Dv) in ``FWD_HEAD_DIMS``; kv_len (B,) int32 (keys at positions
+    == 0, (D, Dv) in ``HEAD_DIMS``; kv_len (B,) int32 (keys at positions
     >= kv_len[b] are masked).  Causal attention must be square.  Returns
     (o (B, Sq, Hq, Dv), lse (B, Hq, Sq) f32); the scale is D^-1/2."""
     _check_shapes(q, k, v, causal)
@@ -190,6 +185,8 @@ flash_attention_bwd.launches = 0          # bf16, D = Dv
 flash_attention_bwd.launches_f32 = 0
 flash_attention_bwd.launches_dv = 0       # bf16, (96, 64)
 flash_attention_bwd.launches_dv_f32 = 0
+flash_attention_bwd.launches_d80 = 0      # bf16, (80, 80)
+flash_attention_bwd.launches_d80_f32 = 0
 
 
 class FlashAttention(torch.autograd.Function):
@@ -225,5 +222,5 @@ def flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               causal: bool = True) -> torch.Tensor:
     """q (B, Sq, Hq, D); k (B, Skv, Hkv, D); v (B, Skv, Hkv, Dv) -> o (B,
     Sq, Hq, Dv), differentiable in q, k, v (the reference's ``flash_mha``),
-    (D, Dv) in ``FWD_HEAD_DIMS`` on CUDA (the backward: ``HEAD_DIMS``)."""
+    (D, Dv) in ``HEAD_DIMS`` on CUDA."""
     return FlashAttention.apply(q, k, v, kv_len, causal)

@@ -54,15 +54,20 @@ template <int N> __device__ __forceinline__ void cp_async_wait() {
 
 // rows [row0, row0 + ROWS) of a (rows, D) bf16 slab with the given row
 // stride (elements) into a padded shared tile; rows at or past limit are
-// zero-filled.  Every thread of the block takes part.
+// zero-filled.  Every thread of the block takes part.  Where the tile's
+// chunks do not split evenly over the threads (32 rows of D 80: 320
+// chunks over 128), the last pass is guarded; where they do, the guard
+// folds away.
 template <int ROWS, int D, int THREADS>
 __device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const __nv_bfloat16* src,
                                           long long row_stride, int row0, int limit) {
   constexpr int kChunks = D / 8;  // 16-byte chunks a row
-  static_assert((ROWS * kChunks) % THREADS == 0, "tile chunks split evenly");
+  static_assert(D % 8 == 0, "rows of whole 16-byte chunks");
+  constexpr int kTotal = ROWS * kChunks;
 #pragma unroll
-  for (int j = 0; j < ROWS * kChunks / THREADS; ++j) {
+  for (int j = 0; j < (kTotal + THREADS - 1) / THREADS; ++j) {
     const int i = threadIdx.x + j * THREADS;
+    if (kTotal % THREADS != 0 && i >= kTotal) break;
     const int r = i / kChunks, c = i % kChunks;
     const bool in = row0 + r < limit;
     const __nv_bfloat16* from = in ? src + (row0 + r) * row_stride + c * 8 : src;

@@ -3,12 +3,17 @@
 Like the reference it always takes the reduced config (its ``--reduced``
 flag cannot be turned off) and trains in fp32; the full-width runs on the
 card are ``chip_smoke.py``'s training phases.  Trains the dense family
-(qwen2-1.5b, and minicpm3-4b's MLA attention) and the MoE family
-(granite-moe-1b-a400m, olmoe-1b-7b).  Runs on ``cuda`` unless ``--device
-cpu``; on the card an MLA config keeps its full head dims (the flash
-kernels' (96, 64) instance; the reduced config's (48, 32) has none).  With ``--ckpt-dir`` it commits
-a checkpoint every ``--ckpt-every`` steps and, run again on the same
-folder, resumes from the newest committed step.
+(qwen2-1.5b, and minicpm3-4b's MLA attention), the MoE family
+(granite-moe-1b-a400m, olmoe-1b-7b), RWKV6 (rwkv6-7b) and the Mamba2
+hybrid (zamba2-2.7b).  Runs on ``cuda`` unless ``--device cpu``; on the
+card an MLA config keeps its full head dims (the flash kernels' (96, 64)
+instance; the reduced config's (48, 32) has none).  The reduced Zamba2's
+shared block has 4 heads of 64, so on the card its attention runs the
+flash kernels' (64, 64) instance; the full config's heads of 80 run (80,
+80) (``chip_smoke.py``'s ``recurrent train`` phase).  RWKV6 runs no
+attention.  With ``--ckpt-dir`` it commits a checkpoint every
+``--ckpt-every`` steps and, run again on the same folder, resumes from
+the newest committed step.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-1.5b \\
       --steps 50 --batch 8 --seq 128 [--ckpt-dir DIR] [--device cpu]

@@ -47,6 +47,16 @@ TINY = dict(name="tiny", family="dense", n_layers=2, d_model=64, n_heads=4,
 MLA = dict(name="minicpm3-4b", family="dense", n_layers=2, d_model=256, n_heads=4,
            n_kv_heads=4, d_ff=512, vocab=512, attn_type="mla", q_lora_rank=64,
            kv_lora_rank=32, qk_nope_head_dim=32, qk_rope_head_dim=16, v_head_dim=32)
+# the recurrent families' train states (both packages' reduced configs,
+# cut): RWKV6 at 2 layers (its layers' "tm" tree of time- and channel-mix
+# leaves), Zamba2 at one group of 6 Mamba2 layers behind its shared block
+SSM = dict(name="rwkv6-7b", family="ssm", n_layers=2, d_model=256, n_heads=0,
+           n_kv_heads=0, d_ff=512, vocab=512, attn_type="none", rwkv_head_size=32)
+HYBRID = dict(name="zamba2-2.7b", family="hybrid", n_layers=6, d_model=256, n_heads=4,
+              n_kv_heads=4, d_ff=512, vocab=512, ssm_state=16, ssm_expand=2,
+              ssm_head_dim=32, ssm_conv=4, hybrid_attn_every=6)
+SPECS = [TINY, MLA, SSM, HYBRID]
+SPEC_IDS = ["dense", "mla", "ssm", "hybrid"]
 SEQ, BATCH = 16, 2
 _CACHE = {}
 
@@ -61,7 +71,8 @@ def _states(spec=TINY):
     key = spec["name"]
     if key not in _CACHE:
         jm = JaxModel(JaxModelConfig(**spec, max_seq=32), compute_dtype=jnp.float32)
-        params = jax.tree.map(np.asarray, jm.init(jax.random.PRNGKey(2)))
+        # jitted: one compile, where the eager init compiles each draw's shape
+        params = jax.tree.map(np.asarray, jax.jit(jm.init)(jax.random.PRNGKey(2)))
         rng = np.random.default_rng(1)
         m = jax.tree.map(lambda p: rng.standard_normal(p.shape).astype(np.float32), params)
         v = jax.tree.map(lambda p: rng.random(p.shape).astype(np.float32), params)
@@ -161,7 +172,7 @@ def test_codec_on_real_manifests(tmp_path):
 # one layout: either package restores the other's checkpoints
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("spec", [TINY, MLA], ids=["dense", "mla"])
+@pytest.mark.parametrize("spec", SPECS, ids=SPEC_IDS)
 def test_port_checkpoint_restores_in_reference(tmp_path, spec):
     """The port's checkpoint of a mid-run state restores in the reference,
     every leaf and the step equal, in JAX's flatten order; its manifest is
@@ -173,7 +184,7 @@ def test_port_checkpoint_restores_in_reference(tmp_path, spec):
     manifest = os.path.join("step_00000005", "manifest.msgpack")
     assert ((tmp_path / "port" / manifest).read_bytes()
             == (tmp_path / "ref" / manifest).read_bytes())
-    like = jstep.init_train_state(jm, jax.random.PRNGKey(9))
+    like = jax.tree.map(jnp.zeros_like, jstate)       # the tree, its shapes and dtypes
     got, step, meta = jckpt.restore_checkpoint(str(tmp_path / "port"), like)
     assert step == 5 and meta == {"loss": 1.0, "preempted": False}
     assert got.opt.step.dtype == jnp.int32 and int(got.opt.step) == 3
@@ -184,7 +195,7 @@ def test_port_checkpoint_restores_in_reference(tmp_path, spec):
         np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
 
 
-@pytest.mark.parametrize("spec", [TINY, MLA], ids=["dense", "mla"])
+@pytest.mark.parametrize("spec", SPECS, ids=SPEC_IDS)
 def test_reference_checkpoint_restores_in_port(tmp_path, spec):
     _, jstate, tstate = _states(spec)
     jckpt.save_checkpoint(str(tmp_path), 5, jstate, metadata={"loss": 2.0})

@@ -10,7 +10,7 @@ products matches the reference's Pallas forward and backward (interpret
 mode) within the card tests' BWD_TOL, and the same emulation with hi alone
 is at least 10x further off, which is why the kernels carry lo.  The
 cases include MLA's (D, Dv) = (96, 64) instance, where dP and dv run over
-the value head dim."""
+the value head dim, and Zamba2's (80, 80), five k16 steps a product."""
 
 import numpy as np
 import pytest
@@ -130,8 +130,8 @@ def _max_err(got, want) -> float:
 
 
 # (B, Hkv, G, S, D, Dv, kv_len, causal, Pallas block): G 1 (OLMoE,
-# MiniCPM3) and 6 (qwen2), D 64 and 128, MLA's D 96 over Dv 64, kv_len
-# inside a block, a non-causal call
+# MiniCPM3, Zamba2) and 6 (qwen2), D 64 and 128, MLA's D 96 over Dv 64,
+# Zamba2's D = Dv = 80, kv_len inside a block, non-causal calls
 CASES = [
     (1, 1, 1, 256, 64, 64, None, True, 128),
     (1, 1, 6, 128, 128, 128, None, True, 64),
@@ -139,9 +139,11 @@ CASES = [
     (2, 1, 1, 128, 128, 128, [93, 128], False, 128),
     (1, 2, 1, 128, 96, 64, None, True, 64),
     (2, 1, 4, 128, 96, 64, [101, 128], False, 64),
+    (1, 2, 1, 128, 80, 80, None, True, 64),
+    (2, 1, 1, 128, 80, 80, [77, 128], False, 64),
 ]
 CASE_IDS = ["g1-d64-s256", "g6-d128", "g6-d64-kvlen", "g1-d128-noncausal-kvlen",
-            "g1-d96-dv64", "g4-d96-dv64-noncausal-kvlen"]
+            "g1-d96-dv64", "g4-d96-dv64-noncausal-kvlen", "g1-d80", "g1-d80-noncausal-kvlen"]
 
 
 @pytest.mark.parametrize("kind", ["p-in-unit", "signed-ds", "ties-and-zeros"])

@@ -2697,16 +2697,109 @@ def test_cuda_flash_decode_d80_matches_plain(b, hkv, g, s, pos, dtype):
     _close(got.float(), want, dtype)
 
 
+# Zamba2 training's backward, the (80, 80) instance: its shared block's
+# G = 1 (32 / 32 heads), a grouped G 4, causal and not, kv_len inside a
+# tile, a fully masked row, sequence lengths off every tile size
+D80_BWD_CASES = [
+    (1, 512, 32, 32, None, True),
+    (2, 77, 8, 2, [77, 30], True),
+    (2, 45, 4, 4, [45, 9], False),
+    (2, 64, 4, 4, [64, 0], False),
+    (2, 1024, 8, 8, [1024, 700], True),
+]
+D80_BWD_IDS = ["zamba2-heads", "g4-ragged-len", "g1-noncausal-len", "noncausal-empty-row",
+               "s1024-len"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("b,s,hq,hkv,kv_len,causal", D80_BWD_CASES, ids=D80_BWD_IDS)
+def test_cuda_flash_bwd_d80_matches_plain(b, s, hq, hkv, kv_len, causal, dtype):
+    """The backward's (80, 80) instance against its plain version: dq, dk
+    and dv of 80 columns, each KV head's group summed, and columns 64-79
+    held on their own (the f32 kernels' lanes 0-15 own a third column
+    there, the bf16 kernels' last k16 step and n8 tiles); only the dtype
+    branch's ``[d80]`` counter moves."""
+    requires_cuda()
+    from repro_torch import kernels
+
+    rng = np.random.default_rng(35)
+    args = _bwd_case(rng, b, s, s, hq, hkv, 80, kv_len, causal, dtype)
+    moved = "flash_attention_bwd[d80]" if dtype == torch.bfloat16 else \
+        "flash_attention_bwd[d80,f32]"
+    before = kernels.launch_counts()
+    got = flash_attention_bwd(*args, causal=causal)
+    torch.cuda.synchronize()
+    after = kernels.launch_counts()
+    assert {n: after[n] - before[n] for n in after if after[n] != before[n]} == {moved: 1}
+    want = flash_attention_bwd_ref(*args, causal=causal)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == torch.float32 and g.shape[-1] == 80, name
+        assert torch.isfinite(g).all(), name
+        torch.testing.assert_close(g, w, **BWD_TOL, msg=name)
+        tail = w[..., 64:]
+        assert tail.abs().max() > 1e-3, name                   # the columns carry gradient
+        torch.testing.assert_close(g[..., 64:], tail, **BWD_TOL, msg=f"{name}[..., 64:]")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_cuda_flash_bwd_d80_is_deterministic(dtype):
+    """No atomics at (80, 80) either: two calls give the same bits."""
+    requires_cuda()
+    rng = np.random.default_rng(36)
+    args = _bwd_case(rng, 2, 1024, 1024, 8, 2, 80, [1024, 700], True, dtype)
+    first = flash_attention_bwd(*args)
+    second = flash_attention_bwd(*args)
+    torch.cuda.synchronize()
+    for name, a, b_ in zip(("dq", "dk", "dv"), first, second):
+        assert torch.equal(a, b_), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("kv_len,causal", [(None, True), ([29, 12], False)])
+def test_cuda_flash_mha_grads_at_d80_match_cpu_plain_path(kv_len, causal, dtype):
+    """``flash_mha``'s output and gradients at (80, 80) on the card (both
+    kernels' (80, 80) instances) against the same Function on the CPU
+    (both plain versions) on the same values."""
+    requires_cuda()
+    rng = np.random.default_rng(37)
+    q, k, v, g = (_rand(rng, 2, 29, 4, 80) for _ in "qkvg")
+    lens = None if kv_len is None else np.asarray(kv_len, np.int32)
+
+    def grads(device):
+        leaves = [torch.tensor(a, device=device).to(dtype).requires_grad_()
+                  for a in (q, k, v)]
+        ln = None if lens is None else torch.tensor(lens, device=device)
+        o = flash_mha(*leaves, ln, causal=causal)
+        o.backward(torch.tensor(g, device=device).to(dtype))
+        return [o.detach().cpu()] + [t.grad.cpu() for t in leaves]
+
+    counter = "launches_d80" if dtype == torch.bfloat16 else "launches_d80_f32"
+    before = getattr(flash_attention_bwd, counter), getattr(flash_attention_fwd, counter)
+    got = grads("cuda")
+    assert (getattr(flash_attention_bwd, counter), getattr(flash_attention_fwd, counter)) \
+        == (before[0] + 1, before[1] + 1)
+    want = grads("cpu")
+    tol = BWD_TOL if dtype == torch.float32 else CUDA_TOL[dtype]
+    for name, a, b_ in zip(("o", "dq", "dk", "dv"), got, want):
+        torch.testing.assert_close(a.float(), b_.float(), **tol, msg=name)
+
+
 @pytest.mark.cuda
 def test_cuda_d80_unbuilt_sites_raise():
-    """Head dim 80 exists for the forward and dense decode only: the flash
-    backward (A14c-train), paged decode and the verify window raise
-    ``ValueError`` before any launch."""
+    """Head dim 80 exists for the flash forward, the flash backward (since
+    Zamba2's training) and dense decode: paged decode and the verify
+    window still raise ``ValueError`` at 80 (no paged family has heads of
+    80), and so does a pair with no instance, (80, 64), in the backward
+    and the forward, each before any launch."""
     requires_cuda()
     from repro_torch import kernels
 
     rng = np.random.default_rng(33)
     q, k, v, do = (_cuda(_rand(rng, 1, 16, 2, 80), torch.float32) for _ in "qkvo")
+    v64, do64 = (_cuda(_rand(rng, 1, 16, 2, 64), torch.float32) for _ in "vo")
     lse, delta = (torch.zeros(1, 2, 16, device="cuda") for _ in "ld")
     qd = _cuda(_rand(rng, 1, 2, 1, 80), torch.float32)
     pages = _cuda(_rand(rng, 3, 8, 2, 80), torch.float32)
@@ -2714,12 +2807,71 @@ def test_cuda_d80_unbuilt_sites_raise():
     pos = torch.tensor([9], dtype=torch.int32, device="cuda")
     before = kernels.launch_counts()
     with pytest.raises(ValueError, match="head dims"):
-        flash_attention_bwd(q, k, v, do, lse, delta)
+        flash_attention_bwd(q, k, v64, do64, lse, delta)
+    with pytest.raises(ValueError, match="head dims"):
+        flash_attention_fwd(q, k, v64)
     with pytest.raises(ValueError, match="head dims"):
         paged_flash_decode(qd, pages, pages, bt, pos)
     with pytest.raises(ValueError, match="head dims"):
         paged_flash_verify(qd, pages, pages, bt, pos, t_window=1)
     assert kernels.launch_counts() == before
+    flash_attention_bwd(q, k, v, do, lse, delta)            # (80, 80) is built
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["flash_attention_bwd[d80,f32]"] == (
+        before["flash_attention_bwd[d80,f32]"] + 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["rwkv6-7b", "zamba2-2.7b"])
+def test_cuda_recurrent_train_steps_match_cpu_plain_path(arch):
+    """Recurrent training as a whole on the card: three fp32 Trainer steps
+    of the reduced config (RWKV6 cut to 2 layers; Zamba2's shared block at
+    heads of 80, so its attention runs the flash forward's and backward's
+    (80, 80) f32 instances, forward, remat and backward; the scans'
+    backward is autograd over the time loop) against the same steps on the
+    CPU's plain versions, from the same weights and batches (the
+    tolerances of ``test_cuda_train_steps_match_cpu_plain_path``)."""
+    requires_cuda()
+    import dataclasses
+
+    from repro_torch import kernels
+    from repro_torch.configs import reduced_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticPipeline
+    from repro_torch.models.lm import Model
+    from repro_torch.optim.optimizer import AdamWConfig, init_adamw
+    from repro_torch.train.step import TrainState
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    cfg = reduced_config(arch)
+    cfg = (dataclasses.replace(cfg, n_layers=2) if arch == "rwkv6-7b"
+           else dataclasses.replace(cfg, d_head=80))
+    data = SyntheticPipeline(DataConfig(vocab=cfg.vocab, seq_len=32, global_batch=2,
+                                        seed=4))
+    opt = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=3)
+    base = Model(cfg, device="cpu", dtype=torch.float32).init(
+        torch.Generator().manual_seed(0))
+
+    def run(device, params):       # the steps update params in place
+        model = Model(cfg, device=device, dtype=torch.float32)
+        tr = Trainer(model, data, opt, TrainerConfig(total_steps=3, vocab_chunks=4))
+        _, hist = tr.run(start_state=TrainState(params, init_adamw(params)))
+        return [m["loss"] for _, m in hist]
+
+    kernels.reset_launches()
+    got = run("cuda", _to_cuda(base))
+    counts = kernels.launch_counts()
+    want = run("cpu", base)
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got, want, atol=1e-4, rtol=0)
+    assert counts["rmsnorm"] > 0 and counts["rmsnorm[ragged]"] == 0
+    flash = {n: c for n, c in counts.items() if n.startswith("flash") and c}
+    if arch == "zamba2-2.7b":
+        groups = cfg.n_layers // cfg.hybrid_attn_every
+        # the shared block is not rematted: one forward, one backward a group
+        assert flash == {"flash_attention_fwd[d80,f32]": 3 * groups,
+                         "flash_attention_bwd[d80,f32]": 3 * groups}
+    else:
+        assert flash == {}
 
 
 @pytest.mark.cuda

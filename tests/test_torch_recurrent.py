@@ -24,6 +24,7 @@ The cases:
   full heads) against the reference's ``ref.py``."""
 
 import dataclasses
+import functools
 
 import numpy as np
 import pytest
@@ -83,11 +84,15 @@ SPEC = dict(max_seq=48, batch_slots=2, cache_layout="paged", page_size=8, spec_k
 _CACHE = {}
 
 
+# The reference runs jitted wherever a test only reads its results (init,
+# forward, prefill, the mixers, the attention oracles): one compile a
+# function, where eagerly each operation of each shape compiles on its own.
+
 def _models(arch):
     """(reference model, its params, port params) of a reduced config."""
     if arch not in _CACHE:
         jm = JaxModel(jax_reduced_config(arch), compute_dtype=jnp.float32, remat=False)
-        jp = jm.init(jax.random.PRNGKey(0))
+        jp = jax.jit(jm.init)(jax.random.PRNGKey(0))
         tp = params_from_numpy(jax.tree.map(np.asarray, jp), reduced_config(arch),
                                device="cpu")
         _CACHE[arch] = (jm, jp, tp)
@@ -106,7 +111,7 @@ def _jax_forward(arch):
     key = ("forward", arch)
     if key not in _CACHE:
         jm, jp, _ = _models(arch)
-        _CACHE[key] = np.asarray(jm.forward(jp, {"tokens": jnp.asarray(_tokens())}))
+        _CACHE[key] = np.asarray(jax.jit(jm.forward)(jp, {"tokens": jnp.asarray(_tokens())}))
     return _CACHE[key]
 
 
@@ -164,15 +169,14 @@ def test_other_families_still_refused():
 
 def _mixer_case(name):
     """(JAX output tree, port output tree) of one mixer at the reduced
-    config, from the reference's init and a random incoming state."""
+    config, with the first layer's weights of the reference's model init
+    and a random incoming state."""
     rng = np.random.default_rng(5)
     b, s = 2, 7
-    if name in ("time_mix", "channel_mix"):
-        cfg, tcfg = jax_reduced_config("rwkv6-7b"), reduced_config("rwkv6-7b")
-        jp = jax_recurrent.init_rwkv6_params(jax.random.PRNGKey(2), cfg)
-    else:
-        cfg, tcfg = jax_reduced_config("zamba2-2.7b"), reduced_config("zamba2-2.7b")
-        jp = jax_recurrent.init_mamba2_params(jax.random.PRNGKey(2), cfg)
+    arch, leaf = (("rwkv6-7b", "tm") if name in ("time_mix", "channel_mix")
+                  else ("zamba2-2.7b", "mamba"))
+    cfg, tcfg = jax_reduced_config(arch), reduced_config(arch)
+    jp = jax.tree.map(lambda a: a[0], _models(arch)[1]["layers"][leaf])
     tp = {k: _tensor(v) for k, v in jp.items()}
     d = cfg.d_model
     x = rng.standard_normal((b, s, d)).astype(np.float32)
@@ -180,19 +184,21 @@ def _mixer_case(name):
         hs = cfg.rwkv_head_size
         shift = rng.standard_normal((b, d)).astype(np.float32)
         wkv = rng.standard_normal((b, d // hs, hs, hs)).astype(np.float32)
-        want = jax_recurrent.rwkv6_time_mix(jp, jnp.asarray(x), cfg,
-                                            (jnp.asarray(shift), jnp.asarray(wkv)))
+        want = jax.jit(functools.partial(jax_recurrent.rwkv6_time_mix, cfg=cfg))(
+            jp, jnp.asarray(x), state=(jnp.asarray(shift), jnp.asarray(wkv)))
         got = recurrent.rwkv6_time_mix(tp, _tensor(x), tcfg, (_tensor(shift), _tensor(wkv)))
     elif name == "channel_mix":
         shift = rng.standard_normal((b, d)).astype(np.float32)
-        want = jax_recurrent.rwkv6_channel_mix(jp, jnp.asarray(x), cfg, jnp.asarray(shift))
+        want = jax.jit(functools.partial(jax_recurrent.rwkv6_channel_mix, cfg=cfg))(
+            jp, jnp.asarray(x), shift=jnp.asarray(shift))
         got = recurrent.rwkv6_channel_mix(tp, _tensor(x), tcfg, _tensor(shift))
     elif name == "causal_conv":
         c = cfg.ssm_expand * d + 2 * cfg.ssm_state
         xc = rng.standard_normal((b, s, c)).astype(np.float32)
         st = rng.standard_normal((b, cfg.ssm_conv - 1, c)).astype(np.float32)
-        want = jax_recurrent._causal_conv(jnp.asarray(xc), jnp.asarray(jp["conv_w"]),
-                                          jnp.asarray(jp["conv_b"]) + 0.1, jnp.asarray(st))
+        want = jax.jit(jax_recurrent._causal_conv)(
+            jnp.asarray(xc), jnp.asarray(jp["conv_w"]), jnp.asarray(jp["conv_b"]) + 0.1,
+            jnp.asarray(st))
         got = recurrent.causal_conv(_tensor(xc), tp["conv_w"], tp["conv_b"] + 0.1,
                                     _tensor(st))
     else:
@@ -201,8 +207,8 @@ def _mixer_case(name):
         conv = rng.standard_normal((b, cfg.ssm_conv - 1, d_in + 2 * cfg.ssm_state))
         ssm = rng.standard_normal((b, nh, cfg.ssm_head_dim, cfg.ssm_state))
         conv, ssm = conv.astype(np.float32), ssm.astype(np.float32)
-        want = jax_recurrent.mamba2_mix(jp, jnp.asarray(x), cfg,
-                                        (jnp.asarray(conv), jnp.asarray(ssm)))
+        want = jax.jit(functools.partial(jax_recurrent.mamba2_mix, cfg=cfg))(
+            jp, jnp.asarray(x), state=(jnp.asarray(conv), jnp.asarray(ssm)))
         got = recurrent.mamba2_mix(tp, _tensor(x), tcfg, (_tensor(conv), _tensor(ssm)))
     return jax.tree.leaves(want), jax.tree.leaves(got)
 
@@ -247,7 +253,8 @@ def test_prefill_logits_and_cache_match_reference(arch):
     forward (``tests/test_train_serve.py:140``)."""
     jm, jp, tp = _models(arch)
     toks = _tokens()
-    want_logits, want = jm.prefill(jp, {"tokens": jnp.asarray(toks[:, :6])}, 12)
+    want_logits, want = jax.jit(jm.prefill, static_argnums=2)(
+        jp, {"tokens": jnp.asarray(toks[:, :6])}, 12)
     logits, cache = _port(arch).prefill(tp, torch.from_numpy(toks[:, :6]).long(), 12)
     np.testing.assert_allclose(logits.numpy(), np.asarray(want_logits), **LOGIT_TOL)
     assert sorted(cache) == sorted(want)
@@ -420,7 +427,7 @@ def _target():
     key = ("target",)
     if key not in _CACHE:
         jm = JaxModel(jax_reduced_config(TARGET), compute_dtype=jnp.float32, remat=False)
-        jp = jm.init(jax.random.PRNGKey(1))
+        jp = jax.jit(jm.init)(jax.random.PRNGKey(1))
         tm = Model(reduced_config(TARGET), device="cpu", dtype=torch.float32)
         tp = params_from_numpy(jax.tree.map(np.asarray, jp), reduced_config(TARGET),
                                device="cpu")
@@ -430,11 +437,20 @@ def _target():
 
 def _drafts(arch):
     """The reference's registry draft for the qwen2 target, and the port's
-    registry draft model with the reference draft's weights."""
+    registry draft model with the reference draft's weights.  The
+    reference draft is built as its ``resolve_draft(target, arch,
+    seed=0)`` builds it (the reduced config in the target's vocabulary,
+    the target's compute dtype and backends, ``init(PRNGKey(0))``) and
+    handed over as a (model, params) pair, its weights ``_models``'s:
+    the same config and key, initialized once, jitted."""
     key = ("draft", arch)
     if key not in _CACHE:
         jm, jp, tm, tp = _target()
-        jdm, jdp = jax_spec_decode.resolve_draft(jm, jp, arch, seed=0)
+        jcfg = jax_reduced_config(arch)
+        assert jcfg.vocab == jm.cfg.vocab          # resolve_draft keeps it as it is
+        jdm = JaxModel(jcfg, compute_dtype=jm.compute_dtype, decode_backend=jm.decode_backend,
+                       attn_backend=jm.attn_backend)
+        jdm, jdp = jax_spec_decode.resolve_draft(jm, jp, (jdm, _models(arch)[1]))
         tdm, _ = resolve_draft(tm, tp, arch, seed=0)
         tdp = params_from_numpy(jax.tree.map(np.asarray, jdp), tdm.cfg, device="cpu")
         _CACHE[key] = (jdm, jdp, tdm, tdp)
@@ -543,11 +559,11 @@ def test_plain_flash_at_head_dim_80_matches_reference_ref(kv_len, causal):
     got, _ = flash_attention_ref(*map(_tensor, (q, k, v)), lens, causal=causal)
     got_w, _ = flash_attention_fwd(*map(_tensor, (q, k, v)), lens, causal=causal)
     assert torch.equal(got, got_w)
+    oracle = jax.jit(functools.partial(jax_flash_ref.attention_ref, causal=causal))
     for i in range(b):
         n = s if kv_len is None else kv_len[i]
-        want = jax_flash_ref.attention_ref(*(jnp.asarray(a[i, :m].transpose(1, 0, 2))
-                                             for a, m in ((q, s), (k, n), (v, n))),
-                                           causal=causal)
+        want = oracle(*(jnp.asarray(a[i, :m].transpose(1, 0, 2))
+                        for a, m in ((q, s), (k, n), (v, n))))
         np.testing.assert_allclose(got[i].numpy(), np.asarray(want).transpose(1, 0, 2),
                                    **ATTN_TOL)
 
@@ -564,5 +580,5 @@ def test_plain_flash_decode_at_head_dim_80_matches_reference_ref(g):
     pos = np.asarray([0, 31, 49], np.int32)
     got = flash_decode_ref(*map(_tensor, (q, k, v)), torch.from_numpy(pos))
     assert torch.equal(got, flash_decode(*map(_tensor, (q, k, v)), torch.from_numpy(pos)))
-    want = jax_decode_ref.decode_attention_ref(*map(jnp.asarray, (q, k, v, pos)))
+    want = jax.jit(jax_decode_ref.decode_attention_ref)(*map(jnp.asarray, (q, k, v, pos)))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **ATTN_TOL)
